@@ -7,8 +7,12 @@ module paths so each counterpart is easy to find:
 - ``ops``        — band layout, plain band ops, hand-written CUDA kernels
   (``csrc/*.cu``, built at first use by ``ops/_build.py``)
 - ``models``     — ``GATConv``, ``SimpleMeanConv``, ``GATRes``, presets
-- ``data``       — INP parsing and template building (numpy only)
+- ``data``       — INP parsing, template building, the in-memory snapshot
+  dataset and its loader (numpy only)
 - ``evaluation`` — the serving surface, ``Inferencer``
+- ``train``      — ``Trainer``, ``TrainConfig``, AutoClip, early stopping,
+  checkpoints
+- ``utils``      — scaling, node masks, metrics
 - ``weights``    — carries JAX parameter trees and parity fixtures across
 
 It imports ``torch``, numpy and scipy only — never JAX, Flax, Optax or the

@@ -76,6 +76,7 @@ class GraphTemplate:
         self._dense_cache: Optional[dict] = None
         self._band_cache: dict = {}
         self._band_default: Optional[tuple] = None
+        self._band_index_cache: dict = {}
 
     def dense_operators(self) -> dict:
         """Template-level [n, n] operators shared by every graph in a batch:
@@ -126,6 +127,19 @@ class GraphTemplate:
             self._band_cache[key] = build_band_layout(self, block=block, lane=lane)
         return self._band_cache[key]
 
+    def band_index(self, kind: str, block: Optional[int] = None):
+        """The compressed nonzeros (``ops.banded.BandIndex``) of one band of
+        the layout, which the backward kernels walk: ``kind`` is ``adj_mask``
+        (attention) or ``adj_cnt`` (mean conv). Host-built once and cached
+        beside the layout."""
+        bl = self.band_layout(block)
+        key = (kind, bl.BLK, bl.W)
+        if key not in self._band_index_cache:
+            from gnn_pressure_estimation_tpu_torch.ops.banded import build_band_index
+
+            self._band_index_cache[key] = build_band_index(getattr(bl, kind))
+        return self._band_index_cache[key]
+
     def batch(
         self,
         batch_size: int,
@@ -165,6 +179,8 @@ class GraphTemplate:
                 n_graph=B, nodes_per_graph=bl.n_pad, device=dev,
                 band_adj_mask=torch.as_tensor(bl.adj_mask.view(np.int8), device=dev),
                 band_cnt=torch.as_tensor(bl.adj_cnt, device=dev),
+                band_adj_index=self.band_index("adj_mask", band_block).to(dev),
+                band_cnt_index=self.band_index("adj_cnt", band_block).to(dev),
                 band_inv_deg=torch.as_tensor(bl.inv_deg_perm, device=dev),
                 band_perm=torch.as_tensor(bl.perm, dtype=torch.long, device=dev),
                 band_inv_perm=torch.as_tensor(bl.inv_perm, dtype=torch.long, device=dev),
@@ -186,7 +202,8 @@ class BatchedGraph:
     operator, shared by every graph. Banded mode works in RCM-permuted,
     padded node space (``nodes_per_graph == band_n_pad``): it carries the
     ``[nB, BLK, W]`` int8 adjacency mask (self-loops included) and int8
-    edge-count band, the 1/deg row scale and the permutation.
+    edge-count band, each with the compressed index of its nonzeros that the
+    backward kernels walk, the 1/deg row scale and the permutation.
     """
 
     n_graph: int
@@ -196,6 +213,8 @@ class BatchedGraph:
     mean_mat: Optional[torch.Tensor] = None        # [n, n] f32
     band_adj_mask: Optional[torch.Tensor] = None   # [nB, BLK, W] int8 0/1
     band_cnt: Optional[torch.Tensor] = None        # [nB, BLK, W] int8 counts
+    band_adj_index: Optional[object] = None        # BandIndex of band_adj_mask
+    band_cnt_index: Optional[object] = None        # BandIndex of band_cnt
     band_inv_deg: Optional[torch.Tensor] = None    # [n_pad] f32
     band_perm: Optional[torch.Tensor] = None       # [n] long
     band_inv_perm: Optional[torch.Tensor] = None   # [n] long

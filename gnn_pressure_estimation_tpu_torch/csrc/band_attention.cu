@@ -19,6 +19,8 @@
 // softmax weight is 0. The work and the x traffic therefore follow the
 // mask's nonzeros, not the dense W window.
 //
+// The backward is csrc/band_attention_bwd.cu.
+//
 // C interface: pointers, ints and the stream; returns cudaGetLastError().
 
 #include <cuda_runtime.h>

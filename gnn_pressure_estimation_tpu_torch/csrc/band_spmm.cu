@@ -14,6 +14,8 @@
 // channels spread over its lanes. Zero entries are skipped, so the work and
 // the x traffic follow the band's nonzeros, not the dense window.
 //
+// The backward is csrc/band_spmm_bwd.cu.
+//
 // C interface: pointers, ints and the stream; returns cudaGetLastError().
 
 #include <cuda_runtime.h>

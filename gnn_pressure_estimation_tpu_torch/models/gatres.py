@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gnn_pressure_estimation_tpu_torch.core.graph import BatchedGraph
 from gnn_pressure_estimation_tpu_torch.models.layers import GATConv, SimpleMeanConv, glorot_
@@ -43,14 +44,20 @@ class GATResBlock(nn.Module):
 
 
 class GATRes(nn.Module):
-    """``forward(x[N, 1], graph) -> [N, 1]``; in banded mode ``x`` is in the
-    graph's packed node space (``BatchedGraph.pack_nodes``)."""
+    """``forward(x[N, 1], graph, training=False) -> [N, 1]``; in banded mode
+    ``x`` is in the graph's packed node space (``BatchedGraph.pack_nodes``).
+
+    ``remat=True`` wraps each block in ``torch.utils.checkpoint``: the
+    backward recomputes the block's forward instead of keeping its
+    activations, trading a second pass through the kernels for memory.
+    ``training`` is accepted as in the JAX model and changes nothing: GATRes
+    has no dropout or batch statistics."""
 
     def __init__(self, num_blocks: int = 15, channels: int = 32,
                  out_channels: int = 1, in_channels: int = 1,
-                 attn_impl: str = "softmax"):
+                 attn_impl: str = "softmax", remat: bool = False):
         super().__init__()
-        self.num_blocks, self.channels = num_blocks, channels
+        self.num_blocks, self.channels, self.remat = num_blocks, channels, remat
         self.lin0 = nn.Linear(in_channels, channels)
         self.blocks = nn.ModuleList(
             GATResBlock(channels, attn_impl=attn_impl) for _ in range(num_blocks)
@@ -66,8 +73,12 @@ class GATRes(nn.Module):
             blk.conv1.reset_parameters(generator)
             blk.conv2.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, graph: BatchedGraph,
+                training: bool = False) -> torch.Tensor:
         x = self.lin0(x)
         for blk in self.blocks:
-            x = blk(x, graph)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(blk, x, graph, use_reentrant=False)
+            else:
+                x = blk(x, graph)
         return self.lin1(x)

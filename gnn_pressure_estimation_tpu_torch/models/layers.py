@@ -5,10 +5,11 @@ The counterparts of ``GATConv`` and ``SimpleMeanConv`` in
 aggregation modes. Attention math matches PyG GATConv (LeakyReLU 0.2,
 self-loops added, per-receiver softmax).
 
-On the banded path every GATConv goes through the band-attention kernel
-and every SimpleMeanConv through the band-SpMM kernel, at any width, when
-the graph lies on a CUDA device; on the CPU the same calls run the kernels'
-plain versions.
+On the banded path every GATConv goes through ``ops.band_attention`` and
+every SimpleMeanConv through ``ops.band_spmm``, at any width: autograd
+Functions that launch the hand-written kernels, forward and backward, when
+the graph lies on a CUDA device, and run the kernels' plain versions on the
+CPU. The graph carries each band's compressed index for the backward.
 
 Parameters are initialised glorot-uniform (weights) and zero (biases), as
 the JAX layers do, from an optional ``torch.Generator``.
@@ -25,8 +26,8 @@ from torch import nn
 
 from gnn_pressure_estimation_tpu_torch.core.graph import BatchedGraph
 from gnn_pressure_estimation_tpu_torch.ops import banded as bops
-from gnn_pressure_estimation_tpu_torch.ops.band_attention import band_attention_fwd
-from gnn_pressure_estimation_tpu_torch.ops.band_spmm import band_spmm_fwd
+from gnn_pressure_estimation_tpu_torch.ops.band_attention import band_attention
+from gnn_pressure_estimation_tpu_torch.ops.band_spmm import band_spmm
 
 NEG_INF = -1e9  # mask value for dense attention (finite: avoids inf-nan)
 ATTN_IMPLS = ("softmax", "factored")
@@ -92,9 +93,9 @@ class GATConv(nn.Module):
             a_src_win = bops.band_windows(a_s.view(B, n_pad, H),
                                           graph.band_win_start, graph.band_W)
             x_ext = bops.extend_rows(xp.view(B, n_pad, H, C), graph.band_U, graph.band_R)
-            out = band_attention_fwd(a_d.view(B, n_pad, H).contiguous(),
-                                     a_src_win, x_ext, graph.band_adj_mask,
-                                     self.negative_slope)
+            out = band_attention(a_d.view(B, n_pad, H).contiguous(),
+                                 a_src_win, x_ext, graph.band_adj_mask,
+                                 self.negative_slope, graph.band_adj_index)
         else:
             raise NotImplementedError("only the dense and banded modes are ported")
         out = out.reshape(-1, H, C)
@@ -106,7 +107,10 @@ class GATConv(nn.Module):
         sl = self.negative_slope
         mask = adj_sl_mask[None, :, :, None]
         if self.attn_impl == "softmax":
-            logits = F.leaky_relu(a_d[:, :, None, :] + a_s[:, None, :, :], sl)  # [B,i,j,H]
+            z = a_d[:, :, None, :] + a_s[:, None, :, :]                      # [B,i,j,H]
+            # not F.leaky_relu: its gradient at z == 0 is the slope, the JAX
+            # package's is 1, and two masked (zeroed) neighbours meet exactly there
+            logits = torch.where(z >= 0, z, sl * z)
             logits = torch.where(mask, logits, NEG_INF)
             attn = torch.softmax(logits, dim=2)
             return torch.einsum("bijh,bjhc->bihc", attn, xp_b)
@@ -139,7 +143,8 @@ class SimpleMeanConv(nn.Module):
             out = torch.einsum("ij,bjc->bic", graph.mean_mat, x.view(B, graph.nodes_per_graph, -1))
         elif graph.banded:
             x_ext = bops.extend_rows(x.view(B, graph.band_n_pad, -1), graph.band_U, graph.band_R)
-            out = band_spmm_fwd(graph.band_cnt, x_ext) * graph.band_inv_deg[None, :, None]
+            out = band_spmm(graph.band_cnt, x_ext, graph.band_cnt_index) \
+                * graph.band_inv_deg[None, :, None]
         else:
             raise NotImplementedError("only the dense and banded modes are ported")
         return out.reshape(B * graph.nodes_per_graph, -1)

@@ -29,6 +29,14 @@ class ModelPreset:
     def make(self) -> nn.Module:
         return self.build()
 
+    def train_config(self, **overrides):
+        """A ``TrainConfig`` with this preset's criterion and normalization,
+        as the JAX CLI's ``train`` fills them where no flag overrides."""
+        from gnn_pressure_estimation_tpu_torch.train.loop import TrainConfig
+
+        return TrainConfig(**{"criterion": self.criterion, "norm_type": self.norm_type,
+                              "model_name": self.name, **overrides})
+
 
 MODEL_REGISTRY: dict[str, ModelPreset] = {
     # attn_impl="factored" selects the factored dense rewrite; the banded

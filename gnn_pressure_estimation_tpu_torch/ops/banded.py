@@ -11,10 +11,17 @@ copy of ``gnn_pressure_estimation_tpu/ops/banded.py``; the int8 overflow
 checks raise ``ValueError`` instead of asserting. The torch functions below
 are the *plain* versions of the band ops: the CPU path and the yardstick the
 CUDA kernels (``ops/band_attention.py``, ``ops/band_spmm.py``) are held to.
+
+:class:`BandIndex` is the compressed form of one band's nonzeros that the
+backward kernels walk: row lists for the row-parallel pass, and the same
+entries regrouped by the extended-array row they read, for the
+column-parallel pass that folds the overlapping windows without atomics.
+It is built on the host once per template (``GraphTemplate.band_index``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -159,6 +166,102 @@ def build_band_layout(template, block: int = 256, lane: int = 128) -> BandLayout
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class BandIndex:
+    """The nonzeros of one ``[nB, BLK, W]`` band, compressed, by row and by
+    the extended-array row they read (numpy on the host, int32 tensors once
+    moved with :meth:`to`).
+
+    Entry ``k`` (row-major order of the band) sits at band row
+    ``g = blk·BLK + r`` and window column ``j``; it reads extended row
+    ``e = blk·BLK + j``. ``t_*`` list the same entries sorted by ``(e, g)``,
+    so one extended row's contributions are contiguous and, within them,
+    each block's are too.
+    """
+
+    nB: int
+    BLK: int
+    W: int
+    row_ptr: object     # [n_pad + 1]  entries of band row g: row_ptr[g]..row_ptr[g+1]
+    col: object         # [nnz]        window column j of entry k
+    val: object         # [nnz] f32    band value of entry k
+    t_ptr: object       # [n_ext + 1]  entries reading extended row e
+    t_entry: object     # [nnz]        entry index k, sorted by (e, g)
+    t_row: object       # [nnz]        band row g of that entry
+    empty_ptr: object   # [nB + 1]     rows of block blk with no entry
+    empty_row: object   # [n_empty]    their band rows g
+
+    @property
+    def nnz(self) -> int:
+        return int(self.col.shape[0])
+
+    def to(self, device) -> "BandIndex":
+        def move(a):
+            return torch.as_tensor(a, device=device)
+        return dataclasses.replace(self, **{
+            f.name: move(getattr(self, f.name)) for f in dataclasses.fields(self)
+            if f.name not in ("nB", "BLK", "W")})
+
+
+def build_band_index(band: np.ndarray) -> BandIndex:
+    """Compress the nonzeros of ``band`` ([nB, BLK, W], any dtype)."""
+    band = np.asarray(band)
+    nB, BLK, W = band.shape
+    n_pad, n_ext = nB * BLK, nB * BLK + W - BLK
+    blk, r, j = np.nonzero(band)                       # row-major: sorted by (g, j)
+    g = blk * BLK + r
+    e = blk * BLK + j
+    row_ptr = np.zeros(n_pad + 1, np.int64)
+    np.cumsum(np.bincount(g, minlength=n_pad), out=row_ptr[1:])
+    order = np.lexsort((g, e))                         # by e, then by g
+    t_ptr = np.zeros(n_ext + 1, np.int64)
+    np.cumsum(np.bincount(e, minlength=n_ext), out=t_ptr[1:])
+    empty = np.nonzero(np.diff(row_ptr) == 0)[0]
+    empty_ptr = np.zeros(nB + 1, np.int64)
+    np.cumsum(np.bincount(empty // BLK, minlength=nB), out=empty_ptr[1:])
+    i32 = np.int32
+    return BandIndex(
+        nB=nB, BLK=BLK, W=W,
+        row_ptr=row_ptr.astype(i32), col=j.astype(i32),
+        val=band[blk, r, j].astype(np.float32),
+        t_ptr=t_ptr.astype(i32), t_entry=order.astype(i32), t_row=g[order].astype(i32),
+        empty_ptr=empty_ptr.astype(i32), empty_row=empty.astype(i32),
+    )
+
+
+def band_index_of(band: torch.Tensor) -> BandIndex:
+    """The :class:`BandIndex` of a band tensor, on the band's device, built
+    from the tensor's values (a device-to-host copy on every call): for
+    callers without a template. The model's path passes the template's
+    cached index instead."""
+    return build_band_index(band.detach().cpu().numpy()).to(band.device)
+
+
+# While true, the kernel wrappers run their plain versions on any device.
+# Only checks that hold the kernels against the plain versions set it
+# (``plain_versions()``); nothing on the model's path does.
+_force_plain = False
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Inside the block, ``band_attention`` and ``band_spmm`` run their plain
+    PyTorch versions, forward and backward, on whatever device the tensors
+    lie: the yardstick for a whole train step on the card."""
+    global _force_plain
+    old, _force_plain = _force_plain, True
+    try:
+        yield
+    finally:
+        _force_plain = old
+
+
+def use_plain(t: torch.Tensor) -> bool:
+    """A wrapper takes its plain version for a CPU tensor, or inside
+    :func:`plain_versions`."""
+    return t.device.type == "cpu" or _force_plain
+
+
 def halo_widths(win_start: tuple, W: int, n_pad: int) -> tuple[int, int]:
     """(U, R): rows of left/right context each block window reaches beyond
     its own rows. ``win_start`` must be the uniform layout (b·BLK − U)."""
@@ -186,8 +289,23 @@ def extend_rows(x_bp: torch.Tensor, U: int, R: int) -> torch.Tensor:
 
 
 def band_windows_ext(x_ext: torch.Tensor, nB: int, BLK: int, W: int) -> torch.Tensor:
-    """[B, n_ext, ...] extended array → [nB, B, W, ...] block windows."""
-    return torch.stack([x_ext[:, b * BLK: b * BLK + W] for b in range(nB)])
+    """[B, n_ext, ...] extended array → [nB, B, W, ...] block windows. One
+    strided view and one copy (and one fold in its backward), not nB slices:
+    a train step takes this 50 times."""
+    if x_ext.shape[1] != nB * BLK + W - BLK:
+        raise ValueError(f"extended array has {x_ext.shape[1]} rows, expected {nB * BLK + W - BLK}")
+    wins = x_ext.unfold(1, W, BLK)                       # [B, nB, ..., W]
+    return wins.movedim(-1, 2).transpose(0, 1).contiguous()
+
+
+def fold_windows_ext(xw: torch.Tensor, BLK: int) -> torch.Tensor:
+    """[nB, B, W, ...] per-window values → [B, n_ext, ...], overlapping
+    windows summed: the transpose of :func:`band_windows_ext`."""
+    nB, B, W = xw.shape[:3]
+    out = xw.new_zeros((B, nB * BLK + W - BLK) + xw.shape[3:])
+    for b in range(nB):
+        out[:, b * BLK: b * BLK + W] += xw[b]
+    return out
 
 
 def band_windows(x_bp: torch.Tensor, win_start: tuple, W: int) -> torch.Tensor:

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 EPS = 1e-8
 
 
@@ -28,6 +30,25 @@ class NormStats:
     std: float = 1.0
     min: float = 0.0
     max: float = 1.0
+
+    @staticmethod
+    def from_array(arr, norm_type: str = "znorm") -> "NormStats":
+        flat = np.asarray(arr, dtype=np.float64).ravel()
+        return NormStats(norm_type=norm_type, mean=float(flat.mean()), std=float(flat.std()),
+                         min=float(flat.min()), max=float(flat.max()))
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_dict(d: dict) -> "NormStats":
+        """Accepts the JAX package's dict too: its edge statistics, which the
+        port does not carry, must be absent or null."""
+        d = dict(d)
+        for k in ("edge_mean", "edge_std", "edge_min", "edge_max"):
+            if d.pop(k, None) is not None:
+                raise NotImplementedError("edge statistics are not yet ported")
+        return NormStats(**d)
 
 
 def scale(data, norm_type: str = "znorm", mean=None, std=None, min=None, max=None):

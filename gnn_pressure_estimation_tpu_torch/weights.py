@@ -4,7 +4,11 @@
 dicts of arrays (``params["params"]["block_i"]["GATConv_0"]["w"]`` …), onto
 the port's ``state_dict``. ``params_from_parity_npz`` does the same for the
 torch-layout parity fixtures that ``tools/parity_export.py`` writes
-(``w_lin0``, ``blk{i}_conv{j}_lin_w`` …). Neither needs JAX: the arrays are
+(``w_lin0``, ``blk{i}_conv{j}_lin_w`` …). ``params_to_flax`` is the inverse
+of the first. Any tree of the parameters' structure maps the same way, so
+gradients and Adam moments cross too: ``adam_state_from_optax`` turns
+optax's ``mu``/``nu``/``count`` into the ``state`` of
+``torch.optim.Adam.state_dict()``. None of this needs JAX: the arrays are
 read through numpy.
 
 Layout (Flax → port):
@@ -59,3 +63,39 @@ def params_from_parity_npz(path) -> dict[str, torch.Tensor]:
                 sd[f"{pre}.att_dst"] = _t(d[f"{src}_att_dst"])
                 sd[f"{pre}.bias"] = _t(d[f"{src}_bias"])
     return sd
+
+
+def params_to_flax(state_dict) -> dict:
+    """The inverse of :func:`params_from_flax`: a ``state_dict`` (or any dict
+    of that structure) → ``{"params": nested dicts of numpy arrays}``."""
+    def a(k):
+        return np.array(torch.as_tensor(state_dict[k]).detach().cpu().numpy(), copy=True)
+
+    p = {lin: {"kernel": a(f"{lin}.weight").T, "bias": a(f"{lin}.bias")}
+         for lin in ("lin0", "lin1")}
+    i = 0
+    while f"blocks.{i}.conv1.bias" in state_dict:
+        p[f"block_{i}"] = {
+            f"GATConv_{j - 1}": {
+                "w": a(f"blocks.{i}.conv{j}.lin.weight").T,
+                "att_src": a(f"blocks.{i}.conv{j}.att_src"),
+                "att_dst": a(f"blocks.{i}.conv{j}.att_dst"),
+                "bias": a(f"blocks.{i}.conv{j}.bias"),
+            }
+            for j in (1, 2)
+        }
+        i += 1
+    return {"params": p}
+
+
+def adam_state_from_optax(mu_tree, nu_tree, count, param_names) -> dict[int, dict]:
+    """optax ``ScaleByAdamState`` (``mu``, ``nu`` as nested dicts of arrays,
+    ``count``) → the ``state`` part of ``torch.optim.Adam.state_dict()``,
+    indexed in the order of ``param_names`` (the model's
+    ``named_parameters()`` order)."""
+    mu, nu = params_from_flax(mu_tree), params_from_flax(nu_tree)
+    return {
+        i: {"step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+        for i, name in enumerate(param_names)
+    }

@@ -14,6 +14,7 @@ from gnn_pressure_estimation_tpu_torch.core.graph import GraphTemplate
 from gnn_pressure_estimation_tpu_torch.evaluation.infer import Inferencer
 from gnn_pressure_estimation_tpu_torch.models.gatres import GATRes
 from gnn_pressure_estimation_tpu_torch.models.presets import select_model
+from gnn_pressure_estimation_tpu_torch.train import TrainConfig, Trainer
 from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -32,6 +33,9 @@ def _imported_modules(path: Path):
 def test_port_imports_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    scanned = {str(f.relative_to(PORT)) for f in files[:-1]}
+    assert {"train/loop.py", "train/checkpoint.py", "train/autoclip.py", "utils/masking.py",
+            "utils/metrics.py", "data/dataset.py", "ops/band_spmm.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -46,6 +50,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
         select_model("gatres_small")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Inferencer(GATRes(1, 4), NormStats())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(GATRes(1, 4), TrainConfig(), NormStats(), tpl)
     # asking for the CPU works
     assert tpl.batch(2, device="cpu").dense
     assert next(select_model("gatres_small", device="cpu")[0].parameters()).device.type == "cpu"
