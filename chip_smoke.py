@@ -35,8 +35,35 @@ Phases (any failure exits non-zero; none is caught):
    checkpoints written and reloaded, exact launch counts; then the step time
    (CUDA events), peak memory and a ``torch.profiler`` split of one step.
 
+8. The dense path at C-Town scale (``inputs/synthctown.inp``, 388 nodes): the
+   four dense-mode kernels (``fused_attention``, ``fused_factored``, forward
+   and backward) against their plain versions at every shape GATRes-small and
+   GATRes-large run there, at B 1 and B 32, and at small ragged shapes (a
+   one-way mask, rows of more than 32 entries, C past one tile); atol and
+   rtol 1e-4, random cotangents, a third of the nodes zeroed so that
+   a_d + a_s == 0 occurs.
+9. Fixture parity: GATRes-small with the weights of
+   ``artifacts/parity_train_synthctown.npz``: the serving forward per block
+   and at the output against the JAX values (1e-3), exactly 30
+   ``fused_factored`` launches; one B 1 train step (loss, metrics, every
+   gradient, parameters after 3 Adam steps) with exactly 30 forward and 30
+   backward launches; the same step through the plain versions on the card.
+10. Serving: ``Inferencer`` answers 64 synthctown snapshots at batch 32 with
+    GATRes-small (30 launches a forward) and GATRes-large (50), seeded
+    weights; each first batch is held against the plain versions on the card.
+11. Training: ``Trainer.fit`` of GATRes-small for 2 epochs at batch 32,
+    mask_rate 0.95 (30 + 30 launches a step), checkpoints, a resume from the
+    first epoch's checkpoint that must end bit-identical; step time (CUDA
+    events), edges/s as ``bench.py`` counts them, peak memory; one GATRes-large
+    step; ``torch.profiler`` splits of one serving batch and one train step.
+12. ``attn_impl="softmax"``: one serving batch and one train step of
+    GATRes-small through ``fused_attention`` (30 + 30 launches), held against
+    the factored model with the same weights.
+13. Times of the four dense kernels at B 32 beside their plain versions, the
+    einsum formulation the layer would otherwise run, and their byte bounds.
+
 The last line is ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
-and the ``nvidia-smi`` line come before it.
+(all eight kernels) and the ``nvidia-smi`` line come before it.
 """
 
 from __future__ import annotations
@@ -56,6 +83,7 @@ TOL = 1e-4
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 TPU_SRC = "gnn_pressure_estimation_tpu/ops/pallas/band_attention.py"
+TPU_DENSE_SRC = "gnn_pressure_estimation_tpu/ops/pallas/graph_attention.py"
 
 
 def smi_line() -> str:
@@ -119,6 +147,411 @@ def profile_batch(run, what: str = "one batch", top: int = 8) -> None:
         print(f"    {t / 1e3:9.3f} ms {t / busy_us:6.1%} x{count:<4d} {key[:90]}")
 
 
+def device_ms(fn, iters: int = 20):
+    """Device time of one call of ``fn`` (every kernel it launches, summed),
+    from ``torch.profiler``: what the card spends, without the host's time to
+    enqueue. None if the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / iters / 1e3 if us else None
+
+
+def grads_within(label: str, names, grads, refs) -> float:
+    """Each gradient: max|Δ| ≤ 1e-3·max|g_ref| + 1e-6. Returns the largest
+    share of that bound any gradient used."""
+    worst = 0.0
+    for name, g, ref in zip(names, grads, refs):
+        if not torch.isfinite(g).all():
+            raise SystemExit(f"FAIL {label}: gradient of {name} is not finite")
+        err, top = float((g - ref).abs().max()), float(ref.abs().max())
+        if err > 1e-3 * top + 1e-6:
+            raise SystemExit(f"FAIL {label}: gradient of {name} off by {err:.3e} "
+                             f"(max |g_ref| {top:.3e})")
+        worst = max(worst, err / (1e-3 * top + 1e-6))
+    return worst
+
+
+def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
+    """Phases 8-13: the dense path on synthctown. Returns the kernel rows
+    (times and bounds at B 32) and the launch counts of its runs."""
+    import tempfile
+
+    from gnn_pressure_estimation_tpu_torch.data.dataset import (
+        WDNDataset, _Member, build_template, get_keep_list,
+    )
+    from gnn_pressure_estimation_tpu_torch.data.inp import parse_inp
+    from gnn_pressure_estimation_tpu_torch.evaluation.infer import Inferencer
+    from gnn_pressure_estimation_tpu_torch.models.gatres import GATRes
+    from gnn_pressure_estimation_tpu_torch.models.presets import MODEL_REGISTRY, select_model
+    from gnn_pressure_estimation_tpu_torch.ops import banded as bops
+    from gnn_pressure_estimation_tpu_torch.ops import graph_attention as ga
+    from gnn_pressure_estimation_tpu_torch.train import Trainer, load_checkpoint
+    from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats
+    from gnn_pressure_estimation_tpu_torch.weights import params_from_parity_npz
+
+    wn = parse_inp(os.path.join(REPO, "inputs", "synthctown.inp"))
+    tpl, _ = build_template(wn, get_keep_list(wn, "keep_junction", None, "pressure"), None,
+                            name="synthctown")
+    n = tpl.n_node
+    mask_np = tpl.dense_operators()["adj_sl_mask"]
+    mask = torch.as_tensor(mask_np, device=dev)
+    ix = tpl.dense_index().to(dev)
+    nnz = ix.nnz
+    print(f"[8] dense kernels vs plain versions on synthctown: n {n}, edges {tpl.n_edge}, mask "
+          f"nonzeros {nnz} ({nnz / n / n:.4%} dense, longest row {ix.nbr.shape[1]})")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def operands(B, n_, H, C, zero_every=3):
+        a_d, a_s = randn(B, n_, H), randn(B, n_, H)
+        a_d[:, ::zero_every] = 0.0      # zeroed nodes: a_d + a_s == 0 where two of them meet
+        a_s[:, ::zero_every] = 0.0
+        return a_d, a_s, [randn(B, n_, H, C) for _ in range(4)]
+
+    def check_dense(tag, msk, index, B, H, C, verbose=False):
+        """All four kernels at one shape (the factored pair at D = C + 1),
+        random cotangents. Returns the operands."""
+        n_ = msk.shape[0]
+        a_d, a_s, (v, d_out, _, _) = operands(B, n_, H, C)
+        _, _, (rv, rq, g_pv, g_nq) = operands(B, n_, H, C + 1)
+        label = f"{tag} B{B} H{H} C{C}"
+        held("fused_attention", f"fused_attention {label}",
+             ga.fused_attention_fwd(a_d, a_s, v, msk, 0.2, index),
+             ga.fused_attention_plain(a_d, a_s, v, msk, 0.2), verbose)
+        for part, g, r in zip(("d a_dst", "d a_src", "d v"),
+                              ga.fused_attention_bwd(a_d, a_s, v, msk, d_out, 0.2, index),
+                              ga.fused_attention_bwd_plain(a_d, a_s, v, msk, d_out, 0.2)):
+            held("fused_attention_bwd", f"fused_attention_bwd {label} {part}", g, r, verbose)
+        for part, g, r in zip(("t_pv", "t_nq"), ga.fused_factored_fwd(a_d, a_s, rv, rq, msk, index),
+                              ga.fused_factored_plain(a_d, a_s, rv, rq, msk)):
+            held("fused_factored", f"fused_factored {label} {part}", g, r, verbose)
+        for part, g, r in zip(("d rhs_v", "d rhs_q"),
+                              ga.fused_factored_bwd(a_d, a_s, msk, g_pv, g_nq, index),
+                              ga.fused_factored_bwd_plain(a_d, a_s, msk, g_pv, g_nq)):
+            held("fused_factored_bwd", f"fused_factored_bwd {label} {part}", g, r, verbose)
+        return a_d, a_s, v, d_out, rv, rq, g_pv, g_nq
+
+    shapes = ((2, 32), (1, 32), (2, 128), (1, 128))     # conv1, conv2 of small; of large
+    for H, C in shapes:
+        check_dense("synthctown", mask, ix, 1, H, C)
+    # a one-way mask with rows of more than 32 entries; C past one 256-channel tile; D 34
+    rmask = rng.random((70, 70)) < 0.6
+    np.fill_diagonal(rmask, True)
+    rmask_t = torch.as_tensor(rmask, device=dev)
+    for B, H, C in ((3, 2, 5), (2, 1, 300), (2, 3, 33)):
+        check_dense("ragged", rmask_t, None, B, H, C)      # index built from the mask's values
+    torch.cuda.synchronize()
+    print("  B 1 and ragged shapes: all within atol/rtol 1e-4")
+
+    # ---- 9: the synthctown fixture ------------------------------------------
+    print("[9] synthctown fixture: GATRes-small against the JAX values")
+    npz = os.path.join(REPO, "artifacts", "parity_train_synthctown.npz")
+    fx = np.load(npz)
+    stats = NormStats(norm_type="znorm", mean=float(fx["stats_mean"]), std=float(fx["stats_std"]))
+
+    def fixture_model(attn_impl="factored"):
+        m = GATRes(int(fx["num_blocks"]), int(fx["nc"]), attn_impl=attn_impl)
+        m.load_state_dict(params_from_parity_npz(npz))
+        return m.to(dev)
+
+    model = fixture_model().eval()
+    graph = tpl.batch(1, device=dev)
+    acts = {}
+    hooks = [blk.register_forward_hook(lambda m, i, o, k=k: acts.__setitem__(k, o))
+             for k, blk in enumerate(model.blocks)]
+    reset_launches()
+    with torch.inference_mode():
+        out = model(torch.as_tensor(fx["x_in"], device=dev), graph)
+        torch.cuda.synchronize()
+    fwd_launches = read_launches()
+    for h in hooks:
+        h.remove()
+    if fwd_launches != counts(fused_factored=30):
+        raise SystemExit(f"FAIL launches per dense forward {fwd_launches}")
+    block_err = max(check_close(f"synthctown block {k}", a.cpu(),
+                                torch.as_tensor(fx[f"ours_act_block_{k}"]), 1e-3, 0.0, verbose=False)
+                    for k, a in sorted(acts.items()))
+    out_err = check_close("synthctown output", out.cpu(), torch.as_tensor(fx["ours_out"]), 1e-3, 0.0,
+                          verbose=False)
+    print(f"  forward vs JAX ({bytes(fx['path']).decode()} path): worst block {block_err:.3e}, output "
+          f"{out_err:.3e}; launches {fwd_launches['fused_factored']}")
+
+    names = [k for k, _ in model.named_parameters()]
+    xb1 = fx["x"][:, 0][None, :]
+
+    def fixture_step(attn_impl="factored"):
+        tr = Trainer(fixture_model(attn_impl), MODEL_REGISTRY["gatres_small"].train_config(batch_size=1), stats, tpl, device=dev)
+        g1, x1, m1, k1 = tr._prepare(tpl, xb1, fx["mask"], None, None)
+        tr.model.train()
+        loss, mets, _ = tr._masked_loss_and_metrics(g1, x1, x1, m1, k1, "train")
+        grads = torch.autograd.grad(loss, list(tr.model.parameters()))
+        torch.cuda.synchronize()
+        return tr, float(loss.detach()), mets, grads
+
+    reset_launches()
+    tr1, loss1, mets1, grads1 = fixture_step()
+    step_launches = read_launches()
+    if step_launches != counts(fused_factored=30, fused_factored_bwd=30):
+        raise SystemExit(f"FAIL launches per dense train step {step_launches}")
+    if abs(loss1 - float(fx["loss"])) > 1e-4 * abs(float(fx["loss"])):
+        raise SystemExit(f"FAIL train loss {loss1!r} against the fixture's {float(fx['loss'])!r}")
+    for k, v in mets1.items():
+        # corr and r2 of an untrained model (a nearly constant output) are small
+        # differences of f32 moment sums: atol 1e-3 there, 1e-4 elsewhere
+        ref, atol = float(fx[f"metric_{k}"]), 1e-3 if k in ("train_corr", "train_r2") else 1e-4
+        if abs(float(v) - ref) > 1e-3 * abs(ref) + atol:
+            raise SystemExit(f"FAIL train metric {k}: {float(v)!r} against {ref!r}")
+    worst = grads_within("synthctown B 1 step vs JAX", names, grads1,
+                         [torch.as_tensor(fx[f"grad_{k}"], device=dev) for k in names])
+    losses3 = [float(tr1.train_step(tpl, xb1, mask=fx["mask"])[0]) for _ in range(3)]
+    perr = max(float((p.detach().cpu() - torch.as_tensor(fx[f"p3_{k}"])).abs().max())
+               for k, p in tr1.model.named_parameters() if f"p3_{k}" in fx.files)
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(losses3, fx["step_losses"]))
+    if perr > 3e-4 or lerr > 1e-3:
+        raise SystemExit(f"FAIL after 3 Adam steps: parameters off by {perr:.3e} (atol 3e-4), "
+                         f"step losses by {lerr:.3e} relative (1e-3)")
+    print(f"  B 1 step vs the JAX Trainer: loss {loss1:.7f} against {float(fx['loss']):.7f}; "
+          f"{len(names)} gradients, each within 1e-3·max|g_ref| + 1e-6, the worst at {worst:.1%} of "
+          f"it; after 3 Adam steps parameters within {perr:.3e}, step losses within {lerr:.3e} "
+          f"relative; launches per step {step_launches['fused_factored']} + "
+          f"{step_launches['fused_factored_bwd']}")
+    reset_launches()
+    with bops.plain_versions():
+        _, loss_p, _, grads_p = fixture_step()
+    if any(read_launches().values()):
+        raise SystemExit("FAIL the plain dense step launched a kernel")
+    worst_p = grads_within("dense kernel step vs plain step", names, grads1, grads_p)
+    print(f"  kernel step vs plain step on the card: loss {loss1:.7f} / {loss_p:.7f}, gradients "
+          f"within the same bound, the worst at {worst_p:.1%} of it")
+    del tr1, grads1, grads_p
+
+    # ---- 10: serving ---------------------------------------------------------
+    print("[10] serving synthctown through Inferencer")
+    sstats = NormStats(norm_type="znorm", mean=40.0, std=15.0)
+    bs, n_snaps = 32, 64
+    n_batches = n_snaps // bs
+    snaps = rng.standard_normal((n_snaps, n)).astype(np.float32)
+    serve_launches, serve_ms, models = {}, {}, {}
+    for preset, per_forward in (("gatres_small", 30), ("gatres_large", 50)):
+        smodel, _ = select_model(preset, device=dev, seed=0)
+        models[preset] = smodel
+        inf = Inferencer(smodel, sstats, device=dev)
+        obs = inf.observed_indices(tpl, "random", mask_rate=0.95, seed=0)
+        inf.infer(tpl, snaps, obs, scaled=True, batch_size=bs)          # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = inf.infer(tpl, snaps, obs, scaled=True, batch_size=bs, with_truth=True)
+        end.record()
+        end.synchronize()
+        got = read_launches()
+        if got != counts(fused_factored=n_batches * per_forward):
+            raise SystemExit(f"FAIL {preset} serving launches {got}")
+        if res.pred.shape != snaps.shape or not np.isfinite(res.pred).all():
+            raise SystemExit(f"FAIL {preset} serving output is not a finite [S, n] field")
+        with bops.plain_versions():
+            ref = inf.infer(tpl, snaps[:bs], obs, scaled=True, batch_size=bs)
+        err = check_close(f"{preset} served batch vs plain versions", torch.as_tensor(res.pred[:bs]),
+                          torch.as_tensor(ref.pred), 1e-3, 1e-4, verbose=False)
+        serve_launches[preset] = got["fused_factored"]
+        serve_ms[preset] = start.elapsed_time(end) / n_batches
+        print(f"  {preset}: {n_snaps} snapshots, batch {bs}, {len(obs)} observed of {n}: "
+              f"{serve_ms[preset]:.3f} ms per batch ({bs / serve_ms[preset] * 1e3:.0f} snapshots/s); "
+              f"{per_forward} fused_factored launches a forward; first batch within {err:.3e} m of "
+              f"the plain versions' (fields of {sstats.mean:.0f} ± {sstats.std:.0f} m)")
+        profile_batch(lambda: inf.infer(tpl, snaps[:bs], obs, scaled=True, batch_size=bs),
+                      f"one {preset} serving batch", top=10)
+
+    # ---- 11: training ----------------------------------------------------------
+    print("[11] training GATRes-small on synthctown through Trainer.fit")
+    tbs, n_train, n_val = 32, 128, 64
+    arr = rng.standard_normal((n_train + n_val, n)).astype(np.float32)
+    mk_ds = lambda a: WDNDataset.from_members([_Member(tpl, a, [], None)], sstats)  # noqa: E731
+
+    def small_trainer(preset="gatres_small", **kw):
+        m, ps = select_model(preset, device=dev, seed=0)
+        return Trainer(m, ps.train_config(batch_size=tbs, mask_rate=0.95, seed=0, **kw), sstats, tpl,
+                       device=dev)
+
+    epochs_log = []
+    with tempfile.TemporaryDirectory() as dir_full, tempfile.TemporaryDirectory() as dir_cut:
+        trn = small_trainer(epochs=2, save_path=dir_full)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        best = trn.fit(mk_ds(arr[:n_train]), mk_ds(arr[n_train:]), log_fn=lambda m: print("  " + m),
+                       on_epoch_end=lambda ep, m: epochs_log.append(m))
+        torch.cuda.synchronize()
+        fit_launches = read_launches()
+        n_tr, n_ev = 2 * (n_train // tbs), 2 * (n_val // tbs)
+        if fit_launches != counts(fused_factored=30 * (n_tr + n_ev), fused_factored_bwd=30 * n_tr):
+            raise SystemExit(f"FAIL dense fit launches {fit_launches}")
+        tl = [m["train_loss"] for m in epochs_log]
+        vl = [m["val_loss"] for m in epochs_log]
+        if len(tl) != 2 or not np.isfinite(tl + vl).all() or tl[1] >= 1.5 * tl[0]:
+            raise SystemExit(f"FAIL dense fit diverged or stopped: train {tl}, val {vl}")
+        params, opt_state, meta = load_checkpoint(
+            os.path.join(dir_full, "last_gatres_small.ckpt"), trn.model.state_dict(),
+            trn.opt_state_dict())
+        if meta["epoch"] != 2 or opt_state is None or any(
+                not torch.equal(params[k], v.cpu()) for k, v in trn.model.state_dict().items()):
+            raise SystemExit("FAIL the last checkpoint does not hold the model's parameters")
+        # one epoch, then a new trainer restores 'last' and runs the second: the
+        # backwards use no atomics, so it must end where the uninterrupted run did
+        small_trainer(epochs=1, save_path=dir_cut).fit(
+            mk_ds(arr[:n_train]), mk_ds(arr[n_train:]), log_fn=lambda m: None)
+        resumed = small_trainer(epochs=2, save_path=dir_cut)
+        resumed.restore(os.path.join(dir_cut, "last_gatres_small.ckpt"))
+        resumed.fit(mk_ds(arr[:n_train]), mk_ds(arr[n_train:]), log_fn=lambda m: None)
+        torch.cuda.synchronize()
+        sa, sb = trn.opt_state_dict(), resumed.opt_state_dict()
+        same = (all(torch.equal(a, b) for a, b in zip(trn.model.state_dict().values(),
+                                                     resumed.model.state_dict().values()))
+                and sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa))
+        if not same:
+            raise SystemExit("FAIL the resumed dense run did not end bit-identical")
+    print(f"  fit: 2 epochs, batch {tbs}, {n_train} train + {n_val} val snapshots: train loss {tl}, "
+          f"val loss {vl}, best epoch {best['epoch']}, {best['train_time_s']:.2f} s; launches "
+          f"{fit_launches['fused_factored']} forward, {fit_launches['fused_factored_bwd']} backward; "
+          f"checkpoint reloaded; resumed from epoch 1 and ended bit-identical")
+    batch = arr[:tbs]
+    tgen = torch.Generator().manual_seed(0)
+    train_ms, train_peak = {}, {}
+    for preset, blocks in (("gatres_small", 15), ("gatres_large", 25)):
+        tr = trn if preset == "gatres_small" else small_trainer(preset)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        tr.train_step(tpl, batch, generator=tgen)
+        torch.cuda.synchronize()
+        got = read_launches()
+        if got != counts(fused_factored=2 * blocks, fused_factored_bwd=2 * blocks):
+            raise SystemExit(f"FAIL {preset} launches per train step {got}")
+        train_ms[preset] = cuda_ms(lambda: tr.train_step(tpl, batch, generator=tgen), 5, 30)
+        train_peak[preset] = torch.cuda.max_memory_allocated() / 1e9
+        edges = tbs * blocks * (2 * (tpl.n_edge + n) + tpl.n_edge)
+        print(f"  {preset} train step at batch {tbs}: {train_ms[preset]:.3f} ms "
+              f"({edges / train_ms[preset] * 1e3:.0f} message edges/s: batch · blocks · "
+              f"(2·(E + N) + E)), peak device memory {train_peak[preset]:.3f} GB; launches "
+              f"{2 * blocks} + {2 * blocks}")
+        profile_batch(lambda: tr.train_step(tpl, batch, generator=tgen),
+                      f"one {preset} train step", top=14)
+        del tr
+    del trn, resumed
+
+    # ---- 12: attn_impl="softmax" ------------------------------------------------
+    print('[12] attn_impl="softmax": GATRes-small through fused_attention')
+    soft = GATRes(15, 32, attn_impl="softmax")
+    soft.load_state_dict(models["gatres_small"].state_dict())
+    inf_s = Inferencer(soft, sstats, device=dev)
+    inf_f = Inferencer(models["gatres_small"], sstats, device=dev)
+    obs = inf_s.observed_indices(tpl, "random", mask_rate=0.95, seed=0)
+    reset_launches()
+    pred_s = inf_s.infer(tpl, snaps[:bs], obs, scaled=True, batch_size=bs).pred
+    soft_fwd = read_launches()
+    if soft_fwd != counts(fused_attention=30):
+        raise SystemExit(f"FAIL softmax serving launches {soft_fwd}")
+    with bops.plain_versions():
+        pred_sp = inf_s.infer(tpl, snaps[:bs], obs, scaled=True, batch_size=bs).pred
+    err = check_close("softmax served batch vs plain versions", torch.as_tensor(pred_s),
+                      torch.as_tensor(pred_sp), 1e-3, 1e-4, verbose=False)
+    pred_f = inf_f.infer(tpl, snaps[:bs], obs, scaled=True, batch_size=bs).pred
+    print(f"  serving batch: 30 fused_attention launches; within {err:.3e} m of the plain versions' "
+          f"and {float(np.abs(pred_s - pred_f).max()):.3e} m of the factored model's")
+    smask = rng.random((tbs, n)).argsort(1) < int(n * 0.95)
+
+    def soft_step():
+        m = GATRes(15, 32, attn_impl="softmax")
+        m.load_state_dict(models["gatres_small"].state_dict())
+        tr = Trainer(m, MODEL_REGISTRY["gatres_small"].train_config(batch_size=tbs), sstats, tpl,
+                     device=dev)
+        g1, x1, m1, k1 = tr._prepare(tpl, batch, smask.reshape(-1), None, None)
+        tr.model.train()
+        loss, _, _ = tr._masked_loss_and_metrics(g1, x1, x1, m1, k1, "train")
+        grads = torch.autograd.grad(loss, list(tr.model.parameters()))
+        torch.cuda.synchronize()
+        return tr, float(loss.detach()), grads
+
+    reset_launches()
+    tr_s, loss_s, grads_s = soft_step()
+    soft_step_launches = read_launches()
+    if soft_step_launches != counts(fused_attention=30, fused_attention_bwd=30):
+        raise SystemExit(f"FAIL softmax train step launches {soft_step_launches}")
+    with bops.plain_versions():
+        _, loss_sp, grads_sp = soft_step()
+    worst_s = grads_within("softmax kernel step vs plain step", names, grads_s, grads_sp)
+    soft_ms = cuda_ms(lambda: tr_s.train_step(tpl, batch, generator=tgen), 5, 30)
+    print(f"  train step at batch {tbs}: 30 + 30 launches; loss {loss_s:.7f} / {loss_sp:.7f} (plain), "
+          f"gradients within 1e-3·max|g_ref| + 1e-6 of the plain step's, the worst at {worst_s:.1%}; "
+          f"{soft_ms:.3f} ms per step")
+    del tr_s, grads_s, grads_sp
+
+    # ---- 13: kernel times at B 32 -------------------------------------------------
+    print(f"[13] dense kernel times at B {bs} on {card}")
+
+    def factored_einsum(a_d, a_s, vx, qx):
+        """The formulation the layer would run without the kernel: the gate
+        materialised, one einsum over it and one over the static mask."""
+        s_ = a_d[:, :, None, :] + a_s[:, None, :, :]
+        gate = (mask[None, :, :, None] & (s_ >= 0)).to(vx.dtype)
+        t_adj = torch.einsum("ij,bjhc->bihc", mask.to(vx.dtype), qx)
+        t_p = torch.einsum("bijh,bjhc->bihc", gate, torch.cat([vx, qx], dim=-1))
+        return t_p[..., : vx.shape[-1]], t_adj - t_p[..., vx.shape[-1]:]
+
+    ix_bytes = {"fwd": 4 * (n + 1 + nnz), "bwd": 4 * (n + 1 + 2 * nnz)}
+    rows = []
+    for H, C in shapes:
+        a_d, a_s, v, d_out, rv, rq, g_pv, g_nq = check_dense("synthctown", mask, ix, bs, H, C)
+        a_bytes, D = 4 * 2 * bs * n * H, C + 1
+        wide = lambda k, w: 4 * k * bs * n * H * w  # noqa: E731  (k tensors [B, n, H, w])
+        for name, fn, plain, einsum, nbytes, ops in (
+            ("fused_attention", lambda: ga.fused_attention_fwd(a_d, a_s, v, mask, 0.2, ix),
+             lambda: ga.fused_attention_plain(a_d, a_s, v, mask, 0.2), None,
+             a_bytes + wide(2, C) + ix_bytes["fwd"], bs * H * nnz * (2 * C + 6)),
+            ("fused_attention_bwd",
+             lambda: ga.fused_attention_bwd(a_d, a_s, v, mask, d_out, 0.2, ix),
+             lambda: ga.fused_attention_bwd_plain(a_d, a_s, v, mask, d_out, 0.2), None,
+             2 * a_bytes + wide(3, C) + ix_bytes["fwd"] + ix_bytes["bwd"],
+             bs * H * nnz * (4 * C + 14)),
+            ("fused_factored", lambda: ga.fused_factored_fwd(a_d, a_s, rv, rq, mask, ix),
+             lambda: ga.fused_factored_plain(a_d, a_s, rv, rq, mask),
+             lambda: factored_einsum(a_d, a_s, rv, rq),
+             a_bytes + wide(4, D) + ix_bytes["fwd"], bs * H * nnz * (D + 1)),
+            ("fused_factored_bwd", lambda: ga.fused_factored_bwd(a_d, a_s, mask, g_pv, g_nq, ix),
+             lambda: ga.fused_factored_bwd_plain(a_d, a_s, mask, g_pv, g_nq), None,
+             a_bytes + wide(4, D) + ix_bytes["bwd"], bs * H * nnz * (D + 1)),
+        ):
+            t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+            r = dict(name=name, H=H, C=C, ms=cuda_ms(fn, 5, 50), device_ms=device_ms(fn),
+                     plain_ms=cuda_ms(plain, 2, 5),
+                     einsum_ms=cuda_ms(einsum, 2, 5) if einsum else None, library_ms=None,
+                     bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+            rows.append(r)
+            dms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
+            ein = "" if einsum is None else f", einsum formulation {r['einsum_ms']:.4f} ms"
+            print(f"  {name} H {H} C {C}: {r['ms']:.4f} ms a call (CUDA events over 50 calls of the "
+                  f"wrapper), {dms} on the device, plain {r['plain_ms']:.4f} ms{ein}, library none "
+                  f"(no PyTorch call computes a batched gate or mask over an n×n pattern), bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}, {nbytes / 1e6:.2f} MB)")
+    return dict(
+        rows=rows, nnz=nnz, n=n, serve_launches=serve_launches, serve_ms=serve_ms,
+        fit_launches=fit_launches, train_ms=train_ms, train_peak=train_peak, soft_ms=soft_ms,
+        soft_launches={"fused_attention": soft_fwd["fused_attention"],
+                       "fused_attention_bwd": soft_step_launches["fused_attention_bwd"]})
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -138,6 +571,9 @@ def main() -> int:
     )
     from gnn_pressure_estimation_tpu_torch.ops.band_spmm import (
         band_spmm_bwd, band_spmm_bwd_plain, band_spmm_fwd, band_spmm_plain,
+    )
+    from gnn_pressure_estimation_tpu_torch.ops.graph_attention import (
+        fused_attention_bwd, fused_attention_fwd, fused_factored_bwd, fused_factored_fwd,
     )
     from gnn_pressure_estimation_tpu_torch.train import TrainConfig, Trainer, load_checkpoint
     from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats, descale_with
@@ -169,8 +605,11 @@ def main() -> int:
     cnt = torch.as_tensor(bl.adj_cnt, device=dev)
     mask_ix = tpl.band_index("adj_mask").to(dev)      # the template's cached indices, as
     cnt_ix = tpl.band_index("adj_cnt").to(dev)        # the model's path passes them
-    wrappers = {"band_attention": band_attention_fwd, "band_spmm": band_spmm_fwd,
-                "band_attention_bwd": band_attention_bwd, "band_spmm_bwd": band_spmm_bwd}
+    band_wrappers = {"band_attention": band_attention_fwd, "band_spmm": band_spmm_fwd,
+                     "band_attention_bwd": band_attention_bwd, "band_spmm_bwd": band_spmm_bwd}
+    wrappers = {**band_wrappers,
+                "fused_attention": fused_attention_fwd, "fused_attention_bwd": fused_attention_bwd,
+                "fused_factored": fused_factored_fwd, "fused_factored_bwd": fused_factored_bwd}
 
     def reset_launches():
         for w in wrappers.values():
@@ -178,6 +617,10 @@ def main() -> int:
 
     def read_launches():
         return {k: w.launches for k, w in wrappers.items()}
+
+    def counts(**launched):
+        """The expected reading: the named kernels' counts, 0 for the others."""
+        return {k: launched.get(k, 0) for k in wrappers}
     print(f"  bigtown: n {n}, edges {tpl.n_edge}, nB {nB}, BLK {BLK}, W {W}, n_pad {n_pad}, "
           f"n_ext {n_ext}, mask density {bl.adj_mask.mean():.4%}")
 
@@ -422,7 +865,7 @@ def main() -> int:
     tfx = np.load(os.path.join(REPO, "artifacts", "parity_train_bigtown.npz"))
     tstats = NormStats(norm_type="znorm", mean=float(tfx["stats_mean"]), std=float(tfx["stats_std"]))
     names = [k for k, _ in smodel.named_parameters()]
-    per_step = {"band_attention": 50, "band_spmm": 25, "band_attention_bwd": 50, "band_spmm_bwd": 25}
+    per_step = counts(band_attention=50, band_spmm=25, band_attention_bwd=50, band_spmm_bwd=25)
 
     def fixture_trainer(batch_size, **kw):
         tmodel, preset = select_model("gatres_large", device=dev)
@@ -438,20 +881,6 @@ def main() -> int:
         torch.cuda.synchronize()
         return float(loss.detach()), mets, grads
 
-    def grads_within(label, grads, refs):
-        """Each gradient: max|Δ| ≤ 1e-3·max|g_ref| + 1e-6. Returns the largest
-        share of that bound any gradient used."""
-        worst = 0.0
-        for name, g, ref in zip(names, grads, refs):
-            if not torch.isfinite(g).all():
-                raise SystemExit(f"FAIL {label}: gradient of {name} is not finite")
-            err, top = float((g - ref).abs().max()), float(ref.abs().max())
-            if err > 1e-3 * top + 1e-6:
-                raise SystemExit(f"FAIL {label}: gradient of {name} off by {err:.3e} "
-                                 f"(max |g_ref| {top:.3e})")
-            worst = max(worst, err / (1e-3 * top + 1e-6))
-        return worst
-
     # (a) one step at B 1 against the JAX Trainer's loss, gradients, parameters
     tr1 = fixture_trainer(1)
     reset_launches()
@@ -465,7 +894,7 @@ def main() -> int:
         ref = float(tfx[f"metric_{k}"])
         if abs(float(v) - ref) > 1e-3 * abs(ref) + 1e-4:
             raise SystemExit(f"FAIL train metric {k}: {float(v)!r} against {ref!r}")
-    worst = grads_within("B 1 step vs JAX", grads1,
+    worst = grads_within("B 1 step vs JAX", names, grads1,
                          [torch.as_tensor(tfx[f"grad_{k}"], device=dev) for k in names])
     print(f"  B 1 step vs the JAX Trainer ({bytes(tfx['path']).decode()} band path): loss {loss1:.7f} "
           f"against {float(tfx['loss']):.7f}; {len(names)} gradients, each within "
@@ -500,7 +929,7 @@ def main() -> int:
         loss_p, _, grads_p = one_step_grads(tr1p)
     if any(read_launches().values()):
         raise SystemExit("FAIL the plain step launched a kernel")
-    worst_p = grads_within("kernel step vs plain step", grads1, grads_p)
+    worst_p = grads_within("kernel step vs plain step", names, grads1, grads_p)
     print(f"  kernel step vs plain step on the card: loss {loss1:.7f} / {loss_p:.7f}, gradients "
           f"within the same bound, the worst at {worst_p:.1%} of it")
     del tr1, tr1p, grads1, grads_p
@@ -524,8 +953,8 @@ def main() -> int:
         fit_launches = read_launches()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         n_tr, n_ev = 2 * (n_train // tbs), 2 * (n_val // tbs)
-        expect = {"band_attention": 50 * (n_tr + n_ev), "band_spmm": 25 * (n_tr + n_ev),
-                  "band_attention_bwd": 50 * n_tr, "band_spmm_bwd": 25 * n_tr}
+        expect = counts(band_attention=50 * (n_tr + n_ev), band_spmm=25 * (n_tr + n_ev),
+                        band_attention_bwd=50 * n_tr, band_spmm_bwd=25 * n_tr)
         if fit_launches != expect:
             raise SystemExit(f"FAIL fit launches {fit_launches}, expected {expect}")
         tl = [m["train_loss"] for m in epochs_log]
@@ -554,8 +983,12 @@ def main() -> int:
 
     replaces = {"band_attention": f"{TPU_SRC}:208", "band_spmm": f"{TPU_SRC}:1084",
                 "band_attention_bwd": f"{TPU_SRC}:313", "band_spmm_bwd": f"{TPU_SRC}:1164"}
+    del trn
+    torch.cuda.empty_cache()
+    dense = dense_phases(dev, card, rng, held, reset_launches, read_launches, counts)
+
     kernels = []
-    for name in wrappers:
+    for name in band_wrappers:
         # headline row: B 32 (band_attention*: the H·C 256 shape); the forwards
         # count the serving run's launches, the backwards the fit's
         r = next(r for r in rows if r["name"] == name and r["B"] == bs)
@@ -577,6 +1010,31 @@ def main() -> int:
             "shape": f"B {bs}, n_pad {n_pad}, W {W}, H·C {r['hc']}",
             "ms_b8": at(8, r["hc"]),
             **({"ms_hc128": at(bs, 128), "ms_b8_hc128": at(8, 128)} if r["hc"] != 128 else {}),
+        })
+    # the dense kernels: headline row H 2 (conv1 of GATRes-small: C 32, D 33); the
+    # factored pair counts the synthctown serving and fit runs, the attention pair
+    # the attn_impl="softmax" batch and step
+    dense_replaces = {"fused_attention": 70, "fused_attention_bwd": 82,
+                      "fused_factored": 224, "fused_factored_bwd": 240}
+    dense_launches = {"fused_factored": sum(dense["serve_launches"].values()),
+                      "fused_factored_bwd": dense["fit_launches"]["fused_factored_bwd"],
+                      **dense["soft_launches"]}
+    for name, line in dense_replaces.items():
+        shaped = {(r["H"], r["C"]): r for r in dense["rows"] if r["name"] == name}
+        r = shaped[(2, 32)]
+        if not dense_launches[name]:
+            raise SystemExit(f"FAIL {name} was not launched on the dense path")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"gnn_pressure_estimation_tpu_torch/csrc/{name}.cu",
+            "replaces": f"{TPU_DENSE_SRC}:{line}", "launches": dense_launches[name],
+            "max_abs_err": max_err[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "device_ms": r["device_ms"], "einsum_ms": r["einsum_ms"],
+            "shape": f"B 32, n {dense['n']}, nonzeros {dense['nnz']}, H 2, C 32",
+            "by_shape": {f"H{h} C{c}": {k: q[k] for k in ("ms", "device_ms", "plain_ms", "einsum_ms",
+                                                          "bound_ms", "bytes")}
+                         for (h, c), q in shaped.items()},
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,8 +4,9 @@ The JAX package beside this one is the reference; this package mirrors its
 module paths so each counterpart is easy to find:
 
 - ``core``       — ``GraphTemplate`` (host) and the torch ``BatchedGraph``
-- ``ops``        — band layout, plain band ops, hand-written CUDA kernels
-  (``csrc/*.cu``, built at first use by ``ops/_build.py``)
+- ``ops``        — band layout and mask index, plain band and dense-attention
+  ops, hand-written CUDA kernels (``csrc/*.cu``, built at first use by
+  ``ops/_build.py``)
 - ``models``     — ``GATConv``, ``SimpleMeanConv``, ``GATRes``, presets
 - ``data``       — INP parsing, template building, the in-memory snapshot
   dataset and its loader (numpy only)

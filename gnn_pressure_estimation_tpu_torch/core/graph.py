@@ -77,6 +77,7 @@ class GraphTemplate:
         self._band_cache: dict = {}
         self._band_default: Optional[tuple] = None
         self._band_index_cache: dict = {}
+        self._dense_index = None
 
     def dense_operators(self) -> dict:
         """Template-level [n, n] operators shared by every graph in a batch:
@@ -105,6 +106,16 @@ class GraphTemplate:
             "adj_mat": A,
         }
         return self._dense_cache
+
+    def dense_index(self):
+        """The compressed set cells (``ops.graph_attention.MaskIndex``) of
+        ``adj_sl_mask``, by row and by column, which the dense-mode kernels
+        walk. Host-built once and cached; raises if a self-loop is missing."""
+        if self._dense_index is None:
+            from gnn_pressure_estimation_tpu_torch.ops.graph_attention import build_mask_index
+
+            self._dense_index = build_mask_index(self.dense_operators()["adj_sl_mask"])
+        return self._dense_index
 
     def band_layout(self, block: Optional[int] = None, lane: Optional[int] = None):
         """RCM band layout, cached per (block, lane).
@@ -162,44 +173,50 @@ class GraphTemplate:
         if key in self._batch_cache:
             return self._batch_cache[key]
 
-        B = batch_size
-        if mode == "dense":
-            d = self.dense_operators()
-            g = BatchedGraph(
-                n_graph=B, nodes_per_graph=self.n_node, device=dev,
-                adj_sl_mask=torch.as_tensor(d["adj_sl_mask"], device=dev),
-                mean_mat=torch.as_tensor(d["mean_mat"], device=dev),
-            )
-        else:
-            from gnn_pressure_estimation_tpu_torch.ops.banded import halo_widths
-
-            bl = self.band_layout(band_block)
-            U, R = halo_widths(bl.win_start, bl.W, bl.n_pad)
-            g = BatchedGraph(
-                n_graph=B, nodes_per_graph=bl.n_pad, device=dev,
-                band_adj_mask=torch.as_tensor(bl.adj_mask.view(np.int8), device=dev),
-                band_cnt=torch.as_tensor(bl.adj_cnt, device=dev),
-                band_adj_index=self.band_index("adj_mask", band_block).to(dev),
-                band_cnt_index=self.band_index("adj_cnt", band_block).to(dev),
-                band_inv_deg=torch.as_tensor(bl.inv_deg_perm, device=dev),
-                band_perm=torch.as_tensor(bl.perm, dtype=torch.long, device=dev),
-                band_inv_perm=torch.as_tensor(bl.inv_perm, dtype=torch.long, device=dev),
-                band_win_start=bl.win_start,
-                band_W=bl.W,
-                band_n_pad=bl.n_pad,
-                band_U=U,
-                band_R=R,
-            )
+        # the graph is cached and shared: built outside inference mode even when
+        # a serving call asks first, so a later train step can save its tensors
+        with torch.inference_mode(False):
+            g = self._build_batch(batch_size, mode, band_block, dev)
         self._batch_cache[key] = g
         return g
+
+    def _build_batch(self, B: int, mode: str, band_block: Optional[int], dev) -> "BatchedGraph":
+        if mode == "dense":
+            d = self.dense_operators()
+            return BatchedGraph(
+                n_graph=B, nodes_per_graph=self.n_node, device=dev,
+                adj_sl_mask=torch.as_tensor(d["adj_sl_mask"], device=dev),
+                adj_sl_index=self.dense_index().to(dev),
+                mean_mat=torch.as_tensor(d["mean_mat"], device=dev),
+            )
+        from gnn_pressure_estimation_tpu_torch.ops.banded import halo_widths
+
+        bl = self.band_layout(band_block)
+        U, R = halo_widths(bl.win_start, bl.W, bl.n_pad)
+        return BatchedGraph(
+            n_graph=B, nodes_per_graph=bl.n_pad, device=dev,
+            band_adj_mask=torch.as_tensor(bl.adj_mask.view(np.int8), device=dev),
+            band_cnt=torch.as_tensor(bl.adj_cnt, device=dev),
+            band_adj_index=self.band_index("adj_mask", band_block).to(dev),
+            band_cnt_index=self.band_index("adj_cnt", band_block).to(dev),
+            band_inv_deg=torch.as_tensor(bl.inv_deg_perm, device=dev),
+            band_perm=torch.as_tensor(bl.perm, dtype=torch.long, device=dev),
+            band_inv_perm=torch.as_tensor(bl.inv_perm, dtype=torch.long, device=dev),
+            band_win_start=bl.win_start,
+            band_W=bl.W,
+            band_n_pad=bl.n_pad,
+            band_U=U,
+            band_R=R,
+        )
 
 
 @dataclasses.dataclass(frozen=True)
 class BatchedGraph:
     """``n_graph`` same-topology graphs as tensors on ``device``.
 
-    Dense mode carries the template-level ``[n, n]`` attention mask and mean
-    operator, shared by every graph. Banded mode works in RCM-permuted,
+    Dense mode carries the template-level ``[n, n]`` attention mask, the
+    compressed index of its set cells that the dense-mode kernels walk, and
+    the mean operator, shared by every graph. Banded mode works in RCM-permuted,
     padded node space (``nodes_per_graph == band_n_pad``): it carries the
     ``[nB, BLK, W]`` int8 adjacency mask (self-loops included) and int8
     edge-count band, each with the compressed index of its nonzeros that the
@@ -210,6 +227,7 @@ class BatchedGraph:
     nodes_per_graph: int
     device: torch.device
     adj_sl_mask: Optional[torch.Tensor] = None     # [n, n] bool
+    adj_sl_index: Optional[object] = None          # MaskIndex of adj_sl_mask
     mean_mat: Optional[torch.Tensor] = None        # [n, n] f32
     band_adj_mask: Optional[torch.Tensor] = None   # [nB, BLK, W] int8 0/1
     band_cnt: Optional[torch.Tensor] = None        # [nB, BLK, W] int8 counts

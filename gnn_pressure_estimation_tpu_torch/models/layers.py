@@ -6,10 +6,14 @@ aggregation modes. Attention math matches PyG GATConv (LeakyReLU 0.2,
 self-loops added, per-receiver softmax).
 
 On the banded path every GATConv goes through ``ops.band_attention`` and
-every SimpleMeanConv through ``ops.band_spmm``, at any width: autograd
+every SimpleMeanConv through ``ops.band_spmm``; on the dense path a GATConv
+goes through ``ops.graph_attention`` (``fused_factored`` or
+``fused_attention``, by ``attn_impl``), at any width and any n: autograd
 Functions that launch the hand-written kernels, forward and backward, when
 the graph lies on a CUDA device, and run the kernels' plain versions on the
-CPU. The graph carries each band's compressed index for the backward.
+CPU. The graph carries the compressed index of each mask or band that the
+kernels walk. The dense SimpleMeanConv is one ``torch.einsum`` with the
+``[n, n]`` mean operator, as in the JAX layer.
 
 Parameters are initialised glorot-uniform (weights) and zero (biases), as
 the JAX layers do, from an optional ``torch.Generator``.
@@ -28,9 +32,9 @@ from gnn_pressure_estimation_tpu_torch.core.graph import BatchedGraph
 from gnn_pressure_estimation_tpu_torch.ops import banded as bops
 from gnn_pressure_estimation_tpu_torch.ops.band_attention import band_attention
 from gnn_pressure_estimation_tpu_torch.ops.band_spmm import band_spmm
+from gnn_pressure_estimation_tpu_torch.ops.graph_attention import fused_attention, fused_factored
 
-NEG_INF = -1e9  # mask value for dense attention (finite: avoids inf-nan)
-ATTN_IMPLS = ("softmax", "factored")
+ATTN_IMPLS = ("softmax", "onepass", "factored")
 
 
 @torch.no_grad()
@@ -48,11 +52,14 @@ class GATConv(nn.Module):
     out[i] = Σ_{j∈N(i)∪{i}} α_ij · (W x_j) per head, heads concatenated or
     averaged, plus bias; α = softmax_i(LeakyReLU(a_s·Wx_j + a_d·Wx_i)).
 
-    ``attn_impl`` selects the dense-path formulation: ``softmax`` (logits →
-    softmax → einsum) or ``factored`` (the exp(LeakyReLU) numerator as two
-    rank-1 products gated by the 0/1 sign matrix; same math up to rounding).
-    The banded path uses the windowed softmax kernel for both, as the JAX
-    layer does.
+    ``attn_impl`` selects the dense-path formulation: ``softmax`` (masked
+    logits → softmax → weighted sum, through ``ops.fused_attention``),
+    ``factored`` (the exp(LeakyReLU) numerator as two rank-1 products gated by
+    the 0/1 sign matrix, its two gated sums through ``ops.fused_factored``) or
+    ``onepass`` (the numerator materialised once, 1/Z applied after the
+    product; plain torch, it has no kernel). Same math up to rounding. The
+    banded path uses the windowed softmax kernel for all three, as the JAX
+    layer does; the JAX layer's ``band_factored`` is not ported.
     """
 
     def __init__(self, in_channels: int, out_channels: int, heads: int = 1,
@@ -86,8 +93,7 @@ class GATConv(nn.Module):
         a_d = (xp * self.att_dst).sum(-1)
         B = graph.n_graph
         if graph.dense:
-            out = self._dense(xp.view(B, -1, H, C), a_s.view(B, -1, H),
-                              a_d.view(B, -1, H), graph.adj_sl_mask)
+            out = self._dense(xp.view(B, -1, H, C), a_s.view(B, -1, H), a_d.view(B, -1, H), graph)
         elif graph.banded:
             n_pad = graph.band_n_pad
             a_src_win = bops.band_windows(a_s.view(B, n_pad, H),
@@ -102,33 +108,39 @@ class GATConv(nn.Module):
         out = out.reshape(-1, H * C) if self.concat else out.mean(dim=1)
         return out + self.bias
 
-    def _dense(self, xp_b, a_s, a_d, adj_sl_mask):
+    def _dense(self, xp_b, a_s, a_d, graph):
         """Dense masked attention over all pairs: [B, n, H, C] → [B, n, H, C]."""
         sl = self.negative_slope
-        mask = adj_sl_mask[None, :, :, None]
+        mask, index = graph.adj_sl_mask, graph.adj_sl_index
         if self.attn_impl == "softmax":
-            z = a_d[:, :, None, :] + a_s[:, None, :, :]                      # [B,i,j,H]
-            # not F.leaky_relu: its gradient at z == 0 is the slope, the JAX
-            # package's is 1, and two masked (zeroed) neighbours meet exactly there
-            logits = torch.where(z >= 0, z, sl * z)
-            logits = torch.where(mask, logits, NEG_INF)
-            attn = torch.softmax(logits, dim=2)
-            return torch.einsum("bijh,bjhc->bihc", attn, xp_b)
-        # factored: exp(lrelu(a_d+a_s)) = [s≥0]·e^{a_d}e^{a_s} + [s<0]·e^{αa_d}e^{αa_s}
+            return fused_attention(a_d, a_s, xp_b, mask, sl, index)
         C = xp_b.shape[-1]
-        ms = torch.where(mask, a_s[:, None, :, :], NEG_INF).amax(dim=2)   # [B,i,H]
-        m = F.leaky_relu(a_d + ms, sl).detach()
-        cs = F.relu(a_s.amax(dim=1, keepdim=True)).detach()             # [B,1,H]
+        with torch.no_grad():
+            # the row max of the logits from the sender halves alone: LeakyReLU
+            # is monotone, so max_j lrelu(a_d[i] + a_s[j]) = lrelu(a_d[i] +
+            # max_{j∈N(i)} a_s[j]). A shift only (softmax is shift-invariant),
+            # so it carries no gradient. Taken over each row's neighbour list
+            # (padded with the row itself, which is always a neighbour).
+            ms = a_s[:, index.nbr].amax(dim=2)                             # [B,i,H]
+            m = F.leaky_relu(a_d + ms, sl)
+        if self.attn_impl == "onepass":
+            # the softmax numerator, materialised once; 1/Z after the product
+            z = a_d[:, :, None, :] + a_s[:, None, :, :]                    # [B,i,j,H]
+            y = torch.where(z >= 0, z, sl * z)
+            num = torch.where(mask[None, :, :, None], torch.exp(y - m[:, :, None, :]), 0.0)
+            out = torch.einsum("bijh,bjhc->bihc", num, xp_b)
+            return out / num.sum(dim=2)[..., None]
+        # factored: exp(lrelu(a_d+a_s)) = [s≥0]·e^{a_d}e^{a_s} + [s<0]·e^{αa_d}e^{αa_s}.
+        # Working range: the exps of the per-node halves must stay finite in
+        # f32 (|a| ≲ 80 after the shifts), as for the JAX layer.
+        with torch.no_grad():
+            cs = F.relu(a_s.amax(dim=1, keepdim=True))                   # [B,1,H]
         u, p = torch.exp(a_d - m), torch.exp(sl * a_d - m)                 # [B,i,H]
         v, q = torch.exp(a_s - cs), torch.exp(sl * a_s - cs)               # [B,j,H]
+        # a ones column carries the softmax denominator through the sums
         xa = torch.cat([xp_b, xp_b.new_ones(xp_b.shape[:-1] + (1,))], dim=-1)
-        s = a_d[:, :, None, :] + a_s[:, None, :, :]
-        gate = (mask & (s >= 0)).to(xp_b.dtype)        # 0/1, zero gradient
-        vx, qx = v[..., None] * xa, q[..., None] * xa                       # [B,j,H,C+1]
-        t_adj = torch.einsum("ij,bjhc->bihc", adj_sl_mask.to(xp_b.dtype), qx)
-        t_p = torch.einsum("bijh,bjhc->bihc", gate, torch.cat([vx, qx], dim=-1))
-        t_pv, t_pq = t_p[..., : C + 1], t_p[..., C + 1:]
-        outz = u[..., None] * t_pv + p[..., None] * (t_adj - t_pq)
+        t_pv, t_nq = fused_factored(a_d, a_s, v[..., None] * xa, q[..., None] * xa, mask, index)
+        outz = u[..., None] * t_pv + p[..., None] * t_nq
         return outz[..., :C] / outz[..., C:]
 
 

@@ -21,7 +21,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("band_attention", "band_spmm", "band_attention_bwd", "band_spmm_bwd")
+KERNELS = ("band_attention", "band_spmm", "band_attention_bwd", "band_spmm_bwd",
+           "fused_attention", "fused_attention_bwd", "fused_factored", "fused_factored_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

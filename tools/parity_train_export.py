@@ -1,14 +1,29 @@
 """Training parity fixture: one masked train step of the JAX ``Trainer``.
 
-    python tools/parity_train_export.py [--out artifacts/parity_train_bigtown.npz]
-                                        [--path pallas|xla]
+    python tools/parity_train_export.py                      # bigtown, GATRes-large, banded
+    python tools/parity_train_export.py --network synthctown # GATRes-small, dense
+        [--out PATH] [--path pallas|xla] [--preset gatres_small|gatres_large] [--seed N]
 
-Runs on the CPU. GATRes-large with the weights of
-``artifacts/parity_r5_trained.npz`` on ``inputs/bigtown.inp`` (banded, BLK
-256, batch 1), the snapshot ``x`` of that fixture, one explicit node mask
-(mask_rate 0.95, drawn with numpy from ``--seed``), criterion mse,
-``NormStats(znorm, mean 50, std 10)``. Through the JAX package's own
-``Trainer._masked_loss_and_metrics`` and optimizer it records
+Runs on the CPU, batch 1, criterion mse, ``NormStats(znorm, mean 50, std 10)``,
+one explicit node mask (mask_rate 0.95, drawn with numpy from ``--seed``).
+
+``--network bigtown`` (default; writes ``artifacts/parity_train_bigtown.npz``):
+GATRes-large with the weights and the snapshot ``x`` of
+``artifacts/parity_r5_trained.npz`` on ``inputs/bigtown.inp`` (banded, BLK 256).
+
+``--network synthctown`` (writes ``artifacts/parity_train_synthctown.npz``):
+the preset named by ``--preset`` (default ``gatres_small``, 15 blocks, nc 32,
+``attn_impl="factored"``) on ``inputs/synthctown.inp`` (388 nodes, dense
+mode). No trained weights of that network are kept in the repository, so the
+weights are drawn with numpy from ``--seed`` at glorot scale (biases uniform
+in ±0.1) and stored in the file in ``tools/parity_export.py``'s layout
+(``w_lin0``, ``blk{i}_conv{j}_lin_w`` …), as is the scaled snapshot ``x``
+[n, 1] (standard normal). The file also holds the serving forward of the
+masked input: ``x_in``, the output of every block (``ours_act_block_<i>``)
+and the model's (``ours_out``).
+
+Through the JAX package's own ``Trainer._masked_loss_and_metrics`` and
+optimizer it records
 
 * ``mask`` [n] bool (original node order), ``loss``, the seven train
   metrics (``metric_<name>``),
@@ -16,13 +31,14 @@ Runs on the CPU. GATRes-large with the weights of
   (``grad_<state_dict key>``; kernels transposed as ``weights.py`` does),
 * after 3 Adam steps at the ``TrainConfig`` defaults on that same batch and
   mask: the loss at each step (``step_losses``), the loss after the third
-  (``loss_after``) and the ``lin0``, ``lin1``, ``blocks.0`` and ``blocks.24``
-  parameters (``p3_<state_dict key>``).
+  (``loss_after``) and the parameters of ``lin0``, ``lin1`` and the first and
+  last block (``p3_<state_dict key>``).
 
-``--path pallas`` (default) runs the band kernels as ``template.batch``
-attaches them (Pallas, interpret mode on the CPU: the v2 band attention and
-the band SpMM, forward and backward); ``--path xla`` strips them so the
-plain XLA band ops run. The path taken is stored in the file (``path``) and
+``--path pallas`` (default) runs the Pallas kernels in interpret mode on the
+CPU: on bigtown the v2 band attention and the band SpMM as ``template.batch``
+attaches them, on synthctown the fused factored aggregation
+(``GNN_TPU_FUSED_FACTORED=1``), forward and backward. ``--path xla`` runs the
+plain XLA ops instead. The path taken is stored in the file (``path``) and
 printed, so a log beside the fixture says which produced it.
 """
 
@@ -37,7 +53,7 @@ import time
 import numpy as np
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
-KEPT_AFTER_3 = ("lin0.", "lin1.", "blocks.0.", "blocks.24.")
+PRESETS = {"gatres_small": (15, 32), "gatres_large": (25, 128)}   # blocks, channels
 
 
 def flax_tree_from_npz(d) -> dict:
@@ -57,6 +73,29 @@ def flax_tree_from_npz(d) -> dict:
             for j in (1, 2)
         }
     return {"params": p}
+
+
+def drawn_weights(rng, num_blocks: int, nc: int) -> dict:
+    """GATRes weights in ``tools/parity_export.py``'s torch layout, drawn at
+    glorot scale; biases uniform in ±0.1 (zero biases would give every
+    masked node the same logits)."""
+    def glorot(shape, fan_in, fan_out):
+        b = np.sqrt(6.0 / (fan_in + fan_out))
+        return rng.uniform(-b, b, shape).astype(np.float32)
+
+    def bias(k):
+        return rng.uniform(-0.1, 0.1, k).astype(np.float32)
+
+    d = {"num_blocks": np.int64(num_blocks), "nc": np.int64(nc),
+         "w_lin0": glorot((nc, 1), 1, nc), "b_lin0": bias(nc),
+         "w_lin1": glorot((1, nc), nc, 1), "b_lin1": bias(1)}
+    for i in range(num_blocks):
+        for j, (cin, H, C, width) in ((1, (nc, 2, nc, 2 * nc)), (2, (2 * nc, 1, nc, nc))):
+            d[f"blk{i}_conv{j}_lin_w"] = glorot((H * C, cin), cin, H * C)
+            d[f"blk{i}_conv{j}_att_src"] = glorot((1, H, C), H, C)
+            d[f"blk{i}_conv{j}_att_dst"] = glorot((1, H, C), H, C)
+            d[f"blk{i}_conv{j}_bias"] = bias(width)
+    return d
 
 
 def port_layout(tree) -> dict[str, np.ndarray]:
@@ -79,13 +118,25 @@ def port_layout(tree) -> dict[str, np.ndarray]:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=os.path.join(ROOT, "artifacts", "parity_train_bigtown.npz"))
-    ap.add_argument("--weights", default=os.path.join(ROOT, "artifacts", "parity_r5_trained.npz"))
-    ap.add_argument("--inp", default=os.path.join(ROOT, "inputs", "bigtown.inp"))
+    ap.add_argument("--network", choices=("bigtown", "synthctown"), default="bigtown")
+    ap.add_argument("--preset", choices=tuple(PRESETS), default=None,
+                    help="synthctown only (default gatres_small); bigtown takes the fixture's model")
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--weights", default=os.path.join(ROOT, "artifacts", "parity_r5_trained.npz"),
+                    help="bigtown only: the parity fixture that holds the weights and x")
+    ap.add_argument("--inp", default=None)
     ap.add_argument("--path", choices=("pallas", "xla"), default="pallas")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
+    dense = args.network == "synthctown"
+    out_path = args.out or os.path.join(ROOT, "artifacts", f"parity_train_{args.network}.npz")
+    inp = args.inp or os.path.join(ROOT, "inputs", f"{args.network}.inp")
+    if dense and args.path == "pallas":
+        os.environ["GNN_TPU_FUSED_FACTORED"] = "1"      # read by GraphTemplate.batch
+    else:
+        os.environ.pop("GNN_TPU_FUSED_FACTORED", None)
+    os.environ.pop("GNN_TPU_FUSED_ATTN", None)
 
     import jax
     import jax.numpy as jnp
@@ -102,18 +153,30 @@ def main() -> int:
     from gnn_pressure_estimation_tpu.utils.masking import masked_count
     from gnn_pressure_estimation_tpu.utils.scaling import NormStats
 
-    d = np.load(args.weights)
-    wn = parse_inp(args.inp)
+    wn = parse_inp(inp)
     tpl, _ = build_template(wn, get_keep_list(wn, "keep_junction", None, "pressure"), None,
-                            name="bigtown")
+                            name=args.network)
     n = tpl.n_node
+    if dense:
+        rng = np.random.default_rng(args.seed + 1)
+        d = drawn_weights(rng, *PRESETS[args.preset or "gatres_small"])
+        d["x"] = rng.standard_normal((n, 1)).astype(np.float32)
+        attn_impl = "factored"                                   # as both GATRes presets ask
+    else:
+        d = dict(np.load(args.weights))
+        attn_impl = "softmax"                                    # banded: the kernels either way
+    last = int(d["num_blocks"]) - 1
+    kept_after_3 = ("lin0.", "lin1.", "blocks.0.", f"blocks.{last}.")
     cfg = TrainConfig(batch_size=1, donate_state=False)          # the defaults otherwise
     stats = NormStats(norm_type="znorm", mean=50.0, std=10.0)
-    trainer = Trainer(GATRes(num_blocks=int(d["num_blocks"]), channels=int(d["nc"])),
-                      cfg, stats, tpl)
+    model = GATRes(num_blocks=int(d["num_blocks"]), channels=int(d["nc"]), attn_impl=attn_impl)
+    trainer = Trainer(model, cfg, stats, tpl)
     params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), flax_tree_from_npz(d))
     graph = trainer._batched_graph(tpl, 1)
-    if args.path == "xla":
+    if dense:
+        if not graph.dense or (graph.fused_factored is not None) != (args.path == "pallas"):
+            raise SystemExit(f"the dense graph does not run the {args.path} path")
+    elif args.path == "xla":
         graph = dataclasses.replace(graph, band_attn=None, band_attn_dma=None,
                                     band_spmm_dma=None)
 
@@ -121,8 +184,11 @@ def main() -> int:
     mask = np.zeros(n, bool)
     mask[np.random.default_rng(args.seed).permutation(n)[:k]] = True
     x = jnp.asarray(d["x"], jnp.float32)                          # [n, 1]
-    xp = graph.pack_nodes(x, n)
-    maskp = graph.pack_nodes(jnp.asarray(mask, jnp.float32)[:, None], n)[:, 0] > 0.5
+    if graph.banded:
+        xp = graph.pack_nodes(x, n)
+        maskp = graph.pack_nodes(jnp.asarray(mask, jnp.float32)[:, None], n)[:, 0] > 0.5
+    else:
+        xp, maskp = x, jnp.asarray(mask)
 
     @jax.jit
     def value_and_grad(p):
@@ -142,6 +208,18 @@ def main() -> int:
         "stats_mean": np.float64(stats.mean), "stats_std": np.float64(stats.std),
         "lr": np.float64(cfg.lr), "weight_decay": np.float64(cfg.weight_decay),
     }
+    if dense:
+        # the weights, the snapshot and the serving forward of the masked input
+        payload.update(d)
+        x_in = jnp.where(maskp[:, None], 0.0, xp)
+        out, state = jax.jit(lambda p: model.apply(
+            p, x_in, graph, capture_intermediates=True, mutable=["intermediates"]))(params)
+        payload["x_in"] = np.asarray(x_in)
+        payload["ours_out"] = np.asarray(out)
+        for i in range(last + 1):
+            payload[f"ours_act_block_{i}"] = np.asarray(
+                state["intermediates"][f"block_{i}"]["__call__"][0])
+        payload["preset"] = np.bytes_((args.preset or "gatres_small").encode())
     for name, v in mets.items():
         payload[f"metric_{name}"] = np.float64(v)
         print(f"  {name}: {float(v):.6g}")
@@ -161,11 +239,11 @@ def main() -> int:
     payload["step_losses"] = np.asarray(step_losses, np.float64)
     payload["loss_after"] = np.float64(loss_after)
     for name, v in port_layout(jax.tree.map(np.asarray, p)).items():
-        if name.startswith(KEPT_AFTER_3):
+        if name.startswith(kept_after_3):
             payload[f"p3_{name}"] = v
     print(f"  {args.steps} Adam steps: losses {step_losses}, then {float(loss_after):.8g}")
-    np.savez_compressed(args.out, **payload)
-    print(f"wrote {args.out} ({os.path.getsize(args.out) / 1e6:.2f} MB) in {time.time() - t0:.1f} s")
+    np.savez_compressed(out_path, **payload)
+    print(f"wrote {out_path} ({os.path.getsize(out_path) / 1e6:.2f} MB) in {time.time() - t0:.1f} s")
     return 0
 
 
