@@ -157,30 +157,56 @@ class GraphTemplate:
         mode: Optional[str] = None,
         band_block: Optional[int] = None,
         device="cuda",
+        band_attn: Optional[str] = None,
     ) -> "BatchedGraph":
         """``batch_size`` copies of this template as tensors on ``device``.
 
         ``mode``: ``dense`` ([n, n] operators) | ``banded`` (RCM band
         windows) | ``None`` (dense up to :attr:`DENSE_THRESHOLD` nodes,
         banded above). Raises if ``device`` is CUDA and no card is present.
+
+        ``band_attn`` names the band-attention kernel of a banded graph:
+        ``"dma"`` (whole-window softmax over the extended array) | ``"flash"``
+        (streaming softmax) | ``"window"`` (materialised windows) | ``None``
+        (``ops.banded.band_attention_route`` on the layout: ``"dma"`` up to
+        the reference's tile limit, ``"flash"`` beyond). The JAX package
+        chooses with ``GNN_TPU_BAND_FLASH=1`` and ``GNN_TPU_BAND_DMA=0``;
+        here it is an argument.
         """
         dev = resolve_device(device)
         if mode is None:
             mode = "dense" if self.n_node <= self.DENSE_THRESHOLD else "banded"
         if mode not in ("dense", "banded"):
             raise NotImplementedError(f"aggregation mode {mode!r} is not yet ported")
-        key = (batch_size, mode, band_block, str(dev))
+        if mode == "banded":
+            from gnn_pressure_estimation_tpu_torch.ops.banded import (
+                BAND_ATTN_ROUTES, band_attention_route,
+            )
+
+            if band_attn == "acc":
+                raise NotImplementedError(
+                    'band_attn "acc" (the sliding-accumulator backward, make_band_attention_acc) '
+                    "is not yet ported: ROADMAP.md, Queue 2, item 5")
+            if band_attn is None:
+                bl = self.band_layout(band_block)
+                band_attn = band_attention_route(bl.BLK, bl.W)
+            if band_attn not in BAND_ATTN_ROUTES:
+                raise ValueError(f"band_attn {band_attn!r} is not one of {BAND_ATTN_ROUTES}")
+        elif band_attn is not None:
+            raise ValueError("band_attn applies to banded graphs only")
+        key = (batch_size, mode, band_block, str(dev), band_attn)
         if key in self._batch_cache:
             return self._batch_cache[key]
 
         # the graph is cached and shared: built outside inference mode even when
         # a serving call asks first, so a later train step can save its tensors
         with torch.inference_mode(False):
-            g = self._build_batch(batch_size, mode, band_block, dev)
+            g = self._build_batch(batch_size, mode, band_block, dev, band_attn)
         self._batch_cache[key] = g
         return g
 
-    def _build_batch(self, B: int, mode: str, band_block: Optional[int], dev) -> "BatchedGraph":
+    def _build_batch(self, B: int, mode: str, band_block: Optional[int], dev,
+                     band_attn: Optional[str]) -> "BatchedGraph":
         if mode == "dense":
             d = self.dense_operators()
             return BatchedGraph(
@@ -207,6 +233,7 @@ class GraphTemplate:
             band_n_pad=bl.n_pad,
             band_U=U,
             band_R=R,
+            band_attn=band_attn,
         )
 
 
@@ -220,7 +247,8 @@ class BatchedGraph:
     padded node space (``nodes_per_graph == band_n_pad``): it carries the
     ``[nB, BLK, W]`` int8 adjacency mask (self-loops included) and int8
     edge-count band, each with the compressed index of its nonzeros that the
-    backward kernels walk, the 1/deg row scale and the permutation.
+    kernels walk, the 1/deg row scale, the permutation, and the name of the
+    band-attention kernel its GATConvs go through (``band_attn``).
     """
 
     n_graph: int
@@ -241,6 +269,7 @@ class BatchedGraph:
     band_n_pad: int = 0
     band_U: int = 0
     band_R: int = 0
+    band_attn: Optional[str] = None                # "dma" | "flash" | "window"
 
     @property
     def dense(self) -> bool:

@@ -43,26 +43,12 @@
 //
 // C interface: pointers, ints and the stream; returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "band_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;               // warps per thread block
 constexpr int kPerLane = 8;             // channels per lane in one tile
 constexpr int kTile = 32 * kPerLane;    // channels per tile
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
 
 __global__ void __launch_bounds__(kWarps * 32)
 rows_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
@@ -157,32 +143,6 @@ rows_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
 }
 
 __global__ void __launch_bounds__(kWarps * 32)
-empties_kernel(const float* __restrict__ dout,     // [B, n_pad, H, C]
-               const int* __restrict__ empty_ptr,  // [nB + 1]
-               const int* __restrict__ empty_row,  // [n_empty]
-               float* __restrict__ S,              // [B, nB, H, C]
-               int B, int nB, int BLK, int W, int H, int C) {
-  // one warp per (b, block, head, 32 channels); a block without such rows
-  // (all but the last, on a real layout) leaves at once and S is not read
-  const int lane = threadIdx.x & 31;
-  const long long warp = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int tiles = (C + 31) / 32;
-  if (warp >= (long long)B * nB * H * tiles) return;
-  const int c = (int)(warp % tiles) * 32 + lane;
-  const int h = (int)((warp / tiles) % H);
-  const long long blk = (warp / tiles / H) % nB;
-  const long long b = warp / tiles / H / nB;
-  const int r0 = empty_ptr[blk], r1 = empty_ptr[blk + 1];
-  if (r0 == r1 || c >= C) return;
-  const long long n_pad = (long long)nB * BLK;
-  const long long HC = (long long)H * C;
-  const float* dcol = dout + b * n_pad * HC + (long long)h * C + c;
-  float acc = 0.f;
-  for (int r = r0; r < r1; ++r) acc += dcol[(long long)empty_row[r] * HC];
-  S[((b * nB + blk) * H + h) * (long long)C + c] = acc / (float)W;
-}
-
-__global__ void __launch_bounds__(kWarps * 32)
 columns_kernel(const float* __restrict__ dout,      // [B, n_pad, H, C]
                const float* __restrict__ p_in,      // [B, H, nnz]
                const float* __restrict__ dz_in,     // [B, H, nnz]
@@ -259,10 +219,6 @@ columns_kernel(const float* __restrict__ dout,      // [B, n_pad, H, C]
       if (c0 + c < C) xrow[c0 + c] = acc[k];
     }
   }
-}
-
-inline unsigned blocks_for(long long warps) {
-  return (unsigned)((warps + kWarps - 1) / kWarps);
 }
 
 }  // namespace

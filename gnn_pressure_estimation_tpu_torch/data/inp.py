@@ -1,8 +1,8 @@
-"""EPANET INP file parser → :class:`WaterNetwork` (numpy only).
+"""EPANET INP file parser and writer ↔ :class:`WaterNetwork` (numpy only).
 
-A copy of ``gnn_pressure_estimation_tpu/data/inp.py`` (``parse_inp`` and the
-network classes; ``write_inp`` stays on the JAX side), kept here so the
-PyTorch package imports nothing of the JAX package.
+A copy of ``gnn_pressure_estimation_tpu/data/inp.py`` (``parse_inp``,
+``write_inp`` and the network classes), kept here so the PyTorch package
+imports nothing of the JAX package.
 
 Replaces the reference's dependence on ``wntr.network.WaterNetworkModel`` /
 ``epynet.Network`` for topology + attribute access (DataLoader.py:216,
@@ -389,3 +389,94 @@ def parse_inp(path_or_text: str) -> WaterNetwork:
     wn.curves = curve_acc
     return wn
 
+
+def write_inp(wn: WaterNetwork, path: Optional[str] = None) -> str:
+    """Serialize a WaterNetwork back to INP text (round-trip support for the
+    config-creator and synthetic network generator)."""
+    L = ["[TITLE]"] + (wn.title or ["generated"])
+    L.append("")
+    L.append("[JUNCTIONS]")
+    L.append(";ID Elev Demand Pattern")
+    for j in wn.junctions:
+        L.append(f" {j.id} {j.elevation:.6g} {j.base_demand:.10g} {j.pattern or ''}".rstrip())
+    L.append("")
+    L.append("[RESERVOIRS]")
+    for r in wn.reservoirs:
+        L.append(f" {r.id} {r.head:.6g} {r.pattern or ''}".rstrip())
+    L.append("")
+    L.append("[TANKS]")
+    for t in wn.tanks:
+        L.append(
+            f" {t.id} {t.elevation:.6g} {t.init_level:.6g} {t.min_level:.6g} "
+            f"{t.max_level:.6g} {t.diameter:.6g} {t.min_vol:.6g}"
+        )
+    L.append("")
+    L.append("[PIPES]")
+    L.append(";ID Node1 Node2 Length Diameter Roughness MinorLoss Status")
+    for p in wn.pipes:
+        L.append(
+            f" {p.id} {p.node1} {p.node2} {p.length:.6g} {p.diameter:.6g} "
+            f"{p.roughness:.6g} {p.minor_loss:.6g} {p.status}"
+        )
+    L.append("")
+    L.append("[PUMPS]")
+    for p in wn.pumps:
+        spec = ""
+        if p.head_curve: spec += f" HEAD {p.head_curve}"
+        if p.power is not None: spec += f" POWER {p.power:.6g}"
+        if p.speed != 1.0: spec += f" SPEED {p.speed:.6g}"
+        if p.pattern: spec += f" PATTERN {p.pattern}"
+        L.append(f" {p.id} {p.node1} {p.node2}{spec}")
+    L.append("")
+    L.append("[VALVES]")
+    for v in wn.valves:
+        L.append(
+            f" {v.id} {v.node1} {v.node2} {v.diameter:.6g} {v.valve_type} "
+            f"{v.setting:.6g} {v.minor_loss:.6g}"
+        )
+    L.append("")
+    L.append("[DEMANDS]")
+    for j in wn.junctions:
+        for base, pat in j.demand_categories:
+            L.append(f" {j.id} {base:.10g} {pat or ''}".rstrip())
+    L.append("")
+    L.append("[PATTERNS]")
+    for pid, vals in wn.patterns.items():
+        for i in range(0, len(vals), 6):
+            chunk = " ".join(f"{v:.6g}" for v in vals[i : i + 6])
+            L.append(f" {pid} {chunk}")
+    L.append("")
+    L.append("[CURVES]")
+    for cid, pts in wn.curves.items():
+        for x, y in pts:
+            L.append(f" {cid} {x:.6g} {y:.6g}")
+    L.append("")
+    L.append("[STATUS]")
+    for p in wn.pipes:
+        if p.status == "CLOSED":
+            L.append(f" {p.id} CLOSED")
+    for p in wn.pumps:
+        if p.status == "CLOSED":
+            L.append(f" {p.id} CLOSED")
+    L.append("")
+    L.append("[OPTIONS]")
+    o = wn.options
+    L.append(f" UNITS {o.units}")
+    L.append(f" HEADLOSS {o.headloss}")
+    L.append(f" TRIALS {o.trials}")
+    L.append(f" ACCURACY {o.accuracy:.6g}")
+    L.append(f" DEMAND MULTIPLIER {o.demand_multiplier:.6g}")
+    L.append("")
+    L.append("[TIMES]")
+    L.append(" DURATION 0")
+    L.append("")
+    L.append("[COORDINATES]")
+    for nid, (x, y) in wn.coordinates.items():
+        L.append(f" {nid} {x:.6g} {y:.6g}")
+    L.append("")
+    L.append("[END]")
+    text = "\n".join(L) + "\n"
+    if path:
+        with open(path, "w") as f:
+            f.write(text)
+    return text

@@ -39,17 +39,19 @@ class Inferencer:
 
     The model holds its weights; it is moved to ``device`` and put in eval
     mode. The ``BatchedGraph`` is built once per (template, batch size) and
-    reused, so steady-state cost is one forward per batch.
+    reused, so steady-state cost is one forward per batch. ``agg_mode``,
+    ``band_block`` and ``band_attn`` go to ``GraphTemplate.batch``.
     """
 
     def __init__(self, model: torch.nn.Module, stats: NormStats,
                  agg_mode: Optional[str] = None, band_block: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", band_attn: Optional[str] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.stats = stats
         self.agg_mode = agg_mode
         self.band_block = band_block
+        self.band_attn = band_attn
         self._graphs: dict = {}
 
     def _graph(self, template, bs: int):
@@ -57,7 +59,7 @@ class Inferencer:
         if key not in self._graphs:
             self._graphs[key] = template.batch(bs, mode=self.agg_mode,
                                                band_block=self.band_block,
-                                               device=self.device)
+                                               device=self.device, band_attn=self.band_attn)
         return self._graphs[key]
 
     def observed_indices(

@@ -5,8 +5,9 @@ The counterparts of ``GATConv`` and ``SimpleMeanConv`` in
 aggregation modes. Attention math matches PyG GATConv (LeakyReLU 0.2,
 self-loops added, per-receiver softmax).
 
-On the banded path every GATConv goes through ``ops.band_attention`` and
-every SimpleMeanConv through ``ops.band_spmm``; on the dense path a GATConv
+On the banded path every GATConv goes through one of the three routes of
+``ops.band_attention`` (the graph's ``band_attn``) and every SimpleMeanConv
+through ``ops.band_spmm``; on the dense path a GATConv
 goes through ``ops.graph_attention`` (``fused_factored`` or
 ``fused_attention``, by ``attn_impl``), at any width and any n: autograd
 Functions that launch the hand-written kernels, forward and backward, when
@@ -30,7 +31,9 @@ from torch import nn
 
 from gnn_pressure_estimation_tpu_torch.core.graph import BatchedGraph
 from gnn_pressure_estimation_tpu_torch.ops import banded as bops
-from gnn_pressure_estimation_tpu_torch.ops.band_attention import band_attention
+from gnn_pressure_estimation_tpu_torch.ops.band_attention import (
+    band_attention, band_attention_flash, band_attention_window,
+)
 from gnn_pressure_estimation_tpu_torch.ops.band_spmm import band_spmm
 from gnn_pressure_estimation_tpu_torch.ops.graph_attention import fused_attention, fused_factored
 
@@ -57,9 +60,15 @@ class GATConv(nn.Module):
     ``factored`` (the exp(LeakyReLU) numerator as two rank-1 products gated by
     the 0/1 sign matrix, its two gated sums through ``ops.fused_factored``) or
     ``onepass`` (the numerator materialised once, 1/Z applied after the
-    product; plain torch, it has no kernel). Same math up to rounding. The
-    banded path uses the windowed softmax kernel for all three, as the JAX
-    layer does; the JAX layer's ``band_factored`` is not ported.
+    product; plain torch, it has no kernel). Same math up to rounding.
+
+    The banded path computes the windowed softmax for all three, as the JAX
+    layer does, through the kernel the graph names (``graph.band_attn``):
+    ``"dma"`` (``ops.band_attention``, the extended array, whole-window
+    softmax), ``"flash"`` (``ops.band_attention_flash``, the extended array,
+    streaming softmax) or ``"window"`` (``ops.band_attention_window``, over
+    window tensors the layer cuts with ``band_windows``; autograd folds their
+    cotangents). The JAX layer's ``band_factored`` is not ported.
     """
 
     def __init__(self, in_channels: int, out_channels: int, heads: int = 1,
@@ -98,10 +107,15 @@ class GATConv(nn.Module):
             n_pad = graph.band_n_pad
             a_src_win = bops.band_windows(a_s.view(B, n_pad, H),
                                           graph.band_win_start, graph.band_W)
-            x_ext = bops.extend_rows(xp.view(B, n_pad, H, C), graph.band_U, graph.band_R)
-            out = band_attention(a_d.view(B, n_pad, H).contiguous(),
-                                 a_src_win, x_ext, graph.band_adj_mask,
-                                 self.negative_slope, graph.band_adj_index)
+            xp_b = xp.view(B, n_pad, H, C)
+            if graph.band_attn == "window":
+                attend = band_attention_window
+                x_in = bops.band_windows(xp_b, graph.band_win_start, graph.band_W)
+            else:
+                attend = band_attention_flash if graph.band_attn == "flash" else band_attention
+                x_in = bops.extend_rows(xp_b, graph.band_U, graph.band_R)
+            out = attend(a_d.view(B, n_pad, H).contiguous(), a_src_win, x_in,
+                         graph.band_adj_mask, self.negative_slope, graph.band_adj_index)
         else:
             raise NotImplementedError("only the dense and banded modes are ported")
         out = out.reshape(-1, H, C)

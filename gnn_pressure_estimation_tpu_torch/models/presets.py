@@ -40,7 +40,8 @@ class ModelPreset:
 
 MODEL_REGISTRY: dict[str, ModelPreset] = {
     # attn_impl="factored" selects the factored dense rewrite; the banded
-    # path runs the windowed-softmax kernel either way
+    # path runs the windowed softmax either way, through the kernel the graph
+    # names (train_config(band_attn=..., band_block=...) passes the choice on)
     "gatres_small": ModelPreset(
         "gatres_small", lambda: GATRes(num_blocks=15, channels=32, attn_impl="factored"),
         criterion="mse", norm_type="znorm",

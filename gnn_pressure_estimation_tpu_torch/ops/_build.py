@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface (data pointers, ints and
 the stream; returns ``cudaGetLastError()``), so it compiles in seconds with
 ``nvcc`` alone, without PyTorch's headers, and is bound with ``ctypes``.
 Builds go to ``_build/`` inside the package (listed in ``.gitignore``) under
-a name that carries the hash of the source and flags, so an edited source is
+a name that carries the hash of the source, the shared ``*.cuh`` headers and
+the flags, so an edited source is
 rebuilt at its next use and an unchanged one is loaded as it is.
 """
 
@@ -22,7 +23,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 KERNELS = ("band_attention", "band_spmm", "band_attention_bwd", "band_spmm_bwd",
-           "fused_attention", "fused_attention_bwd", "fused_factored", "fused_factored_bwd")
+           "fused_attention", "fused_attention_bwd", "fused_factored", "fused_factored_bwd",
+           "band_attention_flash", "band_attention_flash_bwd",
+           "band_attention_window", "band_attention_window_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,7 +43,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the shared headers count for every source: few and small, and an edit
+    # to one must rebuild whatever includes it
+    src = b"".join(p.read_bytes() for p in (CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

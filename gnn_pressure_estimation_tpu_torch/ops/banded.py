@@ -237,6 +237,24 @@ def band_index_of(band: torch.Tensor) -> BandIndex:
     return build_band_index(band.detach().cpu().numpy()).to(band.device)
 
 
+BAND_ATTN_ROUTES = ("dma", "flash", "window")
+
+
+def band_attention_route(BLK: int, W: int) -> str:
+    """Which band-attention kernel family a layout goes to when the caller
+    names none: ``"dma"`` (whole-window softmax, the counterpart of the
+    reference's v2) while ``BLK · round_up(W, 128) · 4 ≤ 1 MiB``, ``"flash"``
+    (streaming softmax, v4) beyond.
+
+    The threshold is the reference's: there it is the largest logits tile
+    its v2 kernel can hold on chip, past which ``GraphTemplate.batch`` falls
+    back to the streaming kernel. It is kept here for parity of routing, so
+    that both packages send the same network to the same kernel family and
+    their launch counts mean the same thing; it is not a limit of the card,
+    where either kernel takes any layout."""
+    return "dma" if BLK * _round_up(W, 128) * 4 <= (1 << 20) else "flash"
+
+
 # While true, the kernel wrappers run their plain versions on any device.
 # Only checks that hold the kernels against the plain versions set it
 # (``plain_versions()``); nothing on the model's path does.

@@ -80,9 +80,11 @@ class TrainConfig:
     epochs_per_dispatch: int = 1
     # aggregation mode of the batched template: None = auto (dense up to
     # DENSE_THRESHOLD nodes, banded above) | "dense" | "banded"; band_block
-    # sets the banded block-row size (default 256)
+    # sets the banded block-row size (default 256); band_attn names the
+    # band-attention kernel (None = by layout | "dma" | "flash" | "window")
     agg_mode: Optional[str] = None
     band_block: Optional[int] = None
+    band_attn: Optional[str] = None
 
 
 def make_criterion(name: str) -> Callable:
@@ -194,7 +196,8 @@ class Trainer:
         key = (id(template), bs)
         if key not in self._graph_cache:
             self._graph_cache[key] = template.batch(
-                bs, mode=self.cfg.agg_mode, band_block=self.cfg.band_block, device=self.device)
+                bs, mode=self.cfg.agg_mode, band_block=self.cfg.band_block, device=self.device,
+                band_attn=self.cfg.band_attn)
         return self._graph_cache[key]
 
     def _masked_loss_and_metrics(self, graph, x, y, mask, n_masked, prefix):
@@ -473,7 +476,8 @@ class Trainer:
                 "best": {"loss": best["loss"], "epoch": best["epoch"],
                          "metrics": best.get("metrics", {})},
             },
-            "layout": {"agg_mode": self.cfg.agg_mode, "band_block": self.cfg.band_block},
+            "layout": {"agg_mode": self.cfg.agg_mode, "band_block": self.cfg.band_block,
+                       "band_attn": self.cfg.band_attn},
         }
 
     def restore(self, path: str, log_fn: Callable[[str], None] = print):

@@ -35,10 +35,50 @@ def test_port_imports_no_jax():
     assert len(files) > 10
     scanned = {str(f.relative_to(PORT)) for f in files[:-1]}
     assert {"train/loop.py", "train/checkpoint.py", "train/autoclip.py", "utils/masking.py",
-            "utils/metrics.py", "data/dataset.py", "ops/band_spmm.py"} <= scanned
+            "utils/metrics.py", "data/dataset.py", "ops/band_spmm.py", "simgen/netgen.py",
+            "simgen/__init__.py", "ops/band_attention.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
+
+
+ALLOWED = {"torch", "numpy", "scipy", "gnn_pressure_estimation_tpu_torch"} | set(sys.stdlib_module_names)
+
+
+@pytest.mark.parametrize("rel", ["simgen/netgen.py", "data/inp.py", "ops/band_attention.py",
+                                 "ops/banded.py", "ops/_build.py", "core/graph.py"])
+def test_module_imports_only_what_the_port_may(rel):
+    """The modules this slice added or extended import torch, numpy, scipy,
+    the standard library and the port itself, nothing else."""
+    mods = {m.split(".")[0] for m in _imported_modules(PORT / rel)}
+    assert mods <= ALLOWED, mods - ALLOWED
+    if rel in ("simgen/netgen.py", "data/inp.py"):
+        assert "torch" not in mods                      # numpy only, as in the JAX package
+
+
+def test_port_imports_with_jax_poisoned():
+    """Every module of the port, the new ones included, imports in a process
+    where ``jax``, ``flax``, ``optax`` and the JAX package cannot be
+    imported; ``make_minitown`` and the routing rule then run."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'gnn_pressure_estimation_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib, pkgutil\n"
+        "import gnn_pressure_estimation_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "from gnn_pressure_estimation_tpu_torch.simgen.netgen import make_minitown\n"
+        "from gnn_pressure_estimation_tpu_torch.ops.banded import band_attention_route\n"
+        "assert len(make_minitown().junctions) == 25\n"
+        "assert band_attention_route(256, 1920) == 'flash'\n"
+        "print(len(names), 'simgen.netgen' in ' '.join(names))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    count, has_netgen = proc.stdout.split()
+    assert int(count) > 25 and has_netgen == "True"
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -2,6 +2,7 @@
 
     python tools/parity_train_export.py                      # bigtown, GATRes-large, banded
     python tools/parity_train_export.py --network synthctown # GATRes-small, dense
+    python tools/parity_train_export.py --network meganet --blocks 4   # GATRes-large width, banded
         [--out PATH] [--path pallas|xla] [--preset gatres_small|gatres_large] [--seed N]
 
 Runs on the CPU, batch 1, criterion mse, ``NormStats(znorm, mean 50, std 10)``,
@@ -22,6 +23,18 @@ in ±0.1) and stored in the file in ``tools/parity_export.py``'s layout
 masked input: ``x_in``, the output of every block (``ours_act_block_<i>``)
 and the model's (``ours_out``).
 
+``--network meganet`` (writes ``artifacts/parity_train_meganet.npz``): the
+23,000-junction network of ``simgen.netgen.make_mega`` (made from its seed,
+no INP file), banded at BLK 256, where the v2 band attention refuses the
+layout and ``template.batch`` falls back to the streaming-softmax kernel
+(``make_band_attention_flash``, v4). GATRes at the width of ``gatres_large``
+(nc 128, heads 2/1) and ``--blocks N`` blocks (default 4: every gradient of the
+full depth of 25 would make the file four times larger), weights and snapshot drawn as
+for synthctown. The file holds the weights, ``x``, the serving forward
+(``x_in``, ``ours_out``, both [n, 1] in the original node order) and, instead
+of the activations, each block's largest magnitude and mean over the real
+rows (``block_absmax``, ``block_mean``).
+
 Through the JAX package's own ``Trainer._masked_loss_and_metrics`` and
 optimizer it records
 
@@ -36,7 +49,7 @@ optimizer it records
 
 ``--path pallas`` (default) runs the Pallas kernels in interpret mode on the
 CPU: on bigtown the v2 band attention and the band SpMM as ``template.batch``
-attaches them, on synthctown the fused factored aggregation
+attaches them, on meganet the v4 band attention and the band SpMM, on synthctown the fused factored aggregation
 (``GNN_TPU_FUSED_FACTORED=1``), forward and backward. ``--path xla`` runs the
 plain XLA ops instead. The path taken is stored in the file (``path``) and
 printed, so a log beside the fixture says which produced it.
@@ -118,7 +131,9 @@ def port_layout(tree) -> dict[str, np.ndarray]:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--network", choices=("bigtown", "synthctown"), default="bigtown")
+    ap.add_argument("--network", choices=("bigtown", "synthctown", "meganet"), default="bigtown")
+    ap.add_argument("--blocks", type=int, default=4,
+                    help="meganet only: depth of the model (the width is gatres_large's)")
     ap.add_argument("--preset", choices=tuple(PRESETS), default=None,
                     help="synthctown only (default gatres_small); bigtown takes the fixture's model")
     ap.add_argument("--out", default=None)
@@ -130,6 +145,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
     dense = args.network == "synthctown"
+    mega = args.network == "meganet"
     out_path = args.out or os.path.join(ROOT, "artifacts", f"parity_train_{args.network}.npz")
     inp = args.inp or os.path.join(ROOT, "inputs", f"{args.network}.inp")
     if dense and args.path == "pallas":
@@ -153,13 +169,20 @@ def main() -> int:
     from gnn_pressure_estimation_tpu.utils.masking import masked_count
     from gnn_pressure_estimation_tpu.utils.scaling import NormStats
 
-    wn = parse_inp(inp)
+    if mega:
+        from gnn_pressure_estimation_tpu.simgen.netgen import make_mega
+
+        wn = make_mega()
+    else:
+        wn = parse_inp(inp)
     tpl, _ = build_template(wn, get_keep_list(wn, "keep_junction", None, "pressure"), None,
                             name=args.network)
     n = tpl.n_node
-    if dense:
+    if dense or mega:
         rng = np.random.default_rng(args.seed + 1)
-        d = drawn_weights(rng, *PRESETS[args.preset or "gatres_small"])
+        shape = (args.blocks, PRESETS["gatres_large"][1]) if mega \
+            else PRESETS[args.preset or "gatres_small"]
+        d = drawn_weights(rng, *shape)
         d["x"] = rng.standard_normal((n, 1)).astype(np.float32)
         attn_impl = "factored"                                   # as both GATRes presets ask
     else:
@@ -179,6 +202,19 @@ def main() -> int:
     elif args.path == "xla":
         graph = dataclasses.replace(graph, band_attn=None, band_attn_dma=None,
                                     band_spmm_dma=None)
+    elif mega:
+        from gnn_pressure_estimation_tpu.ops.banded import halo_widths
+        from gnn_pressure_estimation_tpu.ops.pallas.band_attention import (
+            flash_chunk_widths, make_band_attention_dma)
+
+        bl = tpl.band_layout()
+        nB, BLK, W = bl.adj_mask.shape
+        U, _ = halo_widths(bl.win_start, bl.W, bl.n_pad)
+        if graph.band_attn_dma is None or make_band_attention_dma(nB, BLK, W, U, 0.2) is not None:
+            raise SystemExit("meganet did not route to the streaming-softmax band attention")
+        print(f"meganet: n {n}, edges {tpl.n_edge}, nB {nB}, BLK {BLK}, W {W}; v2 refuses the "
+              f"layout, band attention is make_band_attention_flash (v4), chunk widths "
+              f"(fwd, bwd, W_pad) {flash_chunk_widths(W, BLK)}, interpret mode")
 
     k = masked_count(n, cfg.mask_rate)
     mask = np.zeros(n, bool)
@@ -208,18 +244,28 @@ def main() -> int:
         "stats_mean": np.float64(stats.mean), "stats_std": np.float64(stats.std),
         "lr": np.float64(cfg.lr), "weight_decay": np.float64(cfg.weight_decay),
     }
-    if dense:
+    if dense or mega:
         # the weights, the snapshot and the serving forward of the masked input
         payload.update(d)
         x_in = jnp.where(maskp[:, None], 0.0, xp)
         out, state = jax.jit(lambda p: model.apply(
             p, x_in, graph, capture_intermediates=True, mutable=["intermediates"]))(params)
+        acts = [state["intermediates"][f"block_{i}"]["__call__"][0] for i in range(last + 1)]
+    if dense:
         payload["x_in"] = np.asarray(x_in)
         payload["ours_out"] = np.asarray(out)
-        for i in range(last + 1):
-            payload[f"ours_act_block_{i}"] = np.asarray(
-                state["intermediates"][f"block_{i}"]["__call__"][0])
+        for i, a in enumerate(acts):
+            payload[f"ours_act_block_{i}"] = np.asarray(a)
         payload["preset"] = np.bytes_((args.preset or "gatres_small").encode())
+    if mega:
+        # original node order; per-block statistics stand in for the activations
+        payload["x_in"] = np.asarray(graph.unpack_nodes(x_in, n))
+        payload["ours_out"] = np.asarray(graph.unpack_nodes(out, n))
+        real = [np.asarray(graph.unpack_nodes(a, n)) for a in acts]
+        payload["block_absmax"] = np.asarray([np.abs(a).max() for a in real], np.float32)
+        payload["block_mean"] = np.asarray([a.mean(dtype=np.float64) for a in real], np.float32)
+        print(f"  forward: output in [{float(payload['ours_out'].min()):.5g}, "
+              f"{float(payload['ours_out'].max()):.5g}], block |act| max {payload['block_absmax']}")
     for name, v in mets.items():
         payload[f"metric_{name}"] = np.float64(v)
         print(f"  {name}: {float(v):.6g}")
@@ -243,7 +289,8 @@ def main() -> int:
             payload[f"p3_{name}"] = v
     print(f"  {args.steps} Adam steps: losses {step_losses}, then {float(loss_after):.8g}")
     np.savez_compressed(out_path, **payload)
-    print(f"wrote {out_path} ({os.path.getsize(out_path) / 1e6:.2f} MB) in {time.time() - t0:.1f} s")
+    print(f"wrote {os.path.relpath(out_path)} ({os.path.getsize(out_path) / 1e6:.2f} MB) "
+          f"in {time.time() - t0:.1f} s")
     return 0
 
 
