@@ -93,8 +93,37 @@ Phases (any failure exits non-zero; none is caught):
     the flash pair on meganet at B 8 (serving) and B 2 (training), the kernel
     alone at B 32; the window pair on bigtown at B 32.
 
+20. The owner-row backward of the sliding-accumulator route
+    (``band_attention_acc_bwd``) against its plain version on the bigtown
+    layout at B 1, 8 and 32, H·C 256 and 128, and at ragged shapes (padded
+    rows, C past one tile, rows of more than 32 entries, BLK past 32 words of
+    column bits); atol and rtol 1e-4.
+21. Path A, GATRes-large training on bigtown with ``band_attn="acc"``: the B 1
+    step of ``artifacts/parity_train_bigtown.npz`` (loss, metrics, every
+    gradient, 3 Adam steps) with exactly 50 ``band_attention`` + 50
+    ``band_attention_acc_bwd`` (+ 25 + 25 band SpMM) launches and no
+    ``band_attention_bwd``; a batch-8 step against the plain versions and
+    against the dma route; ``Trainer.fit`` for 2 epochs at batch 8 with a
+    resume that ends bit-identical; the batch-8 step timed under "dma", "acc"
+    and "dma".
+22. Path B, ``agg_mode="padded"``: the trained fixture forward per block and
+    at the output (1e-3), ``Inferencer`` on 64 snapshots at batch 32 (timed,
+    held against the banded route's fields), the B 1 fixture step, ``fit``
+    for 2 epochs at batch 8 with a bit-identical resume, the step's time and
+    peak memory. No kernel runs on this path: its gathers are plain torch, as
+    the reference's are XLA.
+23. ``window_gather`` on the padded mode's degree tables of bigtown at B 8 and
+    32, C 256 and 128: forward bit-equal to its plain version and to
+    ``x_perm[idx_perm]``, backward within 1e-4; then driven through
+    ``make_window_gather`` on conv1's projected features of a padded serving
+    batch, against the padded mode's own gather, forward and backward.
+24. Times of the two new kernels: ``band_attention_acc_bwd`` beside v2's
+    backward on the same inputs (B 8, 32); ``window_gather`` beside
+    ``torch.index_select`` and its backward beside ``index_add_`` on the same
+    rows; plain versions and byte bounds.
+
 The last line is ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
-(all twelve kernels) and the ``nvidia-smi`` line come before it.
+(all fifteen kernels) and the ``nvidia-smi`` line come before it.
 """
 
 from __future__ import annotations
@@ -115,6 +144,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 TPU_SRC = "gnn_pressure_estimation_tpu/ops/pallas/band_attention.py"
 TPU_DENSE_SRC = "gnn_pressure_estimation_tpu/ops/pallas/graph_attention.py"
+TPU_WG_SRC = "gnn_pressure_estimation_tpu/ops/pallas/window_gather.py"
 
 
 def smi_line() -> str:
@@ -178,10 +208,10 @@ def profile_batch(run, what: str = "one batch", top: int = 8) -> None:
         print(f"    {t / 1e3:9.3f} ms {t / busy_us:6.1%} x{count:<4d} {key[:90]}")
 
 
-def device_ms(fn, iters: int = 20):
-    """Device time of one call of ``fn`` (every kernel it launches, summed),
-    from ``torch.profiler``: what the card spends, without the host's time to
-    enqueue. None if the profiler records no device time."""
+def device_split(fn, iters: int = 10) -> list:
+    """Device ms of each kernel that one call of ``fn`` launches, from
+    ``torch.profiler`` over ``iters`` calls, largest first: the passes of a
+    kernel source that launches several."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -191,9 +221,17 @@ def device_ms(fn, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / iters / 1e3 if us else None
+    return sorted(((e.key.removeprefix("(anonymous namespace)::").split("(")[0],
+                    e.self_device_time_total / iters / 1e3) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  key=lambda kv: -kv[1])
+
+
+def device_ms(fn, iters: int = 20):
+    """Device time of one call of ``fn`` (every kernel it launches, summed),
+    from ``torch.profiler``: what the card spends, without the host's time to
+    enqueue. None if the profiler records no device time."""
+    return sum(ms for _, ms in device_split(fn, iters)) or None
 
 
 def grads_within(label: str, names, grads, refs) -> float:
@@ -1100,6 +1138,484 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
                 shape=f"n_pad {n_pad}, W {W}", window_shape=f"n_pad {bn_pad}, W {bW}")
 
 
+def check_equal(name: str, got: torch.Tensor, ref: torch.Tensor) -> None:
+    """Bit-for-bit agreement (a gather copies; it adds nothing)."""
+    if got.shape != ref.shape or not torch.equal(got, ref):
+        err = float((got - ref).abs().max()) if got.shape == ref.shape else float("nan")
+        raise SystemExit(f"FAIL {name}: not equal (shape {tuple(got.shape)} against "
+                         f"{tuple(ref.shape)}, max abs err {err:.3e})")
+
+
+def slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, big,
+                  kernel_batches=(1, 8, 32), tbs=8, sbs=32):
+    """Phases 20-24: bigtown training through ``band_attn="acc"`` (path A) and
+    the degree-padded mode, with the windowed gather driven on its tables
+    (path B). ``big`` carries the bigtown template, fixtures and layout; the
+    batch sizes are the card's (a rehearsal on the host passes smaller ones).
+    Returns the kernel rows and the launch counts of its runs."""
+    import contextlib
+    import tempfile
+
+    from gnn_pressure_estimation_tpu_torch.data.dataset import WDNDataset, _Member
+    from gnn_pressure_estimation_tpu_torch.evaluation.infer import Inferencer
+    from gnn_pressure_estimation_tpu_torch.models.gatres import GATRes
+    from gnn_pressure_estimation_tpu_torch.models.presets import select_model
+    from gnn_pressure_estimation_tpu_torch.ops import band_attention as ba
+    from gnn_pressure_estimation_tpu_torch.ops import banded as bops
+    from gnn_pressure_estimation_tpu_torch.ops import window_gather as wg
+    from gnn_pressure_estimation_tpu_torch.train import Trainer
+    from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats
+    from gnn_pressure_estimation_tpu_torch.weights import params_from_parity_npz
+
+    tpl, npz, tfx = big["tpl"], big["npz"], big["tfx"]
+    mask, mask_ix = big["mask"], big["mask_ix"]
+    n = tpl.n_node
+    bl = tpl.band_layout()
+    nB, BLK, W = bl.adj_mask.shape
+    n_pad, n_ext = bl.n_pad, bl.n_pad + W - BLK
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def operands(msk, B, H, C):
+        """a_dst, a_src_win, x_ext, d_out; a third of the nodes zeroed, so
+        that a_dst + a_src == 0 occurs."""
+        nB_, BLK_, W_ = msk.shape
+        np_, ne_ = nB_ * BLK_, nB_ * BLK_ + W_ - BLK_
+        a_dst, a_src = randn(B, np_, H), randn(nB_, B, W_, H)
+        a_dst[:, ::3] = 0.0
+        a_src[:, :, ::3] = 0.0
+        return a_dst, a_src, randn(B, ne_, H, C), randn(B, np_, H, C)
+
+    def check_acc(tag, msk, index, B, H, C, verbose=False):
+        a_dst, a_src, x_ext, d_out = operands(msk, B, H, C)
+        got = ba.band_attention_acc_bwd(a_dst, a_src, x_ext, msk, d_out, 0.2, index)
+        ref = ba.band_attention_acc_bwd_plain(a_dst, a_src, x_ext, msk, d_out, 0.2)
+        for part, g, r in zip(("d a_dst", "d a_src_win", "d x_ext"), got, ref):
+            held("band_attention_acc_bwd", f"band_attention_acc_bwd {tag} B{B} H{H} C{C} {part}",
+                 g, r, verbose)
+        return a_dst, a_src, x_ext, d_out
+
+    # ---- 20: the owner-row backward against its plain version -----------------
+    print(f"[20] band_attention_acc_bwd vs its plain version: bigtown layout (nB {nB}, BLK {BLK}, "
+          f"W {W}) at B {', '.join(map(str, kernel_batches))}, H·C 256 and 128; ragged shapes")
+    for B in kernel_batches:
+        for H in (2, 1):
+            check_acc("bigtown", mask, mask_ix, B, H, 128, verbose=B == kernel_batches[0])
+            torch.cuda.empty_cache()
+    rmask = rng.random((3, 16, 70)) < 0.3
+    rmask[-1, -5:] = False                        # fully masked (padded) rows
+    wide = rng.random((2, 16, 200)) < 0.4         # rows of ~80 entries
+    tall = rng.random((1, 1056, 1100)) < 0.01     # BLK 1056: 33 words of column bits
+    for m_np, shapes in ((rmask, ((3, 2, 32), (2, 1, 300), (2, 3, 33))),
+                         (wide, ((2, 2, 32), (1, 1, 300))), (tall, ((1, 1, 8),))):
+        m_t = torch.as_tensor(m_np.view(np.int8), device=dev)
+        for B, H, C in shapes:
+            check_acc("ragged", m_t, None, B, H, C)          # index built from the mask's values
+    torch.cuda.synchronize()
+    print("  all within atol/rtol 1e-4")
+
+    # ---- 21: path A, training through band_attn="acc" ---------------------------
+    print('[21] path A: GATRes-large training on bigtown with band_attn="acc"')
+    tstats = NormStats(norm_type="znorm", mean=float(tfx["stats_mean"]), std=float(tfx["stats_std"]))
+
+    def fixture_trainer(batch_size, **kw):
+        m, preset = select_model("gatres_large", device=dev)
+        m.load_state_dict(params_from_parity_npz(npz))
+        return Trainer(m, preset.train_config(batch_size=batch_size, **kw), tstats, tpl, device=dev)
+
+    xb1 = big["x"][:, 0][None, :]
+
+    def b1_step(tr):
+        g1, x1, m1, k1 = tr._prepare(tpl, xb1, tfx["mask"], None, None)
+        tr.model.train()
+        loss, mets, _ = tr._masked_loss_and_metrics(g1, x1, x1, m1, k1, "train")
+        grads = torch.autograd.grad(loss, list(tr.model.parameters()))
+        torch.cuda.synchronize()
+        return g1, float(loss.detach()), mets, grads
+
+    def against_fixture(label, tr, loss1, mets1, grads1):
+        """The B 1 step of ``parity_train_bigtown.npz`` under phase 7's bounds."""
+        names = [k for k, _ in tr.model.named_parameters()]
+        if abs(loss1 - float(tfx["loss"])) > 1e-4 * abs(float(tfx["loss"])):
+            raise SystemExit(f"FAIL {label} loss {loss1!r} against the fixture's {float(tfx['loss'])!r}")
+        for k, v in mets1.items():
+            ref = float(tfx[f"metric_{k}"])
+            if abs(float(v) - ref) > 1e-3 * abs(ref) + 1e-4:
+                raise SystemExit(f"FAIL {label} metric {k}: {float(v)!r} against {ref!r}")
+        worst = grads_within(f"{label} B 1 step vs JAX", names, grads1,
+                             [torch.as_tensor(tfx[f"grad_{k}"], device=dev) for k in names])
+        losses3 = [float(tr.train_step(tpl, xb1, mask=tfx["mask"])[0]) for _ in range(3)]
+        perr, pnoise = adam_param_errors(tr.model.named_parameters(), tfx)
+        lerr = max(abs(a - b) / abs(b) for a, b in zip(losses3, tfx["step_losses"]))
+        if perr > 3e-4 or pnoise > 3 * 2 * 5e-4 or lerr > 1e-3:
+            raise SystemExit(f"FAIL {label} after 3 Adam steps: parameters off by {perr:.3e} (atol "
+                             f"3e-4; {pnoise:.3e} where the gradient is noise, bound 3e-3), step "
+                             f"losses by {lerr:.3e} relative (1e-3)")
+        print(f"  B 1 step vs the JAX Trainer's fixture: loss {loss1:.7f} against "
+              f"{float(tfx['loss']):.7f}; {len(names)} gradients within 1e-3·max|g_ref| + 1e-6, the "
+              f"worst at {worst:.1%}; after 3 Adam steps parameters within {perr:.3e} ({pnoise:.3e} "
+              f"where the first gradient is below its tolerance), step losses within {lerr:.3e}")
+        return worst
+
+    per_step = counts(band_attention=50, band_spmm=25, band_attention_acc_bwd=50, band_spmm_bwd=25)
+    tr1 = fixture_trainer(1, band_attn="acc")
+    reset_launches()
+    g1, loss1, mets1, grads1 = b1_step(tr1)
+    acc_step = read_launches()
+    if g1.band_attn != "acc" or acc_step != per_step:
+        raise SystemExit(f"FAIL launches per acc train step {acc_step}, expected {per_step}")
+    acc_worst = against_fixture("acc", tr1, loss1, mets1, grads1)
+    print("  launches per step: 50 band_attention (the v2 forward) + 25 band_spmm, 50 "
+          "band_attention_acc_bwd + 25 band_spmm_bwd, 0 band_attention_bwd")
+    del tr1, grads1
+    torch.cuda.empty_cache()
+
+    n_train, n_val = 4 * tbs, 2 * tbs
+    arr = (xb1 + 0.1 * rng.standard_normal((n_train + n_val, n))).astype(np.float32)
+    amask = (rng.random((tbs, n)).argsort(1) < int(n * 0.95)).reshape(-1)
+
+    def batch_step(route, plain=False):
+        tr = fixture_trainer(tbs, band_attn=route)
+        g, x, m, k = tr._prepare(tpl, arr[:tbs], amask, None, None)
+        tr.model.train()
+        with bops.plain_versions() if plain else contextlib.nullcontext():
+            loss, _, _ = tr._masked_loss_and_metrics(g, x, x, m, k, "train")
+            grads = torch.autograd.grad(loss, list(tr.model.parameters()))
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads, [k for k, _ in tr.model.named_parameters()]
+
+    # at batch 8 a gradient sums 8·n_pad rows, and the kernels' order of summation
+    # leaves some small gradients beyond 1e-3·max|g_ref| + 1e-6 of the plain step's
+    # on the default route too: each parameter of the acc step is held to that
+    # bound or to twice the dma route's own deviation, whichever is larger
+    loss_p, grads_p, pnames = batch_step("acc", plain=True)
+    loss_v2, grads_v2, _ = batch_step("dma")
+    loss_k, grads_k, _ = batch_step("acc")
+    worst = over_v2 = over_acc = 0
+    for name, gk, gv, gp in zip(pnames, grads_k, grads_v2, grads_p):
+        if not torch.isfinite(gk).all():
+            raise SystemExit(f"FAIL acc step at batch {tbs}: gradient of {name} is not finite")
+        bound_g = 1e-3 * float(gp.abs().max()) + 1e-6
+        e_k, e_v = float((gk - gp).abs().max()), float((gv - gp).abs().max())
+        over_v2 += e_v > bound_g
+        over_acc += e_k > bound_g
+        if e_k > max(bound_g, 2 * e_v):
+            raise SystemExit(f"FAIL acc step at batch {tbs}: gradient of {name} off the plain step's "
+                             f"by {e_k:.3e}, the dma route's by {e_v:.3e} (bound {bound_g:.3e})")
+        worst = max(worst, e_k / max(bound_g, 2 * e_v))
+    print(f"  step at batch {tbs}: loss {loss_k:.7f} (acc) / {loss_v2:.7f} (dma) / {loss_p:.7f} "
+          f"(plain versions); {len(pnames)} gradients against the plain step's: beyond "
+          f"1e-3·max|g_ref| + 1e-6 for {over_acc} (acc) and {over_v2} (dma), each acc gradient within "
+          f"max(that bound, 2 × dma's deviation), the worst at {worst:.1%}")
+    del grads_k, grads_p, grads_v2
+    torch.cuda.empty_cache()
+
+    def mk_ds(a):
+        return WDNDataset.from_members([_Member(tpl, a, [], None)], tstats)
+
+    def fit_and_resume(label, make):
+        """``fit`` for 2 epochs, with the launch counts of that run; then one
+        epoch, a restore of 'last' in a new trainer and the second epoch,
+        which must end bit-identical."""
+        log = []
+        with tempfile.TemporaryDirectory() as dir_full, tempfile.TemporaryDirectory() as dir_cut:
+            trn = make(epochs=2, save_path=dir_full)
+            reset_launches()
+            best = trn.fit(mk_ds(arr[:n_train]), mk_ds(arr[n_train:]),
+                           log_fn=lambda m: print("  " + m), on_epoch_end=lambda ep, m: log.append(m))
+            torch.cuda.synchronize()
+            launched = read_launches()
+            tl, vl = [m["train_loss"] for m in log], [m["val_loss"] for m in log]
+            if len(tl) != 2 or not np.isfinite(tl + vl).all() or tl[1] >= 1.5 * tl[0]:
+                raise SystemExit(f"FAIL {label} fit diverged or stopped: train {tl}, val {vl}")
+            make(epochs=1, save_path=dir_cut).fit(mk_ds(arr[:n_train]), mk_ds(arr[n_train:]),
+                                                  log_fn=lambda m: None)
+            resumed = make(epochs=2, save_path=dir_cut)
+            meta = resumed.restore(os.path.join(dir_cut, "last_gatres_large.ckpt"))
+            resumed.fit(mk_ds(arr[:n_train]), mk_ds(arr[n_train:]), log_fn=lambda m: None)
+            torch.cuda.synchronize()
+            sa, sb = trn.opt_state_dict(), resumed.opt_state_dict()
+            same = (all(torch.equal(a, b) for a, b in zip(trn.model.state_dict().values(),
+                                                         resumed.model.state_dict().values()))
+                    and sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa))
+            if not same:
+                raise SystemExit(f"FAIL the resumed {label} run did not end bit-identical")
+        print(f"  fit: 2 epochs, batch {tbs}, {n_train} train + {n_val} val snapshots: train loss "
+              f"{tl}, val loss {vl}, best epoch {best['epoch']}, {best['train_time_s']:.2f} s; "
+              f"resumed from epoch 1 and ended bit-identical; checkpoint layout "
+              f"{meta['extra']['layout']}")
+        return trn, launched, meta
+
+    trn, acc_fit, _ = fit_and_resume("acc", lambda **kw: fixture_trainer(tbs, band_attn="acc", **kw))
+    n_tr, n_ev = 2 * (n_train // tbs), 2 * (n_val // tbs)
+    expect = counts(band_attention=50 * (n_tr + n_ev), band_spmm=25 * (n_tr + n_ev),
+                    band_attention_acc_bwd=50 * n_tr, band_spmm_bwd=25 * n_tr)
+    if acc_fit != expect:
+        raise SystemExit(f"FAIL acc fit launches {acc_fit}, expected {expect}")
+    print(f"  fit launches: {acc_fit['band_attention']} band_attention + {acc_fit['band_spmm']} "
+          f"band_spmm forward, {acc_fit['band_attention_acc_bwd']} band_attention_acc_bwd + "
+          f"{acc_fit['band_spmm_bwd']} band_spmm_bwd, 0 band_attention_bwd")
+    del trn
+    torch.cuda.empty_cache()
+    # the same batch-8 step under the dma route's backward and under acc's, in turns
+    route_step = []
+    tgen = torch.Generator().manual_seed(0)
+    for route in ("dma", "acc", "dma"):
+        trr = fixture_trainer(tbs, band_attn=route)
+        route_step.append((route, cuda_ms(lambda: trr.train_step(tpl, arr[:tbs], generator=tgen), 2, 5)))
+        del trr
+        torch.cuda.empty_cache()
+    print(f"  train step at batch {tbs}: " + ", ".join(f"{r} {ms:.3f} ms" for r, ms in route_step))
+
+    # ---- 22: path B, the degree-padded mode ---------------------------------------
+    print('[22] path B: GATRes-large on bigtown with agg_mode="padded"')
+    D = tpl.max_degree
+    fx = np.load(npz)
+    model = GATRes(int(fx["num_blocks"]), int(fx["nc"]))
+    model.load_state_dict(params_from_parity_npz(npz))
+    model = model.to(dev).eval()
+    graph = tpl.batch(1, mode="padded", device=dev)
+    acts = {}
+    hooks = [blk.register_forward_hook(lambda m, i, o, k=k: acts.__setitem__(k, o))
+             for k, blk in enumerate(model.blocks)]
+    reset_launches()
+    with torch.inference_mode():
+        out = model(torch.as_tensor(fx["x"], device=dev), graph)
+        torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    if read_launches() != counts():
+        raise SystemExit(f"FAIL the padded forward launched a band kernel: {read_launches()}")
+    pblock = max(check_close(f"padded block {k}", a.cpu(), torch.as_tensor(fx[f"ours_act_block_{k}"]),
+                             1e-3, 0.0, verbose=False) for k, a in sorted(acts.items()))
+    pout = check_close("padded output", out.cpu(), torch.as_tensor(fx["ours_out"]), 1e-3, 0.0,
+                       verbose=False)
+    print(f"  max in-degree {D} ({D + 1} slots with the self-loop); trained fixture forward vs JAX: "
+          f"worst block {pblock:.3e}, output {pout:.3e}; no kernel launched (plain gathers, the "
+          f"counterpart of the reference's XLA gather)")
+    del acts
+
+    sstats = NormStats(norm_type="znorm", mean=50.0, std=10.0)
+    snaps = (fx["x"][:, 0][None, :] + 0.1 * rng.standard_normal((2 * sbs, n))).astype(np.float32)
+    inf_p = Inferencer(model, sstats, agg_mode="padded", device=dev)
+    obs = inf_p.observed_indices(tpl, "random", mask_rate=0.95, seed=0)
+    inf_p.infer(tpl, snaps, obs, scaled=True, batch_size=sbs)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = inf_p.infer(tpl, snaps, obs, scaled=True, batch_size=sbs, with_truth=True)
+    end.record()
+    end.synchronize()
+    padded_serve_ms = start.elapsed_time(end) / 2
+    padded_serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    if read_launches() != counts():
+        raise SystemExit(f"FAIL padded serving launched a band kernel: {read_launches()}")
+    if res.pred.shape != snaps.shape or not np.isfinite(res.pred).all():
+        raise SystemExit("FAIL padded serving output is not a finite [S, n] field")
+    pred_b = Inferencer(model, sstats, device=dev).infer(tpl, snaps, obs, scaled=True,
+                                                        batch_size=sbs).pred
+    serr = check_close("padded served fields vs the banded route's", torch.as_tensor(res.pred),
+                       torch.as_tensor(pred_b), 1e-3, 1e-4, verbose=False)
+    print(f"  serving: {len(snaps)} snapshots, batch {sbs}: {padded_serve_ms:.3f} ms per batch "
+          f"({sbs / padded_serve_ms * 1e3:.1f} snapshots/s), peak device memory "
+          f"{padded_serve_peak:.3f} GB; within {serr:.3e} m of the banded (dma) route's fields")
+    profile_batch(lambda: inf_p.infer(tpl, snaps[:sbs], obs, scaled=True, batch_size=sbs),
+                  "one padded serving batch", top=10)
+
+    trp = fixture_trainer(1, agg_mode="padded")
+    reset_launches()
+    g1, loss1, mets1, grads1 = b1_step(trp)
+    if not g1.padded or read_launches() != counts():
+        raise SystemExit(f"FAIL the padded step is not on the padded path: {read_launches()}")
+    padded_worst = against_fixture("padded", trp, loss1, mets1, grads1)
+    del trp, grads1
+    torch.cuda.empty_cache()
+    trn, padded_fit, meta = fit_and_resume(
+        "padded", lambda **kw: fixture_trainer(tbs, agg_mode="padded", **kw))
+    if padded_fit != counts() or meta["extra"]["layout"]["agg_mode"] != "padded":
+        raise SystemExit(f"FAIL padded fit: launches {padded_fit}, layout {meta['extra']['layout']}")
+    torch.cuda.reset_peak_memory_stats()
+    trn.train_step(tpl, arr[:tbs], generator=tgen)
+    torch.cuda.synchronize()
+    padded_step_peak = torch.cuda.max_memory_allocated() / 1e9
+    padded_step_ms = cuda_ms(lambda: trn.train_step(tpl, arr[:tbs], generator=tgen), 2, 5)
+    print(f"  train step at batch {tbs}: {padded_step_ms:.3f} ms "
+          f"({tbs * tpl.n_edge / padded_step_ms * 1e3:.0f} edges/s), peak device memory "
+          f"{padded_step_peak:.3f} GB")
+    profile_batch(lambda: trn.train_step(tpl, arr[:tbs], generator=tgen), "one padded train step",
+                  top=12)
+    del trn
+    torch.cuda.empty_cache()
+
+    # ---- 23: the windowed gather on the padded mode's tables -----------------------
+    print("[23] window_gather on the degree-padded tables of bigtown")
+    layouts = {}
+    for B in (tbs, sbs):
+        gB = tpl.batch(B, mode="padded", device=dev)
+        t0 = time.perf_counter()
+        lay = wg.build_window_layout(gB.senders_dp_sl.cpu().numpy().astype(np.int32),
+                                     gB.mask_dp_sl.cpu().numpy(), B * n)
+        layouts[B] = (gB, lay, lay.fwd.to(dev), lay.bwd.to(dev))
+        print(f"  B {B}: {B * n} nodes, {D + 1} slots; layout built on the host in "
+              f"{time.perf_counter() - t0:.1f} s: n_pad {lay.n_pad}, forward W {lay.fwd.W}, "
+              f"transpose D2 {lay.bwd.D}, W {lay.bwd.W}")
+
+    def check_gather(B, C):
+        gB, lay, fwd_t, bwd_t = layouts[B]
+        xp = randn(lay.n_pad, C)
+        xp[B * n:] = 0.0
+        g = randn(lay.n_pad * lay.fwd.D, C)
+        slots = wg.window_gather_fwd(xp, fwd_t)
+        check_equal(f"window_gather B{B} C{C} vs plain", slots, wg.window_gather_fwd_plain(xp, fwd_t))
+        # the same slots as the padded mode's own tables give them, in perm space
+        inv = torch.as_tensor(lay.inv_perm, dtype=torch.long, device=dev)
+        idx_perm = torch.empty_like(gB.senders_dp_sl)
+        idx_perm[inv] = inv[gB.senders_dp_sl]
+        mask_perm = torch.empty_like(gB.mask_dp_sl)
+        mask_perm[inv] = gB.mask_dp_sl
+        check_equal(f"window_gather B{B} C{C} vs x_perm[idx_perm]", slots[:B * n],
+                    torch.where(mask_perm[..., None], xp[idx_perm], 0.0))
+        held("window_gather_bwd", f"window_gather_bwd B{B} C{C}", wg.window_gather_bwd(g, bwd_t),
+             wg.window_gather_bwd_plain(g, bwd_t), False)
+        return xp, g
+
+    for B in (tbs, sbs):
+        for C in (256, 128):
+            check_gather(B, C)
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"  forward bit-equal to the plain version and to x_perm[idx_perm], backward within "
+          f"atol/rtol 1e-4, at B {tbs} and {sbs}, C 256 and 128")
+
+    # the drive: conv1's projected features of block 0 on a padded serving batch,
+    # gathered forward and backward, against the padded mode's own gather
+    gB, lay, _, _ = layouts[tbs]
+    conv = model.blocks[0].conv1
+    seen = {}
+    hook = conv.register_forward_pre_hook(lambda m, a: seen.__setitem__("x", a[0].clone()))
+    with torch.no_grad():
+        model(torch.as_tensor(snaps[:tbs].reshape(-1, 1), device=dev), gB)
+    hook.remove()
+    with torch.no_grad():
+        xp_real = conv.lin(seen.pop("x").clone())                     # [B·n, H·C]
+    C = xp_real.shape[1]
+    perm = torch.as_tensor(lay.perm, dtype=torch.long, device=dev)
+    inv = torch.as_tensor(lay.inv_perm, dtype=torch.long, device=dev)
+    x_perm = torch.zeros((lay.n_pad, C), device=dev)
+    x_perm[:tbs * n] = xp_real[perm]
+    x_perm.requires_grad_()
+    cot = randn(lay.n_pad, lay.fwd.D, C)
+    gather = wg.make_window_gather(lay)
+    reset_launches()
+    slots = gather(x_perm)
+    (d_x_perm,) = torch.autograd.grad(slots, x_perm, cot)
+    torch.cuda.synchronize()
+    drive = read_launches()
+    if drive != counts(window_gather=1, window_gather_bwd=1):
+        raise SystemExit(f"FAIL window gather drive launches {drive}")
+    xl = xp_real.clone().requires_grad_()
+    ref = torch.where(gB.mask_dp_sl[..., None], gB.gather_dp_sl(xl), 0.0)
+    check_equal("window gather of conv1's features vs the padded gather", slots.detach()[:tbs * n][inv],
+                ref.detach())
+    (d_ref,) = torch.autograd.grad(ref, xl, cot[:tbs * n][inv])
+    derr = check_close("window gather backward vs the padded gather's", d_x_perm[:tbs * n][inv],
+                       d_ref, TOL, TOL, verbose=False)
+    print(f"  drive on conv1's features of block 0 (B {tbs}, C {C}): slots bit-equal to the padded "
+          f"mode's gather, backward within {derr:.3e} of its gather-based backward; launches "
+          f"{drive['window_gather']} + {drive['window_gather_bwd']}")
+    del model, inf_p, xp_real, x_perm, cot, slots, d_x_perm, xl, ref, d_ref
+    torch.cuda.empty_cache()
+
+    # ---- 24: kernel times ---------------------------------------------------------------
+    print(f"[24] times of the two new kernels on {card}")
+    rows = []
+
+    def bound(r):
+        t_bytes, t_ops = r["bytes"] / PEAK_BYTES_S * 1e3, r["ops"] / PEAK_F32_S * 1e3
+        r["bound_ms"], r["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        rows.append(r)
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms ({r['library']})"
+        v2 = "" if "v2_ms" not in r else f", v2's backward on the same inputs {r['v2_ms']:.4f} ms"
+        print(f"  {r['name']} B {r['B']} C {r['hc']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB){v2}")
+
+    nnz = mask_ix.nnz
+    n_empty = int(mask_ix.empty_row.shape[0])
+    for B in (tbs, sbs):
+        for H, C in ((2, 128), (1, 128)):
+            a_dst, a_src, x_ext, d_out = check_acc("bigtown", mask, mask_ix, B, H, C)
+            # inputs a_dst, a_src (once per extended row), x_ext, dO, the int8 mask and the
+            # padded-row list; outputs d a_dst, d a_src_win (window layout), d x_ext
+            io = 4 * (B * n_pad * H + B * n_ext * H + B * n_ext * H * C + B * n_pad * H * C)
+            out_b = 4 * (B * n_pad * H + nB * B * W * H + B * n_ext * H * C)
+            bound(dict(
+                name="band_attention_acc_bwd", B=B, hc=H * C, library=None, library_ms=None,
+                ms=cuda_ms(lambda: ba.band_attention_acc_bwd(a_dst, a_src, x_ext, mask, d_out, 0.2,
+                                                             mask_ix), 3, 20),
+                v2_ms=cuda_ms(lambda: ba.band_attention_bwd(a_dst, a_src, x_ext, mask, d_out, 0.2,
+                                                            mask_ix), 3, 20),
+                plain_ms=cuda_ms(lambda: ba.band_attention_acc_bwd_plain(a_dst, a_src, x_ext, mask,
+                                                                         d_out, 0.2), 1, 3),
+                bytes=io + out_b + nB * BLK * W + 4 * (nB + 1 + n_empty),
+                ops=B * H * nnz * (4 * C + 12)))
+            if H == 2:
+                split = device_split(lambda: ba.band_attention_acc_bwd(a_dst, a_src, x_ext, mask, d_out,
+                                                                       0.2, mask_ix))
+                v2_split = device_split(lambda: ba.band_attention_bwd(a_dst, a_src, x_ext, mask, d_out,
+                                                                      0.2, mask_ix))
+                print(f"  device ms by pass at B {B}, H·C 256: acc " + ", ".join(
+                    f"{k} {ms:.4f}" for k, ms in split) + "; v2 " + ", ".join(
+                    f"{k} {ms:.4f}" for k, ms in v2_split))
+            del a_dst, a_src, x_ext, d_out
+            torch.cuda.empty_cache()
+    for B in (tbs, sbs):
+        _, lay, fwd_t, bwd_t = layouts[B]
+        for C in (256, 128):
+            xp, g = check_gather(B, C)
+            # library yardsticks on the same rows: index_select over x with one zero row
+            # appended for the empty slots, and index_add_ of the slot grid onto the sources
+            rel = fwd_t.rel.long()
+            src = torch.where(rel != lay.fwd.W, fwd_t.win_start.long()[:, None] + rel,
+                              lay.n_pad).reshape(-1)
+            x_z = torch.cat([xp, xp.new_zeros(1, C)])
+            check_equal(f"window_gather B{B} C{C} vs index_select", wg.window_gather_fwd(xp, fwd_t),
+                        torch.index_select(x_z, 0, src).reshape(-1, lay.fwd.D, C))
+            n_slots = lay.n_pad * lay.fwd.D
+            bound(dict(
+                name="window_gather", B=B, hc=C, library="torch.index_select",
+                ms=cuda_ms(lambda: wg.window_gather_fwd(xp, fwd_t), 3, 20),
+                plain_ms=cuda_ms(lambda: wg.window_gather_fwd_plain(xp, fwd_t), 1, 3),
+                library_ms=cuda_ms(lambda: torch.index_select(x_z, 0, src), 3, 20),
+                bytes=4 * (lay.n_pad * C + n_slots + lay.fwd.win_start.size + n_slots * C), ops=0))
+            lib_bwd = x_z.new_zeros(lay.n_pad + 1, C)
+            check_close(f"window_gather_bwd B{B} C{C} vs index_add_", wg.window_gather_bwd(g, bwd_t),
+                        lib_bwd.index_add_(0, src, g)[:lay.n_pad], TOL, TOL, verbose=False)
+            # the backward reads the valid slots' rows of the grid, not the empty ones
+            n_valid = int(lay.bwd.mask.sum())
+            bound(dict(
+                name="window_gather_bwd", B=B, hc=C, library="Tensor.index_add_",
+                ms=cuda_ms(lambda: wg.window_gather_bwd(g, bwd_t), 3, 20),
+                plain_ms=cuda_ms(lambda: wg.window_gather_bwd_plain(g, bwd_t), 1, 3),
+                library_ms=cuda_ms(lambda: lib_bwd.zero_().index_add_(0, src, g), 3, 20),
+                bytes=4 * (n_valid * C + lay.bwd.rel.size + lay.bwd.win_start.size + lay.n_pad * C),
+                ops=n_valid * C))
+            del xp, g, x_z, lib_bwd, src
+            torch.cuda.empty_cache()
+    return dict(rows=rows, acc_step=acc_step, acc_fit=acc_fit, route_step=route_step,
+                acc_worst=acc_worst, padded_worst=padded_worst, drive=drive,
+                padded_serve_ms=padded_serve_ms, padded_serve_peak=padded_serve_peak,
+                padded_step_ms=padded_step_ms, padded_step_peak=padded_step_peak,
+                acc_shape=f"bigtown, n_pad {n_pad}, W {W}",
+                gather_shape={B: f"bigtown B {B}: {B * n} nodes, {D + 1} slots, forward W "
+                                 f"{lay_.fwd.W}, transpose D2 {lay_.bwd.D}"
+                              for B, (_, lay_, _, _) in layouts.items()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1115,15 +1631,18 @@ def main() -> int:
     from gnn_pressure_estimation_tpu_torch.ops import _build
     from gnn_pressure_estimation_tpu_torch.ops import banded as bops
     from gnn_pressure_estimation_tpu_torch.ops.band_attention import (
-        band_attention_bwd, band_attention_bwd_plain, band_attention_flash_bwd,
-        band_attention_flash_fwd, band_attention_fwd, band_attention_plain,
-        band_attention_window_bwd, band_attention_window_fwd,
+        band_attention_acc_bwd, band_attention_bwd, band_attention_bwd_plain,
+        band_attention_flash_bwd, band_attention_flash_fwd, band_attention_fwd,
+        band_attention_plain, band_attention_window_bwd, band_attention_window_fwd,
     )
     from gnn_pressure_estimation_tpu_torch.ops.band_spmm import (
         band_spmm_bwd, band_spmm_bwd_plain, band_spmm_fwd, band_spmm_plain,
     )
     from gnn_pressure_estimation_tpu_torch.ops.graph_attention import (
         fused_attention_bwd, fused_attention_fwd, fused_factored_bwd, fused_factored_fwd,
+    )
+    from gnn_pressure_estimation_tpu_torch.ops.window_gather import (
+        window_gather_bwd, window_gather_fwd,
     )
     from gnn_pressure_estimation_tpu_torch.train import TrainConfig, Trainer, load_checkpoint
     from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats, descale_with
@@ -1163,7 +1682,9 @@ def main() -> int:
                 "band_attention_flash": band_attention_flash_fwd,
                 "band_attention_flash_bwd": band_attention_flash_bwd,
                 "band_attention_window": band_attention_window_fwd,
-                "band_attention_window_bwd": band_attention_window_bwd}
+                "band_attention_window_bwd": band_attention_window_bwd,
+                "band_attention_acc_bwd": band_attention_acc_bwd,
+                "window_gather": window_gather_fwd, "window_gather_bwd": window_gather_bwd}
 
     def reset_launches():
         for w in wrappers.values():
@@ -1531,8 +2052,9 @@ def main() -> int:
     del trn
     torch.cuda.empty_cache()
     dense = dense_phases(dev, card, rng, held, reset_launches, read_launches, counts)
-    mega = mega_phases(dev, card, rng, held, reset_launches, read_launches, counts,
-                       dict(tpl=tpl, npz=npz, x=fx["x"], tfx=tfx, mask=mask, mask_ix=mask_ix))
+    big = dict(tpl=tpl, npz=npz, x=fx["x"], tfx=tfx, mask=mask, mask_ix=mask_ix)
+    mega = mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big)
+    s5 = slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, big)
 
     kernels = []
     for name in band_wrappers:
@@ -1612,6 +2134,32 @@ def main() -> int:
                 for k, v in mega["route_ms"].items()}}),
             **({"ms_b32": mega["ms_b32"][name]} if flash else {}),
             "by_shape": {f"B{b} HC{hc}": {k: q[k] for k in ("ms", "plain_ms", "bound_ms", "bytes")}
+                         for (b, hc), q in shaped.items()},
+        })
+    # the slice-5 kernels: the acc backward at the training batch, H·C 256, counting
+    # path A's fit; the window gather pair at B 32, C 256, counting the drive on
+    # path B's tables (no aggregation mode routes to it)
+    s5_kernels = {
+        "band_attention_acc_bwd": (f"{TPU_SRC}:1420", s5["acc_fit"], 8, s5["acc_shape"]),
+        "window_gather": (f"{TPU_WG_SRC}:157", s5["drive"], 32, s5["gather_shape"][32]),
+        "window_gather_bwd": (f"{TPU_WG_SRC}:260", s5["drive"], 32, s5["gather_shape"][32])}
+    for name, (replaces, launched, B, shape) in s5_kernels.items():
+        shaped = {(r["B"], r["hc"]): r for r in s5["rows"] if r["name"] == name}
+        r = shaped[(B, 256)]
+        if not launched[name]:
+            raise SystemExit(f"FAIL {name} was not launched on its path")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"gnn_pressure_estimation_tpu_torch/csrc/"
+                      f"{'window_gather' if name.startswith('window') else name}.cu",
+            "replaces": replaces, "launches": launched[name],
+            **({"launches_per_train_step": s5["acc_step"][name], "acc_route_step_ms": s5["route_step"]}
+               if name == "band_attention_acc_bwd" else {}),
+            "max_abs_err": max_err[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library": r["library"], "shape": f"{shape}, B {B}, C or H·C 256",
+            "by_shape": {f"B{b} C{hc}": {k: q[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                         "bytes", "v2_ms") if k in q}
                          for (b, hc), q in shaped.items()},
         })
     print(json.dumps({"kernels": kernels}))

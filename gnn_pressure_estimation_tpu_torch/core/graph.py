@@ -8,8 +8,10 @@ and the RCM band layout with its default-block tracking. :class:`BatchedGraph`
 holds what the ported layers read for ``B`` copies of one template, as
 tensors on one device.
 
-Two aggregation modes are ported: ``dense`` (templates of at most
-:attr:`GraphTemplate.DENSE_THRESHOLD` nodes) and ``banded`` (larger ones).
+Three aggregation modes are ported: ``dense`` (templates of at most
+:attr:`GraphTemplate.DENSE_THRESHOLD` nodes), ``banded`` (larger ones) and
+``padded`` (degree-padded neighbour slots in original node order, chosen by
+name). The edge-list ``segment`` mode is not.
 """
 
 from __future__ import annotations
@@ -78,6 +80,7 @@ class GraphTemplate:
         self._band_default: Optional[tuple] = None
         self._band_index_cache: dict = {}
         self._dense_index = None
+        self._degree_cache: Optional[dict] = None
 
     def dense_operators(self) -> dict:
         """Template-level [n, n] operators shared by every graph in a batch:
@@ -106,6 +109,51 @@ class GraphTemplate:
             "adj_mat": A,
         }
         return self._dense_cache
+
+    @property
+    def max_degree(self) -> int:
+        return int(self.in_degree.max()) if self.n_node else 0
+
+    def degree_tables(self) -> dict:
+        """Degree-padded edge layout: every node's incoming edges padded to
+        the max in-degree, so aggregation is gather + masked reduce over a
+        fixed axis, with no scatter at any graph size. The self-loop variant
+        appends one slot holding the node itself (always valid). Each comes
+        with its transpose tables (``ops.padded.build_transpose_tables``),
+        which the gather's backward walks. Host-built once and cached.
+
+        The JAX package's tables also carry GCN and Chebyshev slot weights;
+        they serve models the port does not have, and are left out."""
+        if self._degree_cache is not None:
+            return self._degree_cache
+        from gnn_pressure_estimation_tpu_torch.ops.padded import build_transpose_tables
+
+        n = self.n_node
+        D = max(self.max_degree, 1)
+        senders_dp = np.zeros((n, D), np.int32)
+        mask_dp = np.zeros((n, D), bool)
+        slot = np.zeros(n, np.int32)
+        for s, r in zip(self.senders, self.receivers):
+            j = slot[r]
+            senders_dp[r, j] = s
+            mask_dp[r, j] = True
+            slot[r] += 1
+        # self-loop slot appended last
+        senders_sl = np.concatenate([senders_dp, np.arange(n, dtype=np.int32)[:, None]], axis=1)
+        mask_sl = np.concatenate([mask_dp, np.ones((n, 1), bool)], axis=1)
+        out_flat, out_mask = build_transpose_tables(senders_dp, mask_dp, n)
+        out_flat_sl, out_mask_sl = build_transpose_tables(senders_sl, mask_sl, n)
+        self._degree_cache = {
+            "senders_dp": senders_dp,
+            "mask_dp": mask_dp,
+            "senders_dp_sl": senders_sl,
+            "mask_dp_sl": mask_sl,
+            "out_flat": out_flat,
+            "out_mask": out_mask,
+            "out_flat_sl": out_flat_sl,
+            "out_mask_sl": out_mask_sl,
+        }
+        return self._degree_cache
 
     def dense_index(self):
         """The compressed set cells (``ops.graph_attention.MaskIndex``) of
@@ -162,31 +210,33 @@ class GraphTemplate:
         """``batch_size`` copies of this template as tensors on ``device``.
 
         ``mode``: ``dense`` ([n, n] operators) | ``banded`` (RCM band
-        windows) | ``None`` (dense up to :attr:`DENSE_THRESHOLD` nodes,
-        banded above). Raises if ``device`` is CUDA and no card is present.
+        windows) | ``padded`` (degree-padded neighbour slots, original node
+        order) | ``None`` (dense up to :attr:`DENSE_THRESHOLD` nodes, banded
+        above). Raises if ``device`` is CUDA and no card is present, and
+        ``NotImplementedError`` for a mode the port does not have.
 
         ``band_attn`` names the band-attention kernel of a banded graph:
         ``"dma"`` (whole-window softmax over the extended array) | ``"flash"``
-        (streaming softmax) | ``"window"`` (materialised windows) | ``None``
-        (``ops.banded.band_attention_route`` on the layout: ``"dma"`` up to
-        the reference's tile limit, ``"flash"`` beyond). The JAX package
-        chooses with ``GNN_TPU_BAND_FLASH=1`` and ``GNN_TPU_BAND_DMA=0``;
-        here it is an argument.
+        (streaming softmax) | ``"window"`` (materialised windows) | ``"acc"``
+        (the ``"dma"`` forward with the owner-row backward of the reference's
+        sliding-accumulator kernel) | ``None`` (``ops.banded.band_attention_route``
+        on the layout: ``"dma"`` up to the reference's tile limit, ``"flash"``
+        beyond). The JAX package chooses with ``GNN_TPU_BAND_FLASH=1``,
+        ``GNN_TPU_BAND_DMA=0`` and ``GNN_TPU_BAND_ACC=1``; here it is an
+        argument.
         """
         dev = resolve_device(device)
         if mode is None:
             mode = "dense" if self.n_node <= self.DENSE_THRESHOLD else "banded"
-        if mode not in ("dense", "banded"):
-            raise NotImplementedError(f"aggregation mode {mode!r} is not yet ported")
+        if mode not in ("dense", "banded", "padded"):
+            raise NotImplementedError(
+                f"aggregation mode {mode!r} is not yet ported (the segment mode: ROADMAP.md, "
+                "Queue 1, item 7)")
         if mode == "banded":
             from gnn_pressure_estimation_tpu_torch.ops.banded import (
                 BAND_ATTN_ROUTES, band_attention_route,
             )
 
-            if band_attn == "acc":
-                raise NotImplementedError(
-                    'band_attn "acc" (the sliding-accumulator backward, make_band_attention_acc) '
-                    "is not yet ported: ROADMAP.md, Queue 2, item 5")
             if band_attn is None:
                 bl = self.band_layout(band_block)
                 band_attn = band_attention_route(bl.BLK, bl.W)
@@ -215,6 +265,8 @@ class GraphTemplate:
                 adj_sl_index=self.dense_index().to(dev),
                 mean_mat=torch.as_tensor(d["mean_mat"], device=dev),
             )
+        if mode == "padded":
+            return self._build_padded(B, dev)
         from gnn_pressure_estimation_tpu_torch.ops.banded import halo_widths
 
         bl = self.band_layout(band_block)
@@ -236,6 +288,32 @@ class GraphTemplate:
             band_attn=band_attn,
         )
 
+    def _build_padded(self, B: int, dev) -> "BatchedGraph":
+        """The template's degree tables for ``B`` copies: graph ``b``'s node
+        ids shift by ``b·n`` and its flattened slot positions by ``b·n·D``
+        (``b·n·(D+1)`` with the self-loop slot), so the transpose tables are
+        built once per template, not per batch."""
+        dt = self.degree_tables()
+        n = self.n_node
+
+        def shifted(table, stride):
+            offs = (np.arange(B, dtype=np.int64) * stride)[:, None, None]
+            return torch.as_tensor((table[None].astype(np.int64) + offs).reshape(-1, table.shape[1]),
+                                   device=dev)
+
+        def tiled(mask):
+            return torch.as_tensor(np.tile(mask, (B, 1)), device=dev)
+
+        D = dt["senders_dp"].shape[1]
+        return BatchedGraph(
+            n_graph=B, nodes_per_graph=n, device=dev,
+            senders_dp=shifted(dt["senders_dp"], n), mask_dp=tiled(dt["mask_dp"]),
+            senders_dp_sl=shifted(dt["senders_dp_sl"], n), mask_dp_sl=tiled(dt["mask_dp_sl"]),
+            out_flat=shifted(dt["out_flat"], n * D), out_mask=tiled(dt["out_mask"]),
+            out_flat_sl=shifted(dt["out_flat_sl"], n * (D + 1)), out_mask_sl=tiled(dt["out_mask_sl"]),
+            inv_degree=torch.as_tensor(np.tile(self.inv_degree, B), device=dev),
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class BatchedGraph:
@@ -248,7 +326,10 @@ class BatchedGraph:
     ``[nB, BLK, W]`` int8 adjacency mask (self-loops included) and int8
     edge-count band, each with the compressed index of its nonzeros that the
     kernels walk, the 1/deg row scale, the permutation, and the name of the
-    band-attention kernel its GATConvs go through (``band_attn``).
+    band-attention kernel its GATConvs go through (``band_attn``). Padded mode
+    works in original node order (``nodes_per_graph == n``): it carries each
+    node's in-edge slots ``[B·n, D]`` (and ``[B·n, D+1]`` with the self-loop
+    slot) with their masks, the transpose tables of each, and 1/deg.
     """
 
     n_graph: int
@@ -269,7 +350,16 @@ class BatchedGraph:
     band_n_pad: int = 0
     band_U: int = 0
     band_R: int = 0
-    band_attn: Optional[str] = None                # "dma" | "flash" | "window"
+    band_attn: Optional[str] = None                # "dma" | "flash" | "window" | "acc"
+    senders_dp: Optional[torch.Tensor] = None      # [B·n, D] long, graph offsets applied
+    mask_dp: Optional[torch.Tensor] = None         # [B·n, D] bool
+    senders_dp_sl: Optional[torch.Tensor] = None   # [B·n, D+1] long, self-loop slot last
+    mask_dp_sl: Optional[torch.Tensor] = None      # [B·n, D+1] bool
+    out_flat: Optional[torch.Tensor] = None        # [B·n, D_out] long: transpose of senders_dp
+    out_mask: Optional[torch.Tensor] = None        # [B·n, D_out] bool
+    out_flat_sl: Optional[torch.Tensor] = None     # transpose of senders_dp_sl
+    out_mask_sl: Optional[torch.Tensor] = None
+    inv_degree: Optional[torch.Tensor] = None      # [B·n] f32 1/deg (0 at deg 0)
 
     @property
     def dense(self) -> bool:
@@ -278,6 +368,23 @@ class BatchedGraph:
     @property
     def banded(self) -> bool:
         return self.band_adj_mask is not None
+
+    @property
+    def padded(self) -> bool:
+        return self.senders_dp is not None
+
+    # -- degree-padded neighbour slots ------------------------------------
+    def gather_dp(self, x: torch.Tensor) -> torch.Tensor:
+        """[B·n, ...] → [B·n, D, ...] in-edge slots (``ops.padded``)."""
+        from gnn_pressure_estimation_tpu_torch.ops.padded import padded_gather
+
+        return padded_gather(x, self.senders_dp, self.out_flat, self.out_mask)
+
+    def gather_dp_sl(self, x: torch.Tensor) -> torch.Tensor:
+        """[B·n, ...] → [B·n, D+1, ...] in-edge slots plus the self-loop slot."""
+        from gnn_pressure_estimation_tpu_torch.ops.padded import padded_gather
+
+        return padded_gather(x, self.senders_dp_sl, self.out_flat_sl, self.out_mask_sl)
 
     # -- banded-space packing (caller-side, once per batch) ----------------
     def pack_nodes(self, x_flat: torch.Tensor, n_orig: int) -> torch.Tensor:

@@ -39,8 +39,10 @@ class Inferencer:
 
     The model holds its weights; it is moved to ``device`` and put in eval
     mode. The ``BatchedGraph`` is built once per (template, batch size) and
-    reused, so steady-state cost is one forward per batch. ``agg_mode``,
-    ``band_block`` and ``band_attn`` go to ``GraphTemplate.batch``.
+    reused, so steady-state cost is one forward per batch. ``agg_mode``
+    (``None``, ``"dense"``, ``"banded"`` or ``"padded"``), ``band_block`` and
+    ``band_attn`` go to ``GraphTemplate.batch``. Only a banded graph works in
+    its own node order (``pack_nodes``); the others take the template's.
     """
 
     def __init__(self, model: torch.nn.Module, stats: NormStats,

@@ -1,11 +1,11 @@
 """Graph conv layers of GATRes as torch modules.
 
 The counterparts of ``GATConv`` and ``SimpleMeanConv`` in
-``gnn_pressure_estimation_tpu/models/layers.py``, in the dense and banded
-aggregation modes. Attention math matches PyG GATConv (LeakyReLU 0.2,
-self-loops added, per-receiver softmax).
+``gnn_pressure_estimation_tpu/models/layers.py``, in the dense, banded and
+degree-padded aggregation modes. Attention math matches PyG GATConv
+(LeakyReLU 0.2, self-loops added, per-receiver softmax).
 
-On the banded path every GATConv goes through one of the three routes of
+On the banded path every GATConv goes through one of the four routes of
 ``ops.band_attention`` (the graph's ``band_attn``) and every SimpleMeanConv
 through ``ops.band_spmm``; on the dense path a GATConv
 goes through ``ops.graph_attention`` (``fused_factored`` or
@@ -14,7 +14,9 @@ Functions that launch the hand-written kernels, forward and backward, when
 the graph lies on a CUDA device, and run the kernels' plain versions on the
 CPU. The graph carries the compressed index of each mask or band that the
 kernels walk. The dense SimpleMeanConv is one ``torch.einsum`` with the
-``[n, n]`` mean operator, as in the JAX layer.
+``[n, n]`` mean operator, as in the JAX layer. The padded path gathers
+neighbour slots with ``ops.padded`` and reduces over them in plain torch, as
+the JAX layer does in plain XLA.
 
 Parameters are initialised glorot-uniform (weights) and zero (biases), as
 the JAX layers do, from an optional ``torch.Generator``.
@@ -32,12 +34,14 @@ from torch import nn
 from gnn_pressure_estimation_tpu_torch.core.graph import BatchedGraph
 from gnn_pressure_estimation_tpu_torch.ops import banded as bops
 from gnn_pressure_estimation_tpu_torch.ops.band_attention import (
-    band_attention, band_attention_flash, band_attention_window,
+    band_attention, band_attention_acc, band_attention_flash, band_attention_window,
 )
 from gnn_pressure_estimation_tpu_torch.ops.band_spmm import band_spmm
 from gnn_pressure_estimation_tpu_torch.ops.graph_attention import fused_attention, fused_factored
 
 ATTN_IMPLS = ("softmax", "onepass", "factored")
+NEG_INF = -1e9  # the masked logit of the padded path, as the JAX layer's
+BAND_ATTEND = {"dma": band_attention, "flash": band_attention_flash, "acc": band_attention_acc}
 
 
 @torch.no_grad()
@@ -66,9 +70,14 @@ class GATConv(nn.Module):
     layer does, through the kernel the graph names (``graph.band_attn``):
     ``"dma"`` (``ops.band_attention``, the extended array, whole-window
     softmax), ``"flash"`` (``ops.band_attention_flash``, the extended array,
-    streaming softmax) or ``"window"`` (``ops.band_attention_window``, over
+    streaming softmax), ``"window"`` (``ops.band_attention_window``, over
     window tensors the layer cuts with ``band_windows``; autograd folds their
-    cotangents). The JAX layer's ``band_factored`` is not ported.
+    cotangents) or ``"acc"`` (``ops.band_attention_acc``, the extended array,
+    v2's forward and the owner-row backward). The JAX layer's
+    ``band_factored`` is not ported. The padded path gathers each node's
+    ``D + 1`` slots (in-edges and the self-loop) of α_src and of the
+    projected features, masks the empty slots, and takes the softmax over
+    the slots, for every ``attn_impl``, as the JAX layer does.
     """
 
     def __init__(self, in_channels: int, out_channels: int, heads: int = 1,
@@ -112,12 +121,22 @@ class GATConv(nn.Module):
                 attend = band_attention_window
                 x_in = bops.band_windows(xp_b, graph.band_win_start, graph.band_W)
             else:
-                attend = band_attention_flash if graph.band_attn == "flash" else band_attention
+                attend = BAND_ATTEND[graph.band_attn]
                 x_in = bops.extend_rows(xp_b, graph.band_U, graph.band_R)
             out = attend(a_d.view(B, n_pad, H).contiguous(), a_src_win, x_in,
                          graph.band_adj_mask, self.negative_slope, graph.band_adj_index)
+        elif graph.padded:
+            # per-node neighbour slots (in-edges, then the self-loop), masked
+            # softmax over the slots
+            sl = self.negative_slope
+            logits = graph.gather_dp_sl(a_s) + a_d[:, None, :]                  # [N, D+1, H]
+            logits = torch.where(logits >= 0, logits, sl * logits)
+            logits = torch.where(graph.mask_dp_sl[..., None], logits,
+                                 torch.full((), NEG_INF, dtype=logits.dtype, device=logits.device))
+            attn = torch.softmax(logits, dim=1)
+            out = torch.einsum("ndh,ndhc->nhc", attn, graph.gather_dp_sl(xp))
         else:
-            raise NotImplementedError("only the dense and banded modes are ported")
+            raise NotImplementedError("the segment aggregation mode is not yet ported")
         out = out.reshape(-1, H, C)
         out = out.reshape(-1, H * C) if self.concat else out.mean(dim=1)
         return out + self.bias
@@ -161,7 +180,8 @@ class GATConv(nn.Module):
 class SimpleMeanConv(nn.Module):
     """Parameter-free neighbor mean, PyG ``SimpleConv(aggr='mean')``: no
     self-loops, mean over in-neighbors. Banded mode sums over the int8
-    edge-count band and scales the rows by 1/deg afterwards."""
+    edge-count band and scales the rows by 1/deg afterwards; padded mode sums
+    the valid in-edge slots and scales by 1/deg."""
 
     def forward(self, x: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
         B = graph.n_graph
@@ -171,6 +191,10 @@ class SimpleMeanConv(nn.Module):
             x_ext = bops.extend_rows(x.view(B, graph.band_n_pad, -1), graph.band_U, graph.band_R)
             out = band_spmm(graph.band_cnt, x_ext, graph.band_cnt_index) \
                 * graph.band_inv_deg[None, :, None]
+        elif graph.padded:
+            nbr = graph.gather_dp(x)                                            # [N, D, C]
+            out = torch.where(graph.mask_dp[..., None], nbr, 0.0).sum(dim=1) \
+                * graph.inv_degree[:, None]
         else:
-            raise NotImplementedError("only the dense and banded modes are ported")
+            raise NotImplementedError("the segment aggregation mode is not yet ported")
         return out.reshape(B * graph.nodes_per_graph, -1)

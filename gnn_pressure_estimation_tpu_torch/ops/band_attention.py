@@ -1,5 +1,5 @@
 """Banded GAT attention: the CUDA kernels, forward and backward, and their
-plain versions. Three routes compute the same function; which one a graph
+plain versions. Four routes compute the same function; which one a graph
 takes is ``BatchedGraph.band_attn`` (``ops.banded.band_attention_route``):
 
 * :func:`band_attention` ("dma") replaces ``make_band_attention_dma`` (v2) in
@@ -16,6 +16,11 @@ takes is ``BatchedGraph.band_attn`` (``ops.banded.band_attention_route``):
   it reads the materialised window tensors ``x_win`` / ``a_src_win``, never an
   extended array, and its backward leaves ``d a_src_win`` and ``d x_win`` in
   window layout for autograd to fold.
+* :func:`band_attention_acc` ("acc") replaces ``make_band_attention_acc`` (v3):
+  v2's forward kernel, and a backward (``csrc/band_attention_acc_bwd.cu``) in
+  which each extended row's ``d x_ext`` has one owner that sums it whole and
+  writes it once, the GPU's form of v3's sliding accumulator: no windowed
+  ``d x`` tensor, no fold pass, no atomics.
 
 Each computes, per destination row, graph and head, the LeakyReLU(0.2)
 additive logits over the row's W-wide window, the adjacency mask, a softmax
@@ -203,23 +208,24 @@ band_attention_bwd.launches = 0
 
 
 class BandAttention(torch.autograd.Function):
-    """Forward and backward through the kernels (CUDA tensors) or through
-    their plain versions (CPU tensors). Saves its inputs only: the backward
-    recomputes the softmax."""
+    """The v2 forward kernel and the backward ``bwd`` names
+    (:func:`band_attention_bwd`, or :func:`band_attention_acc_bwd` for the
+    "acc" route) on CUDA tensors, or their plain versions on CPU tensors.
+    Saves its inputs only: the backward recomputes the softmax."""
 
     @staticmethod
-    def forward(ctx, a_dst, a_src_win, x_ext, adj_mask, negative_slope, index):
+    def forward(ctx, a_dst, a_src_win, x_ext, adj_mask, negative_slope, index, bwd):
         ctx.save_for_backward(a_dst, a_src_win, x_ext, adj_mask)
-        ctx.negative_slope, ctx.index = negative_slope, index
+        ctx.negative_slope, ctx.index, ctx.bwd = negative_slope, index, bwd
         return band_attention_fwd(a_dst, a_src_win, x_ext, adj_mask, negative_slope)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, d_out):
         a_dst, a_src_win, x_ext, adj_mask = ctx.saved_tensors
-        d_a_dst, d_a_src_win, d_x_ext = band_attention_bwd(
+        d_a_dst, d_a_src_win, d_x_ext = ctx.bwd(
             a_dst, a_src_win, x_ext, adj_mask, d_out, ctx.negative_slope, ctx.index)
-        return d_a_dst, d_a_src_win, d_x_ext, None, None, None
+        return d_a_dst, d_a_src_win, d_x_ext, None, None, None, None
 
 
 def band_attention(
@@ -233,7 +239,8 @@ def band_attention(
     """Differentiable banded attention, shapes as :func:`band_attention_fwd`.
     Gradients flow to ``a_dst``, ``a_src_win`` and ``x_ext``; the mask is a
     constant of the graph. ``index``: see :func:`band_attention_bwd`."""
-    return BandAttention.apply(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index)
+    return BandAttention.apply(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index,
+                               band_attention_bwd)
 
 
 # ---- the streaming-softmax route (v4) ---------------------------------------
@@ -599,3 +606,77 @@ def band_attention_window(
     :func:`band_attention_window_fwd`. Gradients flow to ``a_dst``,
     ``a_src_win`` and ``x_win`` (window layout); the mask is a constant."""
     return BandAttentionWindow.apply(a_dst, a_src_win, x_win, adj_mask, negative_slope, index)
+
+
+# ---- the sliding-accumulator route (v3) ---------------------------------------
+
+def band_attention_acc_bwd_plain(
+    a_dst: torch.Tensor, a_src_win: torch.Tensor, x_ext: torch.Tensor,
+    adj_mask: torch.Tensor, d_out: torch.Tensor, negative_slope: float = 0.2,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`band_attention_acc_bwd`: the same
+    function as :func:`band_attention_bwd_plain` (v3's gradients are v2's)."""
+    return band_attention_bwd_plain(a_dst, a_src_win, x_ext, adj_mask, d_out, negative_slope)
+
+
+def band_attention_acc_bwd(
+    a_dst: torch.Tensor, a_src_win: torch.Tensor, x_ext: torch.Tensor,
+    adj_mask: torch.Tensor, d_out: torch.Tensor, negative_slope: float = 0.2,
+    index: Optional[bops.BandIndex] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The cotangents ``(d a_dst, d a_src_win, d x_ext)`` of
+    :func:`band_attention_fwd` for ``d_out`` [B, n_pad, H, C], written by
+    ``csrc/band_attention_acc_bwd.cu``: the softmax rebuilt from the int8
+    mask, each row of ``d x_ext`` summed by one owner.
+
+    ``index`` is the mask's :class:`BandIndex` on the same device; only its
+    list of rows with no set column is read (built from the mask's values
+    when absent). On CUDA tensors it launches the kernel (or raises); on CPU
+    tensors it runs :func:`band_attention_acc_bwd_plain`.
+    ``band_attention_acc_bwd.launches`` counts kernel launches (one per call:
+    the four passes of the source are one launch of it)."""
+    if bops.use_plain(x_ext):
+        return band_attention_acc_bwd_plain(a_dst, a_src_win, x_ext, adj_mask, d_out,
+                                            negative_slope)
+    name = "band_attention_acc_bwd"
+    adj_mask = _check(name, a_dst, a_src_win, x_ext, adj_mask)
+    nB, BLK, W = adj_mask.shape
+    B, n_ext, H, C = x_ext.shape
+    dev = x_ext.device
+    (d_out,) = _check_rows(name, x_ext, d_out=(d_out, (B, nB * BLK, H, C)))
+    ix = _index_for(name, adj_mask, index, dev)
+    n_empty = int(ix.empty_row.shape[0])
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    d_a_dst, d_a_src_win, d_x_ext = new(B, nB * BLK, H), new(nB, B, W, H), new(B, n_ext, H, C)
+    bits = torch.empty((nB, W, (BLK + 31) // 32), dtype=torch.int32, device=dev)
+    stats = new(3, B, nB * BLK, H)
+    ss = new(B, nB, H, C) if n_empty else new(1)
+    fn = _build.load(name).band_attention_acc_bwd
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        rc = fn(a_dst.data_ptr(), a_src_win.data_ptr(), x_ext.data_ptr(), d_out.data_ptr(),
+                adj_mask.data_ptr(), ix.empty_ptr.data_ptr(), ix.empty_row.data_ptr(),
+                bits.data_ptr(), stats.data_ptr(), ss.data_ptr(), d_a_dst.data_ptr(),
+                d_a_src_win.data_ptr(), d_x_ext.data_ptr(), B, nB, BLK, W, H, C, n_empty,
+                float(negative_slope), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    band_attention_acc_bwd.launches += 1
+    return d_a_dst, d_a_src_win, d_x_ext
+
+
+band_attention_acc_bwd.launches = 0
+
+
+def band_attention_acc(
+    a_dst: torch.Tensor, a_src_win: torch.Tensor, x_ext: torch.Tensor,
+    adj_mask: torch.Tensor, negative_slope: float = 0.2,
+    index: Optional[bops.BandIndex] = None,
+) -> torch.Tensor:
+    """Differentiable banded attention through the sliding-accumulator route:
+    v2's forward kernel, as the reference's v3 reuses v2, and the owner-row
+    backward :func:`band_attention_acc_bwd`; shapes and gradients as
+    :func:`band_attention`."""
+    return BandAttention.apply(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index,
+                               band_attention_acc_bwd)

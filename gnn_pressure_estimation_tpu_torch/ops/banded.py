@@ -237,21 +237,25 @@ def band_index_of(band: torch.Tensor) -> BandIndex:
     return build_band_index(band.detach().cpu().numpy()).to(band.device)
 
 
-BAND_ATTN_ROUTES = ("dma", "flash", "window")
+BAND_ATTN_ROUTES = ("dma", "flash", "window", "acc")
 
 
 def band_attention_route(BLK: int, W: int) -> str:
     """Which band-attention kernel family a layout goes to when the caller
     names none: ``"dma"`` (whole-window softmax, the counterpart of the
     reference's v2) while ``BLK · round_up(W, 128) · 4 ≤ 1 MiB``, ``"flash"``
-    (streaming softmax, v4) beyond.
+    (streaming softmax, v4) beyond. ``"window"`` (v1) and ``"acc"`` (v3: v2's
+    forward, the owner-row backward) run only when the caller names them, as
+    the reference takes v1 only with ``GNN_TPU_BAND_DMA=0`` and v3 only with
+    ``GNN_TPU_BAND_ACC=1`` (off by default).
 
     The threshold is the reference's: there it is the largest logits tile
-    its v2 kernel can hold on chip, past which ``GraphTemplate.batch`` falls
-    back to the streaming kernel. It is kept here for parity of routing, so
-    that both packages send the same network to the same kernel family and
-    their launch counts mean the same thing; it is not a limit of the card,
-    where either kernel takes any layout."""
+    its v2 and v3 kernels can hold on chip, past which ``GraphTemplate.batch``
+    falls back to the streaming kernel. It is kept here for parity of
+    routing, so that both packages send the same network to the same kernel
+    family and their launch counts mean the same thing; it is not a limit of
+    the card, where every kernel takes any layout: a named ``"dma"`` or
+    ``"acc"`` runs its Hopper kernels past the 1 MiB guard too."""
     return "dma" if BLK * _round_up(W, 128) * 4 <= (1 << 20) else "flash"
 
 

@@ -11,7 +11,8 @@ The counterpart of ``gnn_pressure_estimation_tpu/train/loop.py``:
   Adam (``torch.optim.Adam(weight_decay=…)``, betas 0.9/0.999, eps 1e-8): the
   JAX package's ``add_decayed_weights`` before ``scale_by_adam``.
 - On a CUDA device every banded ``GATConv`` and ``SimpleMeanConv`` runs the
-  hand-written kernels, forward and backward (``ops/``).
+  hand-written kernels, forward and backward (``ops/``); the padded mode runs
+  plain gathers whose backward is a gather too (``ops/padded.py``).
 
 The mask of a batch is drawn from a ``torch.Generator`` seeded from the
 epoch's ``numpy`` stream (``default_rng([seed, epoch, 0|1])``), on the CPU,
@@ -79,9 +80,11 @@ class TrainConfig:
     # for its dispatch latency); not ported: a value above 1 raises
     epochs_per_dispatch: int = 1
     # aggregation mode of the batched template: None = auto (dense up to
-    # DENSE_THRESHOLD nodes, banded above) | "dense" | "banded"; band_block
-    # sets the banded block-row size (default 256); band_attn names the
-    # band-attention kernel (None = by layout | "dma" | "flash" | "window")
+    # DENSE_THRESHOLD nodes, banded above) | "dense" | "banded" | "padded"
+    # (degree-padded neighbour slots, original node order); band_block sets
+    # the banded block-row size (default 256); band_attn names the
+    # band-attention kernel (None = by layout | "dma" | "flash" | "window" |
+    # "acc": v2's forward with the owner-row backward)
     agg_mode: Optional[str] = None
     band_block: Optional[int] = None
     band_attn: Optional[str] = None

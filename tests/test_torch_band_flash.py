@@ -294,8 +294,8 @@ def test_batch_carries_and_checks_the_route(rng):
         g = tpl.batch(2, "banded", 8, "cpu", band_attn=route)
         assert g.band_attn == route and g is not default
         assert g is tpl.batch(2, "banded", 8, "cpu", band_attn=route)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tpl.batch(2, "banded", 8, "cpu", band_attn="acc")
+    acc = tpl.batch(2, "banded", 8, "cpu", band_attn="acc")
+    assert acc.band_attn == "acc" and acc is not default
     with pytest.raises(ValueError, match="band_attn"):
         tpl.batch(2, "banded", 8, "cpu", band_attn="v5")
     with pytest.raises(ValueError, match="banded graphs only"):

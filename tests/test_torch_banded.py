@@ -148,8 +148,8 @@ def test_int8_count_overflow_raises():
 
 def test_unported_mode_raises(rng):
     jt = random_graph(rng, n=12, extra_edges=4)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        GraphTemplate(jt.n_node, jt.senders, jt.receivers).batch(2, mode="padded", device="cpu")
+    with pytest.raises(NotImplementedError, match="'segment' is not yet ported.*Queue 1"):
+        GraphTemplate(jt.n_node, jt.senders, jt.receivers).batch(2, mode="segment", device="cpu")
 
 
 def test_template_sorts_edges_like_jax(rng):

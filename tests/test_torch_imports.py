@@ -36,7 +36,8 @@ def test_port_imports_no_jax():
     scanned = {str(f.relative_to(PORT)) for f in files[:-1]}
     assert {"train/loop.py", "train/checkpoint.py", "train/autoclip.py", "utils/masking.py",
             "utils/metrics.py", "data/dataset.py", "ops/band_spmm.py", "simgen/netgen.py",
-            "simgen/__init__.py", "ops/band_attention.py"} <= scanned
+            "simgen/__init__.py", "ops/band_attention.py", "ops/padded.py",
+            "ops/window_gather.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -46,7 +47,8 @@ ALLOWED = {"torch", "numpy", "scipy", "gnn_pressure_estimation_tpu_torch"} | set
 
 
 @pytest.mark.parametrize("rel", ["simgen/netgen.py", "data/inp.py", "ops/band_attention.py",
-                                 "ops/banded.py", "ops/_build.py", "core/graph.py"])
+                                 "ops/banded.py", "ops/_build.py", "core/graph.py",
+                                 "ops/padded.py", "ops/window_gather.py", "models/layers.py"])
 def test_module_imports_only_what_the_port_may(rel):
     """The modules this slice added or extended import torch, numpy, scipy,
     the standard library and the port itself, nothing else."""
@@ -87,6 +89,16 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tpl.batch(2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tpl.batch(2, mode="padded")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tpl.batch(2, mode="banded", band_block=2, band_attn="acc")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Inferencer(GATRes(1, 4), NormStats(), agg_mode="padded")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(GATRes(1, 4), TrainConfig(agg_mode="padded"), NormStats(), tpl)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(GATRes(1, 4), TrainConfig(band_attn="acc"), NormStats(), tpl)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         select_model("gatres_small")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Inferencer(GATRes(1, 4), NormStats())
@@ -94,6 +106,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
         Trainer(GATRes(1, 4), TrainConfig(), NormStats(), tpl)
     # asking for the CPU works
     assert tpl.batch(2, device="cpu").dense
+    assert tpl.batch(2, mode="padded", device="cpu").padded
     assert next(select_model("gatres_small", device="cpu")[0].parameters()).device.type == "cpu"
 
 
