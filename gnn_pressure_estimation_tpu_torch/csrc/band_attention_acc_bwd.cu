@@ -32,7 +32,7 @@
 //   1. colbits: the int8 mask as bits by column: word g of (blk, j) holds
 //      mask[blk, 32g .. 32g+31, j]. Read once, coalesced; 1/8 of the mask.
 //   2. rows:    one warp per (b, row, head) scans the row's int8 mask (a
-//               warp ballot over 32 columns, as the v2 forward): the max m,
+//               warp ballot over 32 columns): the max m,
 //               then Z and delta from e = exp(z - m) and dp (one warp-wide
 //               dot product per set column), then d a_dst = sum of
 //               dz = (e/Z)(dp - delta) * slope factor, dp recomputed, so each

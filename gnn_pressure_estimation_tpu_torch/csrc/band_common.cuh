@@ -1,7 +1,7 @@
-// What the band-attention kernels share: the warp layout, the warp-wide
-// reductions, and the pass that every backward runs for band rows with no
-// set column. Each .cu is one translation unit, so everything sits in an
-// unnamed namespace.
+// What the band kernels share: the warp layout, the warp-wide reductions,
+// the lane's 16-byte (or scalar) slot of an x row, and the pass that every
+// attention backward runs for band rows with no set column. Each .cu is one
+// translation unit, so everything sits in an unnamed namespace.
 
 #pragma once
 
@@ -27,6 +27,23 @@ __device__ __forceinline__ float warp_max(float v) {
 // thread blocks of kWarps warps for a grid of one warp per work item
 inline unsigned blocks_for(long long warps) {
   return (unsigned)((warps + kWarps - 1) / kWarps);
+}
+
+// The lane's slot of an x row of n floats: channels c .. c+3 as one float4
+// (kVec: n % 4 == 0 and a 16-byte aligned row), else c, c+32, c+64, c+96;
+// 0 past n.
+template <bool kVec>
+__device__ __forceinline__ float4 load_slot(const float* __restrict__ xr, int c, int n) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (kVec) {
+    if (c < n) v = __ldg(reinterpret_cast<const float4*>(xr + c));
+  } else {
+    if (c < n) v.x = __ldg(xr + c);
+    if (c + 32 < n) v.y = __ldg(xr + c + 32);
+    if (c + 64 < n) v.z = __ldg(xr + c + 64);
+    if (c + 96 < n) v.w = __ldg(xr + c + 96);
+  }
+  return v;
 }
 
 // A band row with no set column got the mean of its block's W window rows

@@ -8,31 +8,53 @@
 // with the band stored as int8 edge counts (the factored mean of
 // SimpleMeanConv; its 1/deg row scale is applied outside) or as f32 weights.
 //
-// Design: one warp per (b, row). The warp walks the row's W band entries 32
-// at a time; a ballot on the nonzero entries yields the set columns (about 4
-// of 896 on bigtown), and for each the warp reads one x row with the
-// channels spread over its lanes. Zero entries are skipped, so the work and
-// the x traffic follow the band's nonzeros, not the dense window.
+// The band comes compressed: the BandIndex row lists (row_ptr, col) and the
+// entries' values as f32, which hold the int8 counts exactly. So an int8 and
+// an f32 band go through this one kernel, and the band itself is never read.
+//
+// Bound: bytes. Each output row gathers ~4 x rows (bigtown; ~3.6 on the
+// 23k-node meganet): about 0.5 FLOP a byte in f32. Tensor cores would help
+// only as a dense product over the W window, ~200x the useful work, and
+// their TF32 inputs would break the 1e-4 gate against the plain version; so
+// TMA and wgmma do not apply. What the design buys instead:
+// - no wasted scan: one warp per (b, row) loads up to 32 of the row's
+//   (col, val) pairs with one coalesced load, one entry a lane, and
+//   broadcasts each with __shfl_sync; a row past 32 entries takes more chunks;
+// - 16-byte loads: each lane owns 4 consecutive channels of a 128-channel
+//   tile and reads them as one float4, so at C 128 a warp moves a whole
+//   512-byte x row with one load a lane (a scalar variant serves C % 4 != 0
+//   or an unaligned x_ext);
+// - several loads in flight: the x rows of kGroup entries are loaded before
+//   their FMAs;
+// - L2 reuse: the grid is b-major, row-minor, so neighbouring warps take
+//   neighbouring RCM rows, whose x rows overlap.
+// Each channel sums in list order (ascending j), one fmaf an entry.
 //
 // The backward is csrc/band_spmm_bwd.cu.
 //
 // C interface: pointers, ints and the stream; returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "band_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;               // warps per thread block
-constexpr int kPerLane = 8;             // channels per lane in one tile
-constexpr int kTile = 32 * kPerLane;    // channels per tile
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTile = 128;              // channels per tile: 4 a lane
+constexpr int kGroup = 4;               // entries whose x rows load before their FMAs
 
-template <typename T>
+__device__ __forceinline__ void fma4(float w, const float4& x, float4& acc) {
+  acc.x = fmaf(w, x.x, acc.x);
+  acc.y = fmaf(w, x.y, acc.y);
+  acc.z = fmaf(w, x.z, acc.z);
+  acc.w = fmaf(w, x.w, acc.w);
+}
+
+template <bool kVec>
 __global__ void __launch_bounds__(kWarps * 32)
-band_spmm_fwd_kernel(const T* __restrict__ band,       // [nB, BLK, W]
-                     const float* __restrict__ x_ext,  // [B, n_ext, C]
-                     float* __restrict__ out,          // [B, n_pad, C]
+band_spmm_fwd_kernel(const float* __restrict__ x_ext,   // [B, n_ext, C]
+                     const int* __restrict__ row_ptr,   // [n_pad + 1]
+                     const int* __restrict__ col,       // [nnz]
+                     const float* __restrict__ val,     // [nnz]
+                     float* __restrict__ out,           // [B, n_pad, C]
                      int B, int nB, int BLK, int W, int C) {
   const int lane = threadIdx.x & 31;
   const long long warp = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -43,60 +65,56 @@ band_spmm_fwd_kernel(const T* __restrict__ band,       // [nB, BLK, W]
   const long long blk = row / BLK;
   const long long n_ext = n_pad + W - BLK;
 
-  const T* brow = band + row * W;  // [blk, row % BLK, :] == row * W
   const float* xw = x_ext + (b * n_ext + blk * BLK) * C;
   float* orow = out + (b * n_pad + row) * C;
+  const int k0 = row_ptr[row], k1 = row_ptr[row + 1];
 
   for (int c0 = 0; c0 < C; c0 += kTile) {
-    float acc[kPerLane];
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = k0; s0 < k1; s0 += 32) {   // one chunk of the row's list
+      const int k = s0 + lane;
+      const int jl = k < k1 ? col[k] : 0;
+      const float wl = k < k1 ? val[k] : 0.f;
+      const int cnt = min(32, k1 - s0);
+      for (int g = 0; g < cnt; g += kGroup) {
+        float4 xv[kGroup];
+        float w[kGroup];
 #pragma unroll
-    for (int k = 0; k < kPerLane; ++k) acc[k] = 0.f;
-    for (int j0 = 0; j0 < W; j0 += 32) {
-      const int j = j0 + lane;
-      const float w = j < W ? static_cast<float>(brow[j]) : 0.f;
-      unsigned bits = __ballot_sync(kFull, w != 0.f);
-      while (bits) {
-        const int src = __ffs(bits) - 1;
-        bits &= bits - 1;
-        const float wj = __shfl_sync(kFull, w, src);
-        const float* xr = xw + (long long)(j0 + src) * C + c0;
-#pragma unroll
-        for (int k = 0; k < kPerLane; ++k) {
-          const int c = lane + 32 * k;
-          if (c0 + c < C) acc[k] = fmaf(wj, __ldg(xr + c), acc[k]);
+        for (int q = 0; q < kGroup; ++q) {
+          const int s = min(g + q, cnt - 1);   // past the chunk: a valid row, not summed
+          w[q] = __shfl_sync(kFull, wl, s);
+          xv[q] = load_slot<kVec>(xw + (long long)__shfl_sync(kFull, jl, s) * C,
+                                  kVec ? c0 + 4 * lane : c0 + lane, C);
         }
+#pragma unroll
+        for (int q = 0; q < kGroup; ++q)
+          if (g + q < cnt) fma4(w[q], xv[q], acc);
       }
     }
-#pragma unroll
-    for (int k = 0; k < kPerLane; ++k) {
-      const int c = lane + 32 * k;
-      if (c0 + c < C) orow[c0 + c] = acc[k];
+    if (kVec) {
+      const int c = c0 + 4 * lane;
+      if (c < C) *reinterpret_cast<float4*>(orow + c) = acc;
+    } else {
+      const int c = c0 + lane;
+      if (c < C) orow[c] = acc.x;
+      if (c + 32 < C) orow[c + 32] = acc.y;
+      if (c + 64 < C) orow[c + 64] = acc.z;
+      if (c + 96 < C) orow[c + 96] = acc.w;
     }
   }
 }
 
-template <typename T>
-int launch(const T* band, const float* x_ext, float* out, int B, int nB,
-           int BLK, int W, int C, void* stream) {
-  const long long warps = (long long)B * nB * BLK;
-  if (warps == 0) return (int)cudaSuccess;
-  const long long blocks = (warps + kWarps - 1) / kWarps;
-  band_spmm_fwd_kernel<T><<<(unsigned)blocks, kWarps * 32, 0,
-                            (cudaStream_t)stream>>>(band, x_ext, out, B, nB,
-                                                    BLK, W, C);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-extern "C" int band_spmm_fwd_i8(const int8_t* band, const float* x_ext,
-                                float* out, int B, int nB, int BLK, int W,
-                                int C, void* stream) {
-  return launch(band, x_ext, out, B, nB, BLK, W, C, stream);
-}
-
-extern "C" int band_spmm_fwd_f32(const float* band, const float* x_ext,
-                                 float* out, int B, int nB, int BLK, int W,
-                                 int C, void* stream) {
-  return launch(band, x_ext, out, B, nB, BLK, W, C, stream);
+// vec != 0: C % 4 == 0 and x_ext, out 16-byte aligned (the wrapper checks).
+extern "C" int band_spmm_fwd(const float* x_ext, const int* row_ptr,
+                             const int* col, const float* val, float* out,
+                             int B, int nB, int BLK, int W, int C, int vec,
+                             void* stream) {
+  const long long warps = (long long)B * nB * BLK;
+  if (warps == 0) return (int)cudaSuccess;
+  auto kernel = vec ? band_spmm_fwd_kernel<true> : band_spmm_fwd_kernel<false>;
+  kernel<<<blocks_for(warps), kWarps * 32, 0, (cudaStream_t)stream>>>(
+      x_ext, row_ptr, col, val, out, B, nB, BLK, W, C);
+  return (int)cudaGetLastError();
 }

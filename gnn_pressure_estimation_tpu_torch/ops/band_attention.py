@@ -5,7 +5,8 @@ takes is ``BatchedGraph.band_attn`` (``ops.banded.band_attention_route``):
 * :func:`band_attention` ("dma") replaces ``make_band_attention_dma`` (v2) in
   ``gnn_pressure_estimation_tpu/ops/pallas/band_attention.py``
   (``csrc/band_attention.cu``, ``csrc/band_attention_bwd.cu``). The forward
-  scans the int8 mask row; the backward recomputes the softmax.
+  walks the mask's row lists, every head of a row in one warp; the backward
+  recomputes the softmax.
 * :func:`band_attention_flash` ("flash") replaces ``make_band_attention_flash``
   (v4) (``csrc/band_attention_flash.cu``, ``csrc/band_attention_flash_bwd.cu``):
   a streaming softmax whose per-row state does not grow with W. The forward
@@ -34,13 +35,13 @@ Bound on an H100 SXM at the bigtown GATRes-large shapes (B 32, n_pad 5,888,
 W 896, H·C 256): counted over the mask's nonzeros (0.51% dense) the forward
 is memory-bound — x_ext (214 MB) read once and out (193 MB) written once,
 ≈0.12 ms at 3.35 TB/s; counted over the dense window it is 86 GFLOP, ≈1.3 ms
-at 67 TFLOP/s f32. The v2 forward kernel skips masked columns (a warp ballot
-over the mask row), so its work follows the nonzeros and its floor is the
-byte bound. The backward reads x_ext and dO and writes d x_ext (≈0.19 ms at
-those shapes); it recomputes the softmax, as v2 does, and walks the mask's
-nonzeros through a :class:`~..ops.banded.BandIndex` (row lists, then the same
-entries grouped by the extended row they read), so the overlapping windows
-fold without atomics and a run repeats to the bit. The flash and window
+at 67 TFLOP/s f32. The v2 forward kernel walks the row lists of a
+:class:`~..ops.banded.BandIndex` of the mask, so its work follows the
+nonzeros and its floor is the byte bound. The backward reads x_ext and dO
+and writes d x_ext (≈0.19 ms at those shapes); it recomputes the softmax, as
+v2 does, and walks the same index (row lists, then the same entries grouped
+by the extended row they read), so the overlapping windows fold without
+atomics and a run repeats to the bit. The flash and window
 kernels walk the same index in both directions; the window route's bound is
 the dense ``[nB, B, W, H, C]`` tensors it must read and write.
 """
@@ -120,29 +121,42 @@ def band_attention_fwd(
     x_ext: torch.Tensor,
     adj_mask: torch.Tensor,
     negative_slope: float = 0.2,
+    index: Optional[bops.BandIndex] = None,
 ) -> torch.Tensor:
     """a_dst [B, n_pad, H] · a_src_win [nB, B, W, H] · x_ext [B, n_ext, H, C]
     (n_ext = n_pad + W − BLK) · adj_mask [nB, BLK, W] (bool or int8)
     → [B, n_pad, H, C], all f32. No autograd: see :func:`band_attention`.
 
     On CUDA tensors it launches the kernel (or raises); on CPU tensors it
-    runs :func:`band_attention_plain`. ``band_attention_fwd.launches`` counts
-    kernel launches."""
+    runs :func:`band_attention_plain`. ``index``: the mask's
+    :class:`BandIndex` on the same device (the template's cached one on the
+    model's path), else built from the mask's values on the host. The kernel
+    walks its row lists and never reads the mask, so an index built from
+    another mask of the same shape gives that mask's attention on the card;
+    only its shape and device are checked. ``band_attention_fwd.launches``
+    counts kernel launches (one per call: the padded rows' window-mean
+    pre-pass and the row pass are one launch of it)."""
     if bops.use_plain(x_ext):
         return band_attention_plain(a_dst, a_src_win, x_ext, adj_mask, negative_slope)
-    adj_mask = _check("band_attention_fwd", a_dst, a_src_win, x_ext, adj_mask)
+    name = "band_attention_fwd"
+    adj_mask = _check(name, a_dst, a_src_win, x_ext, adj_mask)
     nB, BLK, W = adj_mask.shape
     B, _, H, C = x_ext.shape
-    out = torch.empty((B, nB * BLK, H, C), dtype=torch.float32, device=x_ext.device)
+    dev = x_ext.device
+    ix = bops.index_for(name, adj_mask, index, dev)
+    n_empty = int(ix.empty_row.shape[0])
+    out = torch.empty((B, nB * BLK, H, C), dtype=torch.float32, device=dev)
+    mean = torch.empty((B, nB, H * C) if n_empty else (1,), dtype=torch.float32, device=dev)
     fn = _build.load("band_attention").band_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(x_ext.device):
-        rc = fn(a_dst.data_ptr(), a_src_win.data_ptr(), x_ext.data_ptr(),
-                adj_mask.data_ptr(), out.data_ptr(), B, nB, BLK, W, H, C,
-                float(negative_slope), torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(dev):
+        rc = fn(a_dst.data_ptr(), a_src_win.data_ptr(), x_ext.data_ptr(), ix.row_ptr.data_ptr(),
+                ix.col.data_ptr(), ix.empty_ptr.data_ptr(), mean.data_ptr(), out.data_ptr(),
+                B, nB, BLK, W, H, C, n_empty, int(bops.vector_loads(x_ext, C)), float(negative_slope),
+                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"band_attention_fwd: kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
     band_attention_fwd.launches += 1
     return out
 
@@ -179,9 +193,7 @@ def band_attention_bwd(
         raise ValueError(f"band_attention_bwd: d_out {tuple(d_out.shape)} {d_out.dtype} does not "
                          f"fit x_ext {tuple(x_ext.shape)}")
     d_out = d_out.contiguous()
-    ix = bops.band_index_of(adj_mask) if index is None else index
-    if (ix.nB, ix.BLK, ix.W) != (nB, BLK, W) or ix.col.device != dev:
-        raise ValueError("band_attention_bwd: index does not belong to this mask and device")
+    ix = bops.index_for("band_attention_bwd", adj_mask, index, dev)
     nnz, n_empty = ix.nnz, int(ix.empty_row.shape[0])
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
     d_a_dst, d_a_src_win, d_x_ext = new(B, nB * BLK, H), new(nB, B, W, H), new(B, n_ext, H, C)
@@ -217,7 +229,7 @@ class BandAttention(torch.autograd.Function):
     def forward(ctx, a_dst, a_src_win, x_ext, adj_mask, negative_slope, index, bwd):
         ctx.save_for_backward(a_dst, a_src_win, x_ext, adj_mask)
         ctx.negative_slope, ctx.index, ctx.bwd = negative_slope, index, bwd
-        return band_attention_fwd(a_dst, a_src_win, x_ext, adj_mask, negative_slope)
+        return band_attention_fwd(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -313,15 +325,6 @@ def band_attention_flash_bwd_plain(
     return _rows_of(dz.sum(dim=3), B, nB, BLK), dz.sum(dim=2), bops.fold_windows_ext(dxw, BLK)
 
 
-def _index_for(fn: str, adj_mask, index, dev):
-    """The mask's BandIndex on ``dev``: the caller's (checked) or one built
-    from the mask's values."""
-    ix = bops.band_index_of(adj_mask) if index is None else index
-    if (ix.nB, ix.BLK, ix.W) != tuple(adj_mask.shape) or ix.col.device != dev:
-        raise ValueError(f"{fn}: index does not belong to this mask and device")
-    return ix
-
-
 def _check_rows(fn: str, x, **rows):
     """Per-row operands of a backward: f32 on the device of ``x``; returns
     them contiguous."""
@@ -352,7 +355,7 @@ def band_attention_flash_fwd(
     nB, BLK, W = adj_mask.shape
     B, _, H, C = x_ext.shape
     dev = x_ext.device
-    ix = _index_for("band_attention_flash_fwd", adj_mask, index, dev)
+    ix = bops.index_for("band_attention_flash_fwd", adj_mask, index, dev)
     out = torch.empty((B, nB * BLK, H, C), dtype=torch.float32, device=dev)
     m, Z = (torch.empty((B, nB * BLK, H), dtype=torch.float32, device=dev) for _ in range(2))
     fn = _build.load("band_attention_flash").band_attention_flash_fwd
@@ -399,7 +402,7 @@ def band_attention_flash_bwd(
     rows = (B, nB * BLK, H)
     m, Z, delta, d_out = _check_rows(name, x_ext, m=(m, rows), Z=(Z, rows), delta=(delta, rows),
                                      d_out=(d_out, rows + (C,)))
-    ix = _index_for(name, adj_mask, index, dev)
+    ix = bops.index_for(name, adj_mask, index, dev)
     nnz, n_empty = ix.nnz, int(ix.empty_row.shape[0])
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
     d_a_dst, d_a_src_win, d_x_ext = new(*rows), new(nB, B, W, H), new(B, n_ext, H, C)
@@ -511,7 +514,7 @@ def band_attention_window_fwd(
     nB, BLK, W = adj_mask.shape
     _, B, _, H, C = x_win.shape
     dev = x_win.device
-    ix = _index_for("band_attention_window_fwd", adj_mask, index, dev)
+    ix = bops.index_for("band_attention_window_fwd", adj_mask, index, dev)
     out = torch.empty((B, nB * BLK, H, C), dtype=torch.float32, device=dev)
     fn = _build.load("band_attention_window").band_attention_window_fwd
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
@@ -551,7 +554,7 @@ def band_attention_window_bwd(
     _, B, _, H, C = x_win.shape
     dev = x_win.device
     (d_out,) = _check_rows(name, x_win, d_out=(d_out, (B, nB * BLK, H, C)))
-    ix = _index_for(name, adj_mask, index, dev)
+    ix = bops.index_for(name, adj_mask, index, dev)
     nnz, n_empty = ix.nnz, int(ix.empty_row.shape[0])
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
     d_a_dst, d_a_src_win, d_x_win = new(B, nB * BLK, H), new(nB, B, W, H), new(nB, B, W, H, C)
@@ -644,7 +647,7 @@ def band_attention_acc_bwd(
     B, n_ext, H, C = x_ext.shape
     dev = x_ext.device
     (d_out,) = _check_rows(name, x_ext, d_out=(d_out, (B, nB * BLK, H, C)))
-    ix = _index_for(name, adj_mask, index, dev)
+    ix = bops.index_for(name, adj_mask, index, dev)
     n_empty = int(ix.empty_row.shape[0])
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
     d_a_dst, d_a_src_win, d_x_ext = new(B, nB * BLK, H), new(nB, B, W, H), new(B, n_ext, H, C)

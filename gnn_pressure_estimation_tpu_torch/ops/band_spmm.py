@@ -16,11 +16,12 @@ Bound on an H100 SXM at the bigtown GATRes-large shapes (B 32, n_pad 5,888,
 W 896, C 128): counted over the band's nonzeros the work is memory-bound —
 x_ext (107 MB) read once and out (96 MB) written once, ≈0.06 ms at
 3.35 TB/s, forward and backward alike; counted over the dense window it is
-43 GFLOP, ≈0.64 ms at 67 TFLOP/s f32. The forward kernel skips zero band
-entries (a warp ballot over the band row). The backward is a banded SpMM
-with the transposed band, walked through a
-:class:`~..ops.banded.BandIndex` (the nonzeros grouped by the extended row
-they read), so the overlapping windows fold without atomics.
+43 GFLOP, ≈0.64 ms at 67 TFLOP/s f32. Both kernels walk the band's
+nonzeros through a :class:`~..ops.banded.BandIndex`, which carries their
+values as f32, so the int8 and f32 bands take the same kernels: the forward
+its row lists (one warp per output row, 16-byte loads of the x rows), the
+backward the same entries grouped by the extended row they read, so the
+overlapping windows fold without atomics.
 """
 
 from __future__ import annotations
@@ -63,26 +64,33 @@ def _check(fn: str, band, x, rows: int):
         raise ValueError(f"{fn}: band must be contiguous int8/f32 on {x.device}")
 
 
-def band_spmm_fwd(band: torch.Tensor, x_ext: torch.Tensor) -> torch.Tensor:
+def band_spmm_fwd(band: torch.Tensor, x_ext: torch.Tensor,
+                  index: Optional[bops.BandIndex] = None) -> torch.Tensor:
     """band [nB, BLK, W] (int8 counts or f32) · x_ext [B, n_ext, C] f32
     (n_ext = nB·BLK + W − BLK) → [B, nB·BLK, C] f32. No autograd: see
     :func:`band_spmm`.
 
-    On CUDA tensors it launches the kernel (or raises); on CPU tensors it
-    runs :func:`band_spmm_plain`. ``band_spmm_fwd.launches`` counts kernel
-    launches."""
+    ``index`` is the band's :class:`BandIndex` on the same device (the
+    template's cached one on the model's path); without it the index is
+    built from the band's values on the host. The kernel walks its row lists
+    and reads the values from it, never the band, so an index built from
+    another band of the same shape gives that band's product on the card;
+    only its shape and device are checked. On CUDA tensors it launches the
+    kernel (or raises); on CPU tensors it runs :func:`band_spmm_plain`.
+    ``band_spmm_fwd.launches`` counts kernel launches."""
     if bops.use_plain(x_ext):
         return band_spmm_plain(band, x_ext)
     nB, BLK, W = band.shape
     _check("band_spmm_fwd", band, x_ext, nB * BLK + W - BLK)
     B, _, C = x_ext.shape
+    ix = bops.index_for("band_spmm_fwd", band, index, x_ext.device)
     out = torch.empty((B, nB * BLK, C), dtype=torch.float32, device=x_ext.device)
-    lib = _build.load("band_spmm")
-    fn = lib.band_spmm_fwd_i8 if band.dtype == torch.int8 else lib.band_spmm_fwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = _build.load("band_spmm").band_spmm_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x_ext.device):
-        rc = fn(band.data_ptr(), x_ext.data_ptr(), out.data_ptr(), B, nB, BLK, W, C,
+        rc = fn(x_ext.data_ptr(), ix.row_ptr.data_ptr(), ix.col.data_ptr(), ix.val.data_ptr(),
+                out.data_ptr(), B, nB, BLK, W, C, int(bops.vector_loads(x_ext, C)),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"band_spmm_fwd: kernel launch failed with CUDA error {rc}")
@@ -109,9 +117,7 @@ def band_spmm_bwd(band: torch.Tensor, d_out: torch.Tensor,
     d_out = d_out.contiguous()
     _check("band_spmm_bwd", band, d_out, nB * BLK)
     B, _, C = d_out.shape
-    ix = bops.band_index_of(band) if index is None else index
-    if (ix.nB, ix.BLK, ix.W) != (nB, BLK, W) or ix.col.device != d_out.device:
-        raise ValueError("band_spmm_bwd: index does not belong to this band and device")
+    ix = bops.index_for("band_spmm_bwd", band, index, d_out.device)
     d_x_ext = torch.empty((B, nB * BLK + W - BLK, C), dtype=torch.float32, device=d_out.device)
     fn = _build.load("band_spmm_bwd").band_spmm_bwd
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -137,7 +143,7 @@ class BandSpmm(torch.autograd.Function):
     def forward(ctx, band, x_ext, index):
         ctx.save_for_backward(band)
         ctx.index = index
-        return band_spmm_fwd(band, x_ext)
+        return band_spmm_fwd(band, x_ext, index)
 
     @staticmethod
     @torch.autograd.function.once_differentiable

@@ -237,6 +237,16 @@ def band_index_of(band: torch.Tensor) -> BandIndex:
     return build_band_index(band.detach().cpu().numpy()).to(band.device)
 
 
+def index_for(fn: str, band: torch.Tensor, index, dev) -> BandIndex:
+    """The :class:`BandIndex` a kernel wrapper ``fn`` walks for ``band`` (a
+    mask or a value band) on ``dev``: the caller's, checked to fit, or one
+    built from the band's values."""
+    ix = band_index_of(band) if index is None else index
+    if (ix.nB, ix.BLK, ix.W) != tuple(band.shape) or ix.col.device != dev:
+        raise ValueError(f"{fn}: index does not belong to this band and device")
+    return ix
+
+
 BAND_ATTN_ROUTES = ("dma", "flash", "window", "acc")
 
 
@@ -282,6 +292,13 @@ def use_plain(t: torch.Tensor) -> bool:
     """A wrapper takes its plain version for a CPU tensor, or inside
     :func:`plain_versions`."""
     return t.device.type == "cpu" or _force_plain
+
+
+def vector_loads(x: torch.Tensor, C: int) -> bool:
+    """Whether a band kernel may read ``x``'s rows of C channels as float4:
+    C a multiple of 4 and the data 16-byte aligned (a view at an offset may
+    not be); else it takes its scalar variant."""
+    return C % 4 == 0 and x.data_ptr() % 16 == 0
 
 
 def halo_widths(win_start: tuple, W: int, n_pad: int) -> tuple[int, int]:
