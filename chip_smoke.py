@@ -10,9 +10,11 @@ Phases (any failure exits non-zero; none is caught):
 3. Hold each kernel, forward and backward, against its plain PyTorch version
    on the card, at the bigtown band layout (B 1 and B 4) and at small ragged
    shapes (W not a multiple of 32, fully masked rows, H·C 64, C past one
-   128- and 256-channel tile, C % 4 != 0, rows with more than 32 entries,
-   more than 32 heads, an x_ext off 16-byte alignment); atol and rtol 1e-4,
-   since the kernels sum in another order. The backward kernels get a random
+   128- and 256-channel tile, C 256 of one head, three heads of C 128,
+   C % 4 != 0, rows with more than 32 entries, extended rows that more than
+   32 entries read, more than 32 heads (H 40 at C 4, H 33 at C 3), an x_ext
+   off 16-byte alignment, forward and backward); atol and rtol 1e-4, since
+   the kernels sum in another order. The backward kernels get a random
    cotangent on all rows.
 4. Fixture parity: the trained GATRes-large on bigtown (banded, through the
    kernels) against the JAX activations stored in
@@ -27,7 +29,8 @@ Phases (any failure exits non-zero; none is caught):
    PyTorch library call where one computes the same function, and its bound
    on an H100 SXM (counted over the index the kernel walks) with the share of
    it reached; v2's forward also beside the flash forward on the same inputs;
-   every kernel also at the training batch (B 8).
+   every kernel also at the training batch (B 8). The device time of v2's
+   forward and of v2's backward by pass (``torch.profiler``) at B 32, H·C 256.
 7. Training at full width: GATRes-large from the trained fixture's weights on
    bigtown. (a) One step at B 1 with the mask of
    ``artifacts/parity_train_bigtown.npz``: loss, every gradient and the
@@ -93,10 +96,14 @@ Phases (any failure exits non-zero; none is caught):
     the B 1 step of ``artifacts/parity_train_bigtown.npz``, and the same
     serving batch and a batch-8 train step timed under each of the three routes.
 19. Times of the four new kernels beside their plain versions and byte bounds:
-    the flash pair on meganet at B 8 (serving) and B 2 (training), the kernel
-    alone at B 32, v2's pair on the same meganet inputs at B 8; the band SpMM
-    forward on meganet at B 8 beside ``torch.sparse.mm``; the window pair on
-    bigtown at B 32.
+    the flash pair on meganet at B 8 (serving) and B 2 (training), out, m
+    and Z held against the plain version first, the backward also from the
+    forward kernel's own out, m, Z (whether m equals the plain row maximum
+    bit for bit is printed); the kernels alone at B 32; at B 8, v2's pair on
+    the same inputs (the two forwards are one row walk, v2's without the
+    statistics; v2's backward recomputes the softmax, the flash backward
+    takes m, Z and delta); the band SpMM forward on meganet at B 8 beside
+    ``torch.sparse.mm``; the window pair on bigtown at B 32.
 
 20. The owner-row backward of the sliding-accumulator route
     (``band_attention_acc_bwd``) against its plain version on the bigtown
@@ -229,8 +236,10 @@ def device_split(fn, iters: int = 10) -> list:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sorted(((e.key.removeprefix("(anonymous namespace)::").split("(")[0],
-                    e.self_device_time_total / iters / 1e3) for e in prof.key_averages()
+    def name(key):          # "void (anonymous namespace)::columns_kernel<2, true, true>(...)"
+        return key.removeprefix("void ").removeprefix("(anonymous namespace)::").split("(")[0]
+
+    return sorted(((name(e.key), e.self_device_time_total / iters / 1e3) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                   key=lambda kv: -kv[1])
 
@@ -696,19 +705,28 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
         a_src[:, :, ::3] = 0.0
         return a_dst, a_src, randn(B, ne_, H, C), randn(B, np_, H, C)
 
+    m_exact = []                                 # the kernel's m equal to the plain row max
+
     def check_flash(tag, msk, index, B, H, C, verbose=False):
         a_dst, a_src, x_ext, d_out = operands(msk, B, H, C)
         label = f"{tag} B{B} H{H} C{C}"
-        got = ba.band_attention_flash_fwd(a_dst, a_src, x_ext, msk, 0.2, index)
+        own = ba.band_attention_flash_fwd(a_dst, a_src, x_ext, msk, 0.2, index)
         ref = ba.band_attention_flash_plain(a_dst, a_src, x_ext, msk, 0.2)
-        for part, g, r in zip(("out", "m", "Z"), got, ref):
+        for part, g, r in zip(("out", "m", "Z"), own, ref):
             held("band_attention_flash", f"band_attention_flash {label} {part}", g, r, verbose)
+        m_exact.append(torch.equal(own[1], ref[1]))
         out, m, Z = ref
         delta = (d_out * out).sum(dim=-1)
-        got = ba.band_attention_flash_bwd(a_dst, a_src, x_ext, msk, m, Z, delta, d_out, 0.2, index)
         ref = ba.band_attention_flash_bwd_plain(a_dst, a_src, x_ext, msk, m, Z, delta, d_out, 0.2)
-        for part, g, r in zip(("d a_dst", "d a_src_win", "d x_ext"), got, ref):
+        got = ba.band_attention_flash_bwd(a_dst, a_src, x_ext, msk, m, Z, delta, d_out, 0.2, index)
+        # and from the kernel's own out, m, Z: the statistics the model's path hands over
+        mine = ba.band_attention_flash_bwd(a_dst, a_src, x_ext, msk, own[1], own[2],
+                                           (d_out * own[0]).sum(dim=-1), d_out, 0.2, index)
+        for part, g, g2, r in zip(("d a_dst", "d a_src_win", "d x_ext"), got, mine, ref):
             held("band_attention_flash_bwd", f"band_attention_flash_bwd {label} {part}", g, r,
+                 verbose)
+            held("band_attention_flash_bwd",
+                 f"band_attention_flash_bwd {label} {part}, from the kernel's out, m, Z", g2, r,
                  verbose)
         return a_dst, a_src, x_ext, d_out, m, Z, delta
 
@@ -1084,18 +1102,25 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
                 + wide_ * (2 * n_ext + n_pad) + b_ix,
                 ops=B * H * ix.nnz * (4 * C + 12)))
             if B == bs:
-                # the v2 kernels on the same inputs: both forwards walk the row lists; v2's
-                # takes every head of a row in one warp and writes no m and Z
+                # the v2 kernels on the same inputs: both forwards are one row walk
+                # (csrc/band_rowwalk.cuh), v2's without the statistics; v2's backward
+                # recomputes the softmax where the flash backward takes m, Z and delta
                 held("band_attention", f"band_attention meganet B{B} H{H} C{C}",
                      ba.band_attention_fwd(a_dst, a_src, x_ext, mask, 0.2, ix),
                      ba.band_attention_plain(a_dst, a_src, x_ext, mask, 0.2), verbose=False)
+                for part, g, r in zip(
+                        ("d a_dst", "d a_src_win", "d x_ext"),
+                        ba.band_attention_bwd(a_dst, a_src, x_ext, mask, d_out, 0.2, ix),
+                        ba.band_attention_bwd_plain(a_dst, a_src, x_ext, mask, d_out, 0.2)):
+                    held("band_attention_bwd", f"band_attention_bwd meganet B{B} H{H} C{C} {part}",
+                         g, r, verbose=False)
                 v2_ms[H * C] = (
-                    cuda_ms(lambda: ba.band_attention_fwd(a_dst, a_src, x_ext, mask, 0.2, ix), 3, 10),
+                    cuda_ms(lambda: ba.band_attention_fwd(a_dst, a_src, x_ext, mask, 0.2, ix), 3, 20),
                     cuda_ms(lambda: ba.band_attention_bwd(a_dst, a_src, x_ext, mask, d_out, 0.2, ix),
-                            3, 10))
-                print(f"  for comparison, band_attention (v2: all heads of a row in one warp, the same "
-                      f"row lists) on the same inputs: forward {v2_ms[H * C][0]:.4f} ms, backward "
-                      f"{v2_ms[H * C][1]:.4f} ms")
+                            3, 20))
+                print(f"  on the same inputs, band_attention (v2: the same row walk, without m and Z) "
+                      f"forward {v2_ms[H * C][0]:.4f} ms; its backward (the softmax recomputed, dp "
+                      f"in the columns pass) {v2_ms[H * C][1]:.4f} ms")
             del a_dst, a_src, x_ext, d_out, m, Z, delta
             torch.cuda.empty_cache()
     a_dst, a_src, x_ext, d_out = operands(mask, 32, 2, 128)
@@ -1106,6 +1131,8 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
             lambda: ba.band_attention_flash_fwd(a_dst, a_src, x_ext, mask, 0.2, ix), 3, 20),
         "band_attention_flash_bwd": cuda_ms(lambda: ba.band_attention_flash_bwd(
             a_dst, a_src, x_ext, mask, m, Z, delta, d_out, 0.2, ix), 3, 20)}
+    print(f"  the flash forward's m equal to the plain row maximum, bit for bit, at every "
+          f"meganet and ragged shape: {all(m_exact)} ({sum(m_exact)} of {len(m_exact)})")
     print(f"  kernels alone at B 32, H·C 256 (no plain version there: it holds several "
           f"[nB, B, BLK, W, H] tensors of 11 GB each): "
           f"forward {ms_b32['band_attention_flash']:.4f} ms, backward "
@@ -1812,12 +1839,21 @@ def main() -> int:
     check_attention("ragged", rmask_t, 2, 1, 300, rix)
     check_attention("ragged", rmask_t, 2, 3, 33, rix)       # C % 4 != 0: the scalar loads
     check_attention("ragged", rmask_t, 2, 40, 4, rix)       # past 32 heads: two head groups
+    check_attention("ragged", rmask_t, 2, 1, 256, rix)      # two float4 slots of one head
+    check_attention("ragged", rmask_t, 1, 3, 128, rix)      # a last tile half past the heads
     # rows with more than 32 entries: the row pass takes them 32 at a time
     wide = torch.as_tensor((rng.random((2, 16, 200)) < 0.4).view(np.int8), device=dev)
     wix = bops.band_index_of(wide)
     check_attention("wide rows", wide, 2, 2, 32, wix)
     check_attention("wide rows", wide, 1, 1, 160, wix)      # C past one 128-channel tile
     check_attention("wide rows", wide, 1, 33, 3, wix)       # 33 heads, scalar loads
+    # extended rows that more than 32 entries read: the backward's columns pass
+    # takes them 32 at a time
+    dense = torch.as_tensor((np.random.default_rng(7).random((4, 16, 48)) < 0.95).view(np.int8),
+                            device=dev)
+    dix = bops.band_index_of(dense)
+    check_attention("dense columns", dense, 2, 2, 64, dix)
+    check_attention("dense columns", dense, 1, 3, 33, dix)
     for band, bix in ((rcnt, rcnt_ix), (rw, rw_ix)):
         check_spmm("ragged", band, 3, 64, bix)
         check_spmm("ragged", band, 2, 300, bix)
@@ -1832,6 +1868,11 @@ def main() -> int:
         held("band_attention", f"band_attention offset x_ext B{B} H{H} C{C}",
              band_attention_fwd(a_dst, a_src, x_off, rmask_t, 0.2, rix),
              band_attention_plain(a_dst, a_src, x_off, rmask_t, 0.2))
+        d_out = randn(B, 48, H, C)
+        for part, g, r in zip(("d a_dst", "d a_src_win", "d x_ext"),
+                              band_attention_bwd(a_dst, a_src, x_off, rmask_t, d_out, 0.2, rix),
+                              band_attention_bwd_plain(a_dst, a_src, x_off, rmask_t, d_out, 0.2)):
+            held("band_attention_bwd", f"band_attention_bwd offset x_ext B{B} H{H} C{C} {part}", g, r)
         x_off = x_off.view(B, 102, H * C)
         held("band_spmm", f"band_spmm offset x_ext B{B} C{H * C}", band_spmm_fwd(rw, x_off, rw_ix),
              band_spmm_plain(rw, x_off))
@@ -1973,9 +2014,14 @@ def main() -> int:
                     device_split(lambda: band_attention_fwd(*args, 0.2, mask_ix))))
             # backward: reads the forward's inputs and dO, writes the three
             # cotangents (d a_src_win is an output in window layout) and walks the index
+            if B == bs and H == 2:
+                print("  band_attention_bwd B 32 H·C 256, device ms by pass: " + ", ".join(
+                    f"{k} {ms:.4f}" for k, ms in
+                    device_split(lambda: band_attention_bwd(*args, d_out, 0.2, mask_ix))))
             rows.append(dict(
                 name="band_attention_bwd", B=B, hc=H * C,
                 ms=cuda_ms(lambda: band_attention_bwd(*args, d_out, 0.2, mask_ix), 3, 20),
+                device_ms=device_ms(lambda: band_attention_bwd(*args, d_out, 0.2, mask_ix)),
                 plain_ms=cuda_ms(lambda: band_attention_bwd_plain(*args, d_out, 0.2), 1, 3),
                 library_ms=None,
                 bytes=io + 4 * (B * n_pad * H + nB * B * W * H + B * n_ext * H * C)
@@ -2227,6 +2273,9 @@ def main() -> int:
                 k: [{"serve_b32": a, "step_b8": b} for a, b in v]
                 for k, v in mega["route_ms"].items()}}),
             **({"ms_b32": mega["ms_b32"][name]} if flash else {}),
+            # v2's kernel of the same direction on the same meganet B 8 inputs
+            **({"v2_ms_same_inputs": {f"HC{hc}": t[name.endswith("_bwd")]
+                                      for hc, t in mega["v2_ms"].items()}} if flash else {}),
             "by_shape": {f"B{b} HC{hc}": {k: q[k] for k in ("ms", "plain_ms", "bound_ms", "bytes")}
                          for (b, hc), q in shaped.items()},
         })

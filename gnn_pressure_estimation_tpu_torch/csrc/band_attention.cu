@@ -8,267 +8,18 @@
 //   p     = softmax over the j with mask[blk, i % BLK, j] != 0
 //   out[b, i, h, :] = sum_j p_j * x_ext[b, blk*BLK + j, h, :]
 //
-// The sign of LeakyReLU is that of the one f32 sum a_dst + a_src (z >= 0).
-// A row with no set column (a padded band row: no self-loop) gets a uniform
-// softmax over its W window, as the plain version does: the mean of the
-// window's W rows.
-//
-// The mask comes compressed (BandIndex row lists: row_ptr, col); the kernel
-// never reads the int8 mask.
-//
-// Bound: bytes. Each row gathers ~4.5 x rows (bigtown): about 0.5 FLOP a
-// byte in f32. Tensor cores would help only as a dense product over the W
-// window, ~200x the useful work, and their TF32 inputs would break the 1e-4
-// gate against the plain version; so TMA and wgmma do not apply. What the
-// design buys instead:
-// - one warp per (b, row), all heads: a row's H*C channels are contiguous in
-//   x_ext and out, so the warp reads each neighbour's whole row once (1 KB at
-//   H*C 256: two float4 a lane) and the row list once, not once a head. The
-//   logits of an entry are H adjacent floats of a_src_win. Max and sum are
-//   per head, by warp shuffles; a float4 never straddles two heads when
-//   C % 4 == 0 (a scalar variant serves other C or an unaligned x_ext);
-// - one pass over the list: up to 32 entries a chunk, one a lane. The x rows
-//   of the chunk's first kGroup entries are loaded as soon as col is known,
-//   before the softmax; the weights p go to shared memory (32*H a warp) and
-//   the FMAs follow in list order. A row past 32 entries streams as the flash
-//   forward does: running max m and sum Z per head, the accumulator rescaled
-//   by exp(m - m_new) at each chunk; out = acc / Z;
-// - latency hidden by warps in flight: each row is a chain of dependent
-//   loads (row_ptr, col, then x and the logits), so time follows the warps an
-//   SM holds more than bytes. The kernel is held to 64 registers (four thread
-//   blocks of eight warps an SM), with two entries' x rows loaded ahead
-//   (kGroup 2) rather than four at twice the registers;
-// - padded rows once a block, not once a row: a pre-pass (window_mean_kernel)
-//   sums the W window rows of each block that holds such a row (BandIndex
-//   empty_ptr), one thread block per (b, block, 32 channels); the main pass
-//   copies that mean;
-// - L2 reuse: the grid is b-major, row-minor, so neighbouring warps take
-//   neighbouring RCM rows, whose x rows overlap.
-// Channels run in tiles of 128*NV (NV float4 a lane: 1 for H*C <= 128, else
-// 2); a wider H*C walks the list once a tile. Heads run in groups of at most
-// kHeadGroup, whose weights fit the warp's shared memory (35 floats a head);
-// a group's channels [h0*C, (h0+hg)*C) are contiguous, so it is tiled as a
-// row of hg*C channels.
+// A row with no set column gets the mean of its W window rows, as the plain
+// version does. The walk (one warp per (b, row), all heads; the window-mean
+// pre-pass; the bound and what the design does about it) is
+// csrc/band_rowwalk.cuh, shared with the flash forward
+// (csrc/band_attention_flash.cu), which also writes the row statistics.
 //
 // The backward is csrc/band_attention_bwd.cu (csrc/band_attention_acc_bwd.cu
 // on the "acc" route).
 //
 // C interface: pointers, ints and the stream; returns cudaGetLastError().
 
-#include "band_common.cuh"
-
-namespace {
-
-constexpr int kGroup = 2;                // entries whose x rows load before their FMAs
-constexpr int kMinBlocks = 4;            // thread blocks an SM must hold: <= 64 registers
-constexpr int kMeanWarps = 16;           // warps of one window-mean block
-constexpr int kHeadGroup = 32;           // heads of one pass over the list
-constexpr float kRunningMaxInit = -3e38f;
-
-// mean[b, blk, c] = sum_{j < W} x_ext[b, blk*BLK + j, c] / W for each block
-// with a row of no set column; the other blocks leave at once and their
-// mean is not read. One thread block per (b, blk) and 32 channels; its warps
-// take every kMeanWarps-th row and their partial sums are added in warp order.
-__global__ void __launch_bounds__(kMeanWarps * 32)
-window_mean_kernel(const float* __restrict__ x_ext,     // [B, n_ext, HC]
-                   const int* __restrict__ empty_ptr,   // [nB + 1]
-                   float* __restrict__ mean,            // [B, nB, HC]
-                   int nB, int BLK, int W, int HC) {
-  const long long bb = blockIdx.x;                       // b * nB + blk
-  const long long blk = bb % nB, b = bb / nB;
-  if (empty_ptr[blk] == empty_ptr[blk + 1]) return;      // uniform over the block
-  __shared__ float part[kMeanWarps][32];
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int c = blockIdx.y * 32 + lane;
-  const long long n_ext = (long long)nB * BLK + W - BLK;
-  float acc = 0.f;
-  if (c < HC) {
-    const float* xc = x_ext + (b * n_ext + blk * BLK) * HC + c;
-    for (int j = wid; j < W; j += kMeanWarps) acc += __ldg(xc + (long long)j * HC);
-  }
-  part[wid][lane] = acc;
-  __syncthreads();
-  if (wid == 0 && c < HC) {
-    float s = 0.f;
-    for (int w = 0; w < kMeanWarps; ++w) s += part[w][lane];
-    mean[bb * HC + c] = s / (float)W;
-  }
-}
-
-template <int NV, bool kVec>
-__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
-band_attention_fwd_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
-                          const float* __restrict__ a_src_win,  // [nB, B, W, H]
-                          const float* __restrict__ x_ext,      // [B, n_ext, H, C]
-                          const int* __restrict__ row_ptr,      // [n_pad + 1]
-                          const int* __restrict__ col,          // [nnz]
-                          const float* __restrict__ mean,       // [B, nB, H*C]
-                          float* __restrict__ out,              // [B, n_pad, H, C]
-                          int B, int nB, int BLK, int W, int H, int C,
-                          float slope) {
-  extern __shared__ float smem[];        // per warp: p [32][G], then m, Z, alpha [G]
-  constexpr int kTile = 128 * NV;
-  const int lane = threadIdx.x & 31;
-  const int wib = threadIdx.x >> 5;
-  const long long warp = (long long)blockIdx.x * kWarps + wib;
-  const long long n_pad = (long long)nB * BLK;
-  if (warp >= (long long)B * n_pad) return;
-  const long long row = warp % n_pad;
-  const long long b = warp / n_pad;
-  const long long blk = row / BLK;
-  const long long n_ext = n_pad + W - BLK;
-  const int HC = H * C;
-
-  float* orow = out + (b * n_pad + row) * HC;
-  const int k0 = row_ptr[row], k1 = row_ptr[row + 1];
-  if (k0 == k1) {  // no set column: the block's window mean
-    const float* mrow = mean + (b * nB + blk) * HC;
-    for (int c = lane; c < HC; c += 32) orow[c] = mrow[c];
-    return;
-  }
-
-  const int G = min(H, kHeadGroup);
-  float* p_sh = smem + wib * 35 * G;
-  float* m_sh = p_sh + 32 * G;
-  float* z_sh = m_sh + G;
-  float* al_sh = z_sh + G;
-  const float* ad = a_dst + (b * n_pad + row) * H;
-  const float* asrc = a_src_win + (blk * B + b) * (long long)W * H;
-  const float* xw = x_ext + (b * n_ext + blk * BLK) * HC;
-
-  for (int h0 = 0; h0 < H; h0 += G) {
-    const int hg = min(G, H - h0);         // heads h0 .. h0+hg-1, channels up to ce
-    const int ce = (h0 + hg) * C;
-    for (int c0 = h0 * C; c0 < ce; c0 += kTile) {
-      // the group's head of each of the lane's channels (hg: past ce, never read)
-      int head[NV][4];
-#pragma unroll
-      for (int v = 0; v < NV; ++v)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane + 32 * e;
-          head[v][e] = c < ce ? c / C - h0 : hg;
-        }
-      float4 acc[NV];
-#pragma unroll
-      for (int v = 0; v < NV; ++v) acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int h = lane; h < hg; h += 32) {
-        m_sh[h] = kRunningMaxInit;
-        z_sh[h] = 0.f;
-      }
-      __syncwarp();
-
-      for (int s0 = k0; s0 < k1; s0 += 32) {   // one chunk of the row's list
-        const int k = s0 + lane;
-        const bool on = k < k1;
-        const int jl = on ? col[k] : 0;
-        const int cnt = min(32, k1 - s0);
-
-        // the first group's x rows, in flight while the softmax is formed
-        float4 xv[kGroup][NV];
-#pragma unroll
-        for (int q = 0; q < kGroup; ++q) {
-          const float* xr = xw + (long long)__shfl_sync(kFull, jl, min(q, cnt - 1)) * HC;
-#pragma unroll
-          for (int v = 0; v < NV; ++v)
-            xv[q][v] = load_slot<kVec>(
-                xr, kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane, ce);
-        }
-
-        // per head: the chunk's logits, the running max, the rescale, the weights
-        for (int h = 0; h < hg; ++h) {
-          float z = kRunningMaxInit;
-          if (on) {
-            z = __ldg(ad + h0 + h) + __ldg(asrc + (long long)jl * H + h0 + h);
-            z = z >= 0.f ? z : slope * z;
-          }
-          const float m_old = m_sh[h];
-          const float m_new = fmaxf(m_old, warp_max(z));
-          const float p = on ? expf(z - m_new) : 0.f;
-          const float psum = warp_sum(p);
-          p_sh[lane * G + h] = p;
-          __syncwarp();                        // every lane has read m_sh[h]
-          if (lane == 0) {
-            const float alpha = expf(m_old - m_new);
-            al_sh[h] = alpha;
-            z_sh[h] = z_sh[h] * alpha + psum;
-            m_sh[h] = m_new;
-          }
-        }
-        __syncwarp();
-
-#pragma unroll
-        for (int v = 0; v < NV; ++v) {
-          acc[v].x *= head[v][0] < hg ? al_sh[head[v][0]] : 0.f;
-          acc[v].y *= head[v][1] < hg ? al_sh[head[v][1]] : 0.f;
-          acc[v].z *= head[v][2] < hg ? al_sh[head[v][2]] : 0.f;
-          acc[v].w *= head[v][3] < hg ? al_sh[head[v][3]] : 0.f;
-        }
-
-        for (int g = 0; g < cnt; g += kGroup) {
-          if (g > 0) {
-#pragma unroll
-            for (int q = 0; q < kGroup; ++q) {
-              const float* xr =
-                  xw + (long long)__shfl_sync(kFull, jl, min(g + q, cnt - 1)) * HC;
-#pragma unroll
-              for (int v = 0; v < NV; ++v)
-                xv[q][v] = load_slot<kVec>(
-                    xr, kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane, ce);
-            }
-          }
-#pragma unroll
-          for (int q = 0; q < kGroup; ++q) {
-            if (g + q < cnt) {
-              const float* ps = p_sh + (g + q) * G;
-#pragma unroll
-              for (int v = 0; v < NV; ++v) {
-                if (head[v][0] < hg) acc[v].x = fmaf(ps[head[v][0]], xv[q][v].x, acc[v].x);
-                if (head[v][1] < hg) acc[v].y = fmaf(ps[head[v][1]], xv[q][v].y, acc[v].y);
-                if (head[v][2] < hg) acc[v].z = fmaf(ps[head[v][2]], xv[q][v].z, acc[v].z);
-                if (head[v][3] < hg) acc[v].w = fmaf(ps[head[v][3]], xv[q][v].w, acc[v].w);
-              }
-            }
-          }
-        }
-        __syncwarp();                          // p_sh is read before the next chunk writes it
-      }
-
-#pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        if (kVec) {
-          const int c = c0 + 128 * v + 4 * lane;
-          if (c < ce) {
-            const float Z = z_sh[head[v][0]];
-            *reinterpret_cast<float4*>(orow + c) =
-                make_float4(acc[v].x / Z, acc[v].y / Z, acc[v].z / Z, acc[v].w / Z);
-          }
-        } else {
-          const int c = c0 + 128 * v + lane;
-          if (c < ce) orow[c] = acc[v].x / z_sh[head[v][0]];
-          if (c + 32 < ce) orow[c + 32] = acc[v].y / z_sh[head[v][1]];
-          if (c + 64 < ce) orow[c + 64] = acc[v].z / z_sh[head[v][2]];
-          if (c + 96 < ce) orow[c + 96] = acc[v].w / z_sh[head[v][3]];
-        }
-      }
-      __syncwarp();                            // z_sh is read before the next tile resets it
-    }
-  }
-}
-
-template <int NV, bool kVec>
-int launch_main(const float* a_dst, const float* a_src_win, const float* x_ext,
-                const int* row_ptr, const int* col, const float* mean, float* out,
-                int B, int nB, int BLK, int W, int H, int C, float slope,
-                cudaStream_t stream) {
-  const long long warps = (long long)B * nB * BLK;
-  const size_t smem = (size_t)kWarps * 35 * min(H, kHeadGroup) * sizeof(float);
-  band_attention_fwd_kernel<NV, kVec><<<blocks_for(warps), kWarps * 32, smem, stream>>>(
-      a_dst, a_src_win, x_ext, row_ptr, col, mean, out, B, nB, BLK, W, H, C, slope);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "band_rowwalk.cuh"
 
 // vec != 0: C % 4 == 0 and x_ext, out 16-byte aligned (the wrapper checks).
 // n_empty: the number of band rows with no set column (mean is then
@@ -279,23 +30,7 @@ extern "C" int band_attention_fwd(const float* a_dst, const float* a_src_win,
                                   float* mean, float* out, int B, int nB,
                                   int BLK, int W, int H, int C, int n_empty,
                                   int vec, float slope, void* stream) {
-  const long long warps = (long long)B * nB * BLK;
-  if (warps == 0 || H * C == 0) return (int)cudaSuccess;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int HC = H * C;
-  if (n_empty > 0) {
-    window_mean_kernel<<<dim3((unsigned)((long long)B * nB), (unsigned)((HC + 31) / 32)),
-                         kMeanWarps * 32, 0, s>>>(x_ext, empty_ptr, mean, nB, BLK, W, HC);
-    const int rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
-  }
-  if (HC <= 128)
-    return vec ? launch_main<1, true>(a_dst, a_src_win, x_ext, row_ptr, col, mean, out, B, nB,
-                                      BLK, W, H, C, slope, s)
-               : launch_main<1, false>(a_dst, a_src_win, x_ext, row_ptr, col, mean, out, B, nB,
-                                       BLK, W, H, C, slope, s);
-  return vec ? launch_main<2, true>(a_dst, a_src_win, x_ext, row_ptr, col, mean, out, B, nB,
-                                    BLK, W, H, C, slope, s)
-             : launch_main<2, false>(a_dst, a_src_win, x_ext, row_ptr, col, mean, out, B, nB,
-                                     BLK, W, H, C, slope, s);
+  return band_rowwalk<false>(a_dst, a_src_win, x_ext, row_ptr, col, empty_ptr, mean, out,
+                             nullptr, nullptr, B, nB, BLK, W, H, C, n_empty, vec, slope,
+                             stream);
 }

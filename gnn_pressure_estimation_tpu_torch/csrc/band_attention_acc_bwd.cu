@@ -330,10 +330,7 @@ extern "C" int band_attention_acc_bwd(
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (n_empty > 0) {
-    empties_kernel<<<blocks_for((long long)B * nB * H * ((C + 31) / 32)),
-                     kWarps * 32, 0, st>>>(
-        dout, empty_ptr, empty_row, scratch_s, B, nB, BLK, W, H, C);
-    err = cudaGetLastError();
+    err = (cudaError_t)launch_empties(dout, empty_ptr, empty_row, scratch_s, B, nB, BLK, W, H, C, st);
     if (err != cudaSuccess) return (int)err;
   }
   owner_kernel<<<blocks_for((long long)B * H * n_ext), kWarps * 32, 0, st>>>(

@@ -25,7 +25,7 @@
 // the extended row they read, so the fold is the walk itself. No atomics:
 // every sum is taken in a fixed order and a run repeats to the bit.
 //
-//   1. empties: one warp per (b, block, head, 32 channels) sums dO/W over the
+//   1. empties: 16 warps per (b, 32 channels) sum dO/W over each
 //               block's rows that have no entry (their forward was the
 //               window's mean) into S [B, nB, H, C]; skipped when the layout
 //               has none.
@@ -236,10 +236,7 @@ extern "C" int band_attention_flash_bwd(
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (n_empty > 0) {
-    empties_kernel<<<blocks_for((long long)B * nB * H * ((C + 31) / 32)),
-                     kWarps * 32, 0, st>>>(
-        dout, empty_ptr, empty_row, scratch_s, B, nB, BLK, W, H, C);
-    err = cudaGetLastError();
+    err = (cudaError_t)launch_empties(dout, empty_ptr, empty_row, scratch_s, B, nB, BLK, W, H, C, st);
     if (err != cudaSuccess) return (int)err;
   }
   auto columns = C <= 128 ? columns_kernel<4> : columns_kernel<kMaxPerLane>;

@@ -27,7 +27,7 @@
 //   1. rows:    one warp per (b, row, head): max, exp and sum over the row's
 //               list, per entry a warp-wide dot product over C, then p and dz
 //               per entry into scratch ([B, H, nnz] each) and d a_dst.
-//   2. empties: one warp per (b, block, head, 32 channels) sums dO/W over the
+//   2. empties: 16 warps per (b, 32 channels) sum dO/W over each
 //               block's rows that have no entry into S [B, nB, H, C] (skipped
 //               when the layout has none).
 //   3. cells:   one warp per (block, b, window column j, head) walks the
@@ -228,10 +228,7 @@ extern "C" int band_attention_window_bwd(
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (n_empty > 0) {
-    empties_kernel<<<blocks_for((long long)B * nB * H * ((C + 31) / 32)),
-                     kWarps * 32, 0, st>>>(
-        dout, empty_ptr, empty_row, scratch_s, B, nB, BLK, W, H, C);
-    err = cudaGetLastError();
+    err = (cudaError_t)launch_empties(dout, empty_ptr, empty_row, scratch_s, B, nB, BLK, W, H, C, st);
     if (err != cudaSuccess) return (int)err;
   }
   auto cells = C <= 128 ? cells_kernel<4> : cells_kernel<kMaxPerLane>;

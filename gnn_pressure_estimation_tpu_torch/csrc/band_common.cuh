@@ -47,32 +47,56 @@ __device__ __forceinline__ float4 load_slot(const float* __restrict__ xr, int c,
 }
 
 // A band row with no set column got the mean of its block's W window rows
-// in the forward, so it adds dO/W to every one of them. One warp per
-// (b, block, head, 32 channels) sums dO/W over the block's such rows into S;
-// a block without any (all but the last, on a real layout) leaves at once
-// and its S is not read.
-__global__ void __launch_bounds__(kWarps * 32)
-empties_kernel(const float* __restrict__ dout,     // [B, n_pad, H, C]
-               const int* __restrict__ empty_ptr,  // [nB + 1]
-               const int* __restrict__ empty_row,  // [n_empty]
-               float* __restrict__ S,              // [B, nB, H, C]
-               int B, int nB, int BLK, int W, int H, int C) {
-  const int lane = threadIdx.x & 31;
-  const long long warp = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int tiles = (C + 31) / 32;
-  if (warp >= (long long)B * nB * H * tiles) return;
-  const int c = (int)(warp % tiles) * 32 + lane;
-  const int h = (int)((warp / tiles) % H);
-  const long long blk = (warp / tiles / H) % nB;
-  const long long b = warp / tiles / H / nB;
-  const int r0 = empty_ptr[blk], r1 = empty_ptr[blk + 1];
-  if (r0 == r1 || c >= C) return;
-  const long long n_pad = (long long)nB * BLK;
-  const long long HC = (long long)H * C;
-  const float* dcol = dout + b * n_pad * HC + (long long)h * C + c;
-  float acc = 0.f;
-  for (int r = r0; r < r1; ++r) acc += dcol[(long long)empty_row[r] * HC];
-  S[((b * nB + blk) * H + h) * (long long)C + c] = acc / (float)W;
+// in the forward, so it adds dO/W to every one of them. One thread block of
+// kN warps per (b, 32 channels) finds the blocks that hold such rows (all but
+// the last have none on a real layout) and sums dO/W over each one's rows
+// into S: its warps take every kN-th row and their partial sums are added in
+// warp order, so the chain of dependent loads is kN times shorter than one
+// warp's walk. S of the other blocks is not read.
+template <int kN>
+__device__ __forceinline__ void empties_block(const float* __restrict__ dout,     // [B, n_pad, H*C]
+                                              const int* __restrict__ empty_ptr,  // [nB + 1]
+                                              const int* __restrict__ empty_row,  // [n_empty]
+                                              float* __restrict__ S,              // [B, nB, H*C]
+                                              int nB, int BLK, int W, int HC, long long b,
+                                              int c_tile) {
+  __shared__ float part[kN][32];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int c = c_tile * 32 + lane;
+  const float* dcol = dout + b * nB * BLK * (long long)HC + c;
+  for (int blk = 0; blk < nB; ++blk) {
+    const int r0 = empty_ptr[blk], r1 = empty_ptr[blk + 1];
+    if (r0 == r1) continue;                        // uniform across the thread block
+    float acc = 0.f;
+    if (c < HC)
+      for (int r = r0 + wid; r < r1; r += kN) acc += dcol[(long long)empty_row[r] * HC];
+    part[wid][lane] = acc;
+    __syncthreads();
+    if (wid == 0 && c < HC) {
+      float sum = 0.f;
+      for (int w = 0; w < kN; ++w) sum += part[w][lane];
+      S[(b * nB + blk) * HC + c] = sum / (float)W;
+    }
+    __syncthreads();                               // part is read before the next block's sums
+  }
+}
+
+constexpr int kEmptyWarps = 16;
+
+__global__ void __launch_bounds__(kEmptyWarps * 32)
+empties_kernel(const float* __restrict__ dout, const int* __restrict__ empty_ptr,
+               const int* __restrict__ empty_row, float* __restrict__ S, int nB, int BLK, int W,
+               int HC) {
+  empties_block<kEmptyWarps>(dout, empty_ptr, empty_row, S, nB, BLK, W, HC, blockIdx.x, blockIdx.y);
+}
+
+// S [B, nB, H, C] for the blocks with padded rows (every backward launches
+// this before its columns pass when the layout has such rows).
+inline int launch_empties(const float* dout, const int* empty_ptr, const int* empty_row, float* S,
+                          int B, int nB, int BLK, int W, int H, int C, cudaStream_t st) {
+  empties_kernel<<<dim3((unsigned)B, (unsigned)((H * C + 31) / 32)), kEmptyWarps * 32, 0, st>>>(
+      dout, empty_ptr, empty_row, S, nB, BLK, W, H * C);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -6,11 +6,13 @@ takes is ``BatchedGraph.band_attn`` (``ops.banded.band_attention_route``):
   ``gnn_pressure_estimation_tpu/ops/pallas/band_attention.py``
   (``csrc/band_attention.cu``, ``csrc/band_attention_bwd.cu``). The forward
   walks the mask's row lists, every head of a row in one warp; the backward
-  recomputes the softmax.
+  recomputes the softmax and takes its channel sums in one pass over the
+  extended rows, every head of one in one warp.
 * :func:`band_attention_flash` ("flash") replaces ``make_band_attention_flash``
   (v4) (``csrc/band_attention_flash.cu``, ``csrc/band_attention_flash_bwd.cu``):
   a streaming softmax whose per-row state does not grow with W. The forward
-  returns the row statistics m and Z; the backward takes them and
+  is v2's row walk (``csrc/band_rowwalk.cuh``, shared by both forwards) and
+  also returns the row statistics m and Z; the backward takes them and
   ``delta = Σ_c dO∘O`` and rebuilds each weight on its own.
 * :func:`band_attention_window` ("window") replaces ``make_band_attention``
   (v1) (``csrc/band_attention_window.cu``, ``csrc/band_attention_window_bwd.cu``):
@@ -180,9 +182,13 @@ def band_attention_bwd(
     ``index`` is the mask's :class:`BandIndex` on the same device (the
     template's cached one on the model's path); without it the index is
     built from the mask's values. On CUDA tensors it launches the kernel (or
-    raises); on CPU tensors it runs :func:`band_attention_bwd_plain`.
-    ``band_attention_bwd.launches`` counts kernel launches (one per call: the
-    three passes of ``csrc/band_attention_bwd.cu`` are one launch of it)."""
+    raises); on CPU tensors it runs :func:`band_attention_bwd_plain`. The
+    kernel's passes: p per entry from the row lists; d x_ext and dp per entry
+    from the extended rows, every head of one in one warp; dz and d a_dst per
+    row; d a_src_win per extended row. p, dp and dz pass between them as
+    ``[B, nnz, H]`` scratch. ``band_attention_bwd.launches`` counts kernel
+    launches (one per call: the four launches of ``csrc/band_attention_bwd.cu``
+    are one launch of it)."""
     if bops.use_plain(x_ext):
         return band_attention_bwd_plain(a_dst, a_src_win, x_ext, adj_mask, d_out, negative_slope)
     adj_mask = _check("band_attention_bwd", a_dst, a_src_win, x_ext, adj_mask)
@@ -197,10 +203,11 @@ def band_attention_bwd(
     nnz, n_empty = ix.nnz, int(ix.empty_row.shape[0])
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
     d_a_dst, d_a_src_win, d_x_ext = new(B, nB * BLK, H), new(nB, B, W, H), new(B, n_ext, H, C)
-    sp, sdz = new(B, H, max(nnz, 1)), new(B, H, max(nnz, 1))
+    sp, sdz = new(B, max(nnz, 1), H), new(B, max(nnz, 1), H)
     ss = new(B, nB, H, C) if n_empty else new(1)
+    vec = bops.vector_loads(x_ext, C) and bops.vector_loads(d_out, C)
     fn = _build.load("band_attention_bwd").band_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         rc = fn(a_dst.data_ptr(), a_src_win.data_ptr(), x_ext.data_ptr(), d_out.data_ptr(),
@@ -208,7 +215,7 @@ def band_attention_bwd(
                 ix.t_entry.data_ptr(), ix.t_row.data_ptr(), ix.empty_ptr.data_ptr(),
                 ix.empty_row.data_ptr(), sp.data_ptr(), sdz.data_ptr(), ss.data_ptr(),
                 d_a_dst.data_ptr(), d_a_src_win.data_ptr(), d_x_ext.data_ptr(),
-                B, nB, BLK, W, H, C, nnz, n_empty, float(negative_slope),
+                B, nB, BLK, W, H, C, nnz, n_empty, int(vec), float(negative_slope),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"band_attention_bwd: kernel launch failed with CUDA error {rc}")
@@ -347,25 +354,31 @@ def band_attention_flash_fwd(
     On CUDA tensors it launches the kernel (or raises); on CPU tensors it
     runs :func:`band_attention_flash_plain`. ``index``: the mask's
     :class:`BandIndex` on the same device (the template's cached one on the
-    model's path), else built from the mask's values.
-    ``band_attention_flash_fwd.launches`` counts kernel launches."""
+    model's path), else built from the mask's values. The kernel is v2's row
+    walk (``csrc/band_rowwalk.cuh``) writing m and Z beside out.
+    ``band_attention_flash_fwd.launches`` counts kernel launches (one per
+    call: the window-mean pre-pass and the row pass are one launch of it)."""
     if bops.use_plain(x_ext):
         return band_attention_flash_plain(a_dst, a_src_win, x_ext, adj_mask, negative_slope)
-    adj_mask = _check("band_attention_flash_fwd", a_dst, a_src_win, x_ext, adj_mask)
+    name = "band_attention_flash_fwd"
+    adj_mask = _check(name, a_dst, a_src_win, x_ext, adj_mask)
     nB, BLK, W = adj_mask.shape
     B, _, H, C = x_ext.shape
     dev = x_ext.device
-    ix = bops.index_for("band_attention_flash_fwd", adj_mask, index, dev)
+    ix = bops.index_for(name, adj_mask, index, dev)
+    n_empty = int(ix.empty_row.shape[0])
     out = torch.empty((B, nB * BLK, H, C), dtype=torch.float32, device=dev)
     m, Z = (torch.empty((B, nB * BLK, H), dtype=torch.float32, device=dev) for _ in range(2))
+    mean = torch.empty((B, nB, H * C) if n_empty else (1,), dtype=torch.float32, device=dev)
     fn = _build.load("band_attention_flash").band_attention_flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         rc = fn(a_dst.data_ptr(), a_src_win.data_ptr(), x_ext.data_ptr(),
-                ix.row_ptr.data_ptr(), ix.col.data_ptr(), out.data_ptr(), m.data_ptr(),
-                Z.data_ptr(), B, nB, BLK, W, H, C, float(negative_slope),
-                torch.cuda.current_stream().cuda_stream)
+                ix.row_ptr.data_ptr(), ix.col.data_ptr(), ix.empty_ptr.data_ptr(),
+                mean.data_ptr(), out.data_ptr(), m.data_ptr(), Z.data_ptr(),
+                B, nB, BLK, W, H, C, n_empty, int(bops.vector_loads(x_ext, C)),
+                float(negative_slope), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"band_attention_flash_fwd: kernel launch failed with CUDA error {rc}")
     band_attention_flash_fwd.launches += 1
