@@ -15,7 +15,9 @@ Phases (any failure exits non-zero; none is caught):
    32 entries read, more than 32 heads (H 40 at C 4, H 33 at C 3), an x_ext
    off 16-byte alignment, forward and backward); atol and rtol 1e-4, since
    the kernels sum in another order. The backward kernels get a random
-   cotangent on all rows.
+   cotangent on all rows. The flash backward and the band SpMM backward also
+   at every ragged shape, with a d_out off alignment, each called twice on
+   the same inputs with bit-equal results.
 4. Fixture parity: the trained GATRes-large on bigtown (banded, through the
    kernels) against the JAX activations stored in
    ``artifacts/parity_r5_trained.npz`` (atol 1e-3), with exactly 50
@@ -99,11 +101,14 @@ Phases (any failure exits non-zero; none is caught):
     the flash pair on meganet at B 8 (serving) and B 2 (training), out, m
     and Z held against the plain version first, the backward also from the
     forward kernel's own out, m, Z (whether m equals the plain row maximum
-    bit for bit is printed); the kernels alone at B 32; at B 8, v2's pair on
-    the same inputs (the two forwards are one row walk, v2's without the
-    statistics; v2's backward recomputes the softmax, the flash backward
-    takes m, Z and delta); the band SpMM forward on meganet at B 8 beside
-    ``torch.sparse.mm``; the window pair on bigtown at B 32.
+    bit for bit is printed); the flash backward's device time by pass and
+    that of its delta reduction at B 8 and B 2; the kernels alone at B 32; at
+    B 8, v2's pair on the same inputs (the two forwards are one row walk, v2's
+    without the statistics; the two backwards one column walk, v2's with the
+    softmax recomputed); the band SpMM forward on meganet at B 8 beside
+    ``torch.sparse.mm``, its backward at B 8 and B 2 beside
+    ``torch.sparse.mm`` on the transposed CSR, and the launch-weighted device
+    time of both backwards in a B 2 step; the window pair on bigtown at B 32.
 
 20. The owner-row backward of the sliding-accumulator route
     (``band_attention_acc_bwd``) against its plain version on the bigtown
@@ -1079,8 +1084,8 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
               f"{r['bytes'] / 1e6:.1f} MB)")
 
     f_ix = 4 * (n_pad + 1 + ix.nnz)                       # row_ptr, col
-    b_ix = 4 * (n_pad + 1 + n_ext + 1 + 2 * ix.nnz)       # row_ptr, t_ptr, t_entry, t_row
-    v2_ms = {}
+    b_ix = 4 * (n_pad + 1 + n_ext + 1 + 3 * ix.nnz)       # row_ptr, col, t_ptr, t_entry, t_row
+    v2_ms, delta_ms = {}, {}
     for B in (bs, tbs):
         for H, C in ((2, 128), (1, 128)):
             a_dst, a_src, x_ext, d_out, m, Z, delta = check_flash("meganet", mask, ix, B, H, C)
@@ -1092,15 +1097,24 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
                 plain_ms=cuda_ms(lambda: ba.band_attention_flash_plain(a_dst, a_src, x_ext, mask, 0.2), 1, 2),
                 bytes=3 * small + 4 * B * n_ext * H + wide_ * (n_ext + n_pad) + f_ix,
                 ops=B * H * ix.nnz * (2 * C + 8)))
+            flash_bwd = lambda: ba.band_attention_flash_bwd(  # noqa: E731
+                a_dst, a_src, x_ext, mask, m, Z, delta, d_out, 0.2, ix)
+            split = device_split(flash_bwd)
             bound(dict(
                 name="band_attention_flash_bwd", net="meganet", B=B, hc=H * C,
-                ms=cuda_ms(lambda: ba.band_attention_flash_bwd(
-                    a_dst, a_src, x_ext, mask, m, Z, delta, d_out, 0.2, ix), 3, 20),
+                ms=cuda_ms(flash_bwd, 3, 20), device_ms=sum(ms for _, ms in split) or None,
                 plain_ms=cuda_ms(lambda: ba.band_attention_flash_bwd_plain(
                     a_dst, a_src, x_ext, mask, m, Z, delta, d_out, 0.2), 1, 2),
                 bytes=5 * small + 4 * B * n_ext * H + 4 * nB * B * W * H
                 + wide_ * (2 * n_ext + n_pad) + b_ix,
                 ops=B * H * ix.nnz * (4 * C + 12)))
+            print(f"  band_attention_flash_bwd meganet B {B} H·C {H * C}, device ms by pass: "
+                  + ", ".join(f"{k} {ms:.4f}" for k, ms in split))
+            # the row term BandAttentionFlash.backward forms before the kernel: plain glue
+            out = ba.band_attention_flash_fwd(a_dst, a_src, x_ext, mask, 0.2, ix)[0]
+            delta_ms[(B, H * C)] = device_ms(lambda: (d_out * out).sum(dim=-1))
+            print(f"  its delta = (d_out * out).sum(-1), device {delta_ms[(B, H * C)]:.4f} ms")
+            del out
             if B == bs:
                 # the v2 kernels on the same inputs: both forwards are one row walk
                 # (csrc/band_rowwalk.cuh), v2's without the statistics; v2's backward
@@ -1161,7 +1175,40 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
     print(f"  band_spmm meganet B {bs} C 128: kernel {spmm_b8['ms']:.4f} ms, plain "
           f"{spmm_b8['plain_ms']:.4f} ms, torch.sparse.mm {spmm_b8['library_ms']:.4f} ms, bound "
           f"{spmm_b8['bound_ms']:.4f} ms (bytes; {spmm_b8['bound_ms'] / spmm_b8['ms']:.1%} of it reached)")
-    del cnt, x_ext, x2d, csr
+    del x_ext, x2d, csr
+    # its backward at the serving and the training batch, beside torch.sparse.mm on the
+    # transposed CSR (phase 6's yardstick on bigtown)
+    csr_t = torch.sparse_coo_tensor(
+        torch.as_tensor(np.stack([blk_i * BLK + j_i, blk_i * BLK + r_i]), device=dev),
+        torch.as_tensor(bl.adj_cnt[blk_i, r_i, j_i].astype(np.float32), device=dev),
+        (n_ext, n_pad)).to_sparse_csr()
+    spmm_bwd = {}
+    for B in (bs, tbs):
+        d_out = randn(B, n_pad, 128)
+        d2d = d_out.permute(1, 0, 2).reshape(n_pad, B * 128).contiguous()
+        held("band_spmm_bwd", f"band_spmm_bwd meganet B{B} C128", bsp.band_spmm_bwd(cnt, d_out, cix),
+             bsp.band_spmm_bwd_plain(cnt, d_out), verbose=False)
+        check_close(f"band_spmm_bwd meganet B{B} vs torch.sparse.mm", bsp.band_spmm_bwd(cnt, d_out, cix),
+                    torch.sparse.mm(csr_t, d2d).reshape(n_ext, B, 128).permute(1, 0, 2), TOL, TOL,
+                    verbose=False)
+        r = spmm_bwd[B] = dict(
+            ms=cuda_ms(lambda: bsp.band_spmm_bwd(cnt, d_out, cix), 3, 20),
+            device_ms=device_ms(lambda: bsp.band_spmm_bwd(cnt, d_out, cix)),
+            plain_ms=cuda_ms(lambda: bsp.band_spmm_bwd_plain(cnt, d_out), 1, 3),
+            library_ms=cuda_ms(lambda: torch.sparse.mm(csr_t, d2d), 3, 20),
+            bound_ms=4 * (B * (n_pad + n_ext) * 128 + n_ext + 1 + 2 * cix.nnz) / PEAK_BYTES_S * 1e3)
+        print(f"  band_spmm_bwd meganet B {B} C 128: kernel {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, torch.sparse.mm on the "
+              f"transposed CSR {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes; "
+              f"{r['bound_ms'] / r['ms']:.1%} of it reached)")
+        del d_out, d2d
+    print(f"  launch-weighted in a meganet B {tbs} step: band_spmm_bwd 25 x "
+          f"{spmm_bwd[tbs]['device_ms']:.4f} = {25 * spmm_bwd[tbs]['device_ms']:.3f} ms of device time; "
+          f"band_attention_flash_bwd 25 x H·C 256 + 25 x H·C 128 = " + "{:.3f} ms".format(25 * sum(
+              q["device_ms"] for q in rows if q["name"] == "band_attention_flash_bwd" and q["B"] == tbs)))
+    print(f"  the delta reductions in that step: 25 x H·C 256 + 25 x H·C 128 = "
+          f"{25 * (delta_ms[(tbs, 256)] + delta_ms[(tbs, 128)]):.3f} ms of device time")
+    del cnt, csr_t
     torch.cuda.empty_cache()
 
     bbl = btpl.band_layout()
@@ -1194,7 +1241,8 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
             ops=B * H * bix.nnz * (4 * C + 12)))
         del a_dst, a_src, x_win, d_out
         torch.cuda.empty_cache()
-    return dict(rows=rows, ms_b32=ms_b32, v2_ms=v2_ms, spmm_b8=spmm_b8, serve_launches=serve_launches,
+    return dict(rows=rows, ms_b32=ms_b32, v2_ms=v2_ms, spmm_b8=spmm_b8, spmm_bwd=spmm_bwd,
+                serve_launches=serve_launches,
                 serve_ms=serve_ms,
                 serve_batch=bs, fit_launches=fit_launches, step_launches=step_launches,
                 step_ms=step_ms, train_batch=tbs, fit_peak=fit_peak, window_serve=window_serve,
@@ -1717,8 +1765,9 @@ def main() -> int:
     from gnn_pressure_estimation_tpu_torch.ops import banded as bops
     from gnn_pressure_estimation_tpu_torch.ops.band_attention import (
         band_attention_acc_bwd, band_attention_bwd, band_attention_bwd_plain,
-        band_attention_flash_bwd, band_attention_flash_fwd, band_attention_fwd,
-        band_attention_plain, band_attention_window_bwd, band_attention_window_fwd,
+        band_attention_flash_bwd, band_attention_flash_bwd_plain, band_attention_flash_fwd,
+        band_attention_flash_plain, band_attention_fwd, band_attention_plain,
+        band_attention_window_bwd, band_attention_window_fwd,
     )
     from gnn_pressure_estimation_tpu_torch.ops.band_spmm import (
         band_spmm_bwd, band_spmm_bwd_plain, band_spmm_fwd, band_spmm_plain,
@@ -1813,16 +1862,40 @@ def main() -> int:
               f"{max_err['band_attention_bwd']:.3e}")
         return args, d_out
 
-    def check_spmm(tag, band, B, C, index):
+    def check_spmm(tag, band, B, C, index, d_out=None):
         nB_, BLK_, W_ = band.shape
         x_ext = randn(B, nB_ * BLK_ + W_ - BLK_, C)
         label = f"{tag} {str(band.dtype)[6:]} B{B} C{C}"
         held("band_spmm", f"band_spmm {label}", band_spmm_fwd(band, x_ext, index),
              band_spmm_plain(band, x_ext))
-        d_out = randn(B, nB_ * BLK_, C)
-        held("band_spmm_bwd", f"band_spmm_bwd {label}", band_spmm_bwd(band, d_out, index),
-             band_spmm_bwd_plain(band, d_out))
+        d_out = randn(B, nB_ * BLK_, C) if d_out is None else d_out
+        got = band_spmm_bwd(band, d_out, index)
+        held("band_spmm_bwd", f"band_spmm_bwd {label}", got, band_spmm_bwd_plain(band, d_out))
+        check_equal(f"band_spmm_bwd {label}, a second call", band_spmm_bwd(band, d_out, index), got)
         return x_ext, d_out
+
+    def check_flash_bwd(tag, msk, B, H, C, index, x_ext=None, d_out=None):
+        """The flash backward from the plain forward's m, Z and delta, with a
+        random cotangent on every row; a second call bit-equal to the first."""
+        nB_, BLK_, W_ = msk.shape
+        np_, ne_ = nB_ * BLK_, nB_ * BLK_ + W_ - BLK_
+        a_dst, a_src = randn(B, np_, H), randn(nB_, B, W_, H)
+        a_dst[:, ::3] = 0.0                  # a_dst + a_src == 0 occurs: the sign test's edge
+        a_src[:, :, ::3] = 0.0
+        x_ext = randn(B, ne_, H, C) if x_ext is None else x_ext
+        d_out = randn(B, np_, H, C) if d_out is None else d_out
+        out, m, Z = band_attention_flash_plain(a_dst, a_src, x_ext, msk, 0.2)
+        args = (a_dst, a_src, x_ext, msk, m, Z, (d_out * out).sum(dim=-1), d_out, 0.2)
+        got = band_attention_flash_bwd(*args, index)
+        again = band_attention_flash_bwd(*args, index)
+        label = f"{tag} B{B} H{H} C{C}"
+        for part, g, g2, r in zip(("d a_dst", "d a_src_win", "d x_ext"), got, again,
+                                  band_attention_flash_bwd_plain(*args)):
+            held("band_attention_flash_bwd", f"band_attention_flash_bwd {label} {part}", g, r,
+                 verbose=False)
+            check_equal(f"band_attention_flash_bwd {label} {part}, a second call", g2, g)
+        print(f"  band_attention_flash_bwd {label}: max abs err so far "
+              f"{max_err['band_attention_flash_bwd']:.3e}, a second call bit-equal")
 
     for B in (1, 4):                            # fixture parity runs B 1
         for H in (2, 1):
@@ -1835,29 +1908,35 @@ def main() -> int:
     rcnt = torch.as_tensor((rmask * rng.integers(1, 4, rmask.shape)).astype(np.int8), device=dev)
     rw = torch.as_tensor((rmask * rng.random(rmask.shape)).astype(np.float32), device=dev)
     rix, rcnt_ix, rw_ix = (bops.band_index_of(t) for t in (rmask_t, rcnt, rw))
-    check_attention("ragged", rmask_t, 3, 2, 32, rix)
-    check_attention("ragged", rmask_t, 2, 1, 300, rix)
-    check_attention("ragged", rmask_t, 2, 3, 33, rix)       # C % 4 != 0: the scalar loads
-    check_attention("ragged", rmask_t, 2, 40, 4, rix)       # past 32 heads: two head groups
-    check_attention("ragged", rmask_t, 2, 1, 256, rix)      # two float4 slots of one head
-    check_attention("ragged", rmask_t, 1, 3, 128, rix)      # a last tile half past the heads
-    # rows with more than 32 entries: the row pass takes them 32 at a time
+    # wide rows: more than 32 entries, which the row pass takes 32 at a time;
+    # dense columns: extended rows that more than 32 entries read, which the
+    # backwards' columns passes take 32 at a time
     wide = torch.as_tensor((rng.random((2, 16, 200)) < 0.4).view(np.int8), device=dev)
     wix = bops.band_index_of(wide)
-    check_attention("wide rows", wide, 2, 2, 32, wix)
-    check_attention("wide rows", wide, 1, 1, 160, wix)      # C past one 128-channel tile
-    check_attention("wide rows", wide, 1, 33, 3, wix)       # 33 heads, scalar loads
-    # extended rows that more than 32 entries read: the backward's columns pass
-    # takes them 32 at a time
     dense = torch.as_tensor((np.random.default_rng(7).random((4, 16, 48)) < 0.95).view(np.int8),
                             device=dev)
     dix = bops.band_index_of(dense)
-    check_attention("dense columns", dense, 2, 2, 64, dix)
-    check_attention("dense columns", dense, 1, 3, 33, dix)
-    for band, bix in ((rcnt, rcnt_ix), (rw, rw_ix)):
+    ragged = [("ragged", rmask_t, 3, 2, 32, rix), ("ragged", rmask_t, 2, 1, 300, rix),
+              ("ragged", rmask_t, 2, 3, 33, rix),       # C % 4 != 0: the scalar loads
+              ("ragged", rmask_t, 2, 40, 4, rix),       # past 32 heads: several head groups
+              ("ragged", rmask_t, 2, 1, 256, rix),      # two float4 slots of one head
+              ("ragged", rmask_t, 1, 3, 128, rix),      # a last tile half past the heads
+              ("wide rows", wide, 2, 2, 32, wix),
+              ("wide rows", wide, 1, 1, 160, wix),      # C past one 128-channel tile
+              ("wide rows", wide, 1, 33, 3, wix),       # 33 heads, scalar loads
+              ("dense columns", dense, 2, 2, 64, dix), ("dense columns", dense, 1, 3, 33, dix),
+              ("dense columns", dense, 2, 2, 128, dix)]
+    for shape in ragged:
+        check_attention(*shape)
+        check_flash_bwd(*shape)
+    dcnt = torch.as_tensor(
+        (dense.cpu().numpy() * np.random.default_rng(8).integers(1, 4, dense.shape)).astype(np.int8),
+        device=dev)
+    for band, bix in ((rcnt, rcnt_ix), (rw, rw_ix), (dcnt, bops.band_index_of(dcnt))):
         check_spmm("ragged", band, 3, 64, bix)
         check_spmm("ragged", band, 2, 300, bix)
-        check_spmm("ragged", band, 2, 33, bix)
+        check_spmm("ragged", band, 2, 33, bix)          # C % 4 != 0: the scalar loads
+        check_spmm("ragged", band, 2, 3, bix)
     # an x_ext that starts 4 bytes off 16-byte alignment: both forwards take their scalar loads
     for B, H, C in ((2, 2, 64), (1, 1, 128)):
         a_dst, a_src = randn(B, 48, H), randn(3, B, 70, H)
@@ -1873,9 +1952,15 @@ def main() -> int:
                               band_attention_bwd(a_dst, a_src, x_off, rmask_t, d_out, 0.2, rix),
                               band_attention_bwd_plain(a_dst, a_src, x_off, rmask_t, d_out, 0.2)):
             held("band_attention_bwd", f"band_attention_bwd offset x_ext B{B} H{H} C{C} {part}", g, r)
+        # the flash backward with that x_ext, and with a d_out as far off alignment
+        check_flash_bwd("offset x_ext", rmask_t, B, H, C, rix, x_ext=x_off)
+        d_off = torch.empty(B * 48 * H * C + 1, device=dev)[1:].view(B, 48, H, C)
+        d_off.copy_(randn(B, 48, H, C))
+        check_flash_bwd("offset d_out", rmask_t, B, H, C, rix, d_out=d_off)
         x_off = x_off.view(B, 102, H * C)
         held("band_spmm", f"band_spmm offset x_ext B{B} C{H * C}", band_spmm_fwd(rw, x_off, rw_ix),
              band_spmm_plain(rw, x_off))
+        check_spmm("offset d_out", rw, B, H * C, rw_ix, d_out=d_off.view(B, 48, H * C))
     torch.cuda.synchronize()
 
     # ---- 4: fixture parity ------------------------------------------------
@@ -2054,10 +2139,11 @@ def main() -> int:
         rows.append(dict(
             name="band_spmm_bwd", B=B, hc=C,
             ms=cuda_ms(lambda: band_spmm_bwd(cnt, d_out, cnt_ix), 3, 20),
+            device_ms=device_ms(lambda: band_spmm_bwd(cnt, d_out, cnt_ix)),
             plain_ms=cuda_ms(lambda: band_spmm_bwd_plain(cnt, d_out), 1, 3),
             library_ms=cuda_ms(lambda: torch.sparse.mm(csr_t, d2d), 3, 20),
-            bytes=io + 4 * nnz_cnt + 4 * (n_ext + 1 + 2 * nnz_cnt), ops=2 * B * C * nnz_cnt,
-            dense_bound_ms=2 * B * n_pad * W * C / PEAK_F32_S * 1e3))
+            bytes=io + 4 * (n_ext + 1 + 2 * nnz_cnt),       # + t_ptr, t_row, t_val
+            ops=2 * B * C * nnz_cnt, dense_bound_ms=2 * B * n_pad * W * C / PEAK_F32_S * 1e3))
         del x_ext, d_out, x2d, d2d
     for r in rows:
         t_bytes, t_ops = r["bytes"] / PEAK_BYTES_S * 1e3, r["ops"] / PEAK_F32_S * 1e3
@@ -2219,6 +2305,8 @@ def main() -> int:
             **({"ms_meganet_b8": mega["spmm_b8"]["ms"],
                 "library_ms_meganet_b8": mega["spmm_b8"]["library_ms"],
                 "bound_ms_meganet_b8": mega["spmm_b8"]["bound_ms"]} if name == "band_spmm" else {}),
+            **({f"meganet_b{b}": mega["spmm_bwd"][b] for b in mega["spmm_bwd"]}
+               if name == "band_spmm_bwd" else {}),
         })
     # the dense kernels: headline row H 2 (conv1 of GATRes-small: C 32, D 33); the
     # factored pair counts the synthctown serving and fit runs, the attention pair
@@ -2276,7 +2364,8 @@ def main() -> int:
             # v2's kernel of the same direction on the same meganet B 8 inputs
             **({"v2_ms_same_inputs": {f"HC{hc}": t[name.endswith("_bwd")]
                                       for hc, t in mega["v2_ms"].items()}} if flash else {}),
-            "by_shape": {f"B{b} HC{hc}": {k: q[k] for k in ("ms", "plain_ms", "bound_ms", "bytes")}
+            "by_shape": {f"B{b} HC{hc}": {k: q[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                          "bytes") if k in q}
                          for (b, hc), q in shaped.items()},
         })
     # the slice-5 kernels: the acc backward at the training batch, H·C 256, counting

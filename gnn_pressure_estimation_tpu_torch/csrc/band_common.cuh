@@ -46,6 +46,14 @@ __device__ __forceinline__ float4 load_slot(const float* __restrict__ xr, int c,
   return v;
 }
 
+// acc += w * x, channel by channel (one fmaf each)
+__device__ __forceinline__ void fma4(float w, const float4& x, float4& acc) {
+  acc.x = fmaf(w, x.x, acc.x);
+  acc.y = fmaf(w, x.y, acc.y);
+  acc.z = fmaf(w, x.z, acc.z);
+  acc.w = fmaf(w, x.w, acc.w);
+}
+
 // A band row with no set column got the mean of its block's W window rows
 // in the forward, so it adds dO/W to every one of them. One thread block of
 // kN warps per (b, 32 channels) finds the blocks that hold such rows (all but

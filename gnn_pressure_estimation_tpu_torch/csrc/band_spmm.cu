@@ -41,13 +41,6 @@ namespace {
 constexpr int kTile = 128;              // channels per tile: 4 a lane
 constexpr int kGroup = 4;               // entries whose x rows load before their FMAs
 
-__device__ __forceinline__ void fma4(float w, const float4& x, float4& acc) {
-  acc.x = fmaf(w, x.x, acc.x);
-  acc.y = fmaf(w, x.y, acc.y);
-  acc.z = fmaf(w, x.z, acc.z);
-  acc.w = fmaf(w, x.w, acc.w);
-}
-
 template <bool kVec>
 __global__ void __launch_bounds__(kWarps * 32)
 band_spmm_fwd_kernel(const float* __restrict__ x_ext,   // [B, n_ext, C]

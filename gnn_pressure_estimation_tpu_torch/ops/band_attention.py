@@ -13,7 +13,9 @@ takes is ``BatchedGraph.band_attn`` (``ops.banded.band_attention_route``):
   a streaming softmax whose per-row state does not grow with W. The forward
   is v2's row walk (``csrc/band_rowwalk.cuh``, shared by both forwards) and
   also returns the row statistics m and Z; the backward takes them and
-  ``delta = Σ_c dO∘O`` and rebuilds each weight on its own.
+  ``delta = Σ_c dO∘O``, builds each weight on its own, and runs v2's column
+  walk over the extended rows (``csrc/band_colwalk.cuh``, shared by both
+  backwards).
 * :func:`band_attention_window` ("window") replaces ``make_band_attention``
   (v1) (``csrc/band_attention_window.cu``, ``csrc/band_attention_window_bwd.cu``):
   it reads the materialised window tensors ``x_win`` / ``a_src_win``, never an
@@ -400,7 +402,11 @@ def band_attention_flash_bwd(
     window fold included.
 
     On CUDA tensors it launches the kernel (or raises); on CPU tensors it
-    runs :func:`band_attention_flash_bwd_plain`.
+    runs :func:`band_attention_flash_bwd_plain`. The kernel is v2's backward
+    with the weights given: p per entry from m and Z; d x_ext and dp per entry
+    from the extended rows, every head of one in one warp (the column walk of
+    ``csrc/band_colwalk.cuh``); dz and d a_dst per row; d a_src_win per
+    extended row. p, dp and dz pass between them as ``[B, nnz, H]`` scratch.
     ``band_attention_flash_bwd.launches`` counts kernel launches (one per
     call: the passes of ``csrc/band_attention_flash_bwd.cu`` are one launch
     of it)."""
@@ -419,18 +425,20 @@ def band_attention_flash_bwd(
     nnz, n_empty = ix.nnz, int(ix.empty_row.shape[0])
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
     d_a_dst, d_a_src_win, d_x_ext = new(*rows), new(nB, B, W, H), new(B, n_ext, H, C)
-    sdz = new(B, H, max(nnz, 1))
+    sp, sdz = new(B, max(nnz, 1), H), new(B, max(nnz, 1), H)
     ss = new(B, nB, H, C) if n_empty else new(1)
+    vec = bops.vector_loads(x_ext, C) and bops.vector_loads(d_out, C)
     fn = _build.load(name).band_attention_flash_bwd
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         rc = fn(a_dst.data_ptr(), a_src_win.data_ptr(), x_ext.data_ptr(), m.data_ptr(),
                 Z.data_ptr(), delta.data_ptr(), d_out.data_ptr(), ix.row_ptr.data_ptr(),
-                ix.t_ptr.data_ptr(), ix.t_entry.data_ptr(), ix.t_row.data_ptr(),
-                ix.empty_ptr.data_ptr(), ix.empty_row.data_ptr(), sdz.data_ptr(), ss.data_ptr(),
+                ix.col.data_ptr(), ix.t_ptr.data_ptr(), ix.t_entry.data_ptr(),
+                ix.t_row.data_ptr(), ix.empty_ptr.data_ptr(), ix.empty_row.data_ptr(),
+                sp.data_ptr(), sdz.data_ptr(), ss.data_ptr(),
                 d_a_dst.data_ptr(), d_a_src_win.data_ptr(), d_x_ext.data_ptr(),
-                B, nB, BLK, W, H, C, nnz, n_empty, float(negative_slope),
+                B, nB, BLK, W, H, C, nnz, n_empty, int(vec), float(negative_slope),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")

@@ -20,7 +20,8 @@ x_ext (107 MB) read once and out (96 MB) written once, ≈0.06 ms at
 nonzeros through a :class:`~..ops.banded.BandIndex`, which carries their
 values as f32, so the int8 and f32 bands take the same kernels: the forward
 its row lists (one warp per output row, 16-byte loads of the x rows), the
-backward the same entries grouped by the extended row they read, so the
+backward, its mirror image, the same entries grouped by the extended row they
+read (one warp per extended row, 16-byte loads of the dO rows), so the
 overlapping windows fold without atomics.
 """
 
@@ -108,8 +109,10 @@ def band_spmm_bwd(band: torch.Tensor, d_out: torch.Tensor,
 
     ``index`` is the band's :class:`BandIndex` on the same device (the
     template's cached one on the model's path); without it the index is
-    built from the band's values. On CUDA tensors it launches the kernel (or
-    raises); on CPU tensors it runs :func:`band_spmm_bwd_plain`.
+    built from the band's values. The kernel walks the entries by the
+    extended row they read (``t_ptr``, ``t_row``) with their values in that
+    order (``t_val``), never the band. On CUDA tensors it launches the kernel
+    (or raises); on CPU tensors it runs :func:`band_spmm_bwd_plain`.
     ``band_spmm_bwd.launches`` counts kernel launches."""
     if bops.use_plain(d_out):
         return band_spmm_bwd_plain(band, d_out)
@@ -120,11 +123,11 @@ def band_spmm_bwd(band: torch.Tensor, d_out: torch.Tensor,
     ix = bops.index_for("band_spmm_bwd", band, index, d_out.device)
     d_x_ext = torch.empty((B, nB * BLK + W - BLK, C), dtype=torch.float32, device=d_out.device)
     fn = _build.load("band_spmm_bwd").band_spmm_bwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(d_out.device):
-        rc = fn(d_out.data_ptr(), ix.val.data_ptr(), ix.t_ptr.data_ptr(), ix.t_entry.data_ptr(),
-                ix.t_row.data_ptr(), d_x_ext.data_ptr(), B, nB, BLK, W, C,
+        rc = fn(d_out.data_ptr(), ix.t_ptr.data_ptr(), ix.t_row.data_ptr(), ix.t_val.data_ptr(),
+                d_x_ext.data_ptr(), B, nB, BLK, W, C, int(bops.vector_loads(d_out, C)),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"band_spmm_bwd: kernel launch failed with CUDA error {rc}")

@@ -188,6 +188,7 @@ class BandIndex:
     t_ptr: object       # [n_ext + 1]  entries reading extended row e
     t_entry: object     # [nnz]        entry index k, sorted by (e, g)
     t_row: object       # [nnz]        band row g of that entry
+    t_val: object       # [nnz] f32    band value of that entry: val[t_entry]
     empty_ptr: object   # [nB + 1]     rows of block blk with no entry
     empty_row: object   # [n_empty]    their band rows g
 
@@ -220,11 +221,12 @@ def build_band_index(band: np.ndarray) -> BandIndex:
     empty_ptr = np.zeros(nB + 1, np.int64)
     np.cumsum(np.bincount(empty // BLK, minlength=nB), out=empty_ptr[1:])
     i32 = np.int32
+    val = band[blk, r, j].astype(np.float32)
     return BandIndex(
         nB=nB, BLK=BLK, W=W,
-        row_ptr=row_ptr.astype(i32), col=j.astype(i32),
-        val=band[blk, r, j].astype(np.float32),
+        row_ptr=row_ptr.astype(i32), col=j.astype(i32), val=val,
         t_ptr=t_ptr.astype(i32), t_entry=order.astype(i32), t_row=g[order].astype(i32),
+        t_val=val[order],
         empty_ptr=empty_ptr.astype(i32), empty_row=empty.astype(i32),
     )
 

@@ -221,8 +221,10 @@ def _stream_rows(ix, a_dst, a_src, x_ext, chunk):
 
 
 def _column_pass(ix, a_dst, a_src, x_ext, m, Z, delta, d_out):
-    """The CUDA backward's walk in numpy float64: per extended row e the
-    entries that read it; each weight rebuilt from m and Z alone."""
+    """The backward's algebra over the index in numpy float64: per extended
+    row e the entries that read it, each weight rebuilt from m and Z alone
+    (the CUDA kernel's own passes and order are replayed in
+    ``test_torch_band_colwalk.py``)."""
     nB, BLK, W = ix.nB, ix.BLK, ix.W
     n_ext, H = len(ix.t_ptr) - 1, a_dst.shape[1]
     d_x, d_as = np.zeros_like(x_ext, dtype=np.float64), np.zeros((nB, W, H))
