@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero; none is caught):
 
 1. Require CUDA; print the card's name and power limit; turn TF32 off.
-2. Build the hand-written kernels (``csrc/*.cu``) for sm_90a.
+2. Build the hand-written kernels (``csrc/*.cu``) for sm_90a; print each
+   kernel's registers and spills (``-Xptxas -v``), instance by instance.
 3. Hold each kernel, forward and backward, against its plain PyTorch version
    on the card, at the bigtown band layout (B 1 and B 4) and at small ragged
    shapes (W not a multiple of 32, fully masked rows, H·C 64, C past one
@@ -78,6 +79,9 @@ Phases (any failure exits non-zero; none is caught):
     layout at the same batches (phase 19 holds both at their serving batches);
     both also at small ragged shapes (fully masked rows, rows of more than 32
     entries, C past one tile); a third of the nodes zeroed; atol and rtol 1e-4.
+    The window backward also against v2's backward on the x_ext its windows
+    were cut from: its folded d x_win within 1e-4 of v2's d x_ext, and whether
+    its d a_dst and d a_src_win equal v2's bit for bit is printed.
 15. Routing: ``batch()`` with no argument sends meganet to ``"flash"`` and
     bigtown to ``"dma"``.
 16. The meganet fixture ``artifacts/parity_train_meganet.npz`` (GATRes-large
@@ -96,7 +100,8 @@ Phases (any failure exits non-zero; none is caught):
 18. bigtown with ``band_attn="window"``: one serving batch (50
     ``band_attention_window`` launches) against the default route's (1e-4),
     the B 1 step of ``artifacts/parity_train_bigtown.npz``, and the same
-    serving batch and a batch-8 train step timed under each of the three routes.
+    serving batch and a batch-8 train step timed under each of the three routes;
+    the window backward's device time in that step (25 launches at each width).
 19. Times of the four new kernels beside their plain versions and byte bounds:
     the flash pair on meganet at B 8 (serving) and B 2 (training), out, m
     and Z held against the plain version first, the backward also from the
@@ -108,13 +113,16 @@ Phases (any failure exits non-zero; none is caught):
     softmax recomputed); the band SpMM forward on meganet at B 8 beside
     ``torch.sparse.mm``, its backward at B 8 and B 2 beside
     ``torch.sparse.mm`` on the transposed CSR, and the launch-weighted device
-    time of both backwards in a B 2 step; the window pair on bigtown at B 32.
+    time of both backwards in a B 2 step; the window pair on bigtown at B 32,
+    the backward beside v2's on the same x_ext, both by pass, and the window
+    columns instances' registers and spills.
 
-20. The owner-row backward of the sliding-accumulator route
-    (``band_attention_acc_bwd``) against its plain version on the bigtown
-    layout at B 1, 8 and 32, H·C 256 and 128, and at ragged shapes (padded
-    rows, C past one tile, rows of more than 32 entries, BLK past 32 words of
-    column bits); atol and rtol 1e-4.
+20. The backward of the sliding-accumulator route (``band_attention_acc_bwd``,
+    v2's passes under their own entry) against its plain version on the
+    bigtown layout at B 1, 8 and 32, H·C 256 and 128, and at ragged shapes
+    (padded rows, C past one tile, rows of more than 32 entries, a block of
+    1056 rows); atol and rtol 1e-4; and its three outputs equal to
+    ``band_attention_bwd``'s on the same inputs, bit for bit.
 21. Path A, GATRes-large training on bigtown with ``band_attn="acc"``: the B 1
     step of ``artifacts/parity_train_bigtown.npz`` (loss, metrics, every
     gradient, 3 Adam steps) with exactly 50 ``band_attention`` + 50
@@ -122,7 +130,8 @@ Phases (any failure exits non-zero; none is caught):
     ``band_attention_bwd``; a batch-8 step under "acc", under "dma" and through
     the plain versions, on four draws of snapshots and masks, each gradient
     held against the same step through the plain versions in float64 (within
-    3 × (1e-3·max|g| + 1e-6): the plain f32 step itself exceeds 1×);
+    3 × (1e-3·max|g| + 1e-6): the plain f32 step itself exceeds 1×), and the
+    "acc" and "dma" gradients equal bit for bit on each draw;
     ``Trainer.fit`` for 2 epochs at batch 8 with a
     resume that ends bit-identical; the batch-8 step timed under "dma", "acc"
     and "dma".
@@ -138,7 +147,8 @@ Phases (any failure exits non-zero; none is caught):
     ``make_window_gather`` on conv1's projected features of a padded serving
     batch, against the padded mode's own gather, forward and backward.
 24. Times of the two new kernels: ``band_attention_acc_bwd`` beside v2's
-    backward on the same inputs (B 8, 32); ``window_gather`` beside
+    backward on the same inputs (B 8, 32), both by pass, its device time in a
+    batch-8 step and its columns instances' registers; ``window_gather`` beside
     ``torch.index_select`` and its backward beside ``index_add_`` on the same
     rows; plain versions and byte bounds.
 
@@ -228,25 +238,84 @@ def profile_batch(run, what: str = "one batch", top: int = 8) -> None:
         print(f"    {t / 1e3:9.3f} ms {t / busy_us:6.1%} x{count:<4d} {key[:90]}")
 
 
+def ptxas_table(log: str) -> list:
+    """Each kernel of one source's ``-Xptxas -v`` output as (name, registers,
+    stack bytes, spill store bytes, spill load bytes); names demangled by
+    ``c++filt`` where the toolkit's host has it, without the unnamed namespace
+    and the parameter list."""
+    import re
+    import shutil
+
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spill = m.group(1), (0, 0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = tuple(map(int, m.groups()))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append([name, int(m.group(1)), *spill])
+            name = None
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows), capture_output=True,
+                             text=True).stdout.splitlines()
+        if len(out) == len(rows):
+            for r, dm in zip(rows, out):
+                r[0] = dm.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
+    return [tuple(r) for r in rows]
+
+
+def columns_registers(table) -> str:
+    """The ``columns_kernel`` instances of one source's ``ptxas_table``."""
+    return "; ".join(f"{fn.removeprefix('columns_kernel')} {regs} registers, {stack} bytes stack, "
+                     f"spill {st} / {ld}" for fn, regs, stack, st, ld in table
+                     if fn.startswith("columns_kernel"))
+
+
 def device_split(fn, iters: int = 10) -> list:
     """Device ms of each kernel that one call of ``fn`` launches, from
     ``torch.profiler`` over ``iters`` calls, largest first: the passes of a
-    kernel source that launches several."""
+    kernel source that launches several. The profiler now and then loses a
+    trace's records, or all of them: a kernel's ms a call is its mean time a
+    launch times its launches a call (at least one), which a lost record does
+    not bias, and a trace with no device time is taken again, up to three
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     def name(key):          # "void (anonymous namespace)::columns_kernel<2, true, true>(...)"
         return key.removeprefix("void ").removeprefix("(anonymous namespace)::").split("(")[0]
 
-    return sorted(((name(e.key), e.self_device_time_total / iters / 1e3) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                  key=lambda kv: -kv[1])
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if events:
+            return sorted(((name(e.key), e.self_device_time_total / e.count
+                            * max(1, round(e.count / iters)) / 1e3) for e in events),
+                          key=lambda kv: -kv[1])
+    return []
+
+
+def fmt_ms(ms) -> str:
+    """A device time for a report line: 'not measured' where the profiler
+    recorded none."""
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def step_device_ms(ms_by_width: dict):
+    """Device ms of a backward in a GATRes-large step: 25 launches at each
+    width; None if a width was not measured."""
+    return None if None in ms_by_width.values() else 25 * sum(ms_by_width.values())
 
 
 def device_ms(fn, iters: int = 20):
@@ -735,10 +804,15 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
                  verbose)
         return a_dst, a_src, x_ext, d_out, m, Z, delta
 
+    win_da_equal = []                            # the window backward's d a's equal v2's
+
     def check_window(tag, msk, index, B, H, C, verbose=False):
+        """The window pair against its plain versions; the backward also
+        against v2's on the x_ext the windows were cut from: the same d a_dst
+        and d a_src_win (bit for bit, recorded), and d x_ext the fold of
+        d x_win (1e-4)."""
         a_dst, a_src, x_ext, d_out = operands(msk, B, H, C)
         x_win = bops.band_windows_ext(x_ext, *msk.shape)
-        del x_ext
         label = f"{tag} B{B} H{H} C{C}"
         held("band_attention_window", f"band_attention_window {label}",
              ba.band_attention_window_fwd(a_dst, a_src, x_win, msk, 0.2, index),
@@ -748,7 +822,11 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
         for part, g, r in zip(("d a_dst", "d a_src_win", "d x_win"), got, ref):
             held("band_attention_window_bwd", f"band_attention_window_bwd {label} {part}", g, r,
                  verbose)
-        return a_dst, a_src, x_win, d_out
+        v2 = ba.band_attention_bwd(a_dst, a_src, x_ext, msk, d_out, 0.2, index)
+        win_da_equal.append(torch.equal(got[0], v2[0]) and torch.equal(got[1], v2[1]))
+        check_close(f"band_attention_window_bwd {label} folded d x_win vs band_attention_bwd's d x_ext",
+                    bops.fold_windows_ext(got[2], msk.shape[1]), v2[2], TOL, TOL, verbose)
+        return a_dst, a_src, x_win, d_out, x_ext
 
     # B 1 is the batch of the fixture steps (phases 16 and 18), B 2 of the meganet
     # train step; the serving batches are held in phase 19, before they are timed
@@ -766,6 +844,9 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
             check_window("ragged", m_t, None, B, H, C)
     torch.cuda.synchronize()
     print("  ragged shapes: all within atol/rtol 1e-4")
+    print(f"  band_attention_window_bwd's d a_dst and d a_src_win equal band_attention_bwd's on the "
+          f"x_ext the windows were cut from, bit for bit, at every shape: {all(win_da_equal)} "
+          f"({sum(win_da_equal)} of {len(win_da_equal)})")
 
     # ---- 15: routing ------------------------------------------------------------
     routes = {"meganet": tpl.batch(1, device=dev).band_attn,
@@ -1041,6 +1122,16 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
         print(f"  bigtown under band_attn={route!r}: " + "; ".join(
             f"serving batch of {wbs} {a:.3f} ms, train step at batch {rbs} {b:.3f} ms"
             for a, b in runs))
+    # the window backward in that step: 25 launches at H·C 256 and 25 at 128
+    window_b8 = {}
+    for H, C in ((2, 128), (1, 128)):
+        a_dst, a_src, x_win, d_out, _ = check_window("bigtown", big["mask"], big["mask_ix"], rbs, H, C)
+        window_b8[H * C] = device_ms(lambda: ba.band_attention_window_bwd(
+            a_dst, a_src, x_win, big["mask"], d_out, 0.2, big["mask_ix"]))
+        del a_dst, a_src, x_win, d_out
+        torch.cuda.empty_cache()
+    print(f"  band_attention_window_bwd in the batch-{rbs} step: 25 x {fmt_ms(window_b8[256])} + 25 x "
+          f"{fmt_ms(window_b8[128])} = {fmt_ms(step_device_ms(window_b8))} ms of device time")
     tfx = big["tfx"]
     tstats = NormStats(norm_type="znorm", mean=float(tfx["stats_mean"]), std=float(tfx["stats_std"]))
     tmodel, _ = select_model("gatres_large", device=dev)
@@ -1113,7 +1204,7 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
             # the row term BandAttentionFlash.backward forms before the kernel: plain glue
             out = ba.band_attention_flash_fwd(a_dst, a_src, x_ext, mask, 0.2, ix)[0]
             delta_ms[(B, H * C)] = device_ms(lambda: (d_out * out).sum(dim=-1))
-            print(f"  its delta = (d_out * out).sum(-1), device {delta_ms[(B, H * C)]:.4f} ms")
+            print(f"  its delta = (d_out * out).sum(-1), device {fmt_ms(delta_ms[(B, H * C)])} ms")
             del out
             if B == bs:
                 # the v2 kernels on the same inputs: both forwards are one row walk
@@ -1198,16 +1289,18 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
             library_ms=cuda_ms(lambda: torch.sparse.mm(csr_t, d2d), 3, 20),
             bound_ms=4 * (B * (n_pad + n_ext) * 128 + n_ext + 1 + 2 * cix.nnz) / PEAK_BYTES_S * 1e3)
         print(f"  band_spmm_bwd meganet B {B} C 128: kernel {r['ms']:.4f} ms (device "
-              f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, torch.sparse.mm on the "
+              f"{fmt_ms(r['device_ms'])}), plain {r['plain_ms']:.4f} ms, torch.sparse.mm on the "
               f"transposed CSR {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes; "
               f"{r['bound_ms'] / r['ms']:.1%} of it reached)")
         del d_out, d2d
-    print(f"  launch-weighted in a meganet B {tbs} step: band_spmm_bwd 25 x "
-          f"{spmm_bwd[tbs]['device_ms']:.4f} = {25 * spmm_bwd[tbs]['device_ms']:.3f} ms of device time; "
-          f"band_attention_flash_bwd 25 x H·C 256 + 25 x H·C 128 = " + "{:.3f} ms".format(25 * sum(
-              q["device_ms"] for q in rows if q["name"] == "band_attention_flash_bwd" and q["B"] == tbs)))
+    spmm_dev = spmm_bwd[tbs]["device_ms"]
+    print(f"  launch-weighted in a meganet B {tbs} step: band_spmm_bwd 25 x {fmt_ms(spmm_dev)} = "
+          f"{fmt_ms(None if spmm_dev is None else 25 * spmm_dev)} ms of device time; "
+          f"band_attention_flash_bwd 25 x H·C 256 + 25 x H·C 128 = " + fmt_ms(step_device_ms(
+              {q["hc"]: q["device_ms"] for q in rows
+               if q["name"] == "band_attention_flash_bwd" and q["B"] == tbs})) + " ms")
     print(f"  the delta reductions in that step: 25 x H·C 256 + 25 x H·C 128 = "
-          f"{25 * (delta_ms[(tbs, 256)] + delta_ms[(tbs, 128)]):.3f} ms of device time")
+          f"{fmt_ms(step_device_ms({hc: delta_ms[(tbs, hc)] for hc in (256, 128)}))} ms of device time")
     del cnt, csr_t
     torch.cuda.empty_cache()
 
@@ -1221,7 +1314,7 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
     wb_ix = 4 * (bn_pad + 1 + bix.nnz) + 4 * (bn_pad + bW - bBLK + 1 + 2 * bix.nnz)
     for H, C in ((2, 128), (1, 128)):
         B = wbs
-        a_dst, a_src, x_win, d_out = check_window("bigtown", bmask, bix, B, H, C)
+        a_dst, a_src, x_win, d_out, x_ext = check_window("bigtown", bmask, bix, B, H, C)
         small, wide_ = 4 * B * bn_pad * H, 4 * B * H * C
         bound(dict(
             name="band_attention_window", net="bigtown", B=B, hc=H * C,
@@ -1229,19 +1322,33 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
             plain_ms=cuda_ms(lambda: ba.band_attention_window_plain(a_dst, a_src, x_win, bmask, 0.2), 1, 3),
             bytes=small + 4 * B * H * cells + wide_ * (cells + bn_pad) + 4 * (bn_pad + 1 + bix.nnz),
             ops=B * H * bix.nnz * (2 * C + 6)))
-        # the backward writes both window cotangents densely: every cell once
+        # the backward writes both window cotangents densely: every cell once; beside
+        # it v2's backward on the x_ext the windows were cut from (the same passes
+        # with the column walk in extended layout)
+        win_bwd = lambda: ba.band_attention_window_bwd(  # noqa: E731
+            a_dst, a_src, x_win, bmask, d_out, 0.2, bix)
+        v2_bwd = lambda: ba.band_attention_bwd(a_dst, a_src, x_ext, bmask, d_out, 0.2, bix)  # noqa: E731
+        split, v2_split = device_split(win_bwd), device_split(v2_bwd)
         bound(dict(
             name="band_attention_window_bwd", net="bigtown", B=B, hc=H * C,
-            ms=cuda_ms(lambda: ba.band_attention_window_bwd(
-                a_dst, a_src, x_win, bmask, d_out, 0.2, bix), 3, 20),
+            ms=cuda_ms(win_bwd, 3, 20), device_ms=sum(ms for _, ms in split) or None,
+            v2_ms=cuda_ms(v2_bwd, 3, 20), v2_device_ms=sum(ms for _, ms in v2_split) or None,
             plain_ms=cuda_ms(lambda: ba.band_attention_window_bwd_plain(
                 a_dst, a_src, x_win, bmask, d_out, 0.2), 1, 3),
             bytes=2 * small + 4 * B * H * cells + wide_ * (cells + bn_pad)
             + 4 * bnB * B * bW * H * (1 + C) + wb_ix,
             ops=B * H * bix.nnz * (4 * C + 12)))
-        del a_dst, a_src, x_win, d_out
+        r = rows[-1]
+        print(f"  band_attention_window_bwd bigtown B {B} H·C {H * C}: device {fmt_ms(r['device_ms'])} ms; "
+              f"v2's backward on the same x_ext {r['v2_ms']:.4f} ms (device {fmt_ms(r['v2_device_ms'])}); "
+              "device ms by pass: " + ", ".join(f"{k} {ms:.4f}" for k, ms in split)
+              + "; v2's: " + ", ".join(f"{k} {ms:.4f}" for k, ms in v2_split))
+        del a_dst, a_src, x_win, d_out, x_ext
         torch.cuda.empty_cache()
+    print("  the window backward's columns instances (kWindow), registers and spills: "
+          + columns_registers(big["ptxas"].get("band_attention_window_bwd", ())))
     return dict(rows=rows, ms_b32=ms_b32, v2_ms=v2_ms, spmm_b8=spmm_b8, spmm_bwd=spmm_bwd,
+                window_b8=window_b8, window_da_equal=all(win_da_equal),
                 serve_launches=serve_launches,
                 serve_ms=serve_ms,
                 serve_batch=bs, fit_launches=fit_launches, step_launches=step_launches,
@@ -1302,17 +1409,22 @@ def slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, b
         return a_dst, a_src, randn(B, ne_, H, C), randn(B, np_, H, C)
 
     def check_acc(tag, msk, index, B, H, C, verbose=False):
+        """Against the plain version (1e-4), and against v2's backward on the
+        same inputs, bit for bit: the acc route runs v2's passes."""
         a_dst, a_src, x_ext, d_out = operands(msk, B, H, C)
         got = ba.band_attention_acc_bwd(a_dst, a_src, x_ext, msk, d_out, 0.2, index)
         ref = ba.band_attention_acc_bwd_plain(a_dst, a_src, x_ext, msk, d_out, 0.2)
-        for part, g, r in zip(("d a_dst", "d a_src_win", "d x_ext"), got, ref):
+        v2 = ba.band_attention_bwd(a_dst, a_src, x_ext, msk, d_out, 0.2, index)
+        for part, g, r, q in zip(("d a_dst", "d a_src_win", "d x_ext"), got, ref, v2):
             held("band_attention_acc_bwd", f"band_attention_acc_bwd {tag} B{B} H{H} C{C} {part}",
                  g, r, verbose)
+            check_equal(f"band_attention_acc_bwd {tag} B{B} H{H} C{C} {part} vs band_attention_bwd", g, q)
         return a_dst, a_src, x_ext, d_out
 
-    # ---- 20: the owner-row backward against its plain version -----------------
-    print(f"[20] band_attention_acc_bwd vs its plain version: bigtown layout (nB {nB}, BLK {BLK}, "
-          f"W {W}) at B {', '.join(map(str, kernel_batches))}, H·C 256 and 128; ragged shapes")
+    # ---- 20: the acc backward against its plain version and v2's ----------------
+    print(f"[20] band_attention_acc_bwd vs its plain version and band_attention_bwd: bigtown layout "
+          f"(nB {nB}, BLK {BLK}, W {W}) at B {', '.join(map(str, kernel_batches))}, H·C 256 and 128; "
+          f"ragged shapes")
     for B in kernel_batches:
         for H in (2, 1):
             check_acc("bigtown", mask, mask_ix, B, H, 128, verbose=B == kernel_batches[0])
@@ -1320,14 +1432,15 @@ def slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, b
     rmask = rng.random((3, 16, 70)) < 0.3
     rmask[-1, -5:] = False                        # fully masked (padded) rows
     wide = rng.random((2, 16, 200)) < 0.4         # rows of ~80 entries
-    tall = rng.random((1, 1056, 1100)) < 0.01     # BLK 1056: 33 words of column bits
+    tall = rng.random((1, 1056, 1100)) < 0.01     # BLK 1056: one block wider than 1024 rows
     for m_np, shapes in ((rmask, ((3, 2, 32), (2, 1, 300), (2, 3, 33))),
                          (wide, ((2, 2, 32), (1, 1, 300))), (tall, ((1, 1, 8),))):
         m_t = torch.as_tensor(m_np.view(np.int8), device=dev)
         for B, H, C in shapes:
             check_acc("ragged", m_t, None, B, H, C)          # index built from the mask's values
     torch.cuda.synchronize()
-    print("  all within atol/rtol 1e-4")
+    print("  all within atol/rtol 1e-4 of the plain version, and equal to band_attention_bwd's "
+          "outputs bit for bit")
 
     # ---- 21: path A, training through band_attn="acc" ---------------------------
     print('[21] path A: GATRes-large training on bigtown with band_attn="acc"')
@@ -1422,10 +1535,11 @@ def slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, b
     for d, (xb, xmask) in enumerate(draws):
         loss_64, g64 = batch_step("acc", xb, xmask, f64=True)
         bounds = [1e-3 * float(r.abs().max()) + 1e-6 for r in g64]
-        line = []
+        line, side_grads = [], {}
         for side, route, plain in (("plain f32", "acc", True), ("dma", "dma", False),
                                    ("acc", "acc", False)):
             loss, grads = batch_step(route, xb, xmask, plain=plain)
+            side_grads[side] = grads
             shares = []
             for name, g, r, bnd in zip(pnames, grads, g64, bounds):
                 if not torch.isfinite(g).all():
@@ -1442,7 +1556,13 @@ def slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, b
         print(f"  step at batch {tbs}, draw {d} ({'the fit data' if d == 0 else f'seed {d - 1}'}): "
               f"float64 loss {loss_64:.9f}; {len(pnames)} gradients against the float64 step's, as shares "
               f"of 1e-3·max|g| + 1e-6:\n    " + "\n    ".join(line))
-        del g64
+        # the acc route's backward is v2's passes: the two steps agree to the bit
+        for name, g, r in zip(pnames, side_grads["acc"], side_grads["dma"]):
+            if not torch.equal(g, r):
+                raise SystemExit(f"FAIL acc and dma steps at batch {tbs} (draw {d}): gradient of {name} "
+                                 f"differs by {float((g - r).abs().max()):.3e}")
+        print(f"    acc and dma: all {len(pnames)} gradients equal bit for bit")
+        del g64, side_grads
         torch.cuda.empty_cache()
 
     def mk_ds(a):
@@ -1682,30 +1802,34 @@ def slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, b
     for B in (tbs, sbs):
         for H, C in ((2, 128), (1, 128)):
             a_dst, a_src, x_ext, d_out = check_acc("bigtown", mask, mask_ix, B, H, C)
-            # inputs a_dst, a_src (once per extended row), x_ext, dO, the int8 mask and the
-            # padded-row list; outputs d a_dst, d a_src_win (window layout), d x_ext
+            # inputs a_dst, a_src (once per extended row), x_ext, dO and the index the
+            # passes walk (row_ptr, col, t_ptr, t_entry, t_row, the padded-row lists);
+            # outputs d a_dst, d a_src_win (window layout), d x_ext
             io = 4 * (B * n_pad * H + B * n_ext * H + B * n_ext * H * C + B * n_pad * H * C)
             out_b = 4 * (B * n_pad * H + nB * B * W * H + B * n_ext * H * C)
+            acc_bwd = lambda: ba.band_attention_acc_bwd(  # noqa: E731
+                a_dst, a_src, x_ext, mask, d_out, 0.2, mask_ix)
+            v2_bwd = lambda: ba.band_attention_bwd(a_dst, a_src, x_ext, mask, d_out, 0.2, mask_ix)  # noqa: E731
+            split, v2_split = device_split(acc_bwd), device_split(v2_bwd)
             bound(dict(
                 name="band_attention_acc_bwd", B=B, hc=H * C, library=None, library_ms=None,
-                ms=cuda_ms(lambda: ba.band_attention_acc_bwd(a_dst, a_src, x_ext, mask, d_out, 0.2,
-                                                             mask_ix), 3, 20),
-                v2_ms=cuda_ms(lambda: ba.band_attention_bwd(a_dst, a_src, x_ext, mask, d_out, 0.2,
-                                                            mask_ix), 3, 20),
+                ms=cuda_ms(acc_bwd, 3, 20), device_ms=sum(ms for _, ms in split) or None,
+                v2_ms=cuda_ms(v2_bwd, 3, 20), v2_device_ms=sum(ms for _, ms in v2_split) or None,
                 plain_ms=cuda_ms(lambda: ba.band_attention_acc_bwd_plain(a_dst, a_src, x_ext, mask,
                                                                          d_out, 0.2), 1, 3),
-                bytes=io + out_b + nB * BLK * W + 4 * (nB + 1 + n_empty),
+                bytes=io + out_b + 4 * (n_pad + 1 + n_ext + 1 + 3 * nnz + nB + 1 + n_empty),
                 ops=B * H * nnz * (4 * C + 12)))
-            if H == 2:
-                split = device_split(lambda: ba.band_attention_acc_bwd(a_dst, a_src, x_ext, mask, d_out,
-                                                                       0.2, mask_ix))
-                v2_split = device_split(lambda: ba.band_attention_bwd(a_dst, a_src, x_ext, mask, d_out,
-                                                                      0.2, mask_ix))
-                print(f"  device ms by pass at B {B}, H·C 256: acc " + ", ".join(
-                    f"{k} {ms:.4f}" for k, ms in split) + "; v2 " + ", ".join(
-                    f"{k} {ms:.4f}" for k, ms in v2_split))
+            print(f"  device ms at B {B}, H·C {H * C}: acc {fmt_ms(rows[-1]['device_ms'])} by pass "
+                  + ", ".join(f"{k} {ms:.4f}" for k, ms in split)
+                  + f"; v2 {fmt_ms(rows[-1]['v2_device_ms'])} "
+                  "by pass " + ", ".join(f"{k} {ms:.4f}" for k, ms in v2_split))
             del a_dst, a_src, x_ext, d_out
             torch.cuda.empty_cache()
+    acc_b8 = {q["hc"]: q["device_ms"] for q in rows if q["name"] == "band_attention_acc_bwd" and q["B"] == tbs}
+    print(f"  band_attention_acc_bwd in a batch-{tbs} step: 25 x {fmt_ms(acc_b8[256])} + 25 x "
+          f"{fmt_ms(acc_b8[128])} = {fmt_ms(step_device_ms(acc_b8))} ms of device time")
+    print("  its columns instances, registers and spills (v2's, kWindow false): "
+          + columns_registers(big["ptxas"].get("band_attention_acc_bwd", ())))
     for B in (tbs, sbs):
         _, lay, fwd_t, bwd_t = layouts[B]
         for C in (256, 128):
@@ -1739,7 +1863,7 @@ def slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, b
                 ops=n_valid * C))
             del xp, g, x_z, lib_bwd, src
             torch.cuda.empty_cache()
-    return dict(rows=rows, acc_step=acc_step, acc_fit=acc_fit, route_step=route_step,
+    return dict(rows=rows, acc_step=acc_step, acc_fit=acc_fit, route_step=route_step, acc_b8=acc_b8,
                 acc_worst=acc_worst, padded_worst=padded_worst, drive=drive,
                 padded_serve_ms=padded_serve_ms, padded_serve_peak=padded_serve_peak,
                 padded_step_ms=padded_step_ms, padded_step_peak=padded_step_peak,
@@ -1792,10 +1916,10 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"[2] kernels built in {time.perf_counter() - t0:.1f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    ptxas = {name: ptxas_table(log) for name, log in logs.items()}
+    for name, table in ptxas.items():
+        for fn, regs, stack, st, ld in table:
+            print(f"  {name}: {fn}: {regs} registers, {stack} bytes stack, spill {st} / {ld} bytes")
 
     wn = parse_inp(os.path.join(REPO, "inputs", "bigtown.inp"))
     tpl, _ = build_template(wn, get_keep_list(wn, "keep_junction", None, "pressure"), None,
@@ -2274,7 +2398,7 @@ def main() -> int:
     del trn
     torch.cuda.empty_cache()
     dense = dense_phases(dev, card, rng, held, reset_launches, read_launches, counts)
-    big = dict(tpl=tpl, npz=npz, x=fx["x"], tfx=tfx, mask=mask, mask_ix=mask_ix)
+    big = dict(tpl=tpl, npz=npz, x=fx["x"], tfx=tfx, mask=mask, mask_ix=mask_ix, ptxas=ptxas)
     mega = mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big)
     s5 = slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, big)
 
@@ -2361,11 +2485,15 @@ def main() -> int:
                 k: [{"serve_b32": a, "step_b8": b} for a, b in v]
                 for k, v in mega["route_ms"].items()}}),
             **({"ms_b32": mega["ms_b32"][name]} if flash else {}),
+            **({"device_ms_b8": mega["window_b8"],
+                "launch_weighted_device_ms_b8_step": step_device_ms(mega["window_b8"]),
+                "d_a_bit_equal_to_band_attention_bwd": mega["window_da_equal"]}
+               if name == "band_attention_window_bwd" else {}),
             # v2's kernel of the same direction on the same meganet B 8 inputs
             **({"v2_ms_same_inputs": {f"HC{hc}": t[name.endswith("_bwd")]
                                       for hc, t in mega["v2_ms"].items()}} if flash else {}),
             "by_shape": {f"B{b} HC{hc}": {k: q[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                                          "bytes") if k in q}
+                                                          "bytes", "v2_ms", "v2_device_ms") if k in q}
                          for (b, hc), q in shaped.items()},
         })
     # the slice-5 kernels: the acc backward at the training batch, H·C 256, counting
@@ -2385,13 +2513,16 @@ def main() -> int:
             "source": f"gnn_pressure_estimation_tpu_torch/csrc/"
                       f"{'window_gather' if name.startswith('window') else name}.cu",
             "replaces": replaces, "launches": launched[name],
-            **({"launches_per_train_step": s5["acc_step"][name], "acc_route_step_ms": s5["route_step"]}
+            **({"launches_per_train_step": s5["acc_step"][name], "acc_route_step_ms": s5["route_step"],
+                "device_ms_b8": s5["acc_b8"],
+                "launch_weighted_device_ms_b8_step": step_device_ms(s5["acc_b8"])}
                if name == "band_attention_acc_bwd" else {}),
             "max_abs_err": max_err[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library": r["library"], "shape": f"{shape}, B {B}, C or H·C 256",
-            "by_shape": {f"B{b} C{hc}": {k: q[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                         "bytes", "v2_ms") if k in q}
+            "by_shape": {f"B{b} C{hc}": {k: q[k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                                         "bound_ms", "bytes", "v2_ms", "v2_device_ms")
+                                         if k in q}
                          for (b, hc), q in shaped.items()},
         })
     print(json.dumps({"kernels": kernels}))

@@ -2,22 +2,9 @@
 //
 // Replaces the backward of make_band_attention_dma (v2) in
 // gnn_pressure_estimation_tpu/ops/pallas/band_attention.py (bwd_kernel and
-// the window fold after it). With z_j = a_dst[b,i,h] + a_src_win[blk,b,j,h],
-// p = softmax_j(LeakyReLU(z_j)) over the set columns of row i (recomputed, as
-// v2 does: the forward saves nothing but its inputs) and dO the cotangent of
-// the forward's output:
-//
-//   dp_j    = dO[b,i,h,:] . x_ext[b, blk*BLK + j, h, :]
-//   dz_j    = p_j (dp_j - sum_j p_j dp_j) * (z_j >= 0 ? 1 : slope)
-//   d a_dst[b,i,h]          = sum_j dz_j
-//   d a_src_win[blk,b,j,h]  = sum over the block's rows i of dz_j
-//   d x_ext[b,blk*BLK+j,h,:] = sum over rows i and over the blocks whose
-//                              windows overlap of p_j dO[b,i,h,:]
-//
-// The sign is that of the pre-activation z_j, not of LeakyReLU(z_j). A row
-// with no set column got a uniform softmax over its W window in the
-// forward: it adds dO/W to all W window rows of d x_ext and nothing to the
-// d a's (the mask zeroes the logits' gradient).
+// the window fold after it): the cotangents of a_dst, a_src_win and x_ext,
+// the softmax recomputed, as v2 does (the formulas and the five passes are
+// in csrc/band_bwd.cuh, which the v3 and v1 backwards run as well).
 //
 // The TPU kernel writes a dense [nB, B, W_pad, H*C] window cotangent and
 // folds it outside. Here the mask is about 0.5% dense, so the work follows
@@ -30,24 +17,7 @@
 // read e, which d x_ext[e] needs anyway, so it takes dp_j there as well. A
 // rows pass that took dp would gather every x row a second time (the forward
 // gathered them once): at bigtown B 32, H*C 256, some 870 MB more through
-// L2. The passes, per graph b:
-//
-//   1. weights: one thread per (row, head): the row's logits from its list
-//               (col, a_src_win), a running max and sum, then p per entry,
-//               written as [B, nnz, H].
-//   2. empties: in the same launch, 8 warps per (b, 32 channels) sum dO/W
-//               over each block's rows that have no entry into S [B, nB, H, C]
-//               (csrc/band_common.cuh; none when the layout has no such row).
-//   3. columns: one warp per extended row e, all heads: d x_ext[e] = sum
-//               p dO (+ S of each covering block that holds padded rows) and
-//               dp of each (entry, head), from the dO rows of the entries
-//               that read e, staged by cp.async (csrc/band_colwalk.cuh, shared
-//               with the v4 backward).
-//   4. rows:    one thread per (row, head): delta = sum p dp over the row's
-//               list, dz = p (dp - delta), the slope where a_dst + a_src < 0,
-//               written over dp; d a_dst = sum dz.
-//   5. cells:   one thread per (extended row e, head): d a_src_win, every
-//               cell written once (csrc/band_colwalk.cuh).
+// L2.
 //
 // Bound: bytes (x_ext, dO read once; d x_ext written once; the a's and the
 // index are small): about 0.5 FLOP a byte, as in the forward. Tensor cores
@@ -59,98 +29,11 @@
 // (cp.async into shared memory), occupancy kept by a register cap (64 at
 // H*C 128: four thread blocks of eight warps an SM; 80 at 256: three), and
 // L2 reuse (b-major, row-minor grids over RCM-ordered rows). The scalar
-// passes (1, 4, 5) move nnz*H floats each, a thread per item.
+// passes (weights, rows, cells) move nnz*H floats each, a thread per item.
 //
 // C interface: pointers, ints and the stream; returns cudaGetLastError().
 
-#include "band_colwalk.cuh"
-
-namespace {
-
-constexpr float kRunningMaxInit = -3e38f;
-
-// p of every entry: one thread per (b, row, head), h fastest, in the first
-// w_blocks thread blocks; the blocks after them sum the padded rows' dO into
-// S (empties_block, one per (b, 32 channels)): the two are independent, so
-// one launch overlaps them.
-__global__ void __launch_bounds__(kThreads)
-weights_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
-               const float* __restrict__ a_src_win,  // [nB, B, W, H]
-               const int* __restrict__ row_ptr,      // [n_pad + 1]
-               const int* __restrict__ col,          // [nnz]
-               float* __restrict__ p_out,            // [B, nnz, H]
-               const float* __restrict__ dout,       // [B, n_pad, H, C]
-               const int* __restrict__ empty_ptr,    // [nB + 1]
-               const int* __restrict__ empty_row,    // [n_empty]
-               float* __restrict__ S,                // [B, nB, H, C]
-               int B, int nB, int BLK, int W, int H, int C, int nnz, unsigned w_blocks,
-               float slope) {
-  if (blockIdx.x >= w_blocks) {          // the whole thread block takes this branch
-    const int tiles = (H * C + 31) / 32, q = (int)(blockIdx.x - w_blocks);
-    empties_block<kWarps>(dout, empty_ptr, empty_row, S, nB, BLK, W, H * C, q / tiles, q % tiles);
-    return;
-  }
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long n_pad = (long long)nB * BLK;
-  if (i >= (long long)B * n_pad * H) return;
-  const int h = (int)(i % H);
-  const long long row = (i / H) % n_pad;
-  const long long b = i / H / n_pad;
-  const long long blk = row / BLK;
-  const int k0 = row_ptr[row], k1 = row_ptr[row + 1];
-  const float ad = a_dst[i];
-  const float* asrc = a_src_win + (blk * B + b) * (long long)W * H + h;
-  float m = kRunningMaxInit, Z = 0.f;
-#pragma unroll 4
-  for (int k = k0; k < k1; ++k) {
-    const float z = leaky(ad + __ldg(asrc + (long long)col[k] * H), slope);
-    const float m_new = fmaxf(m, z);
-    Z = Z * expf(m - m_new) + expf(z - m_new);
-    m = m_new;
-  }
-  float* pk = p_out + b * (long long)nnz * H + h;
-#pragma unroll 4
-  for (int k = k0; k < k1; ++k)
-    pk[(long long)k * H] = expf(leaky(ad + __ldg(asrc + (long long)col[k] * H), slope) - m) / Z;
-}
-
-// dz over dp and d a_dst: one thread per (b, row, head), h fastest.
-__global__ void __launch_bounds__(kThreads)
-rows_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
-            const float* __restrict__ a_src_win,  // [nB, B, W, H]
-            const int* __restrict__ row_ptr,      // [n_pad + 1]
-            const int* __restrict__ col,          // [nnz]
-            const float* __restrict__ p_in,       // [B, nnz, H]
-            float* __restrict__ dp_dz,            // [B, nnz, H]: dp in, dz out
-            float* __restrict__ d_a_dst,          // [B, n_pad, H]
-            int B, int nB, int BLK, int W, int H, int nnz, float slope) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long n_pad = (long long)nB * BLK;
-  if (i >= (long long)B * n_pad * H) return;
-  const int h = (int)(i % H);
-  const long long row = (i / H) % n_pad;
-  const long long b = i / H / n_pad;
-  const long long blk = row / BLK;
-  const int k0 = row_ptr[row], k1 = row_ptr[row + 1];
-  const float* pk = p_in + b * (long long)nnz * H + h;
-  float* dk = dp_dz + b * (long long)nnz * H + h;
-  float delta = 0.f;
-#pragma unroll 4
-  for (int k = k0; k < k1; ++k) delta = fmaf(pk[(long long)k * H], dk[(long long)k * H], delta);
-  const float ad = a_dst[i];
-  const float* asrc = a_src_win + (blk * B + b) * (long long)W * H + h;
-  float dsum = 0.f;
-#pragma unroll 4
-  for (int k = k0; k < k1; ++k) {
-    float dz = pk[(long long)k * H] * (dk[(long long)k * H] - delta);
-    if (ad + __ldg(asrc + (long long)col[k] * H) < 0.f) dz *= slope;
-    dk[(long long)k * H] = dz;
-    dsum += dz;
-  }
-  d_a_dst[i] = dsum;                     // 0 for a row with no set column
-}
-
-}  // namespace
+#include "band_bwd.cuh"
 
 // scratch_p, scratch_dz: [B, nnz, H] f32; scratch_s: [B, nB, H, C] f32, read
 // only when n_empty > 0. vec != 0: C % 4 == 0 and x_ext, dout 16-byte aligned
@@ -163,33 +46,8 @@ extern "C" int band_attention_bwd(
     float* scratch_s, float* d_a_dst, float* d_a_src_win, float* d_x_ext,
     int B, int nB, int BLK, int W, int H, int C, int nnz, int n_empty, int vec,
     float slope, void* stream) {
-  const long long n_pad = (long long)nB * BLK;
-  const long long n_ext = n_pad + W - BLK;
-  if ((long long)B * n_pad * H == 0) return (int)cudaSuccess;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (C == 0) {                          // no channels: dp = 0, so every dz is 0
-    cudaError_t err = cudaMemsetAsync(d_a_dst, 0, (size_t)(B * n_pad * H) * sizeof(float), st);
-    if (err == cudaSuccess)
-      err = cudaMemsetAsync(d_a_src_win, 0, (size_t)nB * B * W * H * sizeof(float), st);
-    return (int)err;
-  }
-  const unsigned w_blocks = threads_for((long long)B * n_pad * H);
-  const unsigned e_blocks = n_empty > 0 ? (unsigned)(B * ((H * C + 31) / 32)) : 0u;
-  weights_kernel<<<w_blocks + e_blocks, kThreads, 0, st>>>(
-      a_dst, a_src_win, row_ptr, col, scratch_p, dout, empty_ptr, empty_row, scratch_s, B, nB,
-      BLK, W, H, C, nnz, w_blocks, slope);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int rc = columns_pass(vec, x_ext, dout, scratch_p, n_empty > 0 ? scratch_s : nullptr, t_ptr,
-                              t_entry, t_row, empty_ptr, scratch_dz, d_x_ext, B, nB, BLK, W, H, C,
-                              nnz, st);
-  if (rc != 0) return rc;
-  rows_kernel<<<threads_for((long long)B * n_pad * H), kThreads, 0, st>>>(
-      a_dst, a_src_win, row_ptr, col, scratch_p, scratch_dz, d_a_dst, B, nB, BLK, W, H, nnz,
-      slope);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  cells_kernel<<<threads_for((long long)B * n_ext * H), kThreads, 0, st>>>(
-      scratch_dz, t_ptr, t_entry, t_row, d_a_src_win, B, nB, BLK, W, H, nnz);
-  return (int)cudaGetLastError();
+  return recompute_bwd(a_dst, a_src_win, x_ext, dout, row_ptr, col, t_ptr, t_entry, t_row,
+                       empty_ptr, empty_row, scratch_p, scratch_dz, scratch_s, d_a_dst,
+                       d_a_src_win, d_x_ext, B, nB, BLK, W, H, C, nnz, n_empty, vec, slope,
+                       (cudaStream_t)stream);
 }

@@ -1,7 +1,7 @@
-// The column walk of the two band-attention backwards that take dp by
-// extended row (csrc/band_attention_bwd.cu, v2, and
+// The column walk of the band-attention backwards that take dp by extended
+// row (csrc/band_bwd.cuh: v2's, v3's and, in window layout, v1's; and
 // csrc/band_attention_flash_bwd.cu, v4), and the cells pass after it: one
-// code, computed the same way for both. Per graph b and extended row e, over
+// code, computed the same way for all. Per graph b and extended row e, over
 // the mask entries k (band row g, window column j = e - blk*BLK) that read e,
 // with p the entry's softmax weight per head, which a weights pass of the
 // caller wrote as [B, nnz, H]:
@@ -13,6 +13,11 @@
 // and, once the caller has turned dp into dz [B, nnz, H],
 //
 //   d a_src_win[blk, b, j, h] = sum of dz over block blk's entries that read e
+//
+// In window layout (kWindow, v1) x and d x are [nB, B, W, H, C]: the sum
+// above splits by covering block, d x_win[blk, b, j] = sum over block blk's
+// entries of p dO (+ S of blk), and dp reads x_win[blk, b, j], the same
+// values as x_ext[b, e] once the windows are cut from an extended array.
 //
 // columns: one warp per extended row e, all heads (in groups of kHeadGroup).
 //          The lanes load the entries that read e (t_entry, t_row), one a
@@ -26,7 +31,13 @@
 //          C is a multiple of 128 each float4 row of lanes is one head, and a
 //          group's four (entry, row) partials reduce together by a transposed
 //          butterfly: 4 sums in 6 shuffles, not 20. Other C take a segmented
-//          shuffle scan per entry and row. Both orders are fixed.
+//          shuffle scan per entry and row. Both orders are fixed. In window
+//          layout the warp takes the covering blocks in ascending order:
+//          their entries are contiguous runs of t_ptr[e] .. t_ptr[e+1]. Per
+//          block it loads x_win[blk, b, j] (where the run holds an entry),
+//          sums the run, adds S of the block and writes d x_win[blk, b, j]
+//          once, a zero row where the run is empty: each of the nB*W cells
+//          of a graph has one owner, so the dense write needs no fill.
 // cells:   one thread per (extended row e, head): d a_src_win of each block
 //          whose window holds e, the sum of dz over the block's entries that
 //          read e (sorted by row, so contiguous), 0 where there is none: every
@@ -132,14 +143,27 @@ __device__ __forceinline__ void stage_slot(float4* dst, const float* __restrict_
 
 __device__ __forceinline__ void stage_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
+// The end of the run of block blk's entries that starts at s: the entries
+// s .. t1-1 of an extended row are sorted by block, so those of blocks up to
+// blk are a prefix (a ballot over 32 at a time).
+__device__ __forceinline__ int run_end(const int* __restrict__ t_row, int s, int t1, int blk,
+                                       int BLK, int lane) {
+  for (;; s += 32) {
+    const int t = s + lane;
+    const int n = __popc(__ballot_sync(kFull, t < t1 && t_row[t] / BLK <= blk));
+    if (n < 32) return s + n;
+  }
+}
+
 // kWhole: kVec and C % 128 == 0, so each row of lanes (a float4 slot of the
 // tile) holds channels of one head, and the dp partials of a group of
 // entries reduce together (reduce_scatter); else a segmented scan per entry
 // and row (add_segments). columns_min_blocks(NV) caps the registers (64 at
 // NV 1, 80 at NV 2, where a lane holds two float4 of x_ext[e] and of its sums).
-template <int NV, bool kVec, bool kWhole>
+// kWindow: x_op and d_x_op in window layout, one run of entries per covering block.
+template <int NV, bool kVec, bool kWhole, bool kWindow>
 __global__ void __launch_bounds__(kThreads, columns_min_blocks(NV))
-columns_kernel(const float* __restrict__ x_ext,     // [B, n_ext, H, C]
+columns_kernel(const float* __restrict__ x_op,      // x_ext [B, n_ext, H, C]; kWindow x_win
                const float* __restrict__ dout,      // [B, n_pad, H, C]
                const float* __restrict__ p_in,      // [B, nnz, H]
                const float* __restrict__ S,         // [B, nB, H, C] or null
@@ -148,7 +172,7 @@ columns_kernel(const float* __restrict__ x_ext,     // [B, n_ext, H, C]
                const int* __restrict__ t_row,       // [nnz]
                const int* __restrict__ empty_ptr,   // [nB + 1]
                float* __restrict__ dp_out,          // [B, nnz, H]
-               float* __restrict__ d_x_ext,         // [B, n_ext, H, C]
+               float* __restrict__ d_x_op,          // d x_ext; kWindow d x_win [nB, B, W, H, C]
                int B, int nB, int BLK, int W, int H, int C, int nnz) {
   // per warp: the staged dO slots [kDepth][NV][32] float4, then p, dp [32][G]
   extern __shared__ float4 smem4[];
@@ -169,10 +193,10 @@ columns_kernel(const float* __restrict__ x_ext,     // [B, n_ext, H, C]
   const int t0 = t_ptr[e], t1 = t_ptr[e + 1];
   // blocks whose window [blk*BLK, blk*BLK + W) holds e; lane q asks whether
   // block blk_lo + q holds padded rows (loaded here, used at the end; blocks
-  // past 32 are asked in turn)
+  // past 32 are asked in turn; kWindow asks block by block)
   const int blk_hi = min(nB - 1, e / BLK);
   const int blk_lo = e >= W ? (e - W) / BLK + 1 : 0;
-  const bool asks = S != nullptr && blk_lo + lane <= blk_hi;
+  const bool asks = !kWindow && S != nullptr && blk_lo + lane <= blk_hi;
   const int e0 = asks ? empty_ptr[blk_lo + lane] : 0, e1 = asks ? empty_ptr[blk_lo + lane + 1] : 0;
   const int G = min(H, kHeadGroup);
   float4* stage = smem4 + wib * kDepth * NV * 32 + lane;   // the lane's slots: stride 32
@@ -181,8 +205,8 @@ columns_kernel(const float* __restrict__ x_ext,     // [B, n_ext, H, C]
   const float* pb = p_in + (long long)b * nnz * H;
   float* dpb = dp_out + (long long)b * nnz * H;
   const float* dbase = dout + (long long)b * n_pad * HC;
-  const float* xe = x_ext + ((long long)b * n_ext + e) * HC;
-  float* dxe = d_x_ext + ((long long)b * n_ext + e) * HC;
+  const float* xe = x_op + ((long long)b * n_ext + e) * HC;   // not kWindow: the warp's rows
+  float* dxe = d_x_op + ((long long)b * n_ext + e) * HC;
 
   for (int h0 = 0; h0 < H; h0 += G) {
     const int hg = min(G, H - h0);           // heads h0 .. h0+hg-1, channels up to ce
@@ -196,7 +220,8 @@ columns_kernel(const float* __restrict__ x_ext,     // [B, n_ext, H, C]
       int seg[kWhole ? 1 : kRows];
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
-        xv[v] = load_slot<kVec>(xe, kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane, ce);
+        if (!kWindow)
+          xv[v] = load_slot<kVec>(xe, kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane, ce);
         acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (kWhole) {
           head[v][0] = min(c0 + 128 * v, ce - 1) / C - h0;   // the row's head, lane-uniform
@@ -214,83 +239,6 @@ columns_kernel(const float* __restrict__ x_ext,     // [B, n_ext, H, C]
         }
       }
 
-      for (int s0 = t0; s0 < t1; s0 += 32) {   // one chunk of the entries that read e
-        const int t = s0 + lane;
-        const bool on = t < t1;
-        const int g = on ? t_row[t] : 0;
-        const int k = on ? t_entry[t] : 0;
-        const int cnt = min(32, t1 - s0);
-        for (int r0 = 0; r0 < cnt; r0 += kDepth) {   // up to kDepth entries' dO rows in flight
-          const int n = min(kDepth, cnt - r0);
-          for (int q = 0; q < n; ++q) {
-            const float* dr = dbase + __shfl_sync(kFull, g, r0 + q) * HC;
-#pragma unroll
-            for (int v = 0; v < NV; ++v)
-              stage_slot<kVec>(stage + (q * NV + v) * 32, dr,
-                               kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane, ce);
-          }
-          if (r0 == 0) {                       // the weights load while the rows arrive
-            for (int h = 0; h < hg; ++h) {
-              p_sh[lane * G + h] = on ? pb[(long long)k * H + h0 + h] : 0.f;
-              dp_sh[lane * G + h] = 0.f;
-            }
-            __syncwarp();
-          }
-          stage_wait();                        // the lane reads back only its own slots
-          for (int gq = 0; gq < n; gq += kA) {
-            float val[kA * NV];                // kWhole: the group's partials of dp
-#pragma unroll
-            for (int q = 0; q < kA; ++q) {
-              const int qq = min(gq + q, n - 1);   // past n: a repeat, not added
-              const bool live = gq + q < n;        // uniform across the warp
-              const float* ps = p_sh + (r0 + qq) * G;
-#pragma unroll
-              for (int v = 0; v < NV; ++v) {
-                const float4 a = stage[(qq * NV + v) * 32], x = xv[v];
-                if (live) {
-                  acc[v].x = fmaf(ps[head[v][0]], a.x, acc[v].x);
-                  acc[v].y = fmaf(ps[head[v][kVec ? 0 : 1]], a.y, acc[v].y);
-                  acc[v].z = fmaf(ps[head[v][kVec ? 0 : 2]], a.z, acc[v].z);
-                  acc[v].w = fmaf(ps[head[v][kVec ? 0 : 3]], a.w, acc[v].w);
-                }
-                if (kWhole) {
-                  val[q * NV + v] = fmaf(a.w, x.w, fmaf(a.z, x.z, fmaf(a.y, x.y, a.x * x.x)));
-                } else if (live) {
-                  float* dps = dp_sh + (r0 + qq) * G;
-                  if (kVec) {
-                    add_segments(fmaf(a.w, x.w, fmaf(a.z, x.z, fmaf(a.y, x.y, a.x * x.x))),
-                                 seg[v], lane, dps);
-                  } else {
-                    add_segments(a.x * x.x, seg[4 * v], lane, dps);
-                    add_segments(a.y * x.y, seg[4 * v + 1], lane, dps);
-                    add_segments(a.z * x.z, seg[4 * v + 2], lane, dps);
-                    add_segments(a.w * x.w, seg[4 * v + 3], lane, dps);
-                  }
-                }
-              }
-            }
-            if (kWhole) {
-              const float r = reduce_scatter<kA * NV>(val, lane);
-              const int idx = lane >> 3;                     // kA * NV == 4 sums
-              const int q = idx / NV, v = idx % NV;
-#pragma unroll
-              for (int w = 0; w < NV; ++w) {   // two rows may be one head: they add in turn
-                if (v == w && (lane & 7) == 0 && gq + q < n)
-                  dp_sh[(r0 + gq + q) * G + head[v][0]] += r;
-                __syncwarp();
-              }
-            }
-          }
-        }
-        // the lane's entry's dp, this tile's part (the same lane owns it in every tile)
-        if (on)
-          for (int h = 0; h < hg; ++h) {
-            float* d = dpb + (long long)k * H + h0 + h;
-            *d = first ? dp_sh[lane * G + h] : *d + dp_sh[lane * G + h];
-          }
-        __syncwarp();                        // p_sh, dp_sh are read before the next chunk writes them
-      }
-
       auto add_s = [&](int blk) {            // S of a covering block with padded rows
         const float* sr = S + ((long long)b * nB + blk) * HC;
 #pragma unroll
@@ -303,22 +251,129 @@ columns_kernel(const float* __restrict__ x_ext,     // [B, n_ext, H, C]
           acc[v].w += s.w;
         }
       };
-      for (unsigned bits = __ballot_sync(kFull, e0 != e1); bits; bits &= bits - 1)
-        add_s(blk_lo + __ffs(bits) - 1);
-      if (S != nullptr)                      // a window of more than 32 blocks: the rest in turn
-        for (int blk = blk_lo + 32; blk <= blk_hi; ++blk)
-          if (empty_ptr[blk] != empty_ptr[blk + 1]) add_s(blk);
+      auto store = [&](float* row) {         // the tile of acc into a d x row
 #pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        if (kVec) {
-          const int c = c0 + 128 * v + 4 * lane;
-          if (c < ce) *reinterpret_cast<float4*>(dxe + c) = acc[v];
+        for (int v = 0; v < NV; ++v) {
+          if (kVec) {
+            const int c = c0 + 128 * v + 4 * lane;
+            if (c < ce) *reinterpret_cast<float4*>(row + c) = acc[v];
+          } else {
+            const int c = c0 + 128 * v + lane;
+            if (c < ce) row[c] = acc[v].x;
+            if (c + 32 < ce) row[c + 32] = acc[v].y;
+            if (c + 64 < ce) row[c + 64] = acc[v].z;
+            if (c + 96 < ce) row[c + 96] = acc[v].w;
+          }
+        }
+      };
+      // the entries r_lo .. r_hi-1 into acc, their dp against xv, and acc into
+      // its d x row: all of e's entries and d x_ext[e] in one run, or kWindow
+      // one run per covering block in ascending order, each with its x_win
+      // and d x_win rows [blk, b, e - blk*BLK] and its S
+      for (int blk = blk_lo, s = t0;; ++blk) {
+        int r_lo = t0, r_hi = t1;
+        long long cell = 0;
+        if (kWindow) {
+          r_lo = s;
+          r_hi = run_end(t_row, s, t1, blk, BLK, lane);
+          cell = ((long long)blk * B + b) * W + e - (long long)blk * BLK;
+          if (r_hi > r_lo)                   // uniform: the run has entries, so dp needs x
+#pragma unroll
+            for (int v = 0; v < NV; ++v)
+              xv[v] = load_slot<kVec>(x_op + cell * HC,
+                                      kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane, ce);
+        }
+        for (int s0 = r_lo; s0 < r_hi; s0 += 32) {   // one chunk of the entries that read e
+          const int t = s0 + lane;
+          const bool on = t < r_hi;
+          const int g = on ? t_row[t] : 0;
+          const int k = on ? t_entry[t] : 0;
+          const int cnt = min(32, r_hi - s0);
+          for (int r0 = 0; r0 < cnt; r0 += kDepth) {   // up to kDepth entries' dO rows in flight
+            const int n = min(kDepth, cnt - r0);
+            for (int q = 0; q < n; ++q) {
+              const float* dr = dbase + __shfl_sync(kFull, g, r0 + q) * HC;
+#pragma unroll
+              for (int v = 0; v < NV; ++v)
+                stage_slot<kVec>(stage + (q * NV + v) * 32, dr,
+                                 kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane, ce);
+            }
+            if (r0 == 0) {                       // the weights load while the rows arrive
+              for (int h = 0; h < hg; ++h) {
+                p_sh[lane * G + h] = on ? pb[(long long)k * H + h0 + h] : 0.f;
+                dp_sh[lane * G + h] = 0.f;
+              }
+              __syncwarp();
+            }
+            stage_wait();                        // the lane reads back only its own slots
+            for (int gq = 0; gq < n; gq += kA) {
+              float val[kA * NV];                // kWhole: the group's partials of dp
+#pragma unroll
+              for (int q = 0; q < kA; ++q) {
+                const int qq = min(gq + q, n - 1);   // past n: a repeat, not added
+                const bool live = gq + q < n;        // uniform across the warp
+                const float* ps = p_sh + (r0 + qq) * G;
+#pragma unroll
+                for (int v = 0; v < NV; ++v) {
+                  const float4 a = stage[(qq * NV + v) * 32], x = xv[v];
+                  if (live) {
+                    acc[v].x = fmaf(ps[head[v][0]], a.x, acc[v].x);
+                    acc[v].y = fmaf(ps[head[v][kVec ? 0 : 1]], a.y, acc[v].y);
+                    acc[v].z = fmaf(ps[head[v][kVec ? 0 : 2]], a.z, acc[v].z);
+                    acc[v].w = fmaf(ps[head[v][kVec ? 0 : 3]], a.w, acc[v].w);
+                  }
+                  if (kWhole) {
+                    val[q * NV + v] = fmaf(a.w, x.w, fmaf(a.z, x.z, fmaf(a.y, x.y, a.x * x.x)));
+                  } else if (live) {
+                    float* dps = dp_sh + (r0 + qq) * G;
+                    if (kVec) {
+                      add_segments(fmaf(a.w, x.w, fmaf(a.z, x.z, fmaf(a.y, x.y, a.x * x.x))),
+                                   seg[v], lane, dps);
+                    } else {
+                      add_segments(a.x * x.x, seg[4 * v], lane, dps);
+                      add_segments(a.y * x.y, seg[4 * v + 1], lane, dps);
+                      add_segments(a.z * x.z, seg[4 * v + 2], lane, dps);
+                      add_segments(a.w * x.w, seg[4 * v + 3], lane, dps);
+                    }
+                  }
+                }
+              }
+              if (kWhole) {
+                const float r = reduce_scatter<kA * NV>(val, lane);
+                const int idx = lane >> 3;                     // kA * NV == 4 sums
+                const int q = idx / NV, v = idx % NV;
+#pragma unroll
+                for (int w = 0; w < NV; ++w) {   // two rows may be one head: they add in turn
+                  if (v == w && (lane & 7) == 0 && gq + q < n)
+                    dp_sh[(r0 + gq + q) * G + head[v][0]] += r;
+                  __syncwarp();
+                }
+              }
+            }
+          }
+          // the lane's entry's dp, this tile's part (the same lane owns it in every tile)
+          if (on)
+            for (int h = 0; h < hg; ++h) {
+              float* d = dpb + (long long)k * H + h0 + h;
+              *d = first ? dp_sh[lane * G + h] : *d + dp_sh[lane * G + h];
+            }
+          __syncwarp();                        // p_sh, dp_sh are read before the next chunk writes them
+        }
+        if (kWindow) {
+          if (S != nullptr && empty_ptr[blk] != empty_ptr[blk + 1]) add_s(blk);
+          store(d_x_op + cell * HC);
+#pragma unroll
+          for (int v = 0; v < NV; ++v) acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+          s = r_hi;
+          if (blk == blk_hi) break;
         } else {
-          const int c = c0 + 128 * v + lane;
-          if (c < ce) dxe[c] = acc[v].x;
-          if (c + 32 < ce) dxe[c + 32] = acc[v].y;
-          if (c + 64 < ce) dxe[c + 64] = acc[v].z;
-          if (c + 96 < ce) dxe[c + 96] = acc[v].w;
+          for (unsigned bits = __ballot_sync(kFull, e0 != e1); bits; bits &= bits - 1)
+            add_s(blk_lo + __ffs(bits) - 1);
+          if (S != nullptr)                    // a window of more than 32 blocks: the rest in turn
+            for (int bq = blk_lo + 32; bq <= blk_hi; ++bq)
+              if (empty_ptr[bq] != empty_ptr[bq + 1]) add_s(bq);
+          store(dxe);
+          break;
         }
       }
     }
@@ -360,41 +415,45 @@ cells_kernel(const float* __restrict__ dz_in,     // [B, nnz, H]
 
 inline unsigned threads_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
-template <int NV, bool kVec, bool kWhole>
-int launch_columns(const float* x_ext, const float* dout, const float* p, const float* S,
+template <int NV, bool kVec, bool kWhole, bool kWindow>
+int launch_columns(const float* x, const float* dout, const float* p, const float* S,
                    const int* t_ptr, const int* t_entry, const int* t_row, const int* empty_ptr,
-                   float* dp, float* d_x_ext, int B, int nB, int BLK, int W, int H, int C,
-                   int nnz, cudaStream_t st) {
+                   float* dp, float* d_x, int B, int nB, int BLK, int W, int H, int C, int nnz,
+                   cudaStream_t st) {
   const long long n_ext = (long long)nB * BLK + W - BLK;
   const size_t smem = (size_t)kWarps * (stage_depth(NV) * NV * 32 * sizeof(float4) +
                                         64 * min(H, kHeadGroup) * sizeof(float));
-  auto kernel = columns_kernel<NV, kVec, kWhole>;
+  auto kernel = columns_kernel<NV, kVec, kWhole, kWindow>;
   if (smem > (48 << 10)) {                 // past the default 48 KB of dynamic shared memory
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<blocks_for((long long)B * n_ext), kThreads, smem, st>>>(
-      x_ext, dout, p, S, t_ptr, t_entry, t_row, empty_ptr, dp, d_x_ext, B, nB, BLK, W, H, C, nnz);
+      x, dout, p, S, t_ptr, t_entry, t_row, empty_ptr, dp, d_x, B, nB, BLK, W, H, C, nnz);
   return (int)cudaGetLastError();
 }
 
 // The columns pass's instance for these operands: channel tiles sized to the
 // head group's channels, 128 (one float4 a lane) when G*C <= 128, else 256,
 // so a group of H*C 128 wastes no half tile; the butterfly where a float4
-// slot row is one head. vec: C % 4 == 0 and x_ext, dout 16-byte aligned.
-inline int columns_pass(int vec, const float* x_ext, const float* dout, const float* p,
-                        const float* S, const int* t_ptr, const int* t_entry, const int* t_row,
-                        const int* empty_ptr, float* dp, float* d_x_ext, int B, int nB, int BLK,
-                        int W, int H, int C, int nnz, cudaStream_t st) {
+// slot row is one head. vec: C % 4 == 0 and x, dout 16-byte aligned.
+// kWindow: x and d_x are x_win and d x_win [nB, B, W, H, C].
+template <bool kWindow = false>
+int columns_pass(int vec, const float* x, const float* dout, const float* p, const float* S,
+                 const int* t_ptr, const int* t_entry, const int* t_row, const int* empty_ptr,
+                 float* dp, float* d_x, int B, int nB, int BLK, int W, int H, int C, int nnz,
+                 cudaStream_t st) {
   const bool narrow = min(H, kHeadGroup) * C <= 128;   // one float4 a lane fills the tile
   const bool whole = vec && C % 128 == 0;              // a float4 slot row is one head
-  auto columns = narrow ? (whole ? launch_columns<1, true, true>
-                                 : vec ? launch_columns<1, true, false> : launch_columns<1, false, false>)
-                        : (whole ? launch_columns<2, true, true>
-                                 : vec ? launch_columns<2, true, false> : launch_columns<2, false, false>);
-  return columns(x_ext, dout, p, S, t_ptr, t_entry, t_row, empty_ptr, dp, d_x_ext, B, nB, BLK, W,
-                 H, C, nnz, st);
+  auto columns = narrow ? (whole ? launch_columns<1, true, true, kWindow>
+                                 : vec ? launch_columns<1, true, false, kWindow>
+                                       : launch_columns<1, false, false, kWindow>)
+                        : (whole ? launch_columns<2, true, true, kWindow>
+                                 : vec ? launch_columns<2, true, false, kWindow>
+                                       : launch_columns<2, false, false, kWindow>);
+  return columns(x, dout, p, S, t_ptr, t_entry, t_row, empty_ptr, dp, d_x, B, nB, BLK, W, H, C,
+                 nnz, st);
 }
 
 }  // namespace

@@ -20,12 +20,16 @@ takes is ``BatchedGraph.band_attn`` (``ops.banded.band_attention_route``):
   (v1) (``csrc/band_attention_window.cu``, ``csrc/band_attention_window_bwd.cu``):
   it reads the materialised window tensors ``x_win`` / ``a_src_win``, never an
   extended array, and its backward leaves ``d a_src_win`` and ``d x_win`` in
-  window layout for autograd to fold.
+  window layout for autograd to fold. The backward is v2's with the column
+  walk in window layout: one run of entries, one ``x_win`` row and one
+  ``d x_win`` row per covering block.
 * :func:`band_attention_acc` ("acc") replaces ``make_band_attention_acc`` (v3):
-  v2's forward kernel, and a backward (``csrc/band_attention_acc_bwd.cu``) in
-  which each extended row's ``d x_ext`` has one owner that sums it whole and
-  writes it once, the GPU's form of v3's sliding accumulator: no windowed
-  ``d x`` tensor, no fold pass, no atomics.
+  v2's forward kernel, and v2's backward passes under their own entry point
+  (``csrc/band_attention_acc_bwd.cu``): the column walk's owner warp sums each
+  extended row's ``d x_ext`` whole and writes it once, the GPU's form of v3's
+  sliding accumulator: no windowed ``d x`` tensor, no fold pass, no atomics.
+
+v2's, v3's and v1's backwards share their passes (``csrc/band_bwd.cuh``).
 
 Each computes, per destination row, graph and head, the LeakyReLU(0.2)
 additive logits over the row's W-wide window, the adjacency mask, a softmax
@@ -168,6 +172,42 @@ def band_attention_fwd(
 band_attention_fwd.launches = 0
 
 
+def _recompute_bwd(name, a_dst, a_src_win, x, adj_mask, d_out, negative_slope, index):
+    """Launch ``csrc/<name>.cu``, one of the three backwards that recompute
+    the softmax by the passes of ``csrc/band_bwd.cuh`` (v2's; v3's, the same;
+    v1's, whose columns pass reads and writes window layout). ``x`` is x_ext
+    [B, n_ext, H, C], or x_win [nB, B, W, H, C] for the window kernel, and the
+    third cotangent has its shape. p, dp and dz pass between the passes as
+    ``[B, nnz, H]`` scratch. Returns ``(d a_dst, d a_src_win, d x)``."""
+    adj_mask = _check(name, a_dst, a_src_win, x, adj_mask)
+    nB, BLK, W = adj_mask.shape
+    B, _, H = a_dst.shape
+    C = x.shape[-1]
+    dev = x.device
+    (d_out,) = _check_rows(name, x, d_out=(d_out, (B, nB * BLK, H, C)))
+    ix = bops.index_for(name, adj_mask, index, dev)
+    nnz, n_empty = ix.nnz, int(ix.empty_row.shape[0])
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    d_a_dst, d_a_src_win, d_x = new(B, nB * BLK, H), new(nB, B, W, H), new(*x.shape)
+    sp, sdz = new(B, max(nnz, 1), H), new(B, max(nnz, 1), H)
+    ss = new(B, nB, H, C) if n_empty else new(1)
+    vec = bops.vector_loads(x, C) and bops.vector_loads(d_out, C)
+    fn = getattr(_build.load(name), name)
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        rc = fn(a_dst.data_ptr(), a_src_win.data_ptr(), x.data_ptr(), d_out.data_ptr(),
+                ix.row_ptr.data_ptr(), ix.col.data_ptr(), ix.t_ptr.data_ptr(),
+                ix.t_entry.data_ptr(), ix.t_row.data_ptr(), ix.empty_ptr.data_ptr(),
+                ix.empty_row.data_ptr(), sp.data_ptr(), sdz.data_ptr(), ss.data_ptr(),
+                d_a_dst.data_ptr(), d_a_src_win.data_ptr(), d_x.data_ptr(),
+                B, nB, BLK, W, H, C, nnz, n_empty, int(vec), float(negative_slope),
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    return d_a_dst, d_a_src_win, d_x
+
+
 def band_attention_bwd(
     a_dst: torch.Tensor,
     a_src_win: torch.Tensor,
@@ -185,44 +225,18 @@ def band_attention_bwd(
     template's cached one on the model's path); without it the index is
     built from the mask's values. On CUDA tensors it launches the kernel (or
     raises); on CPU tensors it runs :func:`band_attention_bwd_plain`. The
-    kernel's passes: p per entry from the row lists; d x_ext and dp per entry
-    from the extended rows, every head of one in one warp; dz and d a_dst per
-    row; d a_src_win per extended row. p, dp and dz pass between them as
-    ``[B, nnz, H]`` scratch. ``band_attention_bwd.launches`` counts kernel
-    launches (one per call: the four launches of ``csrc/band_attention_bwd.cu``
-    are one launch of it)."""
+    kernel's passes (``csrc/band_bwd.cuh``): p per entry from the row lists;
+    d x_ext and dp per entry from the extended rows, every head of one in one
+    warp; dz and d a_dst per row; d a_src_win per extended row. p, dp and dz
+    pass between them as ``[B, nnz, H]`` scratch.
+    ``band_attention_bwd.launches`` counts kernel launches (one per call: the
+    four launches of ``csrc/band_attention_bwd.cu`` are one launch of it)."""
     if bops.use_plain(x_ext):
         return band_attention_bwd_plain(a_dst, a_src_win, x_ext, adj_mask, d_out, negative_slope)
-    adj_mask = _check("band_attention_bwd", a_dst, a_src_win, x_ext, adj_mask)
-    nB, BLK, W = adj_mask.shape
-    B, n_ext, H, C = x_ext.shape
-    dev = x_ext.device
-    if d_out.shape != (B, nB * BLK, H, C) or d_out.dtype != torch.float32 or d_out.device != dev:
-        raise ValueError(f"band_attention_bwd: d_out {tuple(d_out.shape)} {d_out.dtype} does not "
-                         f"fit x_ext {tuple(x_ext.shape)}")
-    d_out = d_out.contiguous()
-    ix = bops.index_for("band_attention_bwd", adj_mask, index, dev)
-    nnz, n_empty = ix.nnz, int(ix.empty_row.shape[0])
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
-    d_a_dst, d_a_src_win, d_x_ext = new(B, nB * BLK, H), new(nB, B, W, H), new(B, n_ext, H, C)
-    sp, sdz = new(B, max(nnz, 1), H), new(B, max(nnz, 1), H)
-    ss = new(B, nB, H, C) if n_empty else new(1)
-    vec = bops.vector_loads(x_ext, C) and bops.vector_loads(d_out, C)
-    fn = _build.load("band_attention_bwd").band_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        rc = fn(a_dst.data_ptr(), a_src_win.data_ptr(), x_ext.data_ptr(), d_out.data_ptr(),
-                ix.row_ptr.data_ptr(), ix.col.data_ptr(), ix.t_ptr.data_ptr(),
-                ix.t_entry.data_ptr(), ix.t_row.data_ptr(), ix.empty_ptr.data_ptr(),
-                ix.empty_row.data_ptr(), sp.data_ptr(), sdz.data_ptr(), ss.data_ptr(),
-                d_a_dst.data_ptr(), d_a_src_win.data_ptr(), d_x_ext.data_ptr(),
-                B, nB, BLK, W, H, C, nnz, n_empty, int(vec), float(negative_slope),
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"band_attention_bwd: kernel launch failed with CUDA error {rc}")
+    out = _recompute_bwd("band_attention_bwd", a_dst, a_src_win, x_ext, adj_mask, d_out,
+                         negative_slope, index)
     band_attention_bwd.launches += 1
-    return d_a_dst, d_a_src_win, d_x_ext
+    return out
 
 
 band_attention_bwd.launches = 0
@@ -563,39 +577,19 @@ def band_attention_window_bwd(
     window cotangents in window layout, every cell written once.
 
     On CUDA tensors it launches the kernel (or raises); on CPU tensors it
-    runs :func:`band_attention_window_bwd_plain`.
-    ``band_attention_window_bwd.launches`` counts kernel launches (one per
-    call)."""
+    runs :func:`band_attention_window_bwd_plain`. ``index`` as for
+    :func:`band_attention_bwd`. The kernel runs v2's passes with the columns
+    pass in window layout; its ``d a_dst`` and ``d a_src_win`` equal
+    :func:`band_attention_bwd`'s bit for bit when ``x_win`` is cut from that
+    x_ext. ``band_attention_window_bwd.launches`` counts kernel launches (one
+    per call)."""
     if bops.use_plain(x_win):
         return band_attention_window_bwd_plain(a_dst, a_src_win, x_win, adj_mask, d_out,
                                                negative_slope)
-    name = "band_attention_window_bwd"
-    adj_mask = _check(name, a_dst, a_src_win, x_win, adj_mask)
-    nB, BLK, W = adj_mask.shape
-    _, B, _, H, C = x_win.shape
-    dev = x_win.device
-    (d_out,) = _check_rows(name, x_win, d_out=(d_out, (B, nB * BLK, H, C)))
-    ix = bops.index_for(name, adj_mask, index, dev)
-    nnz, n_empty = ix.nnz, int(ix.empty_row.shape[0])
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
-    d_a_dst, d_a_src_win, d_x_win = new(B, nB * BLK, H), new(nB, B, W, H), new(nB, B, W, H, C)
-    sp, sdz = new(B, H, max(nnz, 1)), new(B, H, max(nnz, 1))
-    ss = new(B, nB, H, C) if n_empty else new(1)
-    fn = _build.load(name).band_attention_window_bwd
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        rc = fn(a_dst.data_ptr(), a_src_win.data_ptr(), x_win.data_ptr(), d_out.data_ptr(),
-                ix.row_ptr.data_ptr(), ix.col.data_ptr(), ix.t_ptr.data_ptr(),
-                ix.t_entry.data_ptr(), ix.t_row.data_ptr(), ix.empty_ptr.data_ptr(),
-                ix.empty_row.data_ptr(), sp.data_ptr(), sdz.data_ptr(), ss.data_ptr(),
-                d_a_dst.data_ptr(), d_a_src_win.data_ptr(), d_x_win.data_ptr(),
-                B, nB, BLK, W, H, C, nnz, n_empty, float(negative_slope),
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    out = _recompute_bwd("band_attention_window_bwd", a_dst, a_src_win, x_win, adj_mask, d_out,
+                         negative_slope, index)
     band_attention_window_bwd.launches += 1
-    return d_a_dst, d_a_src_win, d_x_win
+    return out
 
 
 band_attention_window_bwd.launches = 0
@@ -650,44 +644,22 @@ def band_attention_acc_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The cotangents ``(d a_dst, d a_src_win, d x_ext)`` of
     :func:`band_attention_fwd` for ``d_out`` [B, n_pad, H, C], written by
-    ``csrc/band_attention_acc_bwd.cu``: the softmax rebuilt from the int8
-    mask, each row of ``d x_ext`` summed by one owner.
+    ``csrc/band_attention_acc_bwd.cu``: v2's passes, each row of ``d x_ext``
+    summed by one owner warp, so the outputs equal
+    :func:`band_attention_bwd`'s bit for bit.
 
-    ``index`` is the mask's :class:`BandIndex` on the same device; only its
-    list of rows with no set column is read (built from the mask's values
-    when absent). On CUDA tensors it launches the kernel (or raises); on CPU
-    tensors it runs :func:`band_attention_acc_bwd_plain`.
-    ``band_attention_acc_bwd.launches`` counts kernel launches (one per call:
-    the four passes of the source are one launch of it)."""
+    ``index`` as for :func:`band_attention_bwd`. On CUDA tensors it launches
+    the kernel (or raises); on CPU tensors it runs
+    :func:`band_attention_acc_bwd_plain`. ``band_attention_acc_bwd.launches``
+    counts kernel launches (one per call: the four launches of the source are
+    one launch of it)."""
     if bops.use_plain(x_ext):
         return band_attention_acc_bwd_plain(a_dst, a_src_win, x_ext, adj_mask, d_out,
                                             negative_slope)
-    name = "band_attention_acc_bwd"
-    adj_mask = _check(name, a_dst, a_src_win, x_ext, adj_mask)
-    nB, BLK, W = adj_mask.shape
-    B, n_ext, H, C = x_ext.shape
-    dev = x_ext.device
-    (d_out,) = _check_rows(name, x_ext, d_out=(d_out, (B, nB * BLK, H, C)))
-    ix = bops.index_for(name, adj_mask, index, dev)
-    n_empty = int(ix.empty_row.shape[0])
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
-    d_a_dst, d_a_src_win, d_x_ext = new(B, nB * BLK, H), new(nB, B, W, H), new(B, n_ext, H, C)
-    bits = torch.empty((nB, W, (BLK + 31) // 32), dtype=torch.int32, device=dev)
-    stats = new(3, B, nB * BLK, H)
-    ss = new(B, nB, H, C) if n_empty else new(1)
-    fn = _build.load(name).band_attention_acc_bwd
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        rc = fn(a_dst.data_ptr(), a_src_win.data_ptr(), x_ext.data_ptr(), d_out.data_ptr(),
-                adj_mask.data_ptr(), ix.empty_ptr.data_ptr(), ix.empty_row.data_ptr(),
-                bits.data_ptr(), stats.data_ptr(), ss.data_ptr(), d_a_dst.data_ptr(),
-                d_a_src_win.data_ptr(), d_x_ext.data_ptr(), B, nB, BLK, W, H, C, n_empty,
-                float(negative_slope), torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    out = _recompute_bwd("band_attention_acc_bwd", a_dst, a_src_win, x_ext, adj_mask, d_out,
+                         negative_slope, index)
     band_attention_acc_bwd.launches += 1
-    return d_a_dst, d_a_src_win, d_x_ext
+    return out
 
 
 band_attention_acc_bwd.launches = 0
@@ -700,7 +672,7 @@ def band_attention_acc(
 ) -> torch.Tensor:
     """Differentiable banded attention through the sliding-accumulator route:
     v2's forward kernel, as the reference's v3 reuses v2, and the owner-row
-    backward :func:`band_attention_acc_bwd`; shapes and gradients as
+    backward :func:`band_attention_acc_bwd` (v2's passes); shapes and gradients as
     :func:`band_attention`."""
     return BandAttention.apply(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index,
                                band_attention_acc_bwd)

@@ -1,8 +1,9 @@
 """PyTorch port: the sliding-accumulator band attention (the counterpart of
-``make_band_attention_acc``, v3) against the JAX package, and the owner-row
-algorithm of its CUDA backward, emulated in numpy, against the plain version
-(CPU: the port runs its plain versions, the JAX side its Pallas kernel in
-interpret mode on the real rows and its plain band ops on every row)."""
+``make_band_attention_acc``, v3) against the JAX package (CPU: the port runs
+its plain versions, the JAX side its Pallas kernel in interpret mode on the
+real rows and its plain band ops on every row). Its CUDA backward runs v2's
+passes; their numpy replay is held against the v3 Pallas kernel in
+``test_torch_band_window_colwalk.py``."""
 
 from pathlib import Path
 
@@ -114,85 +115,6 @@ def test_acc_matches_plain_jax_band_attention_on_all_rows(rng, shape):
     t = [torch.from_numpy(a) for a in (a_dst, a_src, x_ext, adj, g)]
     for a, b in zip(band_attention_acc_bwd(*t, 0.2), band_attention_bwd_plain(*t, 0.2)):
         assert torch.equal(a, b)
-
-
-def _owner_rows_emulated(a_dst, a_src, x_ext, adj, d_out, slope):
-    """The four passes of ``csrc/band_attention_acc_bwd.cu`` in numpy, in the
-    kernel's order: column bits of the mask; per row m, 1/Z, delta and
-    d a_dst over the set columns; dO/W over each block's padded rows; per
-    extended row e the covering blocks' entries, read from the column bits,
-    with p rebuilt from the row statistics."""
-    nB, BLK, W = adj.shape
-    B, n_ext, H, C = x_ext.shape
-    n_pad, G = nB * BLK, -(-BLK // 32)
-    bits = np.zeros((nB, W, G), np.uint64)
-    for blk in range(nB):
-        for i in range(BLK):
-            bits[blk, adj[blk, i], i // 32] |= np.uint64(1 << (i % 32))
-    m = np.zeros((B, n_pad, H), np.float32)
-    iz, delta, d_a_dst = np.zeros_like(m), np.zeros_like(m), np.zeros_like(m)
-    for b in range(B):
-        for row in range(n_pad):
-            blk = row // BLK
-            js = np.nonzero(adj[blk, row % BLK])[0]
-            if not js.size:
-                continue
-            for h in range(H):
-                zpre = a_dst[b, row, h] + a_src[blk, b, js, h]
-                s = np.where(zpre >= 0, 1.0, slope).astype(np.float32)
-                z = zpre * s
-                mm = z.max()
-                e = np.exp(z - mm)
-                dp = x_ext[b, blk * BLK + js, h] @ d_out[b, row, h]
-                Z = e.sum()
-                m[b, row, h], iz[b, row, h], delta[b, row, h] = mm, 1 / Z, (e * dp).sum() / Z
-                d_a_dst[b, row, h] = (e / Z * (dp - delta[b, row, h]) * s).sum()
-    S_emp = np.zeros((B, nB, H, C), np.float32)
-    empty = ~adj.any(-1)                                                   # [nB, BLK]
-    for blk in range(nB):
-        rows = blk * BLK + np.nonzero(empty[blk])[0]
-        S_emp[:, blk] = d_out[:, rows].sum(axis=1) / W
-    d_a_src = np.zeros((nB, B, W, H), np.float32)
-    d_x = np.zeros_like(x_ext)
-    for b in range(B):
-        for h in range(H):
-            for e_ in range(n_ext):
-                acc = np.zeros(C, np.float32)
-                blk_lo = (e_ - W) // BLK + 1 if e_ >= W else 0
-                for blk in range(blk_lo, min(nB - 1, e_ // BLK) + 1):
-                    j = e_ - blk * BLK
-                    dA = 0.0
-                    for g_ in range(G):
-                        w = int(bits[blk, j, g_])
-                        while w:
-                            ii = (w & -w).bit_length() - 1
-                            w &= w - 1
-                            row = blk * BLK + g_ * 32 + ii
-                            zpre = a_dst[b, row, h] + a_src[blk, b, j, h]
-                            s = 1.0 if zpre >= 0 else slope
-                            p = np.exp(zpre * s - m[b, row, h]) * iz[b, row, h]
-                            acc += p * d_out[b, row, h]
-                            dp = d_out[b, row, h] @ x_ext[b, e_, h]
-                            dA += p * s * (dp - delta[b, row, h])
-                    d_a_src[blk, b, j, h] = dA
-                    if empty[blk].any():
-                        acc += S_emp[b, blk, h]
-                d_x[b, e_, h] = acc
-    return d_a_dst, d_a_src, d_x
-
-
-@pytest.mark.parametrize("shape", ["padded_rows", "three_blocks"])
-def test_owner_row_algorithm_matches_plain_backward(rng, shape):
-    """What the CUDA backward computes, pass by pass (it cannot run here),
-    against the plain version on every row: the covering blocks of each
-    extended row (the tail past nB·BLK included), the column bits, the row
-    statistics and the padded rows' dO/W."""
-    nB, B, BLK, W, H, C = SHAPES[shape]
-    adj, a_dst, a_src, x_ext, g = attention_inputs(rng, nB, B, BLK, W, H, C, shape == "padded_rows")
-    got = _owner_rows_emulated(a_dst, a_src, x_ext, adj, g, 0.2)
-    ref = band_attention_bwd_plain(*(torch.from_numpy(a) for a in (a_dst, a_src, x_ext, adj, g)), 0.2)
-    for a, b, name in zip(got, ref, ("d a_dst", "d a_src_win", "d x_ext")):
-        np.testing.assert_allclose(a, b.numpy(), rtol=1e-4, atol=1e-5, err_msg=name)
 
 
 def test_acc_forward_is_the_v2_forward(rng):

@@ -167,77 +167,104 @@ def reduce_scatter(val):
     return r
 
 
+def column_tiles(H, C, vec):
+    """The columns pass's tiles: per head group h0 .. h0+hg-1, its 128·NV
+    channel tiles, each as the lanes hold it: the channels ``cc`` [R, 32,
+    width] (R rows of lanes; float4 slots or scalars; 0 past the group) and
+    where they are ``valid``, each channel's head in the group, each row's
+    segments and, for the butterfly, each row's head. Yields (h0, hg, c0,
+    tile)."""
+    G = min(H, HEAD_GROUP)
+    NV = 1 if G * C <= 128 else 2
+    for h0 in range(0, H, G):
+        hg = min(G, H - h0)
+        ce = (h0 + hg) * C
+        for c0 in range(h0 * C, ce, 128 * NV):
+            if vec:
+                rb = [c0 + 128 * v for v in range(NV)]
+                chan = np.array([[b_ + 4 * LANES + w for w in range(4)] for b_ in rb]).transpose(0, 2, 1)
+            else:
+                rb = [c0 + 128 * v + 32 * j for v in range(NV) for j in range(4)]
+                chan = np.array([b_ + LANES for b_ in rb])[..., None]
+            width = 4 if vec else 1
+            valid = chan < ce
+            cc = np.where(valid, chan, 0)
+            yield h0, hg, c0, dict(
+                NV=NV, width=width, valid=valid, cc=cc, head=np.where(valid, cc // C - h0, 0),
+                segs=[segment_of(b_, width, h0, hg, ce, C) for b_ in rb],
+                head_row=[min(b_, ce - 1) // C - h0 for b_ in rb])
+
+
+def walk_run(ix, d2, p, dp, tile, h0, hg, first, xv, acc, t0, t1, whole):
+    """One run of a column walk: the entries t0 .. t1-1 (t_* order) in chunks
+    of 32, their dO rows staged ``stage_depth`` at a time; returns acc + sum
+    p dO over them, and adds this tile's part of their dp (against xv) into
+    dp [B, nnz, H], the same lane owning an entry in every tile."""
+    B = d2.shape[0]
+    NV, width, valid, cc, head = (tile[k] for k in ("NV", "width", "valid", "cc", "head"))
+    segs, head_row = tile["segs"], tile["head_row"]
+    kA, depth = 4 // NV, stage_depth(NV)
+    for s0 in range(t0, t1, CHUNK):
+        ts = np.arange(s0, min(s0 + CHUNK, t1))
+        g, k, cnt = ix.t_row[ts], ix.t_entry[ts], len(ts)
+        p_sh = p[:, k, h0:h0 + hg]
+        dp_sh = np.zeros((B, cnt, hg), F32)
+        for r0 in range(0, cnt, depth):
+            n = min(depth, cnt - r0)
+            for gq in range(0, n, kA):
+                qq = [min(gq + q, n - 1) for q in range(kA)]
+                a = np.where(valid, d2[:, g[[r0 + q for q in qq]]][:, :, cc], 0).astype(F32)
+                part = ((a[..., 0] * xv[:, None, ..., 0]).astype(F32))
+                for w in range(1, width):                          # the fma chain
+                    part = (part + a[..., w] * xv[:, None, ..., w]).astype(F32)
+                for q in range(kA):
+                    if gq + q < n:
+                        ps = p_sh[:, r0 + qq[q]]                    # [B, hg]
+                        acc = (acc + ps[:, head] * a[:, q]).astype(F32)
+                if whole:
+                    r = reduce_scatter(part.reshape(B, kA * NV, 32))
+                    for w_ in range(NV):                            # rows add in turn
+                        for lane in (0, 8, 16, 24):
+                            q, v = divmod(lane >> 3, NV)
+                            if v == w_ and gq + q < n:
+                                dp_sh[:, r0 + gq + q, head_row[v]] += r[:, lane]
+                else:
+                    t = seg_scan(part, np.stack([lo for _, lo, _ in segs]))
+                    for q in range(kA):
+                        if gq + q >= n:
+                            continue
+                        for row_, (hd, _, last) in enumerate(segs):
+                            dp_sh[:, r0 + qq[q], hd[last]] += t[:, q, row_, last]
+        prev = 0 if first else dp[:, k, h0:h0 + hg]
+        dp[:, k, h0:h0 + hg] = prev + dp_sh
+    return acc
+
+
+def covering_blocks(ix, e):
+    """The blocks whose window [blk·BLK, blk·BLK + W) holds extended row e."""
+    blk_hi = min(ix.nB - 1, e // ix.BLK)
+    return range((e - ix.W) // ix.BLK + 1 if e >= ix.W else 0, blk_hi + 1)
+
+
 def columns_pass(ix, x_ext, d_out, p, S, vec):
     """d x_ext [B, n_ext, H, C] and dp [B, nnz, H], one warp per extended row."""
     B, n_ext, H, C = x_ext.shape
     HC, n_pad = H * C, ix.nB * ix.BLK
     x2, d2 = x_ext.reshape(B, n_ext, HC), d_out.reshape(B, n_pad, HC)
-    G = min(H, HEAD_GROUP)
-    NV = 1 if G * C <= 128 else 2
     whole = vec and C % 128 == 0
-    kA, depth = 4 // NV, stage_depth(NV)
     dp = np.full((B, ix.nnz, H), np.nan, F32)
     dx = np.full((B, n_ext, HC), np.nan, F32)
     for e in range(n_ext):
         t0, t1 = int(ix.t_ptr[e]), int(ix.t_ptr[e + 1])
-        blk_hi = min(ix.nB - 1, e // ix.BLK)
-        blk_lo = (e - ix.W) // ix.BLK + 1 if e >= ix.W else 0
-        for h0 in range(0, H, G):
-            hg = min(G, H - h0)
-            ce = (h0 + hg) * C
-            for c0 in range(h0 * C, ce, 128 * NV):
-                # the tile's rows of lanes: [R, 32, width] channels
-                if vec:
-                    rb = [c0 + 128 * v for v in range(NV)]
-                    chan = np.array([[b_ + 4 * LANES + w for w in range(4)] for b_ in rb]).transpose(0, 2, 1)
-                else:
-                    rb = [c0 + 128 * v + 32 * j for v in range(NV) for j in range(4)]
-                    chan = np.array([b_ + LANES for b_ in rb])[..., None]
-                width = 4 if vec else 1
-                valid = chan < ce
-                cc = np.where(valid, chan, 0)
-                head = np.where(valid, cc // C - h0, 0)
-                xv = np.where(valid, x2[:, e][:, cc], 0).astype(F32)            # [B, R, 32, w]
-                segs = [segment_of(b_, width, h0, hg, ce, C) for b_ in rb]
-                head_row = [min(b_, ce - 1) // C - h0 for b_ in rb]
-                acc = np.zeros_like(xv)
-                for s0 in range(t0, t1, CHUNK):
-                    ts = np.arange(s0, min(s0 + CHUNK, t1))
-                    g, k, cnt = ix.t_row[ts], ix.t_entry[ts], len(ts)
-                    p_sh = p[:, k, h0:h0 + hg]
-                    dp_sh = np.zeros((B, cnt, hg), F32)
-                    for r0 in range(0, cnt, depth):
-                        n = min(depth, cnt - r0)
-                        for gq in range(0, n, kA):
-                            qq = [min(gq + q, n - 1) for q in range(kA)]
-                            a = np.where(valid, d2[:, g[[r0 + q for q in qq]]][:, :, cc], 0).astype(F32)
-                            part = ((a[..., 0] * xv[:, None, ..., 0]).astype(F32))
-                            for w in range(1, width):                          # the fma chain
-                                part = (part + a[..., w] * xv[:, None, ..., w]).astype(F32)
-                            for q in range(kA):
-                                if gq + q < n:
-                                    ps = p_sh[:, r0 + qq[q]]                    # [B, hg]
-                                    acc = (acc + ps[:, head] * a[:, q]).astype(F32)
-                            if whole:
-                                r = reduce_scatter(part.reshape(B, kA * NV, 32))
-                                for w_ in range(NV):                            # rows add in turn
-                                    for lane in (0, 8, 16, 24):
-                                        q, v = divmod(lane >> 3, NV)
-                                        if v == w_ and gq + q < n:
-                                            dp_sh[:, r0 + gq + q, head_row[v]] += r[:, lane]
-                            else:
-                                t = seg_scan(part, np.stack([lo for _, lo, _ in segs]))
-                                for q in range(kA):
-                                    if gq + q >= n:
-                                        continue
-                                    for row_, (hd, _, last) in enumerate(segs):
-                                        dp_sh[:, r0 + qq[q], hd[last]] += t[:, q, row_, last]
-                    prev = dp[:, k, h0:h0 + hg] if c0 != h0 * C else 0
-                    dp[:, k, h0:h0 + hg] = prev + dp_sh
-                for blk in range(blk_lo, blk_hi + 1):
-                    if blk in S:
-                        acc = (acc + np.where(valid, S[blk][:, cc], 0)).astype(F32)
-                dx[:, e][:, cc[valid]] = acc[:, valid]
+        for h0, hg, c0, tile in column_tiles(H, C, vec):
+            valid, cc = tile["valid"], tile["cc"]
+            xv = np.where(valid, x2[:, e][:, cc], 0).astype(F32)            # [B, R, 32, w]
+            acc = walk_run(ix, d2, p, dp, tile, h0, hg, c0 == h0 * C, xv, np.zeros_like(xv),
+                           t0, t1, whole)
+            for blk in covering_blocks(ix, e):
+                if blk in S:
+                    acc = (acc + np.where(valid, S[blk][:, cc], 0)).astype(F32)
+            dx[:, e][:, cc[valid]] = acc[:, valid]
     return dx.reshape(B, n_ext, H, C), dp
 
 

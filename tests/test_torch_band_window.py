@@ -1,7 +1,8 @@
 """PyTorch port: the band attention over materialised windows (the
 counterpart of ``make_band_attention``, v1) against the JAX package (CPU:
 the port runs its plain versions, the JAX side its v1 Pallas kernel in
-interpret mode on the real rows and its plain band ops on every row)."""
+interpret mode on the real rows and its plain band ops on every row). The
+numpy replay of its CUDA backward is in ``test_torch_band_window_colwalk.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -122,48 +123,6 @@ def test_window_gradcheck_float64(rng):
     assert torch.autograd.gradcheck(
         lambda ad, asr, xw: band_attention_window(ad, asr, xw, mask, 0.2),
         (mk(B, nB * BLK, H), mk(nB, B, W, H), mk(nB, B, W, H, C)), atol=1e-6)
-
-
-def _cells_walk(ix, p_k, dz_k, d_out, B):
-    """What the CUDA backward's last pass does with a BandIndex, in numpy:
-    one window cell (block, column) at a time, the run of the entries of
-    extended row blk·BLK + j that sit in the block."""
-    nB, BLK, W = ix.nB, ix.BLK, ix.W
-    d_as = np.zeros((nB, W) + dz_k.shape[1:])
-    d_xw = np.zeros((nB, W) + d_out.shape[1:])
-    for blk in range(nB):
-        for j in range(W):
-            e = blk * BLK + j
-            for t in range(ix.t_ptr[e], ix.t_ptr[e + 1]):
-                g = ix.t_row[t]
-                if g // BLK == blk:
-                    d_as[blk, j] += dz_k[ix.t_entry[t]]
-                    d_xw[blk, j] += p_k[ix.t_entry[t]][:, None] * d_out[g]
-    return d_as, d_xw
-
-
-def test_cell_walk_of_the_kernel_reproduces_the_plain_backward(rng):
-    nB, BLK, W, H, C = 3, 8, 40, 2, 5
-    adj, a_dst, a_src, x_win, g = _window_inputs(rng, nB, 1, BLK, W, H, C)
-    adj[-1, -4:, :] = True
-    ix = bops.build_band_index(adj)
-    f64 = lambda a: torch.from_numpy(a.astype(np.float64))  # noqa: E731
-    ref = band_attention_window_bwd_plain(f64(a_dst), f64(a_src), f64(x_win), torch.from_numpy(adj),
-                                          f64(g), 0.2)
-    # per-entry softmax weight and logit cotangent, row by row (the kernel's first pass)
-    p_k, dz_k = np.zeros((ix.nnz, H)), np.zeros((ix.nnz, H))
-    for row in range(nB * BLK):
-        blk, ks = row // BLK, slice(ix.row_ptr[row], ix.row_ptr[row + 1])
-        cols = ix.col[ks]
-        zpre = a_dst[0, row].astype(np.float64) + a_src[blk, 0, cols].astype(np.float64)   # [k, H]
-        z = np.where(zpre >= 0, zpre, 0.2 * zpre)
-        p = np.exp(z - z.max(0))
-        p /= p.sum(0)
-        dp = np.einsum("hc,khc->kh", g[0, row].astype(np.float64), x_win[blk, 0, cols])
-        p_k[ks], dz_k[ks] = p, p * (dp - (p * dp).sum(0)) * np.where(zpre >= 0, 1.0, 0.2)
-    d_as, d_xw = _cells_walk(ix, p_k, dz_k, g[0].astype(np.float64), 1)
-    np.testing.assert_allclose(d_as, ref[1][:, 0].numpy(), rtol=1e-10, atol=1e-12)
-    np.testing.assert_allclose(d_xw, ref[2][:, 0].numpy(), rtol=1e-10, atol=1e-12)
 
 
 @pytest.mark.parametrize("route", ["flash", "window"])
