@@ -48,9 +48,10 @@ Phases (any failure exits non-zero; none is caught):
    four dense-mode kernels (``fused_attention``, ``fused_factored``, forward
    and backward) against their plain versions at every shape GATRes-small and
    GATRes-large run there, at B 1 and B 32, and at small ragged shapes (a
-   one-way mask, rows of more than 32 entries, C past one tile); atol and
-   rtol 1e-4, random cotangents, a third of the nodes zeroed so that
-   a_d + a_s == 0 occurs.
+   one-way mask, rows and columns of more than 32 entries, C past one tile,
+   H past a head group of the factored walk, B 1);
+   atol and rtol 1e-4, random cotangents, a third of the nodes zeroed so
+   that a_d + a_s == 0 occurs.
 9. Fixture parity: GATRes-small with the weights of
    ``artifacts/parity_train_synthctown.npz``: the serving forward per block
    and at the output against the JAX values (1e-3), exactly 30
@@ -69,7 +70,8 @@ Phases (any failure exits non-zero; none is caught):
     GATRes-small through ``fused_attention`` (30 + 30 launches), held against
     the factored model with the same weights.
 13. Times of the four dense kernels at B 32 beside their plain versions, the
-    einsum formulation the layer would otherwise run, and their byte bounds.
+    einsum formulation the layer would otherwise run (the factored pair's,
+    forward and backward), and their byte bounds.
 
 14. The banded path at 23k nodes: meganet (``simgen.netgen.make_mega``, made
     from its seed; BLK 256, W 1920). The streaming-softmax band attention
@@ -151,6 +153,16 @@ Phases (any failure exits non-zero; none is caught):
     batch-8 step and its columns instances' registers; ``window_gather`` beside
     ``torch.index_select`` and its backward beside ``index_add_`` on the same
     rows; plain versions and byte bounds.
+
+25. The dense factored pair as one walk over the mask index
+    (``csrc/dense_walk.cuh``): the walk's instances' registers and spills;
+    both kernels on synthctown at B 32 at phase 13's four shapes, held
+    against their plain versions (1e-4), then timed: device time
+    (``torch.profiler``), CUDA events, the plain versions, the einsum
+    formulation (device time too) and the byte bound; then one serving
+    batch and one train step at B 32 of GATRes-small and -large with exactly
+    30 / 50 factored forwards a forward and as many backwards a step, and the
+    device time of those launches.
 
 The last line is ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
 (all fifteen kernels) and the ``nvidia-smi`` line come before it.
@@ -358,6 +370,27 @@ def adam_param_errors(named_parameters, fx) -> tuple[float, float]:
     return perr, pnoise
 
 
+def factored_einsum(mask, a_d, a_s, vx, qx):
+    """The factored forward as the JAX package's default (XLA) path runs it,
+    several calls: the gate materialised, one einsum over it and one over the
+    static mask."""
+    s_ = a_d[:, :, None, :] + a_s[:, None, :, :]
+    gate = (mask[None, :, :, None] & (s_ >= 0)).to(vx.dtype)
+    t_adj = torch.einsum("ij,bjhc->bihc", mask.to(vx.dtype), qx)
+    t_p = torch.einsum("bijh,bjhc->bihc", gate, torch.cat([vx, qx], dim=-1))
+    return t_p[..., : vx.shape[-1]], t_adj - t_p[..., vx.shape[-1]:]
+
+
+def factored_bwd_einsum(mask, a_d, a_s, g_pv, g_nq):
+    """The factored backward in the same formulation: the transposed einsums
+    over the materialised gate and the static mask."""
+    s_ = a_d[:, :, None, :] + a_s[:, None, :, :]
+    gate = (mask[None, :, :, None] & (s_ >= 0)).to(g_pv.dtype)
+    d_adj = torch.einsum("ij,bihc->bjhc", mask.to(g_nq.dtype), g_nq)
+    d_p = torch.einsum("bijh,bihc->bjhc", gate, torch.cat([g_pv, g_nq], dim=-1))
+    return d_p[..., : g_pv.shape[-1]], d_adj - d_p[..., g_pv.shape[-1]:]
+
+
 def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
     """Phases 8-13: the dense path on synthctown. Returns the kernel rows
     (times and bounds at B 32) and the launch counts of its runs."""
@@ -423,11 +456,14 @@ def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
     shapes = ((2, 32), (1, 32), (2, 128), (1, 128))     # conv1, conv2 of small; of large
     for H, C in shapes:
         check_dense("synthctown", mask, ix, 1, H, C)
-    # a one-way mask with rows of more than 32 entries; C past one 256-channel tile; D 34
+    # a one-way mask with rows and columns of more than 32 entries; C past one
+    # 256-channel tile; D 34; H past a head group of the factored walk (32 gate
+    # bits a word); B 1
     rmask = rng.random((70, 70)) < 0.6
     np.fill_diagonal(rmask, True)
     rmask_t = torch.as_tensor(rmask, device=dev)
-    for B, H, C in ((3, 2, 5), (2, 1, 300), (2, 3, 33)):
+    for B, H, C in ((3, 2, 5), (2, 1, 300), (2, 3, 33), (2, 33, 4), (2, 40, 4), (1, 34, 3),
+                    (1, 2, 128)):
         check_dense("ragged", rmask_t, None, B, H, C)      # index built from the mask's values
     torch.cuda.synchronize()
     print("  B 1 and ragged shapes: all within atol/rtol 1e-4")
@@ -677,15 +713,6 @@ def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
     # ---- 13: kernel times at B 32 -------------------------------------------------
     print(f"[13] dense kernel times at B {bs} on {card}")
 
-    def factored_einsum(a_d, a_s, vx, qx):
-        """The formulation the layer would run without the kernel: the gate
-        materialised, one einsum over it and one over the static mask."""
-        s_ = a_d[:, :, None, :] + a_s[:, None, :, :]
-        gate = (mask[None, :, :, None] & (s_ >= 0)).to(vx.dtype)
-        t_adj = torch.einsum("ij,bjhc->bihc", mask.to(vx.dtype), qx)
-        t_p = torch.einsum("bijh,bjhc->bihc", gate, torch.cat([vx, qx], dim=-1))
-        return t_p[..., : vx.shape[-1]], t_adj - t_p[..., vx.shape[-1]:]
-
     ix_bytes = {"fwd": 4 * (n + 1 + nnz), "bwd": 4 * (n + 1 + 2 * nnz)}
     rows = []
     for H, C in shapes:
@@ -703,10 +730,11 @@ def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
              bs * H * nnz * (4 * C + 14)),
             ("fused_factored", lambda: ga.fused_factored_fwd(a_d, a_s, rv, rq, mask, ix),
              lambda: ga.fused_factored_plain(a_d, a_s, rv, rq, mask),
-             lambda: factored_einsum(a_d, a_s, rv, rq),
+             lambda: factored_einsum(mask, a_d, a_s, rv, rq),
              a_bytes + wide(4, D) + ix_bytes["fwd"], bs * H * nnz * (D + 1)),
             ("fused_factored_bwd", lambda: ga.fused_factored_bwd(a_d, a_s, mask, g_pv, g_nq, ix),
-             lambda: ga.fused_factored_bwd_plain(a_d, a_s, mask, g_pv, g_nq), None,
+             lambda: ga.fused_factored_bwd_plain(a_d, a_s, mask, g_pv, g_nq),
+             lambda: factored_bwd_einsum(mask, a_d, a_s, g_pv, g_nq),
              a_bytes + wide(4, D) + ix_bytes["bwd"], bs * H * nnz * (D + 1)),
         ):
             t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
@@ -1873,6 +1901,122 @@ def slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, b
                               for B, (_, lay_, _, _) in layouts.items()})
 
 
+def dense_walk_phase(dev, card, held, reset_launches, read_launches, counts, ptxas, bs=32):
+    """Phase 25: the dense factored pair as one walk over the mask index
+    (``csrc/dense_walk.cuh``). Returns the kernel rows at B 32 (device time,
+    einsum formulation, bounds) and the device time of the factored launches
+    in a serving batch and a train step of each preset."""
+    from gnn_pressure_estimation_tpu_torch.data.dataset import build_template, get_keep_list
+    from gnn_pressure_estimation_tpu_torch.data.inp import parse_inp
+    from gnn_pressure_estimation_tpu_torch.evaluation.infer import Inferencer
+    from gnn_pressure_estimation_tpu_torch.models.presets import select_model
+    from gnn_pressure_estimation_tpu_torch.ops import graph_attention as ga
+    from gnn_pressure_estimation_tpu_torch.train import Trainer
+    from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats
+
+    print(f"[25] the dense factored pair's walk (csrc/dense_walk.cuh) on {card}")
+    for name in ("fused_factored", "fused_factored_bwd"):
+        inst = [r for r in ptxas.get(name, ()) if r[0].startswith("dense_walk_kernel")]
+        print(f"  {name} instances: " + ("; ".join(
+            f"{fn.removeprefix('dense_walk_kernel')} {regs} registers, {stack} bytes stack, spill "
+            f"{st} / {ld}" for fn, regs, stack, st, ld in inst) or "not built in this run"))
+    wn = parse_inp(os.path.join(REPO, "inputs", "synthctown.inp"))
+    tpl, _ = build_template(wn, get_keep_list(wn, "keep_junction", None, "pressure"), None,
+                            name="synthctown")
+    n = tpl.n_node
+    mask = torch.as_tensor(tpl.dense_operators()["adj_sl_mask"], device=dev)
+    ix = tpl.dense_index().to(dev)
+    nnz = ix.nnz
+    gen = torch.Generator(device=dev).manual_seed(25)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    rows = []
+    for H, C in ((2, 32), (1, 32), (2, 128), (1, 128)):      # conv1, conv2 of small; of large
+        D = C + 1
+        a_d, a_s = randn(bs, n, H), randn(bs, n, H)
+        a_d[:, ::3] = 0.0                    # a_d + a_s == 0 where two zeroed nodes meet
+        a_s[:, ::3] = 0.0
+        rv, rq, g_pv, g_nq = (randn(bs, n, H, D) for _ in range(4))
+        # a_dst, a_src, two wide inputs and two outputs, the list bounds and indices
+        nbytes = 4 * (2 * bs * n * H + 4 * bs * n * H * D + n + 1 + nnz)
+        ops = bs * H * nnz * (D + 1)
+        for name, fn, plain, einsum, parts in (
+            ("fused_factored", lambda: ga.fused_factored_fwd(a_d, a_s, rv, rq, mask, ix),
+             lambda: ga.fused_factored_plain(a_d, a_s, rv, rq, mask),
+             lambda: factored_einsum(mask, a_d, a_s, rv, rq), ("t_pv", "t_nq")),
+            ("fused_factored_bwd", lambda: ga.fused_factored_bwd(a_d, a_s, mask, g_pv, g_nq, ix),
+             lambda: ga.fused_factored_bwd_plain(a_d, a_s, mask, g_pv, g_nq),
+             lambda: factored_bwd_einsum(mask, a_d, a_s, g_pv, g_nq), ("d rhs_v", "d rhs_q")),
+        ):
+            for part, g, r in zip(parts, fn(), plain()):
+                held(name, f"{name} B{bs} H{H} C{C} {part}", g, r, verbose=False)
+            t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+            r = dict(name=name, H=H, C=C, device_ms=device_ms(fn), ms=cuda_ms(fn, 5, 50),
+                     plain_ms=cuda_ms(plain, 2, 5), einsum_ms=cuda_ms(einsum, 2, 5),
+                     einsum_device_ms=device_ms(einsum, 5), library_ms=None, bytes=nbytes, ops=ops,
+                     bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+            rows.append(r)
+            share = "" if r["device_ms"] is None else f" ({r['bound_ms'] / r['device_ms']:.1%} of it)"
+            print(f"  {name} H {H} C {C} (H·D {H * D}): device {fmt_ms(r['device_ms'])} ms, events "
+                  f"{r['ms']:.4f} ms a call; bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+                  f"{nbytes / 1e6:.2f} MB){share}; plain {r['plain_ms']:.4f} ms; einsum formulation "
+                  f"(several calls) {r['einsum_ms']:.4f} ms, device {fmt_ms(r['einsum_device_ms'])}; "
+                  f"library none")
+        del a_d, a_s, rv, rq, g_pv, g_nq
+        torch.cuda.empty_cache()
+
+    # the factored launches of one synthctown serving batch and one train step
+    sstats = NormStats(norm_type="znorm", mean=40.0, std=15.0)
+    snaps = np.random.default_rng(25).standard_normal((bs, n)).astype(np.float32)
+    walk = {}
+    for preset, blocks in (("gatres_small", 15), ("gatres_large", 25)):
+        model, _ = select_model(preset, device=dev, seed=0)
+        inf = Inferencer(model, sstats, device=dev)
+        obs = inf.observed_indices(tpl, "random", mask_rate=0.95, seed=0)
+        serve = lambda: inf.infer(tpl, snaps, obs, scaled=True, batch_size=bs)  # noqa: E731
+        tmodel, ps = select_model(preset, device=dev, seed=0)
+        tr = Trainer(tmodel, ps.train_config(batch_size=bs, mask_rate=0.95, seed=0), sstats, tpl,
+                     device=dev)
+        tgen = torch.Generator().manual_seed(0)
+        step = lambda: tr.train_step(tpl, snaps, generator=tgen)  # noqa: E731
+        serve(), step()
+        torch.cuda.synchronize()
+        reset_launches()
+        serve()
+        torch.cuda.synchronize()
+        fwd = read_launches()
+        reset_launches()
+        step()
+        torch.cuda.synchronize()
+        stp = read_launches()
+        if (fwd != counts(fused_factored=2 * blocks)
+                or stp != counts(fused_factored=2 * blocks, fused_factored_bwd=2 * blocks)):
+            raise SystemExit(f"FAIL {preset} factored launches: a forward {fwd}, a step {stp}")
+        # fused_factored and fused_factored_bwd run the same dense_walk_kernel instances: in a
+        # step the profiler reads the two directions under one name
+        out = {}
+        for what, fn in (("serve", serve), ("step", step)):
+            split = device_split(fn)
+            mine = [(k, ms) for k, ms in split if k.startswith("dense_walk_kernel")]
+            out[what] = sum(ms for _, ms in mine) or None
+            out[what + "_total"] = sum(ms for _, ms in split) or None
+            print(f"  {preset} {'serving batch' if what == 'serve' else 'train step'} at B {bs}: "
+                  f"{fmt_ms(out[what])} ms of device time in the "
+                  f"{2 * blocks if what == 'serve' else 4 * blocks} factored launches ("
+                  + ", ".join(f"{k} {ms:.4f}" for k, ms in mine)
+                  + f") of {fmt_ms(out[what + '_total'])} ms in all")
+        out.update(launches_per_forward=fwd["fused_factored"],
+                   launches_per_step=stp["fused_factored"] + stp["fused_factored_bwd"])
+        walk[preset] = out
+        print(f"  {preset} launches: {fwd['fused_factored']} a forward; {stp['fused_factored']} + "
+              f"{stp['fused_factored_bwd']} a train step")
+        del model, inf, tmodel, tr
+        torch.cuda.empty_cache()
+    return dict(rows=rows, walk=walk)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2401,6 +2545,7 @@ def main() -> int:
     big = dict(tpl=tpl, npz=npz, x=fx["x"], tfx=tfx, mask=mask, mask_ix=mask_ix, ptxas=ptxas)
     mega = mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big)
     s5 = slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, big)
+    s10 = dense_walk_phase(dev, card, held, reset_launches, read_launches, counts, ptxas)
 
     kernels = []
     for name in band_wrappers:
@@ -2456,6 +2601,12 @@ def main() -> int:
             "by_shape": {f"H{h} C{c}": {k: q[k] for k in ("ms", "device_ms", "plain_ms", "einsum_ms",
                                                           "bound_ms", "bytes")}
                          for (h, c), q in shaped.items()},
+            **({} if not name.startswith("fused_factored") else {
+                "walk_by_shape": {f"H{q['H']} C{q['C']}": {
+                    k: q[k] for k in ("device_ms", "ms", "einsum_ms", "einsum_device_ms", "bound_ms")}
+                    for q in s10["rows"] if q["name"] == name},
+                "synthctown_b32_device_ms": {p: {k: w[k] for k in ("serve", "step")}
+                                             for p, w in s10["walk"].items()}}),
         })
     # the flash pair: headline row meganet at the serving batch, H·C 256; the forward
     # counts the meganet serving run's launches, the backward the fit's. The window

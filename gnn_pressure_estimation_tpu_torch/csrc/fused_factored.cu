@@ -10,102 +10,29 @@
 //
 // Layout: a_dst, a_src [B, n, H]; rhs_v, rhs_q, t_pv, t_nq [B, n, H, D] (the
 // layer's own; the TPU kernel takes [B, H, n, D] and pads n to 128 lanes).
-// D = C + 1 is odd (a ones column carries the softmax denominator), so rows
-// are not 16-byte aligned and the loads are scalar, one channel a lane.
+// D = C + 1 is odd (a ones column carries the softmax denominator).
 //
 // The TPU kernel forms the n x n gate tile and two MXU products per (graph,
 // head). The mask of a water network is about 1% dense, so each set cell
-// goes to exactly one of the two sums and the kernel walks the row's list of
-// set cells (MaskIndex: row_ptr, col): one warp per (b, i, h), the channels
-// over its lanes, one row of rhs_v or of rhs_q read per set cell. The gate
-// is never stored.
-//
-// Bound: bytes (rhs_v and rhs_q read once between them per set cell's row,
-// both outputs written once). Per nonzero the kernel does D adds.
+// goes to exactly one of the two sums, and this kernel walks each row's list
+// of set cells (MaskIndex: row_ptr, col) instead: one warp per (b, i) for
+// all heads, the list in chunks of 32 entries with their gate bits formed a
+// lane an entry, the rows of rhs_v or rhs_q of several entries loaded ahead
+// of their adds. The gate is never stored. That walk, its bound (bytes:
+// rhs_v and rhs_q read once between them per set cell's row, both outputs
+// written once; ~4 us at synthctown B 32, H 2, D 33 on an H100 SXM) and why
+// it is latency that sets its time are in csrc/dense_walk.cuh, which the
+// backward (csrc/fused_factored_bwd.cu) runs over the column lists.
 //
 // C interface: pointers, ints and the stream; returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kWarps = 8;               // warps per thread block
-constexpr int kPerLane = 8;             // channels per lane in one tile
-constexpr int kTile = 32 * kPerLane;    // channels per tile
-
-__global__ void __launch_bounds__(kWarps * 32)
-fused_factored_fwd_kernel(const float* __restrict__ a_dst,   // [B, n, H]
-                          const float* __restrict__ a_src,   // [B, n, H]
-                          const float* __restrict__ rhs_v,   // [B, n, H, D]
-                          const float* __restrict__ rhs_q,   // [B, n, H, D]
-                          const int* __restrict__ row_ptr,   // [n + 1]
-                          const int* __restrict__ col,       // [nnz]
-                          float* __restrict__ t_pv,          // [B, n, H, D]
-                          float* __restrict__ t_nq,          // [B, n, H, D]
-                          int B, int n, int H, int D) {
-  const int lane = threadIdx.x & 31;
-  const long long warp = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (warp >= (long long)B * n * H) return;
-  const int h = (int)(warp % H);
-  const long long i = (warp / H) % n;
-  const long long b = warp / H / n;
-  const long long HD = (long long)H * D;
-
-  const int k0 = row_ptr[i], k1 = row_ptr[i + 1];
-  const float ad = a_dst[(b * n + i) * H + h];
-  const float* as = a_src + b * n * H + h;
-  const long long base = b * n * HD + (long long)h * D;   // of node 0, head h
-  const long long orow = base + i * HD;
-
-  for (int c0 = 0; c0 < D; c0 += kTile) {
-    float accv[kPerLane], accq[kPerLane];
-#pragma unroll
-    for (int q = 0; q < kPerLane; ++q) accv[q] = accq[q] = 0.f;
-    // every lane reads the same entry (a broadcast load); the branch on the
-    // gate is uniform over the warp
-    for (int k = k0; k < k1; ++k) {
-      const long long j = col[k];
-      const float s = ad + as[j * H];
-      if (s >= 0.f) {
-        const float* r = rhs_v + base + j * HD + c0;
-#pragma unroll
-        for (int q = 0; q < kPerLane; ++q) {
-          const int c = lane + 32 * q;
-          if (c0 + c < D) accv[q] += __ldg(r + c);
-        }
-      } else {
-        const float* r = rhs_q + base + j * HD + c0;
-#pragma unroll
-        for (int q = 0; q < kPerLane; ++q) {
-          const int c = lane + 32 * q;
-          if (c0 + c < D) accq[q] += __ldg(r + c);
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kPerLane; ++q) {
-      const int c = lane + 32 * q;
-      if (c0 + c < D) {
-        t_pv[orow + c0 + c] = accv[q];
-        t_nq[orow + c0 + c] = accq[q];
-      }
-    }
-  }
-}
-
-}  // namespace
+#include "dense_walk.cuh"
 
 extern "C" int fused_factored_fwd(const float* a_dst, const float* a_src,
                                   const float* rhs_v, const float* rhs_q,
                                   const int* row_ptr, const int* col,
                                   float* t_pv, float* t_nq, int B, int n,
                                   int H, int D, void* stream) {
-  const long long warps = (long long)B * n * H;
-  if (warps == 0 || D == 0) return (int)cudaSuccess;
-  const long long blocks = (warps + kWarps - 1) / kWarps;
-  fused_factored_fwd_kernel<<<(unsigned)blocks, kWarps * 32, 0,
-                              (cudaStream_t)stream>>>(
-      a_dst, a_src, rhs_v, rhs_q, row_ptr, col, t_pv, t_nq, B, n, H, D);
-  return (int)cudaGetLastError();
+  return dense_walk(DenseWalk{a_dst, a_src, rhs_v, rhs_q, row_ptr, col, t_pv, t_nq, B, n, H, D},
+                    stream);
 }

@@ -22,7 +22,10 @@ Layout: the layer's own. ``a_dst``, ``a_src`` are ``[B, n, H]``; ``v``,
 ``rhs_v``, ``rhs_q`` and every output are ``[B, n, H, ·]``. The TPU kernels
 take ``[B, H, n, ·]`` and the JAX layer transposes before and after them;
 here nothing is transposed. Nor is n padded to a lane multiple or are graphs
-grouped per step: a warp owns one (graph, row, head).
+grouped per step: in the attention pair a warp owns one (graph, row, head),
+in the factored pair one (graph, node) with all its heads (the walk of
+``csrc/dense_walk.cuh``, over the row lists forward and the column lists
+backward).
 
 The TPU kernels multiply whole n×n tiles. A water network's mask is about 1%
 dense (388 self-loops and 1,430 directed edges in 150,544 cells on
@@ -42,11 +45,15 @@ Bound on an H100 SXM: bytes. At GATRes-small's conv1 on synthctown (B 32,
 n 388, H 2, D 33) the factored forward reads a_dst, a_src, rhs_v, rhs_q and
 writes two outputs, 13.3 MB, about 4 µs at 3.35 TB/s; its D adds per nonzero
 are three orders of magnitude below the f32 rate at that traffic. Measured
-there (NVIDIA H100 80GB HBM3, 700 W): 30 µs on the device, forward and
-backward alike: each warp's chain of dependent loads (row list, column,
-a_src, then the row of rhs) sets it, not the bytes. A forward of the model
-launches 30 such kernels among about a thousand small PyTorch launches, and
-the host's time to enqueue those sets the batch's time.
+there (NVIDIA H100 80GB HBM3, 700.00 W; ``chip_smoke.py`` phase 25): 13 µs
+on the device, forward and backward alike, against 32 µs when a warp took
+one head: the walk reads each list once for all heads and loads the rows of
+several entries ahead of their adds, but a list is still a chain of
+dependent loads (its bounds, its entries, their gate terms, then the rows).
+At GATRes-large's conv1 (H 2, D 129) 34 µs against a bound of 15 µs. A
+forward of the model launches 30 such kernels among about a thousand small
+PyTorch launches, and the host's time to enqueue those sets the batch's
+time.
 """
 
 from __future__ import annotations

@@ -179,18 +179,14 @@ def test_mask_without_a_self_loop_raises():
         ga.build_mask_index(np.ones((3, 4), bool))
 
 
-@pytest.mark.parametrize("n,H,D,B", [(26, 2, 5, 2), (70, 1, 33, 3)])
-def test_walking_the_index_gives_the_plain_sums(rng, n, H, D, B):
-    """What the CUDA kernels do, spelled out in numpy: the forward walks each
-    row's list, the backward each column's, every cell going to exactly one
-    of the two sums by the sign of a_d + a_s (>=)."""
-    mask = _mask(rng, n, "one_way")
-    ix = ga.build_mask_index(mask)
-    a_dst, a_src = _alphas(rng, B, n, H, zeroed=True)
-    rv = rng.standard_normal((B, n, H, D)).astype(np.float32)
-    rq = rng.standard_normal((B, n, H, D)).astype(np.float32)
+def walk_the_index(ix, a_dst, a_src, rv, rq, g_pv, g_nq):
+    """The factored pair as a walk of one (b, row, head) at a time, in numpy:
+    the forward walks each row's list, the backward each column's, every
+    cell going to exactly one of the two sums by the sign of a_d + a_s (>=),
+    each channel's adds in list order. Returns (t_pv, t_nq, d_rv, d_rq)."""
+    n = ix.n
     t_pv, t_nq = np.zeros_like(rv), np.zeros_like(rq)
-    d_rv, d_rq = np.zeros_like(rv), np.zeros_like(rq)
+    d_rv, d_rq = np.zeros_like(g_pv), np.zeros_like(g_nq)
     for i in range(n):
         for k in range(ix.row_ptr[i], ix.row_ptr[i + 1]):
             j = ix.col[k]
@@ -201,8 +197,22 @@ def test_walking_the_index_gives_the_plain_sums(rng, n, H, D, B):
         for t in range(ix.t_ptr[j], ix.t_ptr[j + 1]):
             i = ix.t_row[t]
             pos = (a_dst[:, i] + a_src[:, j] >= 0)[..., None]
-            d_rv[:, j] += np.where(pos, rv[:, i], 0)     # rv, rq stand in for the cotangents
-            d_rq[:, j] += np.where(pos, 0, rq[:, i])
+            d_rv[:, j] += np.where(pos, g_pv[:, i], 0)
+            d_rq[:, j] += np.where(pos, 0, g_nq[:, i])
+    return t_pv, t_nq, d_rv, d_rq
+
+
+@pytest.mark.parametrize("n,H,D,B", [(26, 2, 5, 2), (70, 1, 33, 3)])
+def test_walking_the_index_gives_the_plain_sums(rng, n, H, D, B):
+    """What the CUDA kernels compute, spelled out in numpy (the lane-level
+    replay of their walk is ``tests/test_torch_dense_walk.py``)."""
+    mask = _mask(rng, n, "one_way")
+    ix = ga.build_mask_index(mask)
+    a_dst, a_src = _alphas(rng, B, n, H, zeroed=True)
+    rv = rng.standard_normal((B, n, H, D)).astype(np.float32)
+    rq = rng.standard_normal((B, n, H, D)).astype(np.float32)
+    # rv, rq stand in for the cotangents
+    t_pv, t_nq, d_rv, d_rq = walk_the_index(ix, a_dst, a_src, rv, rq, rv, rq)
     tm = torch.from_numpy(mask)
     a, b, c, d = (torch.from_numpy(x) for x in (a_dst, a_src, rv, rq))
     for got, want in zip((t_pv, t_nq), ga.fused_factored_plain(a, b, c, d, tm)):
