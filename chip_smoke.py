@@ -7,7 +7,10 @@ Phases (any failure exits non-zero; none is caught):
 
 1. Require CUDA; print the card's name and power limit; turn TF32 off.
 2. Build the hand-written kernels (``csrc/*.cu``) for sm_90a; print each
-   kernel's registers and spills (``-Xptxas -v``), instance by instance.
+   kernel's registers and spills (``-Xptxas -v``), instance by instance, and
+   fail unless every f32 band-attention instance has the registers and
+   spills recorded before the bf16-operand switch (which must leave them as
+   they were).
 3. Hold each kernel, forward and backward, against its plain PyTorch version
    on the card, at the bigtown band layout (B 1 and B 4) and at small ragged
    shapes (W not a multiple of 32, fully masked rows, H·C 64, C past one
@@ -164,8 +167,33 @@ Phases (any failure exits non-zero; none is caught):
     30 / 50 factored forwards a forward and as many backwards a step, and the
     device time of those launches.
 
+26. The band attention's bf16-operand instances (``mxu_bf16=True``, GATRes's
+    ``attn_dtype="bfloat16"``): v2's forward, v2's and v3's backwards
+    (bigtown layout, B 1, 8 and 32) and v4's pair (meganet layout, B 1, 2
+    and 8), H·C 256 and 128, against their plain versions (atol and rtol
+    1e-4; v3's backward equal to v2's bit for bit) and at least
+    1e-3·max|ref| from their f32 instances on the same inputs; then at
+    ragged shapes (padded rows, rows of more than 32 entries, C past a
+    tile, C % 4 != 0, 33 heads).
+27. bigtown, GATRes-large with ``attn_dtype="bfloat16"`` set by
+    ``apply_model_knobs`` on the trained weights: the fixture
+    ``artifacts/parity_train_bigtown_bf16.npz`` (the forward's output and
+    per-block statistics within 1e-3 with exactly 50 bf16 band-attention
+    launches and none of the f32 instance; the B 1 step under "dma" and under
+    "acc" with the gates of phase 7 and exact launch counts), 64 snapshots at
+    batch 32 through ``Inferencer`` and a batch-8 train step, each timed in
+    turns with the f32 model.
+28. meganet through "flash" with ``attn_dtype="bfloat16"``: the 4-block
+    fixture ``artifacts/parity_train_meganet_bf16.npz`` (forward statistics,
+    B 1 step), 16 snapshots at batch 8 and a batch-2 step of the 25-block
+    model, in turns with f32, exact launch counts.
+29. Times of the bf16 instances beside their f32 instances on the same
+    inputs (in turns), their plain versions and their bounds (the f32 rows':
+    the same bytes), at bigtown B 32 and 8 and meganet B 8 and 2.
+
 The last line is ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
-(all fifteen kernels) and the ``nvidia-smi`` line come before it.
+(all fifteen kernels, and the five wrappers' bf16-operand instances as rows
+of their own) and the ``nvidia-smi`` line come before it.
 """
 
 from __future__ import annotations
@@ -1382,7 +1410,7 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
                 serve_batch=bs, fit_launches=fit_launches, step_launches=step_launches,
                 step_ms=step_ms, train_batch=tbs, fit_peak=fit_peak, window_serve=window_serve,
                 window_step=window_step, window_serve_ms=window_serve_ms, route_ms=route_ms,
-                serve_batches=n_batches,
+                serve_batches=n_batches, tpl=tpl,
                 shape=f"n_pad {n_pad}, W {W}", window_shape=f"n_pad {bn_pad}, W {bW}")
 
 
@@ -2017,6 +2045,606 @@ def dense_walk_phase(dev, card, held, reset_launches, read_launches, counts, ptx
     return dict(rows=rows, walk=walk)
 
 
+# the f32 band-attention instances as they compiled before the bf16-operand switch
+# (kBf16) existed, read from -Xptxas -v on an NVIDIA H100 80GB HBM3: registers, stack
+# bytes, spill stores, spill loads. kBf16 adds a last template argument; the f32
+# instances must compile to exactly these.
+F32_BAND_INSTANCES = {
+    "band_attention": {
+        "band_rowwalk_kernel<2, false, false, false>": (64, 96, 108, 180),
+        "band_rowwalk_kernel<2, true, false, false>": (64, 80, 88, 104),
+        "band_rowwalk_kernel<1, false, false, false>": (64, 24, 24, 24),
+        "band_rowwalk_kernel<1, true, false, false>": (64, 24, 20, 20),
+        "window_mean_kernel": (32, 0, 0, 0),
+    },
+    "band_attention_flash": {
+        "band_rowwalk_kernel<2, false, true, false>": (64, 96, 104, 184),
+        "band_rowwalk_kernel<2, true, true, false>": (64, 72, 80, 104),
+        "band_rowwalk_kernel<1, false, true, false>": (64, 8, 4, 4),
+        "band_rowwalk_kernel<1, true, true, false>": (64, 8, 4, 4),
+        "window_mean_kernel": (32, 0, 0, 0),
+    },
+    **{src: {
+        "columns_kernel<2, true, true, false, false>": (80, 16, 12, 24),
+        "columns_kernel<2, false, false, false, false>": (80, 144, 160, 316),
+        "columns_kernel<2, true, false, false, false>": (80, 8, 8, 8),
+        "columns_kernel<1, true, true, false, false>": (64, 40, 40, 60),
+        "columns_kernel<1, false, false, false, false>": (64, 120, 132, 260),
+        "columns_kernel<1, true, false, false, false>": (64, 40, 36, 56),
+        "cells_kernel": (38, 0, 0, 0), "empties_kernel": (32, 0, 0, 0),
+        **({"rows_kernel": (40, 0, 0, 0), "weights_kernel": (40, 0, 0, 0)}
+           if src == "band_attention_flash_bwd" else
+           {"rows_kernel": (32, 8, 4, 4), "weights_kernel<false>": (32, 0, 0, 0)}),
+    } for src in ("band_attention_bwd", "band_attention_acc_bwd", "band_attention_flash_bwd")},
+    "band_attention_window_bwd": {
+        "columns_kernel<2, true, true, true, false>": (80, 40, 48, 56),
+        "columns_kernel<2, false, false, true, false>": (80, 224, 284, 484),
+        "columns_kernel<2, true, false, true, false>": (80, 56, 64, 68),
+        "columns_kernel<1, true, true, true, false>": (64, 24, 32, 32),
+        "columns_kernel<1, false, false, true, false>": (64, 184, 228, 416),
+        "columns_kernel<1, true, false, true, false>": (64, 64, 84, 124),
+        "rows_kernel": (32, 8, 4, 4), "weights_kernel<false>": (32, 0, 0, 0),
+        "cells_kernel": (38, 0, 0, 0), "empties_kernel": (32, 0, 0, 0),
+    },
+}
+# the bf16-operand instances: counter name → (the source, and the kernel of ``main``'s
+# wrappers, that holds it; the line of the Pallas program it replaces, built with
+# mx = bfloat16, in TPU_SRC)
+BF16_INSTANCES = {
+    "band_attention_bf16": ("band_attention", 289),
+    "band_attention_flash_bf16": ("band_attention_flash", 626),
+    "band_attention_bwd_bf16": ("band_attention_bwd", 313),
+    "band_attention_acc_bwd_bf16": ("band_attention_acc_bwd", 1416),
+    "band_attention_flash_bwd_bf16": ("band_attention_flash_bwd", 677),
+}
+
+
+def check_f32_instances(ptxas) -> list:
+    """Phase 2: every f32 band-attention instance at its recorded registers
+    and spills (``F32_BAND_INSTANCES``), or the run fails. Returns the bf16
+    instances' rows of the same sources."""
+    bf16 = []
+    for src, ref in F32_BAND_INSTANCES.items():
+        got = {fn: tuple(v) for fn, *v in ptxas.get(src, ())}
+        if not got:
+            raise SystemExit(f"FAIL {src} was not built in this run: its registers were not read")
+        for fn, want in ref.items():
+            if got.get(fn) != want:
+                raise SystemExit(f"FAIL {src}: {fn} {got.get(fn)} (registers, stack, spill stores, "
+                                 f"spill loads) against the recorded {want}")
+        bf16 += [(src, fn, *v) for fn, v in got.items()
+                 if fn.endswith(", true>") and fn.startswith(("band_rowwalk", "columns"))
+                 or fn == "weights_kernel<true>"]
+    return bf16
+
+
+def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, counts, big,
+                mega_tpl, sbs=32, tbs=8, mbs=8, mtbs=2):
+    """Phases 26-30: the band attention's bf16-operand instances (GATRes's
+    ``attn_dtype=bfloat16``): each against its plain version and its f32
+    instance, bigtown GATRes-large through "dma" and "acc" on the trained
+    weights (the bf16 fixture, serving, a train step), meganet through
+    "flash" (its bf16 fixture, serving, a train step), and the instances'
+    times beside the f32 ones. ``big`` carries the bigtown template,
+    fixtures and layout, ``max_err`` the kernels' deviations from their plain
+    versions. Returns the kernel rows and the launch counts."""
+    from gnn_pressure_estimation_tpu_torch.evaluation.infer import Inferencer
+    from gnn_pressure_estimation_tpu_torch.models.gatres import GATRes
+    from gnn_pressure_estimation_tpu_torch.models.presets import (
+        MODEL_REGISTRY, apply_model_knobs, select_model,
+    )
+    from gnn_pressure_estimation_tpu_torch.ops import band_attention as ba
+    from gnn_pressure_estimation_tpu_torch.train import Trainer
+    from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats
+    from gnn_pressure_estimation_tpu_torch.weights import params_from_parity_npz
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def operands(msk, B, H, C):
+        """a_dst, a_src_win, x_ext, d_out; a third of the nodes zeroed, so
+        that a_dst + a_src == 0 occurs."""
+        nB_, BLK_, W_ = msk.shape
+        np_, ne_ = nB_ * BLK_, nB_ * BLK_ + W_ - BLK_
+        a_dst, a_src = randn(B, np_, H), randn(nB_, B, W_, H)
+        a_dst[:, ::3] = 0.0
+        a_src[:, :, ::3] = 0.0
+        return a_dst, a_src, randn(B, ne_, H, C), randn(B, np_, H, C)
+
+    gaps = {}                                     # instance → least share of 1e-3·max|ref|
+
+    def apart(name, label, got, f32, ref):
+        """The bf16 instance at least 1e-3·max|ref| from the f32 instance on
+        the same inputs."""
+        gap, top = float((got - f32).abs().max()), float(ref.abs().max())
+        if gap < 1e-3 * top:
+            raise SystemExit(f"FAIL {label}: only {gap:.3e} from the f32 instance (max |ref| {top:.3e})")
+        gaps[name] = min(gaps.get(name, np.inf), gap / (1e-3 * top))
+        return gap
+
+    def check_v2(tag, msk, index, B, H, C, gap=True):
+        """v2's forward and v2's and v3's backwards, bf16, against their plain
+        versions (1e-4); v3's equal to v2's bit for bit; with ``gap``, each
+        output's distance to the f32 instance's, which must be at least
+        1e-3·max|ref|."""
+        a_dst, a_src, x_ext, d_out = operands(msk, B, H, C)
+        label = f"{tag} B{B} H{H} C{C}"
+        got = ba.band_attention_fwd(a_dst, a_src, x_ext, msk, 0.2, index, True)
+        ref = ba.band_attention_plain(a_dst, a_src, x_ext, msk, 0.2, True)
+        held("band_attention_bf16", f"band_attention bf16 {label}", got, ref, False)
+        line = []
+        if gap:
+            f32 = ba.band_attention_fwd(a_dst, a_src, x_ext, msk, 0.2, index)
+            line.append(f"out {apart('band_attention_bf16', label, got, f32, ref):.3e}")
+        got = ba.band_attention_bwd(a_dst, a_src, x_ext, msk, d_out, 0.2, index, True)
+        ref = ba.band_attention_bwd_plain(a_dst, a_src, x_ext, msk, d_out, 0.2, True)
+        acc = ba.band_attention_acc_bwd(a_dst, a_src, x_ext, msk, d_out, 0.2, index, True)
+        f32 = ba.band_attention_bwd(a_dst, a_src, x_ext, msk, d_out, 0.2, index) if gap else ref
+        for part, g, r, q, f in zip(("d a_dst", "d a_src_win", "d x_ext"), got, ref, acc, f32):
+            held("band_attention_bwd_bf16", f"band_attention_bwd bf16 {label} {part}", g, r, False)
+            held("band_attention_acc_bwd_bf16", f"band_attention_acc_bwd bf16 {label} {part}", q, r,
+                 False)
+            check_equal(f"band_attention_acc_bwd bf16 {label} {part} vs band_attention_bwd bf16", q, g)
+            if gap:
+                line.append(f"{part} {apart('band_attention_bwd_bf16', label, g, f, r):.3e}")
+                apart("band_attention_acc_bwd_bf16", label, q, f, r)
+        print(f"  v2 / v3 bf16 {label}: within 1e-4 of the plain versions (max so far: forward "
+              f"{max_err_of('band_attention_bf16'):.3e}, backward "
+              f"{max_err_of('band_attention_bwd_bf16'):.3e}), v3's backward v2's bit for bit"
+              + (f"; from the f32 instance: " + ", ".join(line) if gap else ""))
+        return a_dst, a_src, x_ext, d_out
+
+    def check_v4(tag, msk, index, B, H, C, gap=True):
+        """v4's forward (out, m, Z) and backward, bf16, against their plain
+        versions; the backward from the plain forward's m, Z and delta, and
+        from the kernel's own."""
+        a_dst, a_src, x_ext, d_out = operands(msk, B, H, C)
+        label = f"{tag} B{B} H{H} C{C}"
+        own = ba.band_attention_flash_fwd(a_dst, a_src, x_ext, msk, 0.2, index, True)
+        ref = ba.band_attention_flash_plain(a_dst, a_src, x_ext, msk, 0.2, True)
+        for part, g, r in zip(("out", "m", "Z"), own, ref):
+            held("band_attention_flash_bf16", f"band_attention_flash bf16 {label} {part}", g, r, False)
+        line = []
+        if gap:
+            f32 = ba.band_attention_flash_fwd(a_dst, a_src, x_ext, msk, 0.2, index)[0]
+            line.append(f"out {apart('band_attention_flash_bf16', label, own[0], f32, ref[0]):.3e}")
+        out, m, Z = ref
+        delta = (d_out * out).sum(dim=-1)
+        args = (a_dst, a_src, x_ext, msk, m, Z, delta, d_out, 0.2)
+        got = ba.band_attention_flash_bwd(*args, index, True)
+        ref = ba.band_attention_flash_bwd_plain(*args, True)
+        mine = ba.band_attention_flash_bwd(a_dst, a_src, x_ext, msk, own[1], own[2],
+                                           (d_out * own[0]).sum(dim=-1), d_out, 0.2, index, True)
+        f32 = ba.band_attention_flash_bwd(*args, index) if gap else ref
+        for part, g, g2, r, f in zip(("d a_dst", "d a_src_win", "d x_ext"), got, mine, ref, f32):
+            held("band_attention_flash_bwd_bf16", f"band_attention_flash_bwd bf16 {label} {part}", g, r,
+                 False)
+            held("band_attention_flash_bwd_bf16",
+                 f"band_attention_flash_bwd bf16 {label} {part}, from the kernel's out, m, Z", g2, r,
+                 False)
+            if gap:
+                line.append(f"{part} {apart('band_attention_flash_bwd_bf16', label, g, f, r):.3e}")
+        print(f"  v4 bf16 {label}: within 1e-4 of the plain versions (max so far: forward "
+              f"{max_err_of('band_attention_flash_bf16'):.3e}, backward "
+              f"{max_err_of('band_attention_flash_bwd_bf16'):.3e})"
+              + (f"; from the f32 instance: " + ", ".join(line) if gap else ""))
+        return a_dst, a_src, x_ext, d_out, m, Z, delta
+
+    max_err_of = max_err.get
+    tpl, mask, mask_ix = big["tpl"], big["mask"], big["mask_ix"]
+    bl = tpl.band_layout()
+    nB, BLK, W = bl.adj_mask.shape
+    n_pad, n_ext = bl.n_pad, bl.n_pad + W - BLK
+    mbl = mega_tpl.band_layout()
+    mmask = torch.as_tensor(mbl.adj_mask.view(np.int8), device=dev)
+    mix = mega_tpl.band_index("adj_mask").to(dev)
+
+    # ---- 26: each bf16 instance against its plain version and its f32 instance ----
+    print(f"[26] the bf16-operand instances vs their plain versions (atol/rtol 1e-4) and their "
+          f"f32 instances on the same inputs (at least 1e-3·max|ref| apart)")
+    for B in (1, tbs, sbs):
+        for H in (2, 1):
+            check_v2("bigtown", mask, mask_ix, B, H, 128)
+            torch.cuda.empty_cache()
+    for B in (1, mtbs, mbs):
+        for H in (2, 1):
+            check_v4("meganet", mmask, mix, B, H, 128)
+            torch.cuda.empty_cache()
+    rmask = rng.random((3, 16, 70)) < 0.3
+    rmask[-1, -5:] = False                        # fully masked (padded) rows
+    wide = rng.random((2, 16, 200)) < 0.4         # rows of ~80 entries: the sweeps for m and Z
+    for m_np, shapes in ((rmask, ((3, 2, 64), (2, 1, 300), (2, 3, 33))),
+                         (wide, ((2, 2, 64), (1, 1, 160), (1, 33, 3)))):
+        m_t = torch.as_tensor(m_np.view(np.int8), device=dev)
+        for B, H, C in shapes:
+            check_v2("ragged", m_t, None, B, H, C, gap=False)
+            check_v4("ragged", m_t, None, B, H, C, gap=False)
+    torch.cuda.synchronize()
+    print("  every gap to the f32 instance, as a share of 1e-3·max|ref|, at least: "
+          + ", ".join(f"{k} {v:.1f}×" for k, v in gaps.items()))
+
+    # ---- 27: bigtown, GATRes-large, attn_dtype bf16, on the trained weights ------------
+    print("[27] bigtown: GATRes-large with attn_dtype='bfloat16' (apply_model_knobs) on the trained "
+          "weights")
+    npz = big["npz"]
+    n = tpl.n_node
+    fxb = np.load(os.path.join(REPO, "artifacts", "parity_train_bigtown_bf16.npz"))
+    if bytes(fxb["attn_dtype"]).decode() != "bfloat16":
+        raise SystemExit("FAIL parity_train_bigtown_bf16.npz is not a bf16 fixture")
+    tstats = NormStats(norm_type="znorm", mean=float(fxb["stats_mean"]), std=float(fxb["stats_std"]))
+    xb1 = big["x"][:, 0][None, :]
+
+    def bigtown_model(dtype="bfloat16"):
+        m, preset = select_model("gatres_large", device=dev)
+        m.load_state_dict(params_from_parity_npz(npz))
+        return apply_model_knobs(m, attn_dtype=dtype), preset
+
+    def fixture_forward(model, graph, fx, nn, hard=True):
+        """The serving forward of the fixture's masked input: the output and
+        each block's |act| max and mean over the real rows against the JAX
+        values, held to 1e-3 where ``hard``. Returns the output's deviation,
+        each block's and the launch counts."""
+        acts = {}
+        hooks = [blk.register_forward_hook(lambda m_, i, o, k=k: acts.__setitem__(k, o))
+                 for k, blk in enumerate(model.blocks)]
+        reset_launches()
+        with torch.inference_mode():
+            out = graph.unpack_nodes(
+                model(graph.pack_nodes(torch.as_tensor(fx["x_in"], device=dev), nn), graph), nn)
+            torch.cuda.synchronize()
+        launched = read_launches()
+        for h in hooks:
+            h.remove()
+        if not torch.isfinite(out).all():
+            raise SystemExit("FAIL bf16 fixture forward: non-finite output")
+        out_err = float((out.cpu() - torch.as_tensor(fx["ours_out"])).abs().max())
+        real = [graph.unpack_nodes(acts[k], nn) for k in range(len(model.blocks))]
+        blocks = [max(abs(float(a.abs().max()) - float(fx["block_absmax"][k])),
+                      abs(float(a.double().mean()) - float(fx["block_mean"][k])))
+                  for k, a in enumerate(real)]
+        if hard and max(out_err, *blocks) > 1e-3:
+            raise SystemExit(f"FAIL bf16 fixture forward: output off by {out_err:.3e}, block "
+                             f"statistics by {max(blocks):.3e} (1e-3)")
+        return out_err, blocks, launched
+
+    def fixture_step(label, make, tpl_, fx, xb, fx32=None):
+        """The fixture's B 1 step: loss, metrics, every gradient and the
+        parameters after 3 Adam steps under the bounds of phase 7; with
+        ``fx32`` (the same step's f32 fixture) the deviations are reported
+        beside the f32 step's own distance from the bf16 fixture, the size of
+        the knob's effect, and the run fails only on a loss no nearer the
+        bf16 fixture's than the f32 fixture's is (bf16 rounding flips:
+        ROADMAP Queue 3). Returns the launch counts and the gradients."""
+        tr = make()
+        g1, x1, m1, k1 = tr._prepare(tpl_, xb, fx["mask"], None, None)
+        tr.model.train()
+        reset_launches()
+        loss, mets, _ = tr._masked_loss_and_metrics(g1, x1, x1, m1, k1, "train")
+        grads = torch.autograd.grad(loss, list(tr.model.parameters()))
+        torch.cuda.synchronize()
+        launched = read_launches()
+        loss = float(loss.detach())
+        names = [k for k, _ in tr.model.named_parameters()]
+        refs = [torch.as_tensor(fx[f"grad_{k}"], device=dev) for k in names]
+        if fx32 is not None:
+            if not all(torch.isfinite(g).all() for g in grads):
+                raise SystemExit(f"FAIL {label}: non-finite gradients")
+            l16, l32 = float(fx["loss"]), float(fx32["loss"])
+            if abs(loss - l16) >= abs(l32 - l16):
+                raise SystemExit(f"FAIL {label} loss {loss!r}: no nearer the bf16 fixture's {l16!r} "
+                                 f"than the f32 fixture's {l32!r} is")
+
+            def shares(gs):
+                return [float((g - r).abs().max()) / (1e-3 * float(r.abs().max()) + 1e-6)
+                        for g, r in zip(gs, refs)]
+            mine = shares(grads)
+            f32 = shares([torch.as_tensor(fx32[f"grad_{k}"], device=dev) for k in names])
+            print(f"  {label}: B 1 step against the JAX Trainer's bf16 fixture: loss {loss:.7f} "
+                  f"against {l16:.7f} ({abs(loss - l16) / l16:.2e} relative; the f32 fixture's "
+                  f"{l32:.7f}, {abs(l32 - l16) / l16:.2e}); gradients as shares of 1e-3·max|g_ref| + "
+                  f"1e-6: {sum(q > 1 for q in mine)} of {len(names)} beyond 1, the worst "
+                  f"{max(mine):.1%} ({names[int(np.argmax(mine))]}), the median "
+                  f"{float(np.median(mine)):.1%}; the f32 fixture's gradients against the bf16 "
+                  f"fixture's: {sum(q > 1 for q in f32)} beyond 1, the worst {max(f32):.1%}, the "
+                  f"median {float(np.median(f32)):.1%}; launches "
+                  f"{({k: v for k, v in launched.items() if v})}")
+            del tr
+            torch.cuda.empty_cache()
+            return launched, grads
+        if abs(loss - float(fx["loss"])) > 1e-4 * abs(float(fx["loss"])):
+            raise SystemExit(f"FAIL {label} loss {loss!r} against the fixture's {float(fx['loss'])!r}")
+        for k, v in mets.items():
+            ref, atol = float(fx[f"metric_{k}"]), 1e-3 if k in ("train_corr", "train_r2") else 1e-4
+            if abs(float(v) - ref) > 1e-3 * abs(ref) + atol:
+                raise SystemExit(f"FAIL {label} metric {k}: {float(v)!r} against {ref!r}")
+        worst = grads_within(f"{label} B 1 step vs JAX", names, grads, refs)
+        losses3 = [float(tr.train_step(tpl_, xb, mask=fx["mask"])[0]) for _ in range(3)]
+        perr, pnoise = adam_param_errors(tr.model.named_parameters(), fx)
+        lerr = max(abs(a - b) / abs(b) for a, b in zip(losses3, fx["step_losses"]))
+        if perr > 3e-4 or pnoise > 3 * 2 * 5e-4 or lerr > 1e-3:
+            raise SystemExit(f"FAIL {label} after 3 Adam steps: parameters off by {perr:.3e} (atol "
+                             f"3e-4; {pnoise:.3e} where the gradient is noise, bound 3e-3), step "
+                             f"losses by {lerr:.3e} relative (1e-3)")
+        print(f"  {label}: B 1 step vs the JAX Trainer's bf16 fixture: loss {loss:.7f} against "
+              f"{float(fx['loss']):.7f}; {len(names)} gradients within 1e-3·max|g_ref| + 1e-6, the "
+              f"worst at {worst:.1%}; after 3 Adam steps parameters within {perr:.3e} ({pnoise:.3e} "
+              f"where the first gradient is below its tolerance), step losses within {lerr:.3e}; "
+              f"launches {({k: v for k, v in launched.items() if v})}")
+        del tr
+        torch.cuda.empty_cache()
+        return launched, grads
+
+    # bigtown's trained 25 blocks carry a bf16 rounding flip (an operand that the
+    # two packages' f32 values put on either side of a rounding boundary) to every
+    # block after it: the deviations are reported beside the size of the knob's
+    # effect, and the run fails on a loss no nearer the bf16 fixture than f32's
+    model, preset = bigtown_model()
+    out_err, blocks, fwd_launches = fixture_forward(model.eval(), tpl.batch(1, device=dev), fxb, n,
+                                                    hard=False)
+    if fwd_launches != counts(band_attention_bf16=50, band_spmm=25):
+        raise SystemExit(f"FAIL launches per bf16 forward {fwd_launches}")
+    first = next((k for k, e in enumerate(blocks) if e > 1e-3), None)
+    out_f32, blocks_f32, _ = fixture_forward(bigtown_model("float32")[0].eval(),
+                                             tpl.batch(1, device=dev), fxb, n, hard=False)
+    print(f"  forward vs JAX: output within {out_err:.3e} (the f32 model's {out_f32:.3e}, block "
+          f"statistics {max(blocks_f32):.3e}); "
+          f"per-block |act| max and mean: " + ("all within 1e-3" if first is None else
+          f"within 1e-3 up to block {first - 1}, block {first} off by {blocks[first]:.3e}, the worst "
+          f"{max(blocks):.3e}") + "; launches: 50 band_attention bf16 + 25 band_spmm, 0 "
+          "band_attention f32")
+    per_step, route_grads = {}, {}
+    for route, bwd in (("dma", "band_attention_bwd_bf16"), ("acc", "band_attention_acc_bwd_bf16")):
+        launched, route_grads[route] = fixture_step(
+            f'bigtown "{route}"',
+            lambda: Trainer(bigtown_model()[0], preset.train_config(batch_size=1, band_attn=route),
+                            tstats, tpl, device=dev), tpl, fxb, xb1, fx32=big["tfx"])
+        want = counts(band_attention_bf16=50, band_spmm=25, band_spmm_bwd=25, **{bwd: 50})
+        if launched != want:
+            raise SystemExit(f"FAIL launches per bf16 {route} step {launched}, expected {want}")
+        per_step[route] = launched
+    if not all(torch.equal(a, b) for a, b in zip(route_grads["dma"], route_grads["acc"])):
+        raise SystemExit("FAIL the bf16 steps under dma and acc differ: v3's backward is v2's")
+    print("  the B 1 step's gradients under \"dma\" and \"acc\" equal bit for bit")
+    del route_grads
+
+    # serving at batch 32, bf16 and f32 in turns on the same snapshots
+    sstats = NormStats(norm_type="znorm", mean=50.0, std=10.0)
+    snaps = (xb1 + 0.1 * rng.standard_normal((2 * sbs, n))).astype(np.float32)
+    infs = {d: Inferencer(bigtown_model(d)[0], sstats, device=dev) for d in ("float32", "bfloat16")}
+    obs = infs["bfloat16"].observed_indices(tpl, "random", mask_rate=0.95, seed=0)
+    for inf in infs.values():
+        inf.infer(tpl, snaps[:sbs], obs, scaled=True, batch_size=sbs)       # warm-up
+    serve_ms = {d: [] for d in infs}
+    for d in ("float32", "bfloat16", "bfloat16", "float32"):
+        reset_launches()
+        serve_ms[d].append(cuda_ms(lambda: infs[d].infer(tpl, snaps, obs, scaled=True, batch_size=sbs),
+                                   0, 1) / 2)
+        launched = read_launches()
+        want = counts(band_spmm=50, **{"band_attention_bf16" if d == "bfloat16" else "band_attention": 100})
+        if launched != want:
+            raise SystemExit(f"FAIL bigtown {d} serving launches {launched}, expected {want}")
+    reset_launches()
+    res = infs["bfloat16"].infer(tpl, snaps, obs, scaled=True, batch_size=sbs)
+    big_serve = read_launches()
+    f32res = infs["float32"].infer(tpl, snaps, obs, scaled=True, batch_size=sbs)
+    if not np.isfinite(res.pred).all() or res.pred.shape != snaps.shape:
+        raise SystemExit("FAIL bf16 serving output is not a finite [S, n] field")
+    dfield = float(np.abs(res.pred - f32res.pred).max())
+    print(f"  serving {2 * sbs} snapshots at batch {sbs}: bf16 "
+          + " / ".join(f"{v:.3f}" for v in serve_ms["bfloat16"]) + " ms a batch, f32 "
+          + " / ".join(f"{v:.3f}" for v in serve_ms["float32"]) + f" ms (in turns f32, bf16, bf16, "
+          f"f32; {card}); 50 band_attention bf16 + 25 band_spmm launches a forward, none of the f32 "
+          f"band attention; the bf16 fields {dfield:.3e} m from the f32 ones")
+    profile_batch(lambda: infs["bfloat16"].infer(tpl, snaps[:sbs], obs, scaled=True, batch_size=sbs),
+                  "one bf16 serving batch of bigtown")
+    del infs
+    torch.cuda.empty_cache()
+
+    # a train step at batch 8, bf16 and f32 in turns
+    tmask = (rng.random((tbs, n)).argsort(1) < int(n * 0.95)).reshape(-1)
+    batch = snaps[:tbs]
+    step_ms = {"float32": [], "bfloat16": []}
+    for d in ("float32", "bfloat16", "bfloat16", "float32"):
+        tr = Trainer(bigtown_model(d)[0], preset.train_config(batch_size=tbs), tstats, tpl, device=dev)
+        tr.train_step(tpl, batch, mask=tmask)                            # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        step_ms[d].append(cuda_ms(lambda: tr.train_step(tpl, batch, mask=tmask), 0, 3))
+        launched = read_launches()
+        names = (("band_attention_bf16", "band_attention_bwd_bf16") if d == "bfloat16"
+                 else ("band_attention", "band_attention_bwd"))
+        want = counts(band_spmm=75, band_spmm_bwd=75, **{names[0]: 150, names[1]: 150})
+        if launched != want:
+            raise SystemExit(f"FAIL bigtown {d} step launches {launched}, expected {want}")
+        losses = [float(tr.train_step(tpl, batch, mask=tmask)[0])]
+        if not np.isfinite(losses).all():
+            raise SystemExit(f"FAIL bigtown {d} step at batch {tbs}: loss {losses}")
+        if d == "bfloat16" and len(step_ms[d]) == 1:
+            profile_batch(lambda: tr.train_step(tpl, batch, mask=tmask),
+                          f"one bf16 bigtown train step at batch {tbs}", top=12)
+        del tr
+        torch.cuda.empty_cache()
+    print(f"  train step at batch {tbs}: bf16 " + " / ".join(f"{v:.3f}" for v in step_ms["bfloat16"])
+          + " ms, f32 " + " / ".join(f"{v:.3f}" for v in step_ms["float32"]) + f" ms (in turns; {card});"
+          " 50 band_attention bf16 + 50 band_attention_bwd bf16 launches a step")
+
+    # ---- 28: meganet through "flash" -----------------------------------------------
+    mn = mega_tpl.n_node
+    fxm = np.load(os.path.join(REPO, "artifacts", "parity_train_meganet_bf16.npz"))
+    depth = int(fxm["num_blocks"])
+    mnpz = os.path.join(REPO, "artifacts", "parity_train_meganet_bf16.npz")
+    print(f"[28] meganet: GATRes nc {int(fxm['nc'])}, attn_dtype bf16, the {depth}-block fixture, "
+          f"then 25 blocks at full width")
+    mstats = NormStats(norm_type="znorm", mean=float(fxm["stats_mean"]), std=float(fxm["stats_std"]))
+
+    def mega_fixture_model():
+        m = GATRes(depth, int(fxm["nc"]), attn_impl="factored")
+        m.load_state_dict(params_from_parity_npz(mnpz))
+        return apply_model_knobs(m.to(dev), attn_dtype="bfloat16")
+
+    out_err, blocks, launched = fixture_forward(mega_fixture_model().eval(),
+                                                mega_tpl.batch(1, device=dev), fxm, mn)
+    stat_err = max(blocks)
+    if launched != counts(band_attention_flash_bf16=2 * depth, band_spmm=depth):
+        raise SystemExit(f"FAIL launches per meganet bf16 fixture forward {launched}")
+    print(f"  forward vs JAX: output within {out_err:.3e}, per-block |act| max and mean within "
+          f"{stat_err:.3e}; launches {2 * depth} band_attention_flash bf16 + {depth} band_spmm")
+    launched, _ = fixture_step(
+        "meganet", lambda: Trainer(mega_fixture_model(),
+                                   MODEL_REGISTRY["gatres_large"].train_config(batch_size=1),
+                                   mstats, mega_tpl, device=dev), mega_tpl, fxm, fxm["x"][:, 0][None, :])
+    if launched != counts(band_attention_flash_bf16=2 * depth, band_spmm=depth,
+                          band_attention_flash_bwd_bf16=2 * depth, band_spmm_bwd=depth):
+        raise SystemExit(f"FAIL launches per meganet bf16 fixture step {launched}")
+
+    msnaps = rng.standard_normal((2 * mbs, mn)).astype(np.float32)
+    mmodels = {}
+    for d in ("float32", "bfloat16"):
+        mmodel, mpreset = select_model("gatres_large", device=dev, seed=0)
+        mmodels[d] = apply_model_knobs(mmodel, attn_dtype=d)
+    minfs = {d: Inferencer(m, sstats, device=dev) for d, m in mmodels.items()}
+    mobs = minfs["bfloat16"].observed_indices(mega_tpl, "random", mask_rate=0.95, seed=0)
+    for inf in minfs.values():
+        inf.infer(mega_tpl, msnaps[:mbs], mobs, scaled=True, batch_size=mbs)
+    mserve_ms = {d: [] for d in minfs}
+    for d in ("float32", "bfloat16", "bfloat16", "float32"):
+        reset_launches()
+        mserve_ms[d].append(cuda_ms(lambda: minfs[d].infer(mega_tpl, msnaps, mobs, scaled=True,
+                                                            batch_size=mbs), 0, 1) / 2)
+        launched = read_launches()
+        want = counts(band_spmm=50, **{"band_attention_flash_bf16" if d == "bfloat16"
+                                       else "band_attention_flash": 100})
+        if launched != want:
+            raise SystemExit(f"FAIL meganet {d} serving launches {launched}, expected {want}")
+    reset_launches()
+    mres = minfs["bfloat16"].infer(mega_tpl, msnaps, mobs, scaled=True, batch_size=mbs)
+    mega_serve = read_launches()
+    if not np.isfinite(mres.pred).all():
+        raise SystemExit("FAIL meganet bf16 serving output is not finite")
+    print(f"  serving {2 * mbs} snapshots at batch {mbs}: bf16 "
+          + " / ".join(f"{v:.3f}" for v in mserve_ms["bfloat16"]) + " ms a batch, f32 "
+          + " / ".join(f"{v:.3f}" for v in mserve_ms["float32"]) + f" ms (in turns; {card}); 50 "
+          "band_attention_flash bf16 + 25 band_spmm launches a forward")
+    del minfs
+    torch.cuda.empty_cache()
+    mtmask = (rng.random((mtbs, mn)).argsort(1) < int(mn * 0.95)).reshape(-1)
+    mbatch = msnaps[:mtbs]
+    mstep_ms = {"float32": [], "bfloat16": []}
+    for d in ("float32", "bfloat16", "bfloat16", "float32"):
+        m = GATRes(25, 128, attn_impl="factored")
+        m.load_state_dict(mmodels[d].state_dict())
+        tr = Trainer(apply_model_knobs(m, attn_dtype=d), mpreset.train_config(batch_size=mtbs), sstats,
+                     mega_tpl, device=dev)
+        tr.train_step(mega_tpl, mbatch, mask=mtmask)
+        torch.cuda.synchronize()
+        reset_launches()
+        mstep_ms[d].append(cuda_ms(lambda: tr.train_step(mega_tpl, mbatch, mask=mtmask), 0, 3))
+        launched = read_launches()
+        names = (("band_attention_flash_bf16", "band_attention_flash_bwd_bf16") if d == "bfloat16"
+                 else ("band_attention_flash", "band_attention_flash_bwd"))
+        want = counts(band_spmm=75, band_spmm_bwd=75, **{names[0]: 150, names[1]: 150})
+        if launched != want:
+            raise SystemExit(f"FAIL meganet {d} step launches {launched}, expected {want}")
+        if d == "bfloat16":
+            mega_step = launched
+        del tr, m
+        torch.cuda.empty_cache()
+    print(f"  train step at batch {mtbs}: bf16 " + " / ".join(f"{v:.3f}" for v in mstep_ms["bfloat16"])
+          + " ms, f32 " + " / ".join(f"{v:.3f}" for v in mstep_ms["float32"]) + f" ms (in turns; {card});"
+          " 50 band_attention_flash bf16 + 50 band_attention_flash_bwd bf16 launches a step")
+    del mmodels
+    torch.cuda.empty_cache()
+
+    rows = bf16_times(dev, card, randn, operands, big, mega_tpl, sbs, tbs, mbs, mtbs)
+    return dict(rows=rows, gaps=gaps, step=per_step, big_serve=big_serve, mega_serve=mega_serve,
+                mega_step=mega_step)
+
+
+def bf16_times(dev, card, randn, operands, big, mega_tpl, sbs, tbs, mbs, mtbs):
+    """Phase 29: the bf16-operand instances timed beside their f32 instances
+    on the same inputs, with their plain versions and bounds. Returns the
+    rows."""
+    from gnn_pressure_estimation_tpu_torch.ops import band_attention as ba
+
+    tpl, mask, mask_ix = big["tpl"], big["mask"], big["mask_ix"]
+    bl = tpl.band_layout()
+    nB, BLK, W = bl.adj_mask.shape
+    n_pad, n_ext = bl.n_pad, bl.n_pad + W - BLK
+    mbl = mega_tpl.band_layout()
+    mmask = torch.as_tensor(mbl.adj_mask.view(np.int8), device=dev)
+    mix = mega_tpl.band_index("adj_mask").to(dev)
+    # ---- 29: times of the bf16 instances beside the f32 ones ----------------------------
+    print(f"[29] times of the bf16-operand instances beside their f32 instances on {card} (CUDA "
+          f"events, 20 launches after 3, in turns f32, bf16, bf16, f32; bounds: the f32 rows', the "
+          f"same bytes)")
+    rows = []
+
+    def timed(name, B, hc, net, f32, bf, plain, nbytes, ops):
+        t = {"f32": [], "bf16": []}
+        for which in ("f32", "bf16", "bf16", "f32"):
+            t[which].append(cuda_ms(f32 if which == "f32" else bf, 3, 20))
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+        r = dict(name=name, B=B, hc=hc, net=net, ms=float(np.mean(t["bf16"])),
+                 f32_ms=float(np.mean(t["f32"])), device_ms=device_ms(bf),
+                 plain_ms=cuda_ms(plain, 1, 2), bytes=nbytes, library_ms=None,
+                 bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+        rows.append(r)
+        print(f"  {name} {net} B {B} H·C {hc}: bf16 {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), "
+              f"f32 {r['f32_ms']:.4f} ms ({r['ms'] / r['f32_ms'] - 1:+.1%}); plain bf16 "
+              f"{r['plain_ms']:.4f} ms; library none; bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{nbytes / 1e6:.1f} MB; {r['bound_ms'] / r['ms']:.1%} of it reached)")
+
+    f_ix = 4 * (n_pad + 1 + mask_ix.nnz)
+    b_ix = 4 * (n_pad + 1 + n_ext + 1 + 3 * mask_ix.nnz)
+    for B in (sbs, tbs):
+        for H, C in ((2, 128), (1, 128)):
+            a_dst, a_src, x_ext, d_out = operands(mask, B, H, C)
+            io = 4 * (B * n_pad * H + B * n_ext * H + B * n_ext * H * C + B * n_pad * H * C)
+            timed("band_attention_bf16", B, H * C, "bigtown",
+                  lambda: ba.band_attention_fwd(a_dst, a_src, x_ext, mask, 0.2, mask_ix),
+                  lambda: ba.band_attention_fwd(a_dst, a_src, x_ext, mask, 0.2, mask_ix, True),
+                  lambda: ba.band_attention_plain(a_dst, a_src, x_ext, mask, 0.2, True),
+                  io + f_ix + 4 * (nB + 1), B * H * mask_ix.nnz * (2 * C + 4))
+            bbytes = io + 4 * (B * n_pad * H + nB * B * W * H + B * n_ext * H * C) + b_ix
+            for name, fn in (("band_attention_bwd_bf16", ba.band_attention_bwd),
+                             ("band_attention_acc_bwd_bf16", ba.band_attention_acc_bwd)):
+                timed(name, B, H * C, "bigtown",
+                      lambda: fn(a_dst, a_src, x_ext, mask, d_out, 0.2, mask_ix),
+                      lambda: fn(a_dst, a_src, x_ext, mask, d_out, 0.2, mask_ix, True),
+                      lambda: ba.band_attention_bwd_plain(a_dst, a_src, x_ext, mask, d_out, 0.2, True),
+                      bbytes, B * H * mask_ix.nnz * (4 * C + 12))
+            del a_dst, a_src, x_ext, d_out
+            torch.cuda.empty_cache()
+    mn_pad = mbl.n_pad
+    mn_ext = mn_pad + mbl.W - mbl.BLK
+    mf_ix = 4 * (mn_pad + 1 + mix.nnz)
+    mb_ix = 4 * (mn_pad + 1 + mn_ext + 1 + 3 * mix.nnz)
+    for B in (mbs, mtbs):
+        for H, C in ((2, 128), (1, 128)):
+            a_dst, a_src, x_ext, d_out = operands(mmask, B, H, C)
+            out, m, Z = ba.band_attention_flash_fwd(a_dst, a_src, x_ext, mmask, 0.2, mix, True)
+            delta = (d_out * out).sum(dim=-1)
+            small, wide_ = 4 * B * mn_pad * H, 4 * B * H * C
+            timed("band_attention_flash_bf16", B, H * C, "meganet",
+                  lambda: ba.band_attention_flash_fwd(a_dst, a_src, x_ext, mmask, 0.2, mix),
+                  lambda: ba.band_attention_flash_fwd(a_dst, a_src, x_ext, mmask, 0.2, mix, True),
+                  lambda: ba.band_attention_flash_plain(a_dst, a_src, x_ext, mmask, 0.2, True),
+                  3 * small + 4 * B * mn_ext * H + wide_ * (mn_ext + mn_pad) + mf_ix,
+                  B * H * mix.nnz * (2 * C + 8))
+            args = (a_dst, a_src, x_ext, mmask, m, Z, delta, d_out, 0.2)
+            timed("band_attention_flash_bwd_bf16", B, H * C, "meganet",
+                  lambda: ba.band_attention_flash_bwd(*args, mix),
+                  lambda: ba.band_attention_flash_bwd(*args, mix, True),
+                  lambda: ba.band_attention_flash_bwd_plain(*args, True),
+                  5 * small + 4 * B * mn_ext * H + 4 * mbl.adj_mask.shape[0] * B * mbl.W * H
+                  + wide_ * (2 * mn_ext + mn_pad) + mb_ix, B * H * mix.nnz * (4 * C + 12))
+            del a_dst, a_src, x_ext, d_out, out, m, Z, delta, args
+            torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2064,6 +2692,12 @@ def main() -> int:
     for name, table in ptxas.items():
         for fn, regs, stack, st, ld in table:
             print(f"  {name}: {fn}: {regs} registers, {stack} bytes stack, spill {st} / {ld} bytes")
+    bf16_regs = check_f32_instances(ptxas)
+    print(f"  every f32 band-attention instance at its recorded registers and spills "
+          f"({sum(map(len, F32_BAND_INSTANCES.values()))} kernels in "
+          f"{len(F32_BAND_INSTANCES)} sources); the bf16-operand instances: "
+          + "; ".join(f"{src} {fn} {regs} registers, spill {st} / {ld}"
+                      for src, fn, regs, _, st, ld in bf16_regs))
 
     wn = parse_inp(os.path.join(REPO, "inputs", "bigtown.inp"))
     tpl, _ = build_template(wn, get_keep_list(wn, "keep_junction", None, "pressure"), None,
@@ -2087,17 +2721,21 @@ def main() -> int:
                 "band_attention_window_bwd": band_attention_window_bwd,
                 "band_attention_acc_bwd": band_attention_acc_bwd,
                 "window_gather": window_gather_fwd, "window_gather_bwd": window_gather_bwd}
+    # every kernel instance's count: (wrapper, attribute); the bf16-operand instances
+    # count in their wrapper's launches_bf16
+    counters = {**{k: (w, "launches") for k, w in wrappers.items()},
+                **{k: (wrappers[w], "launches_bf16") for k, (w, _) in BF16_INSTANCES.items()}}
 
     def reset_launches():
-        for w in wrappers.values():
-            w.launches = 0
+        for w, attr in counters.values():
+            setattr(w, attr, 0)
 
     def read_launches():
-        return {k: w.launches for k, w in wrappers.items()}
+        return {k: getattr(w, attr) for k, (w, attr) in counters.items()}
 
     def counts(**launched):
         """The expected reading: the named kernels' counts, 0 for the others."""
-        return {k: launched.get(k, 0) for k in wrappers}
+        return {k: launched.get(k, 0) for k in counters}
     print(f"  bigtown: n {n}, edges {tpl.n_edge}, nB {nB}, BLK {BLK}, W {W}, n_pad {n_pad}, "
           f"n_ext {n_ext}, mask density {bl.adj_mask.mean():.4%}")
 
@@ -2108,7 +2746,7 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    max_err = dict.fromkeys(wrappers, 0.0)
+    max_err = dict.fromkeys(counters, 0.0)
 
     def held(name, label, got, ref, verbose=True):
         max_err[name] = max(max_err[name], check_close(label, got, ref, TOL, TOL, verbose))
@@ -2546,6 +3184,8 @@ def main() -> int:
     mega = mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big)
     s5 = slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, big)
     s10 = dense_walk_phase(dev, card, held, reset_launches, read_launches, counts, ptxas)
+    s11 = bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, counts, big,
+                      mega["tpl"])
 
     kernels = []
     for name in band_wrappers:
@@ -2674,6 +3314,35 @@ def main() -> int:
             "by_shape": {f"B{b} C{hc}": {k: q[k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
                                                          "bound_ms", "bytes", "v2_ms", "v2_device_ms")
                                          if k in q}
+                         for (b, hc), q in shaped.items()},
+        })
+    # the bf16-operand instances: headline rows as their f32 instances' (v2 bigtown B 32,
+    # v3 B 8, v4 meganet at the serving batch), H·C 256; each counts the main path's
+    # bf16 runs: the bigtown serving batches, the B 1 steps under "dma" and "acc",
+    # the meganet serving batches and train step
+    s11_launches = {"band_attention_bf16": s11["big_serve"]["band_attention_bf16"],
+                    "band_attention_bwd_bf16": s11["step"]["dma"]["band_attention_bwd_bf16"],
+                    "band_attention_acc_bwd_bf16": s11["step"]["acc"]["band_attention_acc_bwd_bf16"],
+                    "band_attention_flash_bf16": s11["mega_serve"]["band_attention_flash_bf16"],
+                    "band_attention_flash_bwd_bf16": s11["mega_step"]["band_attention_flash_bwd_bf16"]}
+    headline = {"band_attention_bf16": 32, "band_attention_bwd_bf16": 32,
+                "band_attention_acc_bwd_bf16": 8, "band_attention_flash_bf16": 8,
+                "band_attention_flash_bwd_bf16": 8}
+    for name, (src, line) in BF16_INSTANCES.items():
+        shaped = {(r["B"], r["hc"]): r for r in s11["rows"] if r["name"] == name}
+        r = shaped[(headline[name], 256)]
+        if not s11_launches[name]:
+            raise SystemExit(f"FAIL {name} was not launched on its path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"gnn_pressure_estimation_tpu_torch/csrc/{src}.cu",
+            "replaces": f"{TPU_SRC}:{line}", "launches": s11_launches[name],
+            "max_abs_err": max_err[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "f32_ms": r["f32_ms"], "device_ms": r["device_ms"],
+            "gap_to_f32_in_1e-3_max_ref": s11["gaps"][name],
+            "shape": f"{r['net']}, B {r['B']}, H·C 256",
+            "by_shape": {f"B{b} HC{hc}": {k: q[k] for k in ("ms", "f32_ms", "device_ms", "plain_ms",
+                                                           "bound_ms", "bytes")}
                          for (b, hc), q in shaped.items()},
         })
     print(json.dumps({"kernels": kernels}))

@@ -140,7 +140,9 @@ rows_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
 
 // scratch_p, scratch_dz: [B, nnz, H] f32; scratch_s: [B, nB, H, C] f32, read
 // only when n_empty > 0. vec != 0: C % 4 == 0 and x_ext, dout 16-byte aligned
-// (the wrapper checks). All outputs are written in full.
+// (the wrapper checks). All outputs are written in full. bf16 != 0: the
+// bf16-operand instance: its columns pass rounds p, dO and x to bf16
+// (csrc/band_colwalk.cuh); the weights and rows passes are the f32 ones.
 extern "C" int band_attention_flash_bwd(
     const float* a_dst, const float* a_src_win, const float* x_ext,
     const float* m_in, const float* z_in, const float* delta, const float* dout,
@@ -148,7 +150,7 @@ extern "C" int band_attention_flash_bwd(
     const int* t_row, const int* empty_ptr, const int* empty_row, float* scratch_p,
     float* scratch_dz, float* scratch_s, float* d_a_dst, float* d_a_src_win,
     float* d_x_ext, int B, int nB, int BLK, int W, int H, int C, int nnz,
-    int n_empty, int vec, float slope, void* stream) {
+    int n_empty, int vec, int bf16, float slope, void* stream) {
   const long long n_pad = (long long)nB * BLK;
   const long long n_ext = n_pad + W - BLK;
   if ((long long)B * n_pad * H == 0) return (int)cudaSuccess;
@@ -166,9 +168,10 @@ extern "C" int band_attention_flash_bwd(
       scratch_s, B, nB, BLK, W, H, C, nnz, w_blocks, slope);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int rc = columns_pass(vec, x_ext, dout, scratch_p, n_empty > 0 ? scratch_s : nullptr, t_ptr,
-                              t_entry, t_row, empty_ptr, scratch_dz, d_x_ext, B, nB, BLK, W, H, C,
-                              nnz, st);
+  auto columns = bf16 ? columns_pass<false, true> : columns_pass<false, false>;
+  const int rc = columns(vec, x_ext, dout, scratch_p, n_empty > 0 ? scratch_s : nullptr, t_ptr,
+                         t_entry, t_row, empty_ptr, scratch_dz, d_x_ext, B, nB, BLK, W, H, C, nnz,
+                         st);
   if (rc != 0) return rc;
   rows_kernel<<<threads_for((long long)B * n_pad * H), kThreads, 0, st>>>(
       a_dst, a_src_win, m_in, z_in, delta, row_ptr, col, scratch_dz, d_a_dst, B, nB, BLK, W, H,

@@ -42,7 +42,15 @@
 //
 // The three routes compute the same dp, p and dz from the same values in the
 // same order, so their d a_dst and d a_src_win agree to the bit when x_win is
-// cut from x_ext. No atomics: every output element is written once and every
+// cut from x_ext.
+//
+// kBf16 (v2 and v3; v1 has no such instance): the bf16-operand backward of
+// the TPU kernels' mx = bfloat16. The weights pass takes the row's max, then
+// Z summed in double and rounded once, then p = exp(z - m) / Z: the p the
+// bf16 forward rounded, and the same float whatever the order of the sum.
+// The columns pass rounds p, dO and x to bf16 (d x = sum bf16(p) bf16(dO),
+// dp = bf16(dO) . bf16(x)); the rows pass takes delta and dz from the f32 p,
+// as the TPU kernel does. No atomics: every output element is written once and every
 // sum is taken in a fixed order, so a run repeats to the bit.
 
 #pragma once
@@ -56,7 +64,8 @@ constexpr float kRunningMaxInit = -3e38f;
 // p of every entry: one thread per (b, row, head), h fastest, in the first
 // w_blocks thread blocks; the blocks after them sum the padded rows' dO into
 // S (empties_block, one per (b, 32 channels)): the two are independent, so
-// one launch overlaps them.
+// one launch overlaps them. kBf16: m first, then Z in double (above).
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 weights_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
                const float* __restrict__ a_src_win,  // [nB, B, W, H]
@@ -85,12 +94,20 @@ weights_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
   const float ad = a_dst[i];
   const float* asrc = a_src_win + (blk * B + b) * (long long)W * H + h;
   float m = kRunningMaxInit, Z = 0.f;
+  if (kBf16) {
+    for (int k = k0; k < k1; ++k) m = fmaxf(m, leaky(ad + __ldg(asrc + (long long)col[k] * H), slope));
+    double zs = 0.0;
+    for (int k = k0; k < k1; ++k)
+      zs += (double)expf(leaky(ad + __ldg(asrc + (long long)col[k] * H), slope) - m);
+    Z = (float)zs;
+  } else {
 #pragma unroll 4
-  for (int k = k0; k < k1; ++k) {
-    const float z = leaky(ad + __ldg(asrc + (long long)col[k] * H), slope);
-    const float m_new = fmaxf(m, z);
-    Z = Z * expf(m - m_new) + expf(z - m_new);
-    m = m_new;
+    for (int k = k0; k < k1; ++k) {
+      const float z = leaky(ad + __ldg(asrc + (long long)col[k] * H), slope);
+      const float m_new = fmaxf(m, z);
+      Z = Z * expf(m - m_new) + expf(z - m_new);
+      m = m_new;
+    }
   }
   float* pk = p_out + b * (long long)nnz * H + h;
 #pragma unroll 4
@@ -139,8 +156,9 @@ rows_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
 // scratch_s: [B, nB, H, C] f32, read only when n_empty > 0. vec != 0: C % 4
 // == 0 and x, dout 16-byte aligned (the wrapper checks). x and d_x: x_ext
 // and d x_ext [B, n_ext, H, C], or with kWindow x_win and d x_win
-// [nB, B, W, H, C]. All outputs are written in full.
-template <bool kWindow = false>
+// [nB, B, W, H, C]. All outputs are written in full. kBf16: the
+// bf16-operand instance.
+template <bool kWindow = false, bool kBf16 = false>
 int recompute_bwd(const float* a_dst, const float* a_src_win, const float* x, const float* dout,
                   const int* row_ptr, const int* col, const int* t_ptr, const int* t_entry,
                   const int* t_row, const int* empty_ptr, const int* empty_row, float* scratch_p,
@@ -158,12 +176,12 @@ int recompute_bwd(const float* a_dst, const float* a_src_win, const float* x, co
   }
   const unsigned w_blocks = threads_for((long long)B * n_pad * H);
   const unsigned e_blocks = n_empty > 0 ? (unsigned)(B * ((H * C + 31) / 32)) : 0u;
-  weights_kernel<<<w_blocks + e_blocks, kThreads, 0, st>>>(
+  weights_kernel<kBf16><<<w_blocks + e_blocks, kThreads, 0, st>>>(
       a_dst, a_src_win, row_ptr, col, scratch_p, dout, empty_ptr, empty_row, scratch_s, B, nB,
       BLK, W, H, C, nnz, w_blocks, slope);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int rc = columns_pass<kWindow>(vec, x, dout, scratch_p, n_empty > 0 ? scratch_s : nullptr,
+  const int rc = columns_pass<kWindow, kBf16>(vec, x, dout, scratch_p, n_empty > 0 ? scratch_s : nullptr,
                                        t_ptr, t_entry, t_row, empty_ptr, scratch_dz, d_x, B, nB,
                                        BLK, W, H, C, nnz, st);
   if (rc != 0) return rc;

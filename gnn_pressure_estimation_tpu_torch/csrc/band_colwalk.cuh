@@ -43,6 +43,13 @@
 //          read e (sorted by row, so contiguous), 0 where there is none: every
 //          cell written once.
 //
+// kBf16: the bf16-operand instance (the TPU kernels' mx = bfloat16, GATRes's
+// attn_dtype): the operands of both products are rounded to bf16 as they
+// are read (operand<>, csrc/band_common.cuh): the staged dO rows, x_ext[e]
+// and p, so d x = sum bf16(p) bf16(dO) and dp = bf16(dO) . bf16(x), summed
+// in f32. The S of padded rows stays f32. The same bytes as the f32
+// instance, so the same bound.
+//
 // No atomics: every output element is written once and every sum is taken
 // in a fixed order, so a run repeats to the bit.
 
@@ -161,7 +168,8 @@ __device__ __forceinline__ int run_end(const int* __restrict__ t_row, int s, int
 // and row (add_segments). columns_min_blocks(NV) caps the registers (64 at
 // NV 1, 80 at NV 2, where a lane holds two float4 of x_ext[e] and of its sums).
 // kWindow: x_op and d_x_op in window layout, one run of entries per covering block.
-template <int NV, bool kVec, bool kWhole, bool kWindow>
+// kBf16: the operands rounded to bf16 as they are read.
+template <int NV, bool kVec, bool kWhole, bool kWindow, bool kBf16>
 __global__ void __launch_bounds__(kThreads, columns_min_blocks(NV))
 columns_kernel(const float* __restrict__ x_op,      // x_ext [B, n_ext, H, C]; kWindow x_win
                const float* __restrict__ dout,      // [B, n_pad, H, C]
@@ -221,7 +229,8 @@ columns_kernel(const float* __restrict__ x_op,      // x_ext [B, n_ext, H, C]; k
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
         if (!kWindow)
-          xv[v] = load_slot<kVec>(xe, kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane, ce);
+          xv[v] = operand4<kBf16>(
+              load_slot<kVec>(xe, kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane, ce));
         acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (kWhole) {
           head[v][0] = min(c0 + 128 * v, ce - 1) / C - h0;   // the row's head, lane-uniform
@@ -280,8 +289,8 @@ columns_kernel(const float* __restrict__ x_op,      // x_ext [B, n_ext, H, C]; k
           if (r_hi > r_lo)                   // uniform: the run has entries, so dp needs x
 #pragma unroll
             for (int v = 0; v < NV; ++v)
-              xv[v] = load_slot<kVec>(x_op + cell * HC,
-                                      kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane, ce);
+              xv[v] = operand4<kBf16>(load_slot<kVec>(
+                  x_op + cell * HC, kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane, ce));
         }
         for (int s0 = r_lo; s0 < r_hi; s0 += 32) {   // one chunk of the entries that read e
           const int t = s0 + lane;
@@ -300,7 +309,7 @@ columns_kernel(const float* __restrict__ x_op,      // x_ext [B, n_ext, H, C]; k
             }
             if (r0 == 0) {                       // the weights load while the rows arrive
               for (int h = 0; h < hg; ++h) {
-                p_sh[lane * G + h] = on ? pb[(long long)k * H + h0 + h] : 0.f;
+                p_sh[lane * G + h] = on ? operand<kBf16>(pb[(long long)k * H + h0 + h]) : 0.f;
                 dp_sh[lane * G + h] = 0.f;
               }
               __syncwarp();
@@ -315,7 +324,7 @@ columns_kernel(const float* __restrict__ x_op,      // x_ext [B, n_ext, H, C]; k
                 const float* ps = p_sh + (r0 + qq) * G;
 #pragma unroll
                 for (int v = 0; v < NV; ++v) {
-                  const float4 a = stage[(qq * NV + v) * 32], x = xv[v];
+                  const float4 a = operand4<kBf16>(stage[(qq * NV + v) * 32]), x = xv[v];
                   if (live) {
                     acc[v].x = fmaf(ps[head[v][0]], a.x, acc[v].x);
                     acc[v].y = fmaf(ps[head[v][kVec ? 0 : 1]], a.y, acc[v].y);
@@ -415,7 +424,7 @@ cells_kernel(const float* __restrict__ dz_in,     // [B, nnz, H]
 
 inline unsigned threads_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
-template <int NV, bool kVec, bool kWhole, bool kWindow>
+template <int NV, bool kVec, bool kWhole, bool kWindow, bool kBf16>
 int launch_columns(const float* x, const float* dout, const float* p, const float* S,
                    const int* t_ptr, const int* t_entry, const int* t_row, const int* empty_ptr,
                    float* dp, float* d_x, int B, int nB, int BLK, int W, int H, int C, int nnz,
@@ -423,7 +432,7 @@ int launch_columns(const float* x, const float* dout, const float* p, const floa
   const long long n_ext = (long long)nB * BLK + W - BLK;
   const size_t smem = (size_t)kWarps * (stage_depth(NV) * NV * 32 * sizeof(float4) +
                                         64 * min(H, kHeadGroup) * sizeof(float));
-  auto kernel = columns_kernel<NV, kVec, kWhole, kWindow>;
+  auto kernel = columns_kernel<NV, kVec, kWhole, kWindow, kBf16>;
   if (smem > (48 << 10)) {                 // past the default 48 KB of dynamic shared memory
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -438,20 +447,21 @@ int launch_columns(const float* x, const float* dout, const float* p, const floa
 // head group's channels, 128 (one float4 a lane) when G*C <= 128, else 256,
 // so a group of H*C 128 wastes no half tile; the butterfly where a float4
 // slot row is one head. vec: C % 4 == 0 and x, dout 16-byte aligned.
-// kWindow: x and d_x are x_win and d x_win [nB, B, W, H, C].
-template <bool kWindow = false>
+// kWindow: x and d_x are x_win and d x_win [nB, B, W, H, C]. kBf16: the
+// bf16-operand instance.
+template <bool kWindow = false, bool kBf16 = false>
 int columns_pass(int vec, const float* x, const float* dout, const float* p, const float* S,
                  const int* t_ptr, const int* t_entry, const int* t_row, const int* empty_ptr,
                  float* dp, float* d_x, int B, int nB, int BLK, int W, int H, int C, int nnz,
                  cudaStream_t st) {
   const bool narrow = min(H, kHeadGroup) * C <= 128;   // one float4 a lane fills the tile
   const bool whole = vec && C % 128 == 0;              // a float4 slot row is one head
-  auto columns = narrow ? (whole ? launch_columns<1, true, true, kWindow>
-                                 : vec ? launch_columns<1, true, false, kWindow>
-                                       : launch_columns<1, false, false, kWindow>)
-                        : (whole ? launch_columns<2, true, true, kWindow>
-                                 : vec ? launch_columns<2, true, false, kWindow>
-                                       : launch_columns<2, false, false, kWindow>);
+  auto columns = narrow ? (whole ? launch_columns<1, true, true, kWindow, kBf16>
+                                 : vec ? launch_columns<1, true, false, kWindow, kBf16>
+                                       : launch_columns<1, false, false, kWindow, kBf16>)
+                        : (whole ? launch_columns<2, true, true, kWindow, kBf16>
+                                 : vec ? launch_columns<2, true, false, kWindow, kBf16>
+                                       : launch_columns<2, false, false, kWindow, kBf16>);
   return columns(x, dout, p, S, t_ptr, t_entry, t_row, empty_ptr, dp, d_x, B, nB, BLK, W, H, C,
                  nnz, st);
 }

@@ -1,10 +1,12 @@
 // What the band kernels share: the warp layout, the warp-wide reductions,
-// the lane's 16-byte (or scalar) slot of an x row, and the pass that every
-// attention backward runs for band rows with no set column. Each .cu is one
-// translation unit, so everything sits in an unnamed namespace.
+// the lane's 16-byte (or scalar) slot of an x row, the rounding of the
+// bf16-operand instances, and the pass that every attention backward runs
+// for band rows with no set column. Each .cu is one translation unit, so
+// everything sits in an unnamed namespace.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -22,6 +24,31 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
+}
+
+// The softmax denominator of the bf16-operand instances is summed in double
+// and rounded once: the weight they round to bf16 is then the same float
+// whatever the order of the sum (the plain version's too), where a sum in
+// f32 could move it by an ulp and flip its bf16 rounding.
+__device__ __forceinline__ double warp_sum_d(double v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// An operand of the bf16-operand instances (kBf16): rounded to the nearest
+// bfloat16, ties to even, as the TPU kernels' astype(bfloat16) rounds it;
+// the product of two such values is exact in f32, so only the sums' order
+// differs from the MXU's. The f32 instances take it as it is.
+template <bool kBf16>
+__device__ __forceinline__ float operand(float v) {
+  return kBf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+template <bool kBf16>
+__device__ __forceinline__ float4 operand4(float4 v) {
+  return kBf16 ? make_float4(operand<true>(v.x), operand<true>(v.y), operand<true>(v.z),
+                             operand<true>(v.w))
+               : v;
 }
 
 // thread blocks of kWarps warps for a grid of one warp per work item

@@ -52,6 +52,22 @@
 // kHeadGroup, whose weights fit the warp's shared memory (35 floats a head);
 // a group's channels [h0*C, (h0+hg)*C) are contiguous, so it is tiled as a
 // row of hg*C channels.
+//
+// kBf16: the bf16-operand instance of each forward (the TPU kernels' mx =
+// bfloat16, GATRes's attn_dtype): the products' operands are rounded to
+// bf16 (operand<>, csrc/band_common.cuh) and summed in f32. Each x element
+// is rounded as it is loaded. The weight rounded is the one the TPU kernel
+// hands its matmul: v2 the normalised p = exp(z - m) / Z, so out = sum
+// bf16(p) bf16(x); v4 the numerator exp(z - m), so out = sum bf16(e) bf16(x)
+// / Z with Z the sum of the unrounded numerators. Either needs the row's
+// final m (and v2 its Z) before the first product: a list of at most 32
+// entries is one chunk, whose warp reductions give both; a longer list takes
+// a sweep for m and one for Z first, and its chunks then never rescale
+// (alpha 1). Z is summed in double and rounded once (warp_sum_d), so the
+// rounded weight does not depend on the order of the sum. Padded rows keep
+// the f32 window mean. The instance moves the bytes of the f32 one: its
+// bound is the same. Its code sits in `if constexpr (kBf16)` statements, so
+// the f32 instances compile as they did before the switch.
 
 #pragma once
 
@@ -96,7 +112,35 @@ window_mean_kernel(const float* __restrict__ x_ext,     // [B, n_ext, HC]
   }
 }
 
-template <int NV, bool kVec, bool kStats>
+// kBf16, a list of more than 32 entries: the row's max m and sum Z (in
+// double, rounded once) of heads h0 .. h0+hg-1 into m_sh, z_sh (lane 0
+// writes). Out of line: inlined, its registers weighed on the walk's (more
+// spills at the 64-register cap, a slower walk), though no row of bigtown or
+// meganet takes it.
+__device__ __noinline__ void row_stats_sweep(const float* __restrict__ ad,
+                                             const float* __restrict__ asrc,
+                                             const int* __restrict__ col, int k0, int k1, int H,
+                                             int h0, int hg, float slope, float* m_sh,
+                                             float* z_sh, int lane) {
+  for (int h = 0; h < hg; ++h) {
+    auto logit = [&](int k) {
+      const float z = __ldg(ad + h0 + h) + __ldg(asrc + (long long)col[k] * H + h0 + h);
+      return z >= 0.f ? z : slope * z;
+    };
+    float m = kRunningMaxInit;
+    for (int k = k0 + lane; k < k1; k += 32) m = fmaxf(m, logit(k));
+    m = warp_max(m);
+    double zs = 0.0;
+    for (int k = k0 + lane; k < k1; k += 32) zs += (double)expf(logit(k) - m);
+    zs = warp_sum_d(zs);
+    if (lane == 0) {
+      m_sh[h] = m;
+      z_sh[h] = (float)zs;
+    }
+  }
+}
+
+template <int NV, bool kVec, bool kStats, bool kBf16>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 band_rowwalk_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
                     const float* __restrict__ a_src_win,  // [nB, B, W, H]
@@ -166,6 +210,12 @@ band_rowwalk_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
         z_sh[h] = 0.f;
       }
       __syncwarp();
+      if constexpr (kBf16) {
+        if (k1 - k0 > 32) {                  // the row's final m and Z, before any product
+          row_stats_sweep(ad, asrc, col, k0, k1, H, h0, hg, slope, m_sh, z_sh, lane);
+          __syncwarp();
+        }
+      }
 
       for (int s0 = k0; s0 < k1; s0 += 32) {   // one chunk of the row's list
         const int k = s0 + lane;
@@ -179,9 +229,11 @@ band_rowwalk_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
         for (int q = 0; q < kGroup; ++q) {
           const float* xr = xw + (long long)__shfl_sync(kFull, jl, min(q, cnt - 1)) * HC;
 #pragma unroll
-          for (int v = 0; v < NV; ++v)
+          for (int v = 0; v < NV; ++v) {
             xv[q][v] = load_slot<kVec>(
                 xr, kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane, ce);
+            if constexpr (kBf16) xv[q][v] = operand4<true>(xv[q][v]);
+          }
         }
 
         // per head: the chunk's logits, the running max, the rescale, the weights
@@ -190,6 +242,22 @@ band_rowwalk_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
           if (on) {
             z = __ldg(ad + h0 + h) + __ldg(asrc + (long long)jl * H + h0 + h);
             z = z >= 0.f ? z : slope * z;
+          }
+          if constexpr (kBf16) {               // m and Z final: no rescale, the weight rounded
+            float m = m_sh[h], Z = z_sh[h];    // a longer list's, from the sweeps above
+            if (k1 - k0 <= 32) {               // the chunk is the row: its max and sum
+              m = warp_max(z);
+              Z = (float)warp_sum_d(on ? (double)expf(z - m) : 0.0);
+            }
+            const float e = on ? expf(z - m) : 0.f;
+            p_sh[lane * G + h] = operand<true>(kStats ? e : e / Z);
+            __syncwarp();                      // every lane has read m_sh[h], z_sh[h]
+            if (lane == 0) {
+              al_sh[h] = 1.f;
+              z_sh[h] = Z;
+              m_sh[h] = m;
+            }
+            continue;
           }
           const float m_old = m_sh[h];
           const float m_new = fmaxf(m_old, warp_max(z));
@@ -221,9 +289,11 @@ band_rowwalk_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
               const float* xr =
                   xw + (long long)__shfl_sync(kFull, jl, min(g + q, cnt - 1)) * HC;
 #pragma unroll
-              for (int v = 0; v < NV; ++v)
+              for (int v = 0; v < NV; ++v) {
                 xv[q][v] = load_slot<kVec>(
                     xr, kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane, ce);
+                if constexpr (kBf16) xv[q][v] = operand4<true>(xv[q][v]);
+              }
             }
           }
 #pragma unroll
@@ -241,6 +311,10 @@ band_rowwalk_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
           }
         }
         __syncwarp();                          // p_sh is read before the next chunk writes it
+      }
+      if constexpr (kBf16 && !kStats) {        // v2's weights came normalised: out = acc
+        for (int h = lane; h < hg; h += 32) z_sh[h] = 1.f;
+        __syncwarp();
       }
 
 #pragma unroll
@@ -270,28 +344,44 @@ band_rowwalk_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
   }
 }
 
-template <int NV, bool kVec, bool kStats>
+template <int NV, bool kVec, bool kStats, bool kBf16>
 int launch_rowwalk(const float* a_dst, const float* a_src_win, const float* x_ext,
                    const int* row_ptr, const int* col, const float* mean, float* out,
                    float* m_out, float* z_out, int B, int nB, int BLK, int W, int H, int C,
                    float slope, cudaStream_t stream) {
   const long long warps = (long long)B * nB * BLK;
   const size_t smem = (size_t)kWarps * 35 * min(H, kHeadGroup) * sizeof(float);
-  band_rowwalk_kernel<NV, kVec, kStats><<<blocks_for(warps), kWarps * 32, smem, stream>>>(
+  band_rowwalk_kernel<NV, kVec, kStats, kBf16><<<blocks_for(warps), kWarps * 32, smem, stream>>>(
       a_dst, a_src_win, x_ext, row_ptr, col, mean, out, m_out, z_out, B, nB, BLK, W, H, C,
       slope);
   return (int)cudaGetLastError();
 }
 
+// The row walk's instance for these operands: NV by H*C, the float4 slots
+// where vec.
+template <bool kStats, bool kBf16>
+int rowwalk_instance(const float* a_dst, const float* a_src_win, const float* x_ext,
+                     const int* row_ptr, const int* col, const float* mean, float* out,
+                     float* m_out, float* z_out, int B, int nB, int BLK, int W, int H, int C,
+                     int vec, float slope, cudaStream_t s) {
+  auto walk = H * C <= 128 ? (vec ? launch_rowwalk<1, true, kStats, kBf16>
+                                  : launch_rowwalk<1, false, kStats, kBf16>)
+                           : (vec ? launch_rowwalk<2, true, kStats, kBf16>
+                                  : launch_rowwalk<2, false, kStats, kBf16>);
+  return walk(a_dst, a_src_win, x_ext, row_ptr, col, mean, out, m_out, z_out, B, nB, BLK, W, H,
+              C, slope, s);
+}
+
 // The whole forward: the window-mean pre-pass when the layout has rows with
 // no set column (n_empty > 0; mean is then [B, nB, H*C] scratch), then the
 // row walk. vec != 0: C % 4 == 0 and x_ext, out 16-byte aligned (the wrapper
-// checks). m_out, z_out are read only when kStats.
+// checks). m_out, z_out are read only when kStats. bf16 != 0: the
+// bf16-operand instance.
 template <bool kStats>
 int band_rowwalk(const float* a_dst, const float* a_src_win, const float* x_ext,
                  const int* row_ptr, const int* col, const int* empty_ptr, float* mean,
                  float* out, float* m_out, float* z_out, int B, int nB, int BLK, int W,
-                 int H, int C, int n_empty, int vec, float slope, void* stream) {
+                 int H, int C, int n_empty, int vec, int bf16, float slope, void* stream) {
   const long long warps = (long long)B * nB * BLK;
   if (warps == 0 || H * C == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
@@ -302,15 +392,9 @@ int band_rowwalk(const float* a_dst, const float* a_src_win, const float* x_ext,
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }
-  if (HC <= 128)
-    return vec ? launch_rowwalk<1, true, kStats>(a_dst, a_src_win, x_ext, row_ptr, col, mean,
-                                                 out, m_out, z_out, B, nB, BLK, W, H, C, slope, s)
-               : launch_rowwalk<1, false, kStats>(a_dst, a_src_win, x_ext, row_ptr, col, mean,
-                                                  out, m_out, z_out, B, nB, BLK, W, H, C, slope, s);
-  return vec ? launch_rowwalk<2, true, kStats>(a_dst, a_src_win, x_ext, row_ptr, col, mean,
-                                               out, m_out, z_out, B, nB, BLK, W, H, C, slope, s)
-             : launch_rowwalk<2, false, kStats>(a_dst, a_src_win, x_ext, row_ptr, col, mean,
-                                                out, m_out, z_out, B, nB, BLK, W, H, C, slope, s);
+  auto instance = bf16 ? rowwalk_instance<kStats, true> : rowwalk_instance<kStats, false>;
+  return instance(a_dst, a_src_win, x_ext, row_ptr, col, mean, out, m_out, z_out, B, nB, BLK, W,
+                  H, C, vec, slope, s);
 }
 
 }  // namespace

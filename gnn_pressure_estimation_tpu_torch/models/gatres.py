@@ -29,10 +29,12 @@ from gnn_pressure_estimation_tpu_torch.models.layers import GATConv, SimpleMeanC
 
 
 class GATResBlock(nn.Module):
-    def __init__(self, channels: int, attn_impl: str = "softmax"):
+    def __init__(self, channels: int, attn_impl: str = "softmax", attn_dtype=None,
+                 gate_dtype=None):
         super().__init__()
-        self.conv1 = GATConv(channels, channels, heads=2, concat=True, attn_impl=attn_impl)
-        self.conv2 = GATConv(2 * channels, channels, heads=1, concat=False, attn_impl=attn_impl)
+        knobs = dict(attn_impl=attn_impl, attn_dtype=attn_dtype, gate_dtype=gate_dtype)
+        self.conv1 = GATConv(channels, channels, heads=2, concat=True, **knobs)
+        self.conv2 = GATConv(2 * channels, channels, heads=1, concat=False, **knobs)
         self.mean = SimpleMeanConv()
 
     def forward(self, x: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
@@ -51,16 +53,21 @@ class GATRes(nn.Module):
     backward recomputes the block's forward instead of keeping its
     activations, trading a second pass through the kernels for memory.
     ``training`` is accepted as in the JAX model and changes nothing: GATRes
-    has no dropout or batch statistics."""
+    has no dropout or batch statistics. ``attn_impl``, ``attn_dtype`` and
+    ``gate_dtype`` go to every ``GATConv`` (``models.presets.apply_model_knobs``
+    sets them on a built model)."""
 
     def __init__(self, num_blocks: int = 15, channels: int = 32,
                  out_channels: int = 1, in_channels: int = 1,
-                 attn_impl: str = "softmax", remat: bool = False):
+                 attn_impl: str = "softmax", remat: bool = False, attn_dtype=None,
+                 gate_dtype=None):
         super().__init__()
         self.num_blocks, self.channels, self.remat = num_blocks, channels, remat
+        self.attn_impl, self.attn_dtype, self.gate_dtype = attn_impl, attn_dtype, gate_dtype
         self.lin0 = nn.Linear(in_channels, channels)
         self.blocks = nn.ModuleList(
-            GATResBlock(channels, attn_impl=attn_impl) for _ in range(num_blocks)
+            GATResBlock(channels, attn_impl=attn_impl, attn_dtype=attn_dtype,
+                        gate_dtype=gate_dtype) for _ in range(num_blocks)
         )
         self.lin1 = nn.Linear(channels, out_channels)
         self.reset_parameters()

@@ -34,14 +34,24 @@ from torch import nn
 from gnn_pressure_estimation_tpu_torch.core.graph import BatchedGraph
 from gnn_pressure_estimation_tpu_torch.ops import banded as bops
 from gnn_pressure_estimation_tpu_torch.ops.band_attention import (
-    band_attention, band_attention_acc, band_attention_flash, band_attention_window,
+    band_attention, band_attention_acc, band_attention_flash, band_attention_window, round_bf16,
 )
 from gnn_pressure_estimation_tpu_torch.ops.band_spmm import band_spmm
 from gnn_pressure_estimation_tpu_torch.ops.graph_attention import fused_attention, fused_factored
 
 ATTN_IMPLS = ("softmax", "onepass", "factored")
+# attn_dtype / gate_dtype values: None (f32), or a dtype the JAX layer accepts
+ATTN_DTYPES = (None, torch.float32, torch.bfloat16)
 NEG_INF = -1e9  # the masked logit of the padded path, as the JAX layer's
 BAND_ATTEND = {"dma": band_attention, "flash": band_attention_flash, "acc": band_attention_acc}
+
+
+def check_dtype_knob(name: str, value):
+    """``value`` if the port computes it (``ATTN_DTYPES``), else raise."""
+    if value not in ATTN_DTYPES:
+        raise NotImplementedError(f"{name}={value!r} is not ported: None, torch.float32 or "
+                                  "torch.bfloat16")
+    return value
 
 
 @torch.no_grad()
@@ -78,17 +88,33 @@ class GATConv(nn.Module):
     ``D + 1`` slots (in-edges and the self-loop) of α_src and of the
     projected features, masks the empty slots, and takes the softmax over
     the slots, for every ``attn_impl``, as the JAX layer does.
+
+    ``attn_dtype`` (None = f32, or ``torch.bfloat16``) is the JAX layer's
+    knob of the same name, honoured where the JAX layer honours it:
+    banded, the bf16-operand instances of the band kernels (``mxu_bf16``)
+    on the routes that have them ("dma", "flash", "acc") and only where the
+    JAX layer reaches its v2-family kernel (negative slope 0.2, H·C a
+    multiple of 128); dense ``factored``, the operands ``v·[x, 1]`` and
+    ``q·[x, 1]`` stored in bf16 (the JAX layer's default, XLA, branch);
+    dense ``onepass``, the numerator and the features stored in bf16. The
+    window route, narrower banded layers and the padded mode ignore it, as
+    in the JAX layer; dense ``softmax`` with bf16 raises (not ported: the
+    JAX layer also rounds the product's output there). ``gate_dtype`` is
+    accepted and changes nothing: the gate is 0/1, exact in either type, and
+    the factored kernel never stores it.
     """
 
     def __init__(self, in_channels: int, out_channels: int, heads: int = 1,
                  concat: bool = True, negative_slope: float = 0.2,
-                 attn_impl: str = "softmax"):
+                 attn_impl: str = "softmax", attn_dtype=None, gate_dtype=None):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise NotImplementedError(f"attn_impl {attn_impl!r} is not yet ported")
         self.in_channels, self.out_channels = in_channels, out_channels
         self.heads, self.concat = heads, concat
         self.negative_slope, self.attn_impl = negative_slope, attn_impl
+        self.attn_dtype = check_dtype_knob("attn_dtype", attn_dtype)
+        self.gate_dtype = check_dtype_knob("gate_dtype", gate_dtype)
         self.lin = nn.Linear(in_channels, heads * out_channels, bias=False)
         self.att_src = nn.Parameter(torch.empty(1, heads, out_channels))
         self.att_dst = nn.Parameter(torch.empty(1, heads, out_channels))
@@ -123,8 +149,12 @@ class GATConv(nn.Module):
             else:
                 attend = BAND_ATTEND[graph.band_attn]
                 x_in = bops.extend_rows(xp_b, graph.band_U, graph.band_R)
+            # the bf16-operand instances where the JAX layer takes its v2-family kernel
+            bf16 = {} if graph.band_attn == "window" else {"mxu_bf16": (
+                self.attn_dtype == torch.bfloat16 and self.negative_slope == 0.2
+                and H * C % 128 == 0)}
             out = attend(a_d.view(B, n_pad, H).contiguous(), a_src_win, x_in,
-                         graph.band_adj_mask, self.negative_slope, graph.band_adj_index)
+                         graph.band_adj_mask, self.negative_slope, graph.band_adj_index, **bf16)
         elif graph.padded:
             # per-node neighbour slots (in-edges, then the self-loop), masked
             # softmax over the slots
@@ -145,7 +175,13 @@ class GATConv(nn.Module):
         """Dense masked attention over all pairs: [B, n, H, C] → [B, n, H, C]."""
         sl = self.negative_slope
         mask, index = graph.adj_sl_mask, graph.adj_sl_index
+        bf16 = self.attn_dtype == torch.bfloat16
+        store = round_bf16 if bf16 else (lambda t: t)
         if self.attn_impl == "softmax":
+            if bf16:
+                raise NotImplementedError(
+                    "attn_impl='softmax' with attn_dtype=bfloat16 on the dense path is not yet "
+                    "ported (ROADMAP Queue 1 item 8; the fused_attention redesign, Queue 2)")
             return fused_attention(a_d, a_s, xp_b, mask, sl, index)
         C = xp_b.shape[-1]
         with torch.no_grad():
@@ -160,8 +196,8 @@ class GATConv(nn.Module):
             # the softmax numerator, materialised once; 1/Z after the product
             z = a_d[:, :, None, :] + a_s[:, None, :, :]                    # [B,i,j,H]
             y = torch.where(z >= 0, z, sl * z)
-            num = torch.where(mask[None, :, :, None], torch.exp(y - m[:, :, None, :]), 0.0)
-            out = torch.einsum("bijh,bjhc->bihc", num, xp_b)
+            num = store(torch.where(mask[None, :, :, None], torch.exp(y - m[:, :, None, :]), 0.0))
+            out = torch.einsum("bijh,bjhc->bihc", num, store(xp_b))
             return out / num.sum(dim=2)[..., None]
         # factored: exp(lrelu(a_d+a_s)) = [s≥0]·e^{a_d}e^{a_s} + [s<0]·e^{αa_d}e^{αa_s}.
         # Working range: the exps of the per-node halves must stay finite in
@@ -170,9 +206,12 @@ class GATConv(nn.Module):
             cs = F.relu(a_s.amax(dim=1, keepdim=True))                   # [B,1,H]
         u, p = torch.exp(a_d - m), torch.exp(sl * a_d - m)                 # [B,i,H]
         v, q = torch.exp(a_s - cs), torch.exp(sl * a_s - cs)               # [B,j,H]
-        # a ones column carries the softmax denominator through the sums
+        # a ones column carries the softmax denominator through the sums; bf16:
+        # both operands stored in bf16, that column included, as the JAX layer
+        # stores them (its products are exact in f32, only the sums' order differs)
         xa = torch.cat([xp_b, xp_b.new_ones(xp_b.shape[:-1] + (1,))], dim=-1)
-        t_pv, t_nq = fused_factored(a_d, a_s, v[..., None] * xa, q[..., None] * xa, mask, index)
+        t_pv, t_nq = fused_factored(a_d, a_s, store(v[..., None] * xa), store(q[..., None] * xa),
+                                    mask, index)
         outz = u[..., None] * t_pv + p[..., None] * t_nq
         return outz[..., :C] / outz[..., C:]
 

@@ -2,6 +2,8 @@
 
 The counterpart of ``gnn_pressure_estimation_tpu/models/presets.py``. Only
 the GATRes presets are ported; the other names of the JAX registry raise.
+``apply_model_knobs`` sets the attention knobs (``attn_impl``,
+``attn_dtype``, ``gate_dtype``) on a built model, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from torch import nn
 
 from gnn_pressure_estimation_tpu_torch.device import resolve_device
 from gnn_pressure_estimation_tpu_torch.models.gatres import GATRes
+from gnn_pressure_estimation_tpu_torch.models.layers import ATTN_IMPLS, check_dtype_knob
 
 NOT_YET_PORTED = ("gin", "graphconvwat", "chebnet", "mgcn", "gcn2", "gat")
 
@@ -51,6 +54,41 @@ MODEL_REGISTRY: dict[str, ModelPreset] = {
         criterion="mse", norm_type="znorm",
     ),
 }
+
+
+def apply_model_knobs(model: nn.Module, attn_impl=None, gate_dtype=None,
+                      attn_dtype=None) -> nn.Module:
+    """Set attention-knob overrides on ``model`` and every layer of it that
+    has the knob, after checking that the model exposes each one; the
+    counterpart of the JAX package's ``apply_model_knobs``. Dtype knobs take
+    the CLI strings ``'float32'`` / ``'bfloat16'`` or torch dtypes; None leaves
+    the preset's value. The JAX function returns a clone; a torch module
+    carries its weights, so the knobs are set in place and ``model`` is
+    returned."""
+    def _dt(v):
+        if v is None or not isinstance(v, str):
+            return v
+        if v == "float32":
+            return torch.float32
+        if v == "bfloat16":
+            return torch.bfloat16
+        raise ValueError(f"dtype knob must be 'float32' or 'bfloat16', got {v!r}")
+
+    overrides = {}
+    for knob, val in (("attn_impl", attn_impl), ("gate_dtype", _dt(gate_dtype)),
+                      ("attn_dtype", _dt(attn_dtype))):
+        if val is None:
+            continue
+        if not hasattr(model, knob):
+            raise ValueError(f"model {type(model).__name__} has no {knob!r} knob")
+        if knob == "attn_impl" and val not in ATTN_IMPLS:
+            raise NotImplementedError(f"attn_impl {val!r} is not yet ported")
+        overrides[knob] = val if knob == "attn_impl" else check_dtype_knob(knob, val)
+    for module in model.modules():
+        for knob, val in overrides.items():
+            if hasattr(module, knob):
+                setattr(module, knob, val)
+    return model
 
 
 def select_model(name: str, device="cuda", seed: int = 0) -> tuple[nn.Module, ModelPreset]:

@@ -36,8 +36,23 @@ additive logits over the row's W-wide window, the adjacency mask, a softmax
 over the window, and the weighted sum of the window's rows. Each entry point
 is a ``torch.autograd.Function``; the mask gets no gradient. A row with no
 set column (a padded band row) gets the uniform mean of its W window rows on
-every route, as ``ops.banded.band_attention`` gives it. The TPU kernels'
-``mxu_bf16`` matmul option is not carried: everything is f32.
+every route, as ``ops.banded.band_attention`` gives it.
+
+``mxu_bf16=True`` (the "dma", "flash" and "acc" routes; GATRes's
+``attn_dtype=bfloat16``) selects each kernel's bf16-operand instance, the
+TPU kernels' ``mxu_bf16``: the operands of the two products are rounded to
+bfloat16 (round to nearest even) and the products summed in f32. v2 and v3
+round the normalised weight p = exp(z − m)/Z and the x rows in the forward,
+p, dO and x in the backward's d x = pᵀ·dO and dp = dO·xᵀ (delta and dz take
+the f32 p); v4 rounds the numerator exp(z − m) and the x rows in the
+forward and divides by Z, the sum of the unrounded numerators, and rounds
+as v2 in the backward. Z of the bf16 instances is summed in double and
+rounded once, in the kernels and the plain versions alike, so the weight
+that is rounded is the same float whatever the order of the sum. Rows with
+no set column keep the f32 window mean. Every wrapper counts the launches of
+its f32 instance in ``launches`` and of its bf16 instance in
+``launches_bf16``; on a CPU tensor it runs the plain version with the same
+flag.
 
 Bound on an H100 SXM at the bigtown GATRes-large shapes (B 32, n_pad 5,888,
 W 896, H·C 256): counted over the mask's nonzeros (0.51% dense) the forward
@@ -65,22 +80,59 @@ from gnn_pressure_estimation_tpu_torch.ops import _build
 from gnn_pressure_estimation_tpu_torch.ops import banded as bops
 
 
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to the nearest bfloat16 (ties to even), kept in its dtype:
+    the JAX package's ``astype(bfloat16)`` of an operand. Autograd rounds the
+    cotangent the same way."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _bf16_weights(z, on):
+    """The softmax of the bf16 instances over the window (dim 3) of the
+    masked logits ``z`` (``on``: the mask, as :func:`_logits` gives both):
+    ``(e = exp(z − m), Z, real)`` with m the row maximum, Z the sum of e
+    taken in double and rounded once (so the weight rounded from it does not
+    depend on the order of the sum) and ``real`` the rows with a set
+    column."""
+    e = torch.exp(z - z.amax(dim=3, keepdim=True))
+    Z = e.sum(dim=3, keepdim=True, dtype=torch.float64).to(z.dtype)
+    return e, Z, on.any(dim=3, keepdim=True)
+
+
+def _bf16_product(eq: str, w: torch.Tensor, v: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, w, v)`` with both operands rounded to bf16 on the rows
+    with a set column (``real``) and in f32 on the others (the window mean
+    of a padded row stays f32)."""
+    out = torch.einsum(eq, torch.where(real, round_bf16(w), 0.0), round_bf16(v))
+    if not bool(real.all()):
+        out = out + torch.einsum(eq, torch.where(real, 0.0, w), v)
+    return out
+
+
 def band_attention_plain(
     a_dst: torch.Tensor,      # [B, n_pad, H]
     a_src_win: torch.Tensor,  # [nB, B, W, H]
     x_ext: torch.Tensor,      # [B, n_ext, H, C]
     adj_mask: torch.Tensor,   # [nB, BLK, W] bool or 0/1 int8
     negative_slope: float = 0.2,
+    mxu_bf16: bool = False,
 ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`band_attention_fwd`."""
+    """Plain PyTorch version of :func:`band_attention_fwd`; ``mxu_bf16``:
+    ``out = Σ bf16(p)·bf16(x)`` with p the normalised weight."""
     nB, BLK, W = adj_mask.shape
     x_win = bops.band_windows_ext(x_ext, nB, BLK, W)      # [nB, B, W, H, C]
-    return bops.band_attention(a_dst, a_src_win, x_win, adj_mask, negative_slope)
+    if not mxu_bf16:
+        return bops.band_attention(a_dst, a_src_win, x_win, adj_mask, negative_slope)
+    z, _, on = _logits(a_dst, a_src_win, adj_mask, negative_slope)
+    e, Z, real = _bf16_weights(z, on)
+    out = _bf16_product("nbiwh,nbwhc->nbihc", e / Z, x_win, real)
+    return _rows_of(out, x_ext.shape[0], nB, BLK)
 
 
 def band_attention_bwd_plain(
     a_dst: torch.Tensor, a_src_win: torch.Tensor, x_ext: torch.Tensor,
     adj_mask: torch.Tensor, d_out: torch.Tensor, negative_slope: float = 0.2,
+    mxu_bf16: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`band_attention_bwd`: the explicit
     formulas on the dense windows, window fold included.
@@ -88,12 +140,37 @@ def band_attention_bwd_plain(
     ``d_out`` [B, n_pad, H, C] → ``(d a_dst [B, n_pad, H], d a_src_win
     [nB, B, W, H], d x_ext [B, n_ext, H, C])``. A row with no set column has
     a uniform softmax: it adds ``d_out/W`` to its W window rows of ``d x_ext``
-    and nothing to the ``d a``'s (the mask zeroes the logits' gradient)."""
+    and nothing to the ``d a``'s (the mask zeroes the logits' gradient).
+    ``mxu_bf16``: d x from bf16(p)ᵀ·bf16(dO), dp from bf16(dO)·bf16(x)ᵀ,
+    delta and dz from the f32 p."""
     nB, BLK, W = adj_mask.shape
-    d_a_dst, d_a_src_win, d_xw = band_attention_window_bwd_plain(
-        a_dst, a_src_win, bops.band_windows_ext(x_ext, nB, BLK, W), adj_mask, d_out,
-        negative_slope)
+    x_win = bops.band_windows_ext(x_ext, nB, BLK, W)
+    if mxu_bf16:
+        z, zpre, on = _logits(a_dst, a_src_win, adj_mask, negative_slope)
+        e, Z, real = _bf16_weights(z, on)
+        d_a_dst, d_a_src_win, d_xw = _bf16_window_bwd(e / Z, zpre, on, real, x_win, d_out, None,
+                                                      negative_slope)
+    else:
+        d_a_dst, d_a_src_win, d_xw = band_attention_window_bwd_plain(
+            a_dst, a_src_win, x_win, adj_mask, d_out, negative_slope)
     return d_a_dst, d_a_src_win, bops.fold_windows_ext(d_xw, BLK)
+
+
+def _bf16_window_bwd(p, zpre, on, real, x_win, d_out, delta, negative_slope):
+    """The bf16 instances' backward on the dense windows, from the f32
+    weights p [nB,B,BLK,W,H]: dp = bf16(dO)·bf16(x)ᵀ, d x_win =
+    bf16(p)ᵀ·bf16(dO) (f32 on rows with no set column), dz = p (dp − delta)
+    with delta = Σ p dp, or the given [B, n_pad, H] (v4). Returns ``(d a_dst,
+    d a_src_win, d x_win)``, the last in window layout."""
+    nB, B, BLK = p.shape[:3]
+    do_b = _blocks_of(d_out, nB, BLK)                                  # [nB,B,BLK,H,C]
+    dp = torch.einsum("nbihc,nbwhc->nbiwh", round_bf16(do_b), round_bf16(x_win))
+    delta = (p * dp).sum(dim=3, keepdim=True) if delta is None \
+        else _blocks_of(delta, nB, BLK)[:, :, :, None, :]
+    dz = p * (dp - delta)
+    dz = torch.where(zpre >= 0, dz, negative_slope * dz) * on
+    return (_rows_of(dz.sum(dim=3), B, nB, BLK), dz.sum(dim=2),
+            _bf16_product("nbiwh,nbihc->nbwhc", p, do_b, real))
 
 
 def _check(fn: str, a_dst, a_src_win, x, adj_mask):
@@ -130,6 +207,7 @@ def band_attention_fwd(
     adj_mask: torch.Tensor,
     negative_slope: float = 0.2,
     index: Optional[bops.BandIndex] = None,
+    mxu_bf16: bool = False,
 ) -> torch.Tensor:
     """a_dst [B, n_pad, H] · a_src_win [nB, B, W, H] · x_ext [B, n_ext, H, C]
     (n_ext = n_pad + W − BLK) · adj_mask [nB, BLK, W] (bool or int8)
@@ -143,9 +221,10 @@ def band_attention_fwd(
     another mask of the same shape gives that mask's attention on the card;
     only its shape and device are checked. ``band_attention_fwd.launches``
     counts kernel launches (one per call: the padded rows' window-mean
-    pre-pass and the row pass are one launch of it)."""
+    pre-pass and the row pass are one launch of it); ``mxu_bf16`` launches
+    the bf16-operand instance, counted in ``launches_bf16``."""
     if bops.use_plain(x_ext):
-        return band_attention_plain(a_dst, a_src_win, x_ext, adj_mask, negative_slope)
+        return band_attention_plain(a_dst, a_src_win, x_ext, adj_mask, negative_slope, mxu_bf16)
     name = "band_attention_fwd"
     adj_mask = _check(name, a_dst, a_src_win, x_ext, adj_mask)
     nB, BLK, W = adj_mask.shape
@@ -156,29 +235,40 @@ def band_attention_fwd(
     out = torch.empty((B, nB * BLK, H, C), dtype=torch.float32, device=dev)
     mean = torch.empty((B, nB, H * C) if n_empty else (1,), dtype=torch.float32, device=dev)
     fn = _build.load("band_attention").band_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         rc = fn(a_dst.data_ptr(), a_src_win.data_ptr(), x_ext.data_ptr(), ix.row_ptr.data_ptr(),
                 ix.col.data_ptr(), ix.empty_ptr.data_ptr(), mean.data_ptr(), out.data_ptr(),
-                B, nB, BLK, W, H, C, n_empty, int(bops.vector_loads(x_ext, C)), float(negative_slope),
-                torch.cuda.current_stream().cuda_stream)
+                B, nB, BLK, W, H, C, n_empty, int(bops.vector_loads(x_ext, C)), int(mxu_bf16),
+                float(negative_slope), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    band_attention_fwd.launches += 1
+    _count(band_attention_fwd, mxu_bf16)
     return out
 
 
-band_attention_fwd.launches = 0
+def _count(wrapper, mxu_bf16: bool) -> None:
+    """One launch of ``wrapper``'s f32 or bf16-operand instance."""
+    if mxu_bf16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
 
 
-def _recompute_bwd(name, a_dst, a_src_win, x, adj_mask, d_out, negative_slope, index):
+band_attention_fwd.launches = band_attention_fwd.launches_bf16 = 0
+
+
+def _recompute_bwd(name, a_dst, a_src_win, x, adj_mask, d_out, negative_slope, index,
+                   mxu_bf16=None):
     """Launch ``csrc/<name>.cu``, one of the three backwards that recompute
     the softmax by the passes of ``csrc/band_bwd.cuh`` (v2's; v3's, the same;
     v1's, whose columns pass reads and writes window layout). ``x`` is x_ext
     [B, n_ext, H, C], or x_win [nB, B, W, H, C] for the window kernel, and the
     third cotangent has its shape. p, dp and dz pass between the passes as
-    ``[B, nnz, H]`` scratch. Returns ``(d a_dst, d a_src_win, d x)``."""
+    ``[B, nnz, H]`` scratch. ``mxu_bf16``: the bf16-operand instance or not,
+    for the entries that have one (None: the window kernel, which has
+    none). Returns ``(d a_dst, d a_src_win, d x)``."""
     adj_mask = _check(name, a_dst, a_src_win, x, adj_mask)
     nB, BLK, W = adj_mask.shape
     B, _, H = a_dst.shape
@@ -192,8 +282,10 @@ def _recompute_bwd(name, a_dst, a_src_win, x, adj_mask, d_out, negative_slope, i
     sp, sdz = new(B, max(nnz, 1), H), new(B, max(nnz, 1), H)
     ss = new(B, nB, H, C) if n_empty else new(1)
     vec = bops.vector_loads(x, C) and bops.vector_loads(d_out, C)
+    flag = () if mxu_bf16 is None else (int(mxu_bf16),)
     fn = getattr(_build.load(name), name)
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * (9 + len(flag)) \
+        + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         rc = fn(a_dst.data_ptr(), a_src_win.data_ptr(), x.data_ptr(), d_out.data_ptr(),
@@ -201,7 +293,7 @@ def _recompute_bwd(name, a_dst, a_src_win, x, adj_mask, d_out, negative_slope, i
                 ix.t_entry.data_ptr(), ix.t_row.data_ptr(), ix.empty_ptr.data_ptr(),
                 ix.empty_row.data_ptr(), sp.data_ptr(), sdz.data_ptr(), ss.data_ptr(),
                 d_a_dst.data_ptr(), d_a_src_win.data_ptr(), d_x.data_ptr(),
-                B, nB, BLK, W, H, C, nnz, n_empty, int(vec), float(negative_slope),
+                B, nB, BLK, W, H, C, nnz, n_empty, int(vec), *flag, float(negative_slope),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
@@ -216,6 +308,7 @@ def band_attention_bwd(
     d_out: torch.Tensor,
     negative_slope: float = 0.2,
     index: Optional[bops.BandIndex] = None,
+    mxu_bf16: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The cotangents ``(d a_dst, d a_src_win, d x_ext)`` of
     :func:`band_attention_fwd` for the output cotangent ``d_out``
@@ -230,37 +323,42 @@ def band_attention_bwd(
     warp; dz and d a_dst per row; d a_src_win per extended row. p, dp and dz
     pass between them as ``[B, nnz, H]`` scratch.
     ``band_attention_bwd.launches`` counts kernel launches (one per call: the
-    four launches of ``csrc/band_attention_bwd.cu`` are one launch of it)."""
+    four launches of ``csrc/band_attention_bwd.cu`` are one launch of it);
+    ``mxu_bf16`` launches the bf16-operand instance, counted in
+    ``launches_bf16``."""
     if bops.use_plain(x_ext):
-        return band_attention_bwd_plain(a_dst, a_src_win, x_ext, adj_mask, d_out, negative_slope)
+        return band_attention_bwd_plain(a_dst, a_src_win, x_ext, adj_mask, d_out, negative_slope,
+                                        mxu_bf16)
     out = _recompute_bwd("band_attention_bwd", a_dst, a_src_win, x_ext, adj_mask, d_out,
-                         negative_slope, index)
-    band_attention_bwd.launches += 1
+                         negative_slope, index, mxu_bf16)
+    _count(band_attention_bwd, mxu_bf16)
     return out
 
 
-band_attention_bwd.launches = 0
+band_attention_bwd.launches = band_attention_bwd.launches_bf16 = 0
 
 
 class BandAttention(torch.autograd.Function):
     """The v2 forward kernel and the backward ``bwd`` names
     (:func:`band_attention_bwd`, or :func:`band_attention_acc_bwd` for the
-    "acc" route) on CUDA tensors, or their plain versions on CPU tensors.
-    Saves its inputs only: the backward recomputes the softmax."""
+    "acc" route) on CUDA tensors, or their plain versions on CPU tensors;
+    the bf16-operand instances of both with ``mxu_bf16``. Saves its inputs
+    only: the backward recomputes the softmax."""
 
     @staticmethod
-    def forward(ctx, a_dst, a_src_win, x_ext, adj_mask, negative_slope, index, bwd):
+    def forward(ctx, a_dst, a_src_win, x_ext, adj_mask, negative_slope, index, bwd, mxu_bf16):
         ctx.save_for_backward(a_dst, a_src_win, x_ext, adj_mask)
-        ctx.negative_slope, ctx.index, ctx.bwd = negative_slope, index, bwd
-        return band_attention_fwd(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index)
+        ctx.negative_slope, ctx.index, ctx.bwd, ctx.mxu_bf16 = negative_slope, index, bwd, mxu_bf16
+        return band_attention_fwd(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index,
+                                  mxu_bf16)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, d_out):
         a_dst, a_src_win, x_ext, adj_mask = ctx.saved_tensors
         d_a_dst, d_a_src_win, d_x_ext = ctx.bwd(
-            a_dst, a_src_win, x_ext, adj_mask, d_out, ctx.negative_slope, ctx.index)
-        return d_a_dst, d_a_src_win, d_x_ext, None, None, None, None
+            a_dst, a_src_win, x_ext, adj_mask, d_out, ctx.negative_slope, ctx.index, ctx.mxu_bf16)
+        return d_a_dst, d_a_src_win, d_x_ext, None, None, None, None, None
 
 
 def band_attention(
@@ -270,12 +368,14 @@ def band_attention(
     adj_mask: torch.Tensor,
     negative_slope: float = 0.2,
     index: Optional[bops.BandIndex] = None,
+    mxu_bf16: bool = False,
 ) -> torch.Tensor:
     """Differentiable banded attention, shapes as :func:`band_attention_fwd`.
     Gradients flow to ``a_dst``, ``a_src_win`` and ``x_ext``; the mask is a
-    constant of the graph. ``index``: see :func:`band_attention_bwd`."""
+    constant of the graph. ``index``: see :func:`band_attention_bwd`;
+    ``mxu_bf16``: the bf16-operand instances, forward and backward."""
     return BandAttention.apply(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index,
-                               band_attention_bwd)
+                               band_attention_bwd, mxu_bf16)
 
 
 # ---- the streaming-softmax route (v4) ---------------------------------------
@@ -310,18 +410,27 @@ def _blocks_of(t, nB, BLK):
 
 def band_attention_flash_plain(
     a_dst: torch.Tensor, a_src_win: torch.Tensor, x_ext: torch.Tensor,
-    adj_mask: torch.Tensor, negative_slope: float = 0.2,
+    adj_mask: torch.Tensor, negative_slope: float = 0.2, mxu_bf16: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`band_attention_flash_fwd`:
     ``(out [B, n_pad, H, C], m [B, n_pad, H], Z [B, n_pad, H])`` with m the
     row maximum of the masked logits and Z the sum of ``exp(z − m)``; a row
-    with no set column has m = −1e9 and Z = W."""
+    with no set column has m = −1e9 and Z = W. ``mxu_bf16``: ``out =
+    Σ bf16(exp(z − m))·bf16(x) / Z``, Z the sum of the unrounded numerators
+    (m is the row maximum: the TPU kernel's running maximum wherever the
+    window fits its one forward chunk, as every layout the port runs
+    does)."""
     nB, BLK, W = adj_mask.shape
     B = x_ext.shape[0]
-    z, _, _ = _logits(a_dst, a_src_win, adj_mask, negative_slope)
-    m, Z = _row_stats(z)
+    z, _, on = _logits(a_dst, a_src_win, adj_mask, negative_slope)
     x_win = bops.band_windows_ext(x_ext, nB, BLK, W)
-    out = torch.einsum("nbiwh,nbwhc->nbihc", torch.exp(z - m) / Z, x_win)
+    if mxu_bf16:
+        m = z.amax(dim=3, keepdim=True)
+        e, Z, real = _bf16_weights(z, on)
+        out = _bf16_product("nbiwh,nbwhc->nbihc", e, x_win, real) / Z[:, :, :, 0, :, None]
+    else:
+        m, Z = _row_stats(z)
+        out = torch.einsum("nbiwh,nbwhc->nbihc", torch.exp(z - m) / Z, x_win)
     return (_rows_of(out, B, nB, BLK), _rows_of(m[:, :, :, 0], B, nB, BLK),
             _rows_of(Z[:, :, :, 0], B, nB, BLK))
 
@@ -329,17 +438,22 @@ def band_attention_flash_plain(
 def band_attention_flash_bwd_plain(
     a_dst: torch.Tensor, a_src_win: torch.Tensor, x_ext: torch.Tensor,
     adj_mask: torch.Tensor, m: torch.Tensor, Z: torch.Tensor, delta: torch.Tensor,
-    d_out: torch.Tensor, negative_slope: float = 0.2,
+    d_out: torch.Tensor, negative_slope: float = 0.2, mxu_bf16: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`band_attention_flash_bwd`: the weights
     rebuilt from the saved ``m``, ``Z`` as ``exp(z − m)/Z``, the softmax VJP's
-    row term taken from ``delta`` ([B, n_pad, H]), window fold included."""
+    row term taken from ``delta`` ([B, n_pad, H]), window fold included.
+    ``mxu_bf16``: d x from bf16(p)ᵀ·bf16(dO), dp from bf16(dO)·bf16(x)ᵀ."""
     nB, BLK, W = adj_mask.shape
     B = x_ext.shape[0]
     z, zpre, on = _logits(a_dst, a_src_win, adj_mask, negative_slope)
     p = torch.exp(z - _blocks_of(m, nB, BLK)[:, :, :, None, :]) \
         / _blocks_of(Z, nB, BLK)[:, :, :, None, :]
     x_win = bops.band_windows_ext(x_ext, nB, BLK, W)
+    if mxu_bf16:
+        d_a_dst, d_a_src_win, dxw = _bf16_window_bwd(p, zpre, on, on.any(dim=3, keepdim=True),
+                                                     x_win, d_out, delta, negative_slope)
+        return d_a_dst, d_a_src_win, bops.fold_windows_ext(dxw, BLK)
     do_b = _blocks_of(d_out, nB, BLK)                                 # [nB,B,BLK,H,C]
     dp = torch.einsum("nbihc,nbwhc->nbiwh", do_b, x_win)
     dz = p * (dp - _blocks_of(delta, nB, BLK)[:, :, :, None, :])
@@ -361,7 +475,7 @@ def _check_rows(fn: str, x, **rows):
 def band_attention_flash_fwd(
     a_dst: torch.Tensor, a_src_win: torch.Tensor, x_ext: torch.Tensor,
     adj_mask: torch.Tensor, negative_slope: float = 0.2,
-    index: Optional[bops.BandIndex] = None,
+    index: Optional[bops.BandIndex] = None, mxu_bf16: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Shapes as :func:`band_attention_fwd`; returns ``(out, m, Z)``, the row
     statistics [B, n_pad, H] that :func:`band_attention_flash_bwd` takes. No
@@ -373,9 +487,12 @@ def band_attention_flash_fwd(
     model's path), else built from the mask's values. The kernel is v2's row
     walk (``csrc/band_rowwalk.cuh``) writing m and Z beside out.
     ``band_attention_flash_fwd.launches`` counts kernel launches (one per
-    call: the window-mean pre-pass and the row pass are one launch of it)."""
+    call: the window-mean pre-pass and the row pass are one launch of it);
+    ``mxu_bf16`` launches the bf16-operand instance, counted in
+    ``launches_bf16``."""
     if bops.use_plain(x_ext):
-        return band_attention_flash_plain(a_dst, a_src_win, x_ext, adj_mask, negative_slope)
+        return band_attention_flash_plain(a_dst, a_src_win, x_ext, adj_mask, negative_slope,
+                                          mxu_bf16)
     name = "band_attention_flash_fwd"
     adj_mask = _check(name, a_dst, a_src_win, x_ext, adj_mask)
     nB, BLK, W = adj_mask.shape
@@ -387,28 +504,28 @@ def band_attention_flash_fwd(
     m, Z = (torch.empty((B, nB * BLK, H), dtype=torch.float32, device=dev) for _ in range(2))
     mean = torch.empty((B, nB, H * C) if n_empty else (1,), dtype=torch.float32, device=dev)
     fn = _build.load("band_attention_flash").band_attention_flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         rc = fn(a_dst.data_ptr(), a_src_win.data_ptr(), x_ext.data_ptr(),
                 ix.row_ptr.data_ptr(), ix.col.data_ptr(), ix.empty_ptr.data_ptr(),
                 mean.data_ptr(), out.data_ptr(), m.data_ptr(), Z.data_ptr(),
-                B, nB, BLK, W, H, C, n_empty, int(bops.vector_loads(x_ext, C)),
+                B, nB, BLK, W, H, C, n_empty, int(bops.vector_loads(x_ext, C)), int(mxu_bf16),
                 float(negative_slope), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"band_attention_flash_fwd: kernel launch failed with CUDA error {rc}")
-    band_attention_flash_fwd.launches += 1
+    _count(band_attention_flash_fwd, mxu_bf16)
     return out, m, Z
 
 
-band_attention_flash_fwd.launches = 0
+band_attention_flash_fwd.launches = band_attention_flash_fwd.launches_bf16 = 0
 
 
 def band_attention_flash_bwd(
     a_dst: torch.Tensor, a_src_win: torch.Tensor, x_ext: torch.Tensor,
     adj_mask: torch.Tensor, m: torch.Tensor, Z: torch.Tensor, delta: torch.Tensor,
     d_out: torch.Tensor, negative_slope: float = 0.2,
-    index: Optional[bops.BandIndex] = None,
+    index: Optional[bops.BandIndex] = None, mxu_bf16: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The cotangents ``(d a_dst, d a_src_win, d x_ext)`` of
     :func:`band_attention_flash_fwd` from its saved ``m``, ``Z``, the row term
@@ -423,10 +540,11 @@ def band_attention_flash_bwd(
     extended row. p, dp and dz pass between them as ``[B, nnz, H]`` scratch.
     ``band_attention_flash_bwd.launches`` counts kernel launches (one per
     call: the passes of ``csrc/band_attention_flash_bwd.cu`` are one launch
-    of it)."""
+    of it); ``mxu_bf16`` launches the bf16-operand instance, counted in
+    ``launches_bf16``."""
     if bops.use_plain(x_ext):
         return band_attention_flash_bwd_plain(a_dst, a_src_win, x_ext, adj_mask, m, Z, delta,
-                                              d_out, negative_slope)
+                                              d_out, negative_slope, mxu_bf16)
     name = "band_attention_flash_bwd"
     adj_mask = _check(name, a_dst, a_src_win, x_ext, adj_mask)
     nB, BLK, W = adj_mask.shape
@@ -443,7 +561,7 @@ def band_attention_flash_bwd(
     ss = new(B, nB, H, C) if n_empty else new(1)
     vec = bops.vector_loads(x_ext, C) and bops.vector_loads(d_out, C)
     fn = _build.load(name).band_attention_flash_bwd
-    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         rc = fn(a_dst.data_ptr(), a_src_win.data_ptr(), x_ext.data_ptr(), m.data_ptr(),
@@ -452,29 +570,31 @@ def band_attention_flash_bwd(
                 ix.t_row.data_ptr(), ix.empty_ptr.data_ptr(), ix.empty_row.data_ptr(),
                 sp.data_ptr(), sdz.data_ptr(), ss.data_ptr(),
                 d_a_dst.data_ptr(), d_a_src_win.data_ptr(), d_x_ext.data_ptr(),
-                B, nB, BLK, W, H, C, nnz, n_empty, int(vec), float(negative_slope),
+                B, nB, BLK, W, H, C, nnz, n_empty, int(vec), int(mxu_bf16), float(negative_slope),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    band_attention_flash_bwd.launches += 1
+    _count(band_attention_flash_bwd, mxu_bf16)
     return d_a_dst, d_a_src_win, d_x_ext
 
 
-band_attention_flash_bwd.launches = 0
+band_attention_flash_bwd.launches = band_attention_flash_bwd.launches_bf16 = 0
 
 
 class BandAttentionFlash(torch.autograd.Function):
     """Forward and backward through the streaming-softmax kernels (CUDA
     tensors) or their plain versions (CPU tensors). Saves its inputs, its
     output and the row statistics m, Z; the backward takes no row maximum or
-    sum again."""
+    sum again. ``mxu_bf16``: the bf16-operand instances, forward and
+    backward (delta from the bf16 forward's out, as the TPU wrapper takes
+    it)."""
 
     @staticmethod
-    def forward(ctx, a_dst, a_src_win, x_ext, adj_mask, negative_slope, index):
+    def forward(ctx, a_dst, a_src_win, x_ext, adj_mask, negative_slope, index, mxu_bf16):
         out, m, Z = band_attention_flash_fwd(a_dst, a_src_win, x_ext, adj_mask, negative_slope,
-                                             index)
+                                             index, mxu_bf16)
         ctx.save_for_backward(a_dst, a_src_win, x_ext, adj_mask, m, Z, out)
-        ctx.negative_slope, ctx.index = negative_slope, index
+        ctx.negative_slope, ctx.index, ctx.mxu_bf16 = negative_slope, index, mxu_bf16
         return out
 
     @staticmethod
@@ -483,18 +603,21 @@ class BandAttentionFlash(torch.autograd.Function):
         a_dst, a_src_win, x_ext, adj_mask, m, Z, out = ctx.saved_tensors
         delta = (d_out * out).sum(dim=-1)                 # [B, n_pad, H]
         d_a_dst, d_a_src_win, d_x_ext = band_attention_flash_bwd(
-            a_dst, a_src_win, x_ext, adj_mask, m, Z, delta, d_out, ctx.negative_slope, ctx.index)
-        return d_a_dst, d_a_src_win, d_x_ext, None, None, None
+            a_dst, a_src_win, x_ext, adj_mask, m, Z, delta, d_out, ctx.negative_slope, ctx.index,
+            ctx.mxu_bf16)
+        return d_a_dst, d_a_src_win, d_x_ext, None, None, None, None
 
 
 def band_attention_flash(
     a_dst: torch.Tensor, a_src_win: torch.Tensor, x_ext: torch.Tensor,
     adj_mask: torch.Tensor, negative_slope: float = 0.2,
-    index: Optional[bops.BandIndex] = None,
+    index: Optional[bops.BandIndex] = None, mxu_bf16: bool = False,
 ) -> torch.Tensor:
     """Differentiable banded attention through the streaming-softmax route,
-    shapes and gradients as :func:`band_attention`."""
-    return BandAttentionFlash.apply(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index)
+    shapes and gradients as :func:`band_attention`; ``mxu_bf16``: the
+    bf16-operand instances."""
+    return BandAttentionFlash.apply(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index,
+                                    mxu_bf16)
 
 
 # ---- the materialised-window route (v1) --------------------------------------
@@ -631,16 +754,18 @@ def band_attention_window(
 def band_attention_acc_bwd_plain(
     a_dst: torch.Tensor, a_src_win: torch.Tensor, x_ext: torch.Tensor,
     adj_mask: torch.Tensor, d_out: torch.Tensor, negative_slope: float = 0.2,
+    mxu_bf16: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`band_attention_acc_bwd`: the same
     function as :func:`band_attention_bwd_plain` (v3's gradients are v2's)."""
-    return band_attention_bwd_plain(a_dst, a_src_win, x_ext, adj_mask, d_out, negative_slope)
+    return band_attention_bwd_plain(a_dst, a_src_win, x_ext, adj_mask, d_out, negative_slope,
+                                    mxu_bf16)
 
 
 def band_attention_acc_bwd(
     a_dst: torch.Tensor, a_src_win: torch.Tensor, x_ext: torch.Tensor,
     adj_mask: torch.Tensor, d_out: torch.Tensor, negative_slope: float = 0.2,
-    index: Optional[bops.BandIndex] = None,
+    index: Optional[bops.BandIndex] = None, mxu_bf16: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The cotangents ``(d a_dst, d a_src_win, d x_ext)`` of
     :func:`band_attention_fwd` for ``d_out`` [B, n_pad, H, C], written by
@@ -652,27 +777,28 @@ def band_attention_acc_bwd(
     the kernel (or raises); on CPU tensors it runs
     :func:`band_attention_acc_bwd_plain`. ``band_attention_acc_bwd.launches``
     counts kernel launches (one per call: the four launches of the source are
-    one launch of it)."""
+    one launch of it); ``mxu_bf16`` launches the bf16-operand instance,
+    counted in ``launches_bf16``."""
     if bops.use_plain(x_ext):
         return band_attention_acc_bwd_plain(a_dst, a_src_win, x_ext, adj_mask, d_out,
-                                            negative_slope)
+                                            negative_slope, mxu_bf16)
     out = _recompute_bwd("band_attention_acc_bwd", a_dst, a_src_win, x_ext, adj_mask, d_out,
-                         negative_slope, index)
-    band_attention_acc_bwd.launches += 1
+                         negative_slope, index, mxu_bf16)
+    _count(band_attention_acc_bwd, mxu_bf16)
     return out
 
 
-band_attention_acc_bwd.launches = 0
+band_attention_acc_bwd.launches = band_attention_acc_bwd.launches_bf16 = 0
 
 
 def band_attention_acc(
     a_dst: torch.Tensor, a_src_win: torch.Tensor, x_ext: torch.Tensor,
     adj_mask: torch.Tensor, negative_slope: float = 0.2,
-    index: Optional[bops.BandIndex] = None,
+    index: Optional[bops.BandIndex] = None, mxu_bf16: bool = False,
 ) -> torch.Tensor:
     """Differentiable banded attention through the sliding-accumulator route:
     v2's forward kernel, as the reference's v3 reuses v2, and the owner-row
     backward :func:`band_attention_acc_bwd` (v2's passes); shapes and gradients as
-    :func:`band_attention`."""
+    :func:`band_attention`; ``mxu_bf16``: the bf16-operand instances."""
     return BandAttention.apply(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index,
-                               band_attention_acc_bwd)
+                               band_attention_acc_bwd, mxu_bf16)

@@ -4,6 +4,7 @@
     python tools/parity_train_export.py --network synthctown # GATRes-small, dense
     python tools/parity_train_export.py --network meganet --blocks 4   # GATRes-large width, banded
         [--out PATH] [--path pallas|xla] [--preset gatres_small|gatres_large] [--seed N]
+        [--attn-dtype float32|bfloat16]
 
 Runs on the CPU, batch 1, criterion mse, ``NormStats(znorm, mean 50, std 10)``,
 one explicit node mask (mask_rate 0.95, drawn with numpy from ``--seed``).
@@ -46,6 +47,14 @@ optimizer it records
   mask: the loss at each step (``step_losses``), the loss after the third
   (``loss_after``) and the parameters of ``lin0``, ``lin1`` and the first and
   last block (``p3_<state_dict key>``).
+
+``--attn-dtype bfloat16`` builds the model with ``attn_dtype=bfloat16``, as
+``apply_model_knobs`` sets it: on bigtown and meganet every GATConv (H·C 256
+and 128) then runs its band kernel's bf16-operand instance (``mxu_bf16``),
+forward and backward. It writes ``parity_train_<network>_bf16.npz``, which
+holds ``attn_dtype`` and, on bigtown too, the serving forward as meganet's
+file holds it (``x_in``, ``ours_out``, ``block_absmax``, ``block_mean``):
+the activations of 25 blocks would not fit a small file.
 
 ``--path pallas`` (default) runs the Pallas kernels in interpret mode on the
 CPU: on bigtown the v2 band attention and the band SpMM as ``template.batch``
@@ -143,10 +152,13 @@ def main() -> int:
     ap.add_argument("--path", choices=("pallas", "xla"), default="pallas")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--attn-dtype", choices=("float32", "bfloat16"), default="float32")
     args = ap.parse_args()
     dense = args.network == "synthctown"
     mega = args.network == "meganet"
-    out_path = args.out or os.path.join(ROOT, "artifacts", f"parity_train_{args.network}.npz")
+    bf16 = args.attn_dtype == "bfloat16"
+    out_path = args.out or os.path.join(
+        ROOT, "artifacts", f"parity_train_{args.network}{'_bf16' if bf16 else ''}.npz")
     inp = args.inp or os.path.join(ROOT, "inputs", f"{args.network}.inp")
     if dense and args.path == "pallas":
         os.environ["GNN_TPU_FUSED_FACTORED"] = "1"      # read by GraphTemplate.batch
@@ -192,7 +204,8 @@ def main() -> int:
     kept_after_3 = ("lin0.", "lin1.", "blocks.0.", f"blocks.{last}.")
     cfg = TrainConfig(batch_size=1, donate_state=False)          # the defaults otherwise
     stats = NormStats(norm_type="znorm", mean=50.0, std=10.0)
-    model = GATRes(num_blocks=int(d["num_blocks"]), channels=int(d["nc"]), attn_impl=attn_impl)
+    model = GATRes(num_blocks=int(d["num_blocks"]), channels=int(d["nc"]), attn_impl=attn_impl,
+                   attn_dtype=jnp.bfloat16 if bf16 else None)
     trainer = Trainer(model, cfg, stats, tpl)
     params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), flax_tree_from_npz(d))
     graph = trainer._batched_graph(tpl, 1)
@@ -236,17 +249,20 @@ def main() -> int:
     t0 = time.time()
     (loss, mets), grads = value_and_grad(params)
     loss = float(loss)
-    print(f"path {args.path}: loss {loss:.8g} in {time.time() - t0:.1f} s "
-          f"(first call, traced and compiled)")
+    print(f"path {args.path}, attn_dtype {args.attn_dtype}: loss {loss:.8g} in "
+          f"{time.time() - t0:.1f} s (first call, traced and compiled)")
     payload = {
         "path": np.bytes_(args.path.encode()), "mask": mask, "mask_rate": np.float64(cfg.mask_rate),
         "n_masked": np.int64(k), "loss": np.float64(loss),
         "stats_mean": np.float64(stats.mean), "stats_std": np.float64(stats.std),
         "lr": np.float64(cfg.lr), "weight_decay": np.float64(cfg.weight_decay),
+        "attn_dtype": np.bytes_(args.attn_dtype.encode()),
     }
-    if dense or mega:
-        # the weights, the snapshot and the serving forward of the masked input
-        payload.update(d)
+    if dense or mega or bf16:
+        # the weights (bigtown: those of --weights), the snapshot and the
+        # serving forward of the masked input
+        if dense or mega:
+            payload.update(d)
         x_in = jnp.where(maskp[:, None], 0.0, xp)
         out, state = jax.jit(lambda p: model.apply(
             p, x_in, graph, capture_intermediates=True, mutable=["intermediates"]))(params)
@@ -257,7 +273,7 @@ def main() -> int:
         for i, a in enumerate(acts):
             payload[f"ours_act_block_{i}"] = np.asarray(a)
         payload["preset"] = np.bytes_((args.preset or "gatres_small").encode())
-    if mega:
+    if mega or (bf16 and not dense):
         # original node order; per-block statistics stand in for the activations
         payload["x_in"] = np.asarray(graph.unpack_nodes(x_in, n))
         payload["ours_out"] = np.asarray(graph.unpack_nodes(out, n))
