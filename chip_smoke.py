@@ -8,9 +8,11 @@ Phases (any failure exits non-zero; none is caught):
 1. Require CUDA; print the card's name and power limit; turn TF32 off.
 2. Build the hand-written kernels (``csrc/*.cu``) for sm_90a; print each
    kernel's registers and spills (``-Xptxas -v``), instance by instance, and
-   fail unless every f32 band-attention instance has the registers and
-   spills recorded before the bf16-operand switch (which must leave them as
-   they were).
+   fail unless every band-attention instance, f32 and bf16, has its recorded
+   registers and spills: the f32 ones those from before the bf16-operand
+   switch, the row walk's as they were before its window layout (which must
+   leave them as they were), the window forward's and the dense softmax
+   backward's as they were first built.
 3. Hold each kernel, forward and backward, against its plain PyTorch version
    on the card, at the bigtown band layout (B 1 and B 4) and at small ragged
    shapes (W not a multiple of 32, fully masked rows, H·C 64, C past one
@@ -74,7 +76,9 @@ Phases (any failure exits non-zero; none is caught):
     the factored model with the same weights.
 13. Times of the four dense kernels at B 32 beside their plain versions, the
     einsum formulation the layer would otherwise run (the factored pair's,
-    forward and backward), and their byte bounds.
+    forward and backward), and their byte bounds; the softmax backward (v2's
+    band backward on one block) by pass, and the softmax pair's device time
+    in a GATRes-small step (15 launches at conv1's shape, 15 at conv2's).
 
 14. The banded path at 23k nodes: meganet (``simgen.netgen.make_mega``, made
     from its seed; BLK 256, W 1920). The streaming-softmax band attention
@@ -84,9 +88,11 @@ Phases (any failure exits non-zero; none is caught):
     layout at the same batches (phase 19 holds both at their serving batches);
     both also at small ragged shapes (fully masked rows, rows of more than 32
     entries, C past one tile); a third of the nodes zeroed; atol and rtol 1e-4.
-    The window backward also against v2's backward on the x_ext its windows
-    were cut from: its folded d x_win within 1e-4 of v2's d x_ext, and whether
-    its d a_dst and d a_src_win equal v2's bit for bit is printed.
+    The window pair also against v2's on the x_ext its windows were cut from:
+    the forward (v2's row walk reading x_win) equal to v2's bit for bit at
+    every shape, or the run fails; the backward's folded d x_win within 1e-4
+    of v2's d x_ext, and whether its d a_dst and d a_src_win equal v2's bit
+    for bit is printed.
 15. Routing: ``batch()`` with no argument sends meganet to ``"flash"`` and
     bigtown to ``"dma"``.
 16. The meganet fixture ``artifacts/parity_train_meganet.npz`` (GATRes-large
@@ -119,8 +125,9 @@ Phases (any failure exits non-zero; none is caught):
     ``torch.sparse.mm``, its backward at B 8 and B 2 beside
     ``torch.sparse.mm`` on the transposed CSR, and the launch-weighted device
     time of both backwards in a B 2 step; the window pair on bigtown at B 32,
-    the backward beside v2's on the same x_ext, both by pass, and the window
-    columns instances' registers and spills.
+    each beside v2's kernel of the same direction on the same x_ext (device
+    time too; the backwards by pass), and the window columns instances'
+    registers and spills.
 
 20. The backward of the sliding-accumulator route (``band_attention_acc_bwd``,
     v2's passes under their own entry) against its plain version on the
@@ -766,8 +773,9 @@ def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
              a_bytes + wide(4, D) + ix_bytes["bwd"], bs * H * nnz * (D + 1)),
         ):
             t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
-            r = dict(name=name, H=H, C=C, ms=cuda_ms(fn, 5, 50), device_ms=device_ms(fn),
-                     plain_ms=cuda_ms(plain, 2, 5),
+            split = device_split(fn, 20)
+            r = dict(name=name, H=H, C=C, ms=cuda_ms(fn, 5, 50),
+                     device_ms=sum(ms for _, ms in split) or None, plain_ms=cuda_ms(plain, 2, 5),
                      einsum_ms=cuda_ms(einsum, 2, 5) if einsum else None, library_ms=None,
                      bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
                      bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -778,11 +786,21 @@ def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
                   f"wrapper), {dms} on the device, plain {r['plain_ms']:.4f} ms{ein}, library none "
                   f"(no PyTorch call computes a batched gate or mask over an n×n pattern), bound "
                   f"{r['bound_ms']:.5f} ms ({r['bound_by']}, {nbytes / 1e6:.2f} MB)")
+            if name == "fused_attention_bwd":     # the band backward's passes on one block
+                print("    device ms by pass: " + ", ".join(f"{k} {ms:.4f}" for k, ms in split))
+    # the softmax pair's launches in a GATRes-small step: 15 at conv1's shape, 15 at conv2's
+    soft_dev = {}
+    for name in ("fused_attention", "fused_attention_bwd"):
+        dev_ms = [r["device_ms"] for r in rows if r["name"] == name and r["C"] == 32]
+        soft_dev[name] = None if None in dev_ms else 15 * sum(dev_ms)
+        print(f"  {name} in a GATRes-small softmax step: 15 x conv1 + 15 x conv2 = "
+              f"{fmt_ms(soft_dev[name])} ms of device time")
     return dict(
         rows=rows, nnz=nnz, n=n, serve_launches=serve_launches, serve_ms=serve_ms,
         fit_launches=fit_launches, train_ms=train_ms, train_peak=train_peak, soft_ms=soft_ms,
         soft_launches={"fused_attention": soft_fwd["fused_attention"],
-                       "fused_attention_bwd": soft_step_launches["fused_attention_bwd"]})
+                       "fused_attention_bwd": soft_step_launches["fused_attention_bwd"]},
+        soft_dev=soft_dev)
 
 
 
@@ -861,18 +879,24 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
         return a_dst, a_src, x_ext, d_out, m, Z, delta
 
     win_da_equal = []                            # the window backward's d a's equal v2's
+    win_fwd_equal = []                           # shapes where the window forward equals v2's
 
     def check_window(tag, msk, index, B, H, C, verbose=False):
-        """The window pair against its plain versions; the backward also
-        against v2's on the x_ext the windows were cut from: the same d a_dst
-        and d a_src_win (bit for bit, recorded), and d x_ext the fold of
-        d x_win (1e-4)."""
+        """The window pair against its plain versions; the forward also
+        against v2's on the x_ext the windows were cut from, bit for bit (one
+        row walk: the run fails otherwise); the backward against v2's there:
+        the same d a_dst and d a_src_win (bit for bit, recorded), and d x_ext
+        the fold of d x_win (1e-4)."""
         a_dst, a_src, x_ext, d_out = operands(msk, B, H, C)
         x_win = bops.band_windows_ext(x_ext, *msk.shape)
         label = f"{tag} B{B} H{H} C{C}"
-        held("band_attention_window", f"band_attention_window {label}",
-             ba.band_attention_window_fwd(a_dst, a_src, x_win, msk, 0.2, index),
+        win = ba.band_attention_window_fwd(a_dst, a_src, x_win, msk, 0.2, index)
+        held("band_attention_window", f"band_attention_window {label}", win,
              ba.band_attention_window_plain(a_dst, a_src, x_win, msk, 0.2), verbose)
+        check_equal(f"band_attention_window {label} vs band_attention_fwd on the x_ext its windows "
+                    f"were cut from", win, ba.band_attention_fwd(a_dst, a_src, x_ext, msk, 0.2, index))
+        win_fwd_equal.append(label)
+        del win
         got = ba.band_attention_window_bwd(a_dst, a_src, x_win, msk, d_out, 0.2, index)
         ref = ba.band_attention_window_bwd_plain(a_dst, a_src, x_win, msk, d_out, 0.2)
         for part, g, r in zip(("d a_dst", "d a_src_win", "d x_win"), got, ref):
@@ -900,6 +924,8 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
             check_window("ragged", m_t, None, B, H, C)
     torch.cuda.synchronize()
     print("  ragged shapes: all within atol/rtol 1e-4")
+    print(f"  band_attention_window's output equal to band_attention_fwd's on the x_ext the windows "
+          f"were cut from, bit for bit, at all {len(win_fwd_equal)} shapes (padded rows included)")
     print(f"  band_attention_window_bwd's d a_dst and d a_src_win equal band_attention_bwd's on the "
           f"x_ext the windows were cut from, bit for bit, at every shape: {all(win_da_equal)} "
           f"({sum(win_da_equal)} of {len(win_da_equal)})")
@@ -1372,12 +1398,20 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
         B = wbs
         a_dst, a_src, x_win, d_out, x_ext = check_window("bigtown", bmask, bix, B, H, C)
         small, wide_ = 4 * B * bn_pad * H, 4 * B * H * C
+        # beside it v2's forward on the x_ext the windows were cut from: the same row
+        # walk, reading x_ext[b, blk*BLK + j] where the window forward reads x_win[blk, b, j]
+        win_fwd = lambda: ba.band_attention_window_fwd(a_dst, a_src, x_win, bmask, 0.2, bix)  # noqa: E731
+        v2_fwd = lambda: ba.band_attention_fwd(a_dst, a_src, x_ext, bmask, 0.2, bix)  # noqa: E731
         bound(dict(
             name="band_attention_window", net="bigtown", B=B, hc=H * C,
-            ms=cuda_ms(lambda: ba.band_attention_window_fwd(a_dst, a_src, x_win, bmask, 0.2, bix), 3, 20),
+            ms=cuda_ms(win_fwd, 3, 20), device_ms=device_ms(win_fwd),
+            v2_ms=cuda_ms(v2_fwd, 3, 20), v2_device_ms=device_ms(v2_fwd),
             plain_ms=cuda_ms(lambda: ba.band_attention_window_plain(a_dst, a_src, x_win, bmask, 0.2), 1, 3),
             bytes=small + 4 * B * H * cells + wide_ * (cells + bn_pad) + 4 * (bn_pad + 1 + bix.nnz),
             ops=B * H * bix.nnz * (2 * C + 6)))
+        r = rows[-1]
+        print(f"  band_attention_window bigtown B {B} H·C {H * C}: device {fmt_ms(r['device_ms'])} ms; "
+              f"v2's forward on the same x_ext {r['v2_ms']:.4f} ms (device {fmt_ms(r['v2_device_ms'])})")
         # the backward writes both window cotangents densely: every cell once; beside
         # it v2's backward on the x_ext the windows were cut from (the same passes
         # with the column walk in extended layout)
@@ -1405,6 +1439,7 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
           + columns_registers(big["ptxas"].get("band_attention_window_bwd", ())))
     return dict(rows=rows, ms_b32=ms_b32, v2_ms=v2_ms, spmm_b8=spmm_b8, spmm_bwd=spmm_bwd,
                 window_b8=window_b8, window_da_equal=all(win_da_equal),
+                window_fwd_equal=len(win_fwd_equal),
                 serve_launches=serve_launches,
                 serve_ms=serve_ms,
                 serve_batch=bs, fit_launches=fit_launches, step_launches=step_launches,
@@ -2047,22 +2082,31 @@ def dense_walk_phase(dev, card, held, reset_launches, read_launches, counts, ptx
 
 # the f32 band-attention instances as they compiled before the bf16-operand switch
 # (kBf16) existed, read from -Xptxas -v on an NVIDIA H100 80GB HBM3: registers, stack
-# bytes, spill stores, spill loads. kBf16 adds a last template argument; the f32
-# instances must compile to exactly these.
+# bytes, spill stores, spill loads. kBf16 adds a last template argument, the row
+# walk's window layout (kWindow) the one before it; the f32 instances must compile
+# to exactly these. The window forward's row walk and the dense softmax backward
+# (the band backward's passes on one block) are recorded as they first compiled.
 F32_BAND_INSTANCES = {
     "band_attention": {
-        "band_rowwalk_kernel<2, false, false, false>": (64, 96, 108, 180),
-        "band_rowwalk_kernel<2, true, false, false>": (64, 80, 88, 104),
-        "band_rowwalk_kernel<1, false, false, false>": (64, 24, 24, 24),
-        "band_rowwalk_kernel<1, true, false, false>": (64, 24, 20, 20),
-        "window_mean_kernel": (32, 0, 0, 0),
+        "band_rowwalk_kernel<2, false, false, false, false>": (64, 96, 108, 180),
+        "band_rowwalk_kernel<2, true, false, false, false>": (64, 80, 88, 104),
+        "band_rowwalk_kernel<1, false, false, false, false>": (64, 24, 24, 24),
+        "band_rowwalk_kernel<1, true, false, false, false>": (64, 24, 20, 20),
+        "window_mean_kernel<false>": (32, 0, 0, 0),
     },
     "band_attention_flash": {
-        "band_rowwalk_kernel<2, false, true, false>": (64, 96, 104, 184),
-        "band_rowwalk_kernel<2, true, true, false>": (64, 72, 80, 104),
-        "band_rowwalk_kernel<1, false, true, false>": (64, 8, 4, 4),
-        "band_rowwalk_kernel<1, true, true, false>": (64, 8, 4, 4),
-        "window_mean_kernel": (32, 0, 0, 0),
+        "band_rowwalk_kernel<2, false, true, false, false>": (64, 96, 104, 184),
+        "band_rowwalk_kernel<2, true, true, false, false>": (64, 72, 80, 104),
+        "band_rowwalk_kernel<1, false, true, false, false>": (64, 8, 4, 4),
+        "band_rowwalk_kernel<1, true, true, false, false>": (64, 8, 4, 4),
+        "window_mean_kernel<false>": (32, 0, 0, 0),
+    },
+    "band_attention_window": {
+        "band_rowwalk_kernel<2, false, false, true, false>": (64, 96, 104, 164),
+        "band_rowwalk_kernel<2, true, false, true, false>": (64, 80, 84, 108),
+        "band_rowwalk_kernel<1, false, false, true, false>": (64, 24, 24, 24),
+        "band_rowwalk_kernel<1, true, false, true, false>": (64, 24, 24, 24),
+        "window_mean_kernel<true>": (32, 0, 0, 0),
     },
     **{src: {
         "columns_kernel<2, true, true, false, false>": (80, 16, 12, 24),
@@ -2075,7 +2119,8 @@ F32_BAND_INSTANCES = {
         **({"rows_kernel": (40, 0, 0, 0), "weights_kernel": (40, 0, 0, 0)}
            if src == "band_attention_flash_bwd" else
            {"rows_kernel": (32, 8, 4, 4), "weights_kernel<false>": (32, 0, 0, 0)}),
-    } for src in ("band_attention_bwd", "band_attention_acc_bwd", "band_attention_flash_bwd")},
+    } for src in ("band_attention_bwd", "band_attention_acc_bwd", "band_attention_flash_bwd",
+                  "fused_attention_bwd")},
     "band_attention_window_bwd": {
         "columns_kernel<2, true, true, true, false>": (80, 40, 48, 56),
         "columns_kernel<2, false, false, true, false>": (80, 224, 284, 484),
@@ -2086,6 +2131,32 @@ F32_BAND_INSTANCES = {
         "rows_kernel": (32, 8, 4, 4), "weights_kernel<false>": (32, 0, 0, 0),
         "cells_kernel": (38, 0, 0, 0), "empties_kernel": (32, 0, 0, 0),
     },
+}
+# the bf16-operand instances of the same sources, held like the f32 ones (read on an
+# NVIDIA H100 80GB HBM3 after the window layout was added to the row walk; v2's and
+# v4's NV 2 float4 row walks at the spills recorded when the instances were added)
+BF16_BAND_INSTANCES = {
+    "band_attention": {
+        "band_rowwalk_kernel<2, false, false, false, true>": (64, 104, 120, 212),
+        "band_rowwalk_kernel<2, true, false, false, true>": (64, 88, 96, 164),
+        "band_rowwalk_kernel<1, false, false, false, true>": (64, 48, 48, 44),
+        "band_rowwalk_kernel<1, true, false, false, true>": (64, 40, 40, 40),
+    },
+    "band_attention_flash": {
+        "band_rowwalk_kernel<2, false, true, false, true>": (64, 112, 116, 276),
+        "band_rowwalk_kernel<2, true, true, false, true>": (64, 72, 64, 144),
+        "band_rowwalk_kernel<1, false, true, false, true>": (64, 56, 52, 52),
+        "band_rowwalk_kernel<1, true, true, false, true>": (64, 32, 32, 36),
+    },
+    **{src: {
+        "columns_kernel<2, true, true, false, true>": (80, 8, 8, 16),
+        "columns_kernel<2, false, false, false, true>": (80, 136, 152, 308),
+        "columns_kernel<2, true, false, false, true>": (80, 8, 8, 8),
+        "columns_kernel<1, true, true, false, true>": (64, 40, 40, 60),
+        "columns_kernel<1, false, false, false, true>": (64, 120, 132, 260),
+        "columns_kernel<1, true, false, false, true>": (64, 40, 40, 64),
+        **({} if src == "band_attention_flash_bwd" else {"weights_kernel<true>": (40, 0, 0, 0)}),
+    } for src in ("band_attention_bwd", "band_attention_acc_bwd", "band_attention_flash_bwd")},
 }
 # the bf16-operand instances: counter name → (the source, and the kernel of ``main``'s
 # wrappers, that holds it; the line of the Pallas program it replaces, built with
@@ -2099,12 +2170,11 @@ BF16_INSTANCES = {
 }
 
 
-def check_f32_instances(ptxas) -> list:
-    """Phase 2: every f32 band-attention instance at its recorded registers
-    and spills (``F32_BAND_INSTANCES``), or the run fails. Returns the bf16
-    instances' rows of the same sources."""
-    bf16 = []
-    for src, ref in F32_BAND_INSTANCES.items():
+def check_band_instances(ptxas) -> list:
+    """Phase 2: every band-attention instance, f32 and bf16, at its recorded
+    registers and spills (``F32_BAND_INSTANCES``, ``BF16_BAND_INSTANCES``),
+    or the run fails. Returns the bf16 instances' rows."""
+    for src, ref in [*F32_BAND_INSTANCES.items(), *BF16_BAND_INSTANCES.items()]:
         got = {fn: tuple(v) for fn, *v in ptxas.get(src, ())}
         if not got:
             raise SystemExit(f"FAIL {src} was not built in this run: its registers were not read")
@@ -2112,10 +2182,7 @@ def check_f32_instances(ptxas) -> list:
             if got.get(fn) != want:
                 raise SystemExit(f"FAIL {src}: {fn} {got.get(fn)} (registers, stack, spill stores, "
                                  f"spill loads) against the recorded {want}")
-        bf16 += [(src, fn, *v) for fn, v in got.items()
-                 if fn.endswith(", true>") and fn.startswith(("band_rowwalk", "columns"))
-                 or fn == "weights_kernel<true>"]
-    return bf16
+    return [(src, fn, *v) for src, ref in BF16_BAND_INSTANCES.items() for fn, v in ref.items()]
 
 
 def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, counts, big,
@@ -2692,10 +2759,10 @@ def main() -> int:
     for name, table in ptxas.items():
         for fn, regs, stack, st, ld in table:
             print(f"  {name}: {fn}: {regs} registers, {stack} bytes stack, spill {st} / {ld} bytes")
-    bf16_regs = check_f32_instances(ptxas)
-    print(f"  every f32 band-attention instance at its recorded registers and spills "
-          f"({sum(map(len, F32_BAND_INSTANCES.values()))} kernels in "
-          f"{len(F32_BAND_INSTANCES)} sources); the bf16-operand instances: "
+    bf16_regs = check_band_instances(ptxas)
+    print(f"  every band-attention instance at its recorded registers and spills "
+          f"({sum(map(len, F32_BAND_INSTANCES.values()))} f32 kernels in "
+          f"{len(F32_BAND_INSTANCES)} sources, {len(bf16_regs)} bf16); the bf16-operand instances: "
           + "; ".join(f"{src} {fn} {regs} registers, spill {st} / {ld}"
                       for src, fn, regs, _, st, ld in bf16_regs))
 
@@ -3237,6 +3304,8 @@ def main() -> int:
             "max_abs_err": max_err[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "device_ms": r["device_ms"], "einsum_ms": r["einsum_ms"],
+            **({"launch_weighted_device_ms_small_step": dense["soft_dev"][name]}
+               if name in dense["soft_dev"] else {}),
             "shape": f"B 32, n {dense['n']}, nonzeros {dense['nnz']}, H 2, C 32",
             "by_shape": {f"H{h} C{c}": {k: q[k] for k in ("ms", "device_ms", "plain_ms", "einsum_ms",
                                                           "bound_ms", "bytes")}
@@ -3276,6 +3345,9 @@ def main() -> int:
                 k: [{"serve_b32": a, "step_b8": b} for a, b in v]
                 for k, v in mega["route_ms"].items()}}),
             **({"ms_b32": mega["ms_b32"][name]} if flash else {}),
+            **({"device_ms": r["device_ms"], "v2_ms_same_inputs": r["v2_ms"],
+                "bit_equal_to_band_attention_fwd_shapes": mega["window_fwd_equal"]}
+               if name == "band_attention_window" else {}),
             **({"device_ms_b8": mega["window_b8"],
                 "launch_weighted_device_ms_b8_step": step_device_ms(mega["window_b8"]),
                 "d_a_bit_equal_to_band_attention_bwd": mega["window_da_equal"]}

@@ -1,7 +1,9 @@
 // The backward that recomputes the softmax, as three band-attention routes
 // run it: v2 (csrc/band_attention_bwd.cu), v3 (csrc/band_attention_acc_bwd.cu,
 // the same function) and v1 (csrc/band_attention_window_bwd.cu, x and d x in
-// window layout). With z_j = a_dst[b,i,h] + a_src_win[blk,b,j,h],
+// window layout); and the dense softmax backward (csrc/fused_attention_bwd.cu),
+// v2's function on a band of one block (nB 1, BLK = W = n). With
+// z_j = a_dst[b,i,h] + a_src_win[blk,b,j,h],
 // p = softmax_j(LeakyReLU(z_j)) over the set columns of row i (recomputed:
 // the forward saves nothing but its inputs) and dO the cotangent of the
 // forward's output:

@@ -1,6 +1,7 @@
-// The row-list walk of the two band-attention forwards (csrc/band_attention.cu,
-// v2, and csrc/band_attention_flash.cu, v4): one function, computed the same
-// way for both. Per destination row i of block-row blk = i / BLK, per graph b
+// The row-list walk of the band-attention forwards (csrc/band_attention.cu,
+// v2, csrc/band_attention_flash.cu, v4, and in window layout
+// csrc/band_attention_window.cu, v1): one function, computed the same way for
+// all. Per destination row i of block-row blk = i / BLK, per graph b
 // and head h, over the set columns j of mask row i:
 //
 //   z_j   = LeakyReLU(a_dst[b, i, h] + a_src_win[blk, b, j, h])
@@ -68,6 +69,15 @@
 // the f32 window mean. The instance moves the bytes of the f32 one: its
 // bound is the same. Its code sits in `if constexpr (kBf16)` statements, so
 // the f32 instances compile as they did before the switch.
+//
+// kWindow: the window layout of the v1 forward (csrc/band_attention_window.cu).
+// x is x_win [nB, B, W, H, C], each block's W window rows materialised, and
+// row j of block blk's window is x_win[blk, b, j] where v2 reads
+// x_ext[b, blk*BLK + j]; the window-mean pre-pass reads the same rows.
+// Nothing else changes: the same walk, summed in the same order, so on an
+// x_win cut from x_ext the two forwards agree to the bit. Offsets are
+// 64-bit: a window tensor passes 2^31 elements at a 23k-node network. The
+// window layout has no bf16 and no statistics instance (v1 has neither).
 
 #pragma once
 
@@ -86,8 +96,10 @@ constexpr float kMaskedLogit = -1e9f;    // what the plain version gives a maske
 // with a row of no set column; the other blocks leave at once and their
 // mean is not read. One thread block per (b, blk) and 32 channels; its warps
 // take every kMeanWarps-th row and their partial sums are added in warp order.
+// kWindow: the rows are x_win[blk, b, 0 .. W-1] (the grid's x is B * nB).
+template <bool kWindow>
 __global__ void __launch_bounds__(kMeanWarps * 32)
-window_mean_kernel(const float* __restrict__ x_ext,     // [B, n_ext, HC]
+window_mean_kernel(const float* __restrict__ x_ext,     // [B, n_ext, HC]; kWindow x_win
                    const int* __restrict__ empty_ptr,   // [nB + 1]
                    float* __restrict__ mean,            // [B, nB, HC]
                    int nB, int BLK, int W, int HC) {
@@ -100,7 +112,8 @@ window_mean_kernel(const float* __restrict__ x_ext,     // [B, n_ext, HC]
   const long long n_ext = (long long)nB * BLK + W - BLK;
   float acc = 0.f;
   if (c < HC) {
-    const float* xc = x_ext + (b * n_ext + blk * BLK) * HC + c;
+    const float* xc = kWindow ? x_ext + (blk * (gridDim.x / nB) + b) * W * HC + c
+                              : x_ext + (b * n_ext + blk * BLK) * HC + c;
     for (int j = wid; j < W; j += kMeanWarps) acc += __ldg(xc + (long long)j * HC);
   }
   part[wid][lane] = acc;
@@ -140,11 +153,11 @@ __device__ __noinline__ void row_stats_sweep(const float* __restrict__ ad,
   }
 }
 
-template <int NV, bool kVec, bool kStats, bool kBf16>
+template <int NV, bool kVec, bool kStats, bool kWindow, bool kBf16>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 band_rowwalk_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
                     const float* __restrict__ a_src_win,  // [nB, B, W, H]
-                    const float* __restrict__ x_ext,      // [B, n_ext, H, C]
+                    const float* __restrict__ x_ext,      // [B, n_ext, H, C]; kWindow x_win
                     const int* __restrict__ row_ptr,      // [n_pad + 1]
                     const int* __restrict__ col,          // [nnz]
                     const float* __restrict__ mean,       // [B, nB, H*C]
@@ -187,7 +200,8 @@ band_rowwalk_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
   float* al_sh = z_sh + G;
   const float* ad = a_dst + stat;
   const float* asrc = a_src_win + (blk * B + b) * (long long)W * H;
-  const float* xw = x_ext + (b * n_ext + blk * BLK) * HC;
+  const float* xw = kWindow ? x_ext + (blk * B + b) * W * HC    // the block's window rows
+                            : x_ext + (b * n_ext + blk * BLK) * HC;
 
   for (int h0 = 0; h0 < H; h0 += G) {
     const int hg = min(G, H - h0);         // heads h0 .. h0+hg-1, channels up to ce
@@ -344,30 +358,31 @@ band_rowwalk_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
   }
 }
 
-template <int NV, bool kVec, bool kStats, bool kBf16>
+template <int NV, bool kVec, bool kStats, bool kWindow, bool kBf16>
 int launch_rowwalk(const float* a_dst, const float* a_src_win, const float* x_ext,
                    const int* row_ptr, const int* col, const float* mean, float* out,
                    float* m_out, float* z_out, int B, int nB, int BLK, int W, int H, int C,
                    float slope, cudaStream_t stream) {
   const long long warps = (long long)B * nB * BLK;
   const size_t smem = (size_t)kWarps * 35 * min(H, kHeadGroup) * sizeof(float);
-  band_rowwalk_kernel<NV, kVec, kStats, kBf16><<<blocks_for(warps), kWarps * 32, smem, stream>>>(
-      a_dst, a_src_win, x_ext, row_ptr, col, mean, out, m_out, z_out, B, nB, BLK, W, H, C,
-      slope);
+  band_rowwalk_kernel<NV, kVec, kStats, kWindow, kBf16>
+      <<<blocks_for(warps), kWarps * 32, smem, stream>>>(a_dst, a_src_win, x_ext, row_ptr, col,
+                                                         mean, out, m_out, z_out, B, nB, BLK, W,
+                                                         H, C, slope);
   return (int)cudaGetLastError();
 }
 
 // The row walk's instance for these operands: NV by H*C, the float4 slots
 // where vec.
-template <bool kStats, bool kBf16>
+template <bool kStats, bool kWindow, bool kBf16>
 int rowwalk_instance(const float* a_dst, const float* a_src_win, const float* x_ext,
                      const int* row_ptr, const int* col, const float* mean, float* out,
                      float* m_out, float* z_out, int B, int nB, int BLK, int W, int H, int C,
                      int vec, float slope, cudaStream_t s) {
-  auto walk = H * C <= 128 ? (vec ? launch_rowwalk<1, true, kStats, kBf16>
-                                  : launch_rowwalk<1, false, kStats, kBf16>)
-                           : (vec ? launch_rowwalk<2, true, kStats, kBf16>
-                                  : launch_rowwalk<2, false, kStats, kBf16>);
+  auto walk = H * C <= 128 ? (vec ? launch_rowwalk<1, true, kStats, kWindow, kBf16>
+                                  : launch_rowwalk<1, false, kStats, kWindow, kBf16>)
+                           : (vec ? launch_rowwalk<2, true, kStats, kWindow, kBf16>
+                                  : launch_rowwalk<2, false, kStats, kWindow, kBf16>);
   return walk(a_dst, a_src_win, x_ext, row_ptr, col, mean, out, m_out, z_out, B, nB, BLK, W, H,
               C, slope, s);
 }
@@ -376,8 +391,9 @@ int rowwalk_instance(const float* a_dst, const float* a_src_win, const float* x_
 // no set column (n_empty > 0; mean is then [B, nB, H*C] scratch), then the
 // row walk. vec != 0: C % 4 == 0 and x_ext, out 16-byte aligned (the wrapper
 // checks). m_out, z_out are read only when kStats. bf16 != 0: the
-// bf16-operand instance.
-template <bool kStats>
+// bf16-operand instance. kWindow: x_ext is x_win [nB, B, W, H, C]; no
+// statistics, and bf16 must be 0.
+template <bool kStats, bool kWindow = false>
 int band_rowwalk(const float* a_dst, const float* a_src_win, const float* x_ext,
                  const int* row_ptr, const int* col, const int* empty_ptr, float* mean,
                  float* out, float* m_out, float* z_out, int B, int nB, int BLK, int W,
@@ -387,12 +403,16 @@ int band_rowwalk(const float* a_dst, const float* a_src_win, const float* x_ext,
   cudaStream_t s = (cudaStream_t)stream;
   const int HC = H * C;
   if (n_empty > 0) {
-    window_mean_kernel<<<dim3((unsigned)((long long)B * nB), (unsigned)((HC + 31) / 32)),
-                         kMeanWarps * 32, 0, s>>>(x_ext, empty_ptr, mean, nB, BLK, W, HC);
+    window_mean_kernel<kWindow>
+        <<<dim3((unsigned)((long long)B * nB), (unsigned)((HC + 31) / 32)), kMeanWarps * 32, 0,
+            s>>>(x_ext, empty_ptr, mean, nB, BLK, W, HC);
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }
-  auto instance = bf16 ? rowwalk_instance<kStats, true> : rowwalk_instance<kStats, false>;
+  static_assert(!(kWindow && kStats), "the window layout writes no statistics");
+  auto instance = rowwalk_instance<kStats, kWindow, false>;
+  if constexpr (!kWindow)
+    if (bf16) instance = rowwalk_instance<kStats, false, true>;
   return instance(a_dst, a_src_win, x_ext, row_ptr, col, mean, out, m_out, z_out, B, nB, BLK, W,
                   H, C, vec, slope, s);
 }

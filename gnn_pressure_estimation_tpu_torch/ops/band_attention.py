@@ -11,7 +11,7 @@ takes is ``BatchedGraph.band_attn`` (``ops.banded.band_attention_route``):
 * :func:`band_attention_flash` ("flash") replaces ``make_band_attention_flash``
   (v4) (``csrc/band_attention_flash.cu``, ``csrc/band_attention_flash_bwd.cu``):
   a streaming softmax whose per-row state does not grow with W. The forward
-  is v2's row walk (``csrc/band_rowwalk.cuh``, shared by both forwards) and
+  is v2's row walk (``csrc/band_rowwalk.cuh``, shared by three forwards) and
   also returns the row statistics m and Z; the backward takes them and
   ``delta = Σ_c dO∘O``, builds each weight on its own, and runs v2's column
   walk over the extended rows (``csrc/band_colwalk.cuh``, shared by both
@@ -20,16 +20,19 @@ takes is ``BatchedGraph.band_attn`` (``ops.banded.band_attention_route``):
   (v1) (``csrc/band_attention_window.cu``, ``csrc/band_attention_window_bwd.cu``):
   it reads the materialised window tensors ``x_win`` / ``a_src_win``, never an
   extended array, and its backward leaves ``d a_src_win`` and ``d x_win`` in
-  window layout for autograd to fold. The backward is v2's with the column
-  walk in window layout: one run of entries, one ``x_win`` row and one
-  ``d x_win`` row per covering block.
+  window layout for autograd to fold. The forward is v2's row walk reading
+  ``x_win[blk, b, j]`` where v2 reads ``x_ext[b, blk·BLK + j]``; the backward
+  is v2's with the column walk in window layout: one run of entries, one
+  ``x_win`` row and one ``d x_win`` row per covering block.
 * :func:`band_attention_acc` ("acc") replaces ``make_band_attention_acc`` (v3):
   v2's forward kernel, and v2's backward passes under their own entry point
   (``csrc/band_attention_acc_bwd.cu``): the column walk's owner warp sums each
   extended row's ``d x_ext`` whole and writes it once, the GPU's form of v3's
   sliding accumulator: no windowed ``d x`` tensor, no fold pass, no atomics.
 
-v2's, v3's and v1's backwards share their passes (``csrc/band_bwd.cuh``).
+v2's, v3's and v1's backwards share their passes (``csrc/band_bwd.cuh``), and
+so does the dense softmax backward (``ops/graph_attention.py``), a band of one
+block.
 
 Each computes, per destination row, graph and head, the LeakyReLU(0.2)
 additive logits over the row's W-wide window, the adjacency mask, a softmax
@@ -664,25 +667,33 @@ def band_attention_window_fwd(
 
     On CUDA tensors it launches the kernel (or raises); on CPU tensors it
     runs :func:`band_attention_window_plain`. ``index`` as for
-    :func:`band_attention_flash_fwd`. ``band_attention_window_fwd.launches``
-    counts kernel launches."""
+    :func:`band_attention_flash_fwd`. The kernel is v2's row walk
+    (``csrc/band_rowwalk.cuh``) reading x in window layout: on an ``x_win``
+    cut from x_ext its output equals :func:`band_attention_fwd`'s bit for
+    bit. ``band_attention_window_fwd.launches`` counts kernel launches (one
+    per call: the window-mean pre-pass and the row pass are one launch of
+    it)."""
     if bops.use_plain(x_win):
         return band_attention_window_plain(a_dst, a_src_win, x_win, adj_mask, negative_slope)
-    adj_mask = _check("band_attention_window_fwd", a_dst, a_src_win, x_win, adj_mask)
+    name = "band_attention_window_fwd"
+    adj_mask = _check(name, a_dst, a_src_win, x_win, adj_mask)
     nB, BLK, W = adj_mask.shape
     _, B, _, H, C = x_win.shape
     dev = x_win.device
-    ix = bops.index_for("band_attention_window_fwd", adj_mask, index, dev)
+    ix = bops.index_for(name, adj_mask, index, dev)
+    n_empty = int(ix.empty_row.shape[0])
     out = torch.empty((B, nB * BLK, H, C), dtype=torch.float32, device=dev)
+    mean = torch.empty((B, nB, H * C) if n_empty else (1,), dtype=torch.float32, device=dev)
     fn = _build.load("band_attention_window").band_attention_window_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         rc = fn(a_dst.data_ptr(), a_src_win.data_ptr(), x_win.data_ptr(), ix.row_ptr.data_ptr(),
-                ix.col.data_ptr(), out.data_ptr(), B, nB, BLK, W, H, C, float(negative_slope),
-                torch.cuda.current_stream().cuda_stream)
+                ix.col.data_ptr(), ix.empty_ptr.data_ptr(), mean.data_ptr(), out.data_ptr(),
+                B, nB, BLK, W, H, C, n_empty, int(bops.vector_loads(x_win, C)),
+                float(negative_slope), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"band_attention_window_fwd: kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
     band_attention_window_fwd.launches += 1
     return out
 

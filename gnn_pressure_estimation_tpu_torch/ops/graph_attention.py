@@ -22,10 +22,13 @@ Layout: the layer's own. ``a_dst``, ``a_src`` are ``[B, n, H]``; ``v``,
 ``rhs_v``, ``rhs_q`` and every output are ``[B, n, H, ·]``. The TPU kernels
 take ``[B, H, n, ·]`` and the JAX layer transposes before and after them;
 here nothing is transposed. Nor is n padded to a lane multiple or are graphs
-grouped per step: in the attention pair a warp owns one (graph, row, head),
-in the factored pair one (graph, node) with all its heads (the walk of
-``csrc/dense_walk.cuh``, over the row lists forward and the column lists
-backward).
+grouped per step: in the attention forward a warp owns one (graph, row,
+head); the attention backward is v2's band backward on the band of one block
+(nB 1, BLK = W = n: ``csrc/band_bwd.cuh``: a thread per (graph, row, head)
+for p and dz, a warp per (graph, column) for all heads' d v and dp, a
+thread per (graph, column, head) for d a_src); in the factored pair a warp owns
+one (graph, node) with all its heads (the walk of ``csrc/dense_walk.cuh``,
+over the row lists forward and the column lists backward).
 
 The TPU kernels multiply whole n×n tiles. A water network's mask is about 1%
 dense (388 self-loops and 1,430 directed edges in 150,544 cells on
@@ -66,7 +69,7 @@ import numpy as np
 import torch
 
 from gnn_pressure_estimation_tpu_torch.ops import _build
-from gnn_pressure_estimation_tpu_torch.ops.banded import use_plain
+from gnn_pressure_estimation_tpu_torch.ops.banded import use_plain, vector_loads
 
 NEG_INF = -1e9  # mask value of the dense attention logits (finite: no inf − inf)
 
@@ -80,6 +83,14 @@ class MaskIndex:
     ``t_*`` list the same entries sorted by ``(column, row)``. ``nbr`` lists
     each row's columns padded with the row's own index (its diagonal cell is
     always set), for per-row reductions over neighbours in plain torch.
+
+    Built as ``ops.banded.build_band_index`` builds a band's index, so
+    ``row_ptr``, ``col``, ``t_*``, ``empty_ptr`` and ``empty_row`` are,
+    field for field, the ``BandIndex`` of the one-block band ``mask[None]``
+    (nB 1, BLK = W = n): what the softmax backward
+    (``csrc/fused_attention_bwd.cu``) hands the band backward's passes. No
+    row is empty (every self-loop is set), so ``empty_ptr`` is ``[0, 0]``
+    and ``empty_row`` empty.
     """
 
     n: int
@@ -88,6 +99,8 @@ class MaskIndex:
     t_ptr: object       # [n + 1]  entries of column j
     t_entry: object     # [nnz]    entry index k, sorted by (column, row)
     t_row: object       # [nnz]    row of that entry
+    empty_ptr: object   # [2]      rows with no entry, of the one block: none
+    empty_row: object   # [0]
     nbr: object         # [n, max row length] int64
 
     @property
@@ -121,7 +134,8 @@ def build_mask_index(mask: np.ndarray) -> MaskIndex:
     i32 = np.int32
     return MaskIndex(n=n, row_ptr=row_ptr.astype(i32), col=j.astype(i32),
                      t_ptr=t_ptr.astype(i32), t_entry=order.astype(i32),
-                     t_row=i[order].astype(i32), nbr=nbr)
+                     t_row=i[order].astype(i32), empty_ptr=np.zeros(2, i32),
+                     empty_row=np.zeros(0, i32), nbr=nbr)
 
 
 def mask_index_of(mask: torch.Tensor) -> MaskIndex:
@@ -260,9 +274,12 @@ def fused_attention_bwd(a_dst, a_src, v, mask, d_out, negative_slope: float = 0.
                         index: Optional[MaskIndex] = None):
     """The cotangents ``(d a_dst, d a_src, d v)`` of :func:`fused_attention_fwd`
     for the output cotangent ``d_out`` [B, n, H, C]; the softmax is recomputed.
-    ``index``, devices: as the forward. ``fused_attention_bwd.launches`` counts
-    kernel launches (one per call: the two passes of
-    ``csrc/fused_attention_bwd.cu`` are one launch of it)."""
+    ``index``, devices: as the forward. The kernel runs the dense softmax as a
+    band of one block through v2's band backward (``csrc/band_bwd.cuh``): p
+    per entry from the row lists; d v and dp per entry in one all-heads walk
+    over the column lists; dz and d a_dst per row; d a_src per column.
+    ``fused_attention_bwd.launches`` counts kernel launches (one per call:
+    the four launches of the passes are one launch of it)."""
     if use_plain(v):
         return fused_attention_bwd_plain(a_dst, a_src, v, mask, d_out, negative_slope)
     ix = _index(mask, index)
@@ -270,12 +287,14 @@ def fused_attention_bwd(a_dst, a_src, v, mask, d_out, negative_slope: float = 0.
     _check("fused_attention_bwd", a_dst, a_src, {"v": v, "d_out": d_out}, ix)
     B, n, H, C = v.shape
     d_a_dst, d_a_src, d_v = torch.empty_like(a_dst), torch.empty_like(a_src), torch.empty_like(v)
-    # per-entry softmax weight and logit cotangent, written by the row pass
-    # and read by the column pass
-    sp = torch.empty((2, B, H, max(ix.nnz, 1)), dtype=torch.float32, device=v.device)
+    # per-entry softmax weight, and dp then dz, passed between the passes
+    sp, sdz = (torch.empty((B, max(ix.nnz, 1), H), dtype=torch.float32, device=v.device)
+               for _ in range(2))
+    vec = vector_loads(v, C) and vector_loads(d_out, C)
     _launch("fused_attention_bwd", "fused_attention_bwd",
             (a_dst, a_src, v, d_out, ix.row_ptr, ix.col, ix.t_ptr, ix.t_entry, ix.t_row,
-             sp[0], sp[1], d_a_dst, d_a_src, d_v), (B, n, H, C, ix.nnz),
+             ix.empty_ptr, ix.empty_row, sp, sdz, d_a_dst, d_a_src, d_v),
+            (B, n, H, C, ix.nnz, int(vec)),
             (float(negative_slope),))
     fused_attention_bwd.launches += 1
     return d_a_dst, d_a_src, d_v

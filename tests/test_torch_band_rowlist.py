@@ -92,17 +92,23 @@ def spmm_replay(ix, x_ext):
     return out
 
 
-def attention_replay(ix, a_dst, a_src, x_ext, slope):
+def attention_replay(ix, a_dst, a_src, x_ext, slope, rows=None):
     """``csrc/band_attention.cu`` in numpy: the pre-pass's window mean of each
     block holding a row with no set column; then per row its list in chunks
     of 32 with a running max and sum per head, the accumulator rescaled by
     exp(m − m_new) at every chunk, out = acc / Z; a row with no entry copies
-    its block's mean."""
+    its block's mean. ``rows(blk, js)``: the x rows [B, len(js), H, C] of
+    block blk's window columns js, which the walk and the pre-pass read;
+    x_ext's rows blk·BLK + js unless given (the window layout's reader:
+    ``test_torch_band_window_rowwalk.py``)."""
     B, n_pad, H = a_dst.shape
     nB, BLK, W = ix.nB, ix.BLK, ix.W
-    mean = {blk: x_ext[:, blk * BLK: blk * BLK + W].sum(axis=1, dtype=np.float32) / np.float32(W)
+    if rows is None:
+        def rows(blk, js):
+            return x_ext[:, blk * BLK + js]
+    mean = {blk: rows(blk, np.arange(W)).sum(axis=1, dtype=np.float32) / np.float32(W)
             for blk in range(nB) if ix.empty_ptr[blk + 1] > ix.empty_ptr[blk]}
-    out = np.empty((B, n_pad) + x_ext.shape[2:], np.float32)
+    out = np.empty((B, n_pad) + x_ext.shape[-2:], np.float32)
     for row in range(n_pad):
         blk = row // BLK
         k0, k1 = int(ix.row_ptr[row]), int(ix.row_ptr[row + 1])
@@ -111,7 +117,7 @@ def attention_replay(ix, a_dst, a_src, x_ext, slope):
             continue
         m = np.full((B, H), -3e38, np.float32)
         Z = np.zeros((B, H), np.float32)
-        acc = np.zeros((B,) + x_ext.shape[2:], np.float32)
+        acc = np.zeros((B,) + x_ext.shape[-2:], np.float32)
         for s0 in range(k0, k1, CHUNK):
             js = ix.col[s0:min(s0 + CHUNK, k1)]
             z = a_dst[:, row, None, :] + a_src[blk][:, js]                # [B, cnt, H]
@@ -121,8 +127,9 @@ def attention_replay(ix, a_dst, a_src, x_ext, slope):
             alpha = np.exp(m - m_new)
             Z = Z * alpha + p.sum(axis=1)
             acc = acc * alpha[..., None]
-            for q, j in enumerate(js):
-                acc = acc + p[:, q, :, None] * x_ext[:, blk * BLK + j]
+            xr = rows(blk, js)
+            for q in range(len(js)):
+                acc = acc + p[:, q, :, None] * xr[:, q]
             m = m_new
         out[:, row] = acc / Z[..., None]
     return out
