@@ -179,9 +179,12 @@ Phases (any failure exits non-zero; none is caught):
     (bigtown layout, B 1, 8 and 32) and v4's pair (meganet layout, B 1, 2
     and 8), H·C 256 and 128, against their plain versions (atol and rtol
     1e-4; v3's backward equal to v2's bit for bit) and at least
-    1e-3·max|ref| from their f32 instances on the same inputs; then at
-    ragged shapes (padded rows, rows of more than 32 entries, C past a
-    tile, C % 4 != 0, 33 heads).
+    1e-3·max|ref| from their f32 instances on the same inputs; the forwards
+    read x_ext stored in bf16, as the model's path hands it, and f32 rows
+    through the wrappers' cast must give the same output bit for bit; then
+    at ragged shapes (padded rows, rows of more than 32 entries, C past a
+    tile, C % 4 != 0, 33 and 40 heads) and on bf16 rows off 16-byte
+    alignment (the scalar loads).
 27. bigtown, GATRes-large with ``attn_dtype="bfloat16"`` set by
     ``apply_model_knobs`` on the trained weights: the fixture
     ``artifacts/parity_train_bigtown_bf16.npz`` (the forward's output and
@@ -189,14 +192,18 @@ Phases (any failure exits non-zero; none is caught):
     launches and none of the f32 instance; the B 1 step under "dma" and under
     "acc" with the gates of phase 7 and exact launch counts), 64 snapshots at
     batch 32 through ``Inferencer`` and a batch-8 train step, each timed in
-    turns with the f32 model.
+    turns with the f32 model; the device time of the backward's pass that
+    widens the saved bf16 rows to f32 in that step.
 28. meganet through "flash" with ``attn_dtype="bfloat16"``: the 4-block
     fixture ``artifacts/parity_train_meganet_bf16.npz`` (forward statistics,
     B 1 step), 16 snapshots at batch 8 and a batch-2 step of the 25-block
-    model, in turns with f32, exact launch counts.
+    model, in turns with f32, exact launch counts; the step's peak memory
+    under bf16 and f32 and its widening pass.
 29. Times of the bf16 instances beside their f32 instances on the same
-    inputs (in turns), their plain versions and their bounds (the f32 rows':
-    the same bytes), at bigtown B 32 and 8 and meganet B 8 and 2.
+    inputs (in turns; the forwards on bf16 rows), their plain versions and
+    their bounds (the forwards' at 2-byte x rows; the backwards' the f32
+    rows', which they still read), at bigtown B 32 and 8 and meganet B 8
+    and 2.
 
 The last line is ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
 (all fifteen kernels, and the five wrappers' bf16-operand instances as rows
@@ -363,6 +370,30 @@ def step_device_ms(ms_by_width: dict):
     """Device ms of a backward in a GATRes-large step: 25 launches at each
     width; None if a width was not measured."""
     return None if None in ms_by_width.values() else 25 * sum(ms_by_width.values())
+
+
+def widening_in_step(run, B: int, n_ext: int) -> dict:
+    """Device ms of the pass that widens a bf16 backward's saved extended
+    rows to f32 (``x_ext.float()``, once a GATConv) in one train step
+    ``run``, read from a ``torch.profiler`` trace of that step: the
+    ``aten::_to_copy`` ops on tensors of the extended rows' shape [B, n_ext,
+    H, C] at GATRes-large's widths H·C 256 and 128, with the kernels they
+    launch (nothing else in a step copies a tensor of that shape). {H·C: (ops
+    in the step, ms), "step": ms}; ms None where the trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {}
+    for H, C in ((2, 128), (1, 128)):
+        ev = [e for e in prof.key_averages(group_by_input_shape=True)
+              if e.key == "aten::_to_copy" and e.input_shapes
+              and list(e.input_shapes[0]) == [B, n_ext, H, C]]
+        ms = sum(e.device_time_total for e in ev) / 1e3
+        out[H * C] = (sum(e.count for e in ev), ms or None)
+    return {**out, "step": None if None in (v[1] for v in out.values())
+            else sum(v[1] for v in out.values())}
 
 
 def device_ms(fn, iters: int = 20):
@@ -2133,20 +2164,23 @@ F32_BAND_INSTANCES = {
     },
 }
 # the bf16-operand instances of the same sources, held like the f32 ones (read on an
-# NVIDIA H100 80GB HBM3 after the window layout was added to the row walk; v2's and
-# v4's NV 2 float4 row walks at the spills recorded when the instances were added)
+# NVIDIA H100 80GB HBM3; the row walks of v2 and v4 as the walk over bf16 rows
+# compiled when the extended rows were first stored in bf16: at NV 2 less spill
+# than the f32 instance, at NV 1 held to 48 registers for a fifth thread block)
 BF16_BAND_INSTANCES = {
     "band_attention": {
-        "band_rowwalk_kernel<2, false, false, false, true>": (64, 104, 120, 212),
-        "band_rowwalk_kernel<2, true, false, false, true>": (64, 88, 96, 164),
-        "band_rowwalk_kernel<1, false, false, false, true>": (64, 48, 48, 44),
-        "band_rowwalk_kernel<1, true, false, false, true>": (64, 40, 40, 40),
+        "band_rowwalk_kernel<2, false, false, false, true>": (64, 64, 72, 92),
+        "band_rowwalk_kernel<2, true, false, false, true>": (64, 24, 28, 28),
+        "band_rowwalk_kernel<1, false, false, false, true>": (48, 112, 108, 140),
+        "band_rowwalk_kernel<1, true, false, false, true>": (48, 96, 64, 60),
+        "window_mean_bf16_kernel": (32, 0, 0, 0),
     },
     "band_attention_flash": {
-        "band_rowwalk_kernel<2, false, true, false, true>": (64, 112, 116, 276),
-        "band_rowwalk_kernel<2, true, true, false, true>": (64, 72, 64, 144),
-        "band_rowwalk_kernel<1, false, true, false, true>": (64, 56, 52, 52),
-        "band_rowwalk_kernel<1, true, true, false, true>": (64, 32, 32, 36),
+        "band_rowwalk_kernel<2, false, true, false, true>": (64, 64, 88, 180),
+        "band_rowwalk_kernel<2, true, true, false, true>": (64, 16, 12, 12),
+        "band_rowwalk_kernel<1, false, true, false, true>": (48, 112, 96, 164),
+        "band_rowwalk_kernel<1, true, true, false, true>": (48, 96, 56, 60),
+        "window_mean_bf16_kernel": (32, 0, 0, 0),
     },
     **{src: {
         "columns_kernel<2, true, true, false, true>": (80, 8, 8, 16),
@@ -2237,10 +2271,13 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
         output's distance to the f32 instance's, which must be at least
         1e-3·max|ref|."""
         a_dst, a_src, x_ext, d_out = operands(msk, B, H, C)
+        xb = x_ext.to(torch.bfloat16)            # the stored rows the model's path hands it
         label = f"{tag} B{B} H{H} C{C}"
-        got = ba.band_attention_fwd(a_dst, a_src, x_ext, msk, 0.2, index, True)
-        ref = ba.band_attention_plain(a_dst, a_src, x_ext, msk, 0.2, True)
+        got = ba.band_attention_fwd(a_dst, a_src, xb, msk, 0.2, index, True)
+        ref = ba.band_attention_plain(a_dst, a_src, xb, msk, 0.2, True)
         held("band_attention_bf16", f"band_attention bf16 {label}", got, ref, False)
+        check_equal(f"band_attention bf16 {label}, f32 rows through the wrapper's cast",
+                    ba.band_attention_fwd(a_dst, a_src, x_ext, msk, 0.2, index, True), got)
         line = []
         if gap:
             f32 = ba.band_attention_fwd(a_dst, a_src, x_ext, msk, 0.2, index)
@@ -2259,7 +2296,8 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
                 apart("band_attention_acc_bwd_bf16", label, q, f, r)
         print(f"  v2 / v3 bf16 {label}: within 1e-4 of the plain versions (max so far: forward "
               f"{max_err_of('band_attention_bf16'):.3e}, backward "
-              f"{max_err_of('band_attention_bwd_bf16'):.3e}), v3's backward v2's bit for bit"
+              f"{max_err_of('band_attention_bwd_bf16'):.3e}), v3's backward v2's bit for bit, "
+              f"the forward of f32 rows (cast once in the wrapper) that of the bf16 rows"
               + (f"; from the f32 instance: " + ", ".join(line) if gap else ""))
         return a_dst, a_src, x_ext, d_out
 
@@ -2268,11 +2306,15 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
         versions; the backward from the plain forward's m, Z and delta, and
         from the kernel's own."""
         a_dst, a_src, x_ext, d_out = operands(msk, B, H, C)
+        xb = x_ext.to(torch.bfloat16)
         label = f"{tag} B{B} H{H} C{C}"
-        own = ba.band_attention_flash_fwd(a_dst, a_src, x_ext, msk, 0.2, index, True)
-        ref = ba.band_attention_flash_plain(a_dst, a_src, x_ext, msk, 0.2, True)
-        for part, g, r in zip(("out", "m", "Z"), own, ref):
+        own = ba.band_attention_flash_fwd(a_dst, a_src, xb, msk, 0.2, index, True)
+        ref = ba.band_attention_flash_plain(a_dst, a_src, xb, msk, 0.2, True)
+        cast = ba.band_attention_flash_fwd(a_dst, a_src, x_ext, msk, 0.2, index, True)
+        for part, g, r, c in zip(("out", "m", "Z"), own, ref, cast):
             held("band_attention_flash_bf16", f"band_attention_flash bf16 {label} {part}", g, r, False)
+            check_equal(f"band_attention_flash bf16 {label} {part}, f32 rows through the wrapper's "
+                        f"cast", c, g)
         line = []
         if gap:
             f32 = ba.band_attention_flash_fwd(a_dst, a_src, x_ext, msk, 0.2, index)[0]
@@ -2295,7 +2337,8 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
                 line.append(f"{part} {apart('band_attention_flash_bwd_bf16', label, g, f, r):.3e}")
         print(f"  v4 bf16 {label}: within 1e-4 of the plain versions (max so far: forward "
               f"{max_err_of('band_attention_flash_bf16'):.3e}, backward "
-              f"{max_err_of('band_attention_flash_bwd_bf16'):.3e})"
+              f"{max_err_of('band_attention_flash_bwd_bf16'):.3e}); f32 rows through the cast: "
+              f"the same out, m, Z"
               + (f"; from the f32 instance: " + ", ".join(line) if gap else ""))
         return a_dst, a_src, x_ext, d_out, m, Z, delta
 
@@ -2310,7 +2353,8 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
 
     # ---- 26: each bf16 instance against its plain version and its f32 instance ----
     print(f"[26] the bf16-operand instances vs their plain versions (atol/rtol 1e-4) and their "
-          f"f32 instances on the same inputs (at least 1e-3·max|ref| apart)")
+          f"f32 instances on the same inputs (at least 1e-3·max|ref| apart); the forwards read "
+          f"the rows stored in bf16, and f32 rows through the wrappers' cast give the same")
     for B in (1, tbs, sbs):
         for H in (2, 1):
             check_v2("bigtown", mask, mask_ix, B, H, 128)
@@ -2322,12 +2366,25 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
     rmask = rng.random((3, 16, 70)) < 0.3
     rmask[-1, -5:] = False                        # fully masked (padded) rows
     wide = rng.random((2, 16, 200)) < 0.4         # rows of ~80 entries: the sweeps for m and Z
-    for m_np, shapes in ((rmask, ((3, 2, 64), (2, 1, 300), (2, 3, 33))),
+    for m_np, shapes in ((rmask, ((3, 2, 64), (2, 1, 300), (2, 3, 33), (2, 40, 4))),
                          (wide, ((2, 2, 64), (1, 1, 160), (1, 33, 3)))):
         m_t = torch.as_tensor(m_np.view(np.int8), device=dev)
         for B, H, C in shapes:
             check_v2("ragged", m_t, None, B, H, C, gap=False)
             check_v4("ragged", m_t, None, B, H, C, gap=False)
+    # bf16 rows 2 bytes off 16-byte alignment: the scalar loads
+    a_dst, a_src, x_ext, _ = operands(mask, 1, 2, 128)
+    xo = torch.empty(x_ext.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(x_ext.shape)
+    xo.copy_(x_ext)
+    held("band_attention_bf16", "band_attention bf16 bigtown B1 H2 C128, rows off alignment",
+         ba.band_attention_fwd(a_dst, a_src, xo, mask, 0.2, mask_ix, True),
+         ba.band_attention_plain(a_dst, a_src, xo, mask, 0.2, True))
+    for part, g, r in zip(("out", "m", "Z"),
+                          ba.band_attention_flash_fwd(a_dst, a_src, xo, mask, 0.2, mask_ix, True),
+                          ba.band_attention_flash_plain(a_dst, a_src, xo, mask, 0.2, True)):
+        held("band_attention_flash_bf16", f"band_attention_flash bf16 bigtown B1 H2 C128 {part}, "
+             f"rows off alignment", g, r)
+    del a_dst, a_src, x_ext, xo
     torch.cuda.synchronize()
     print("  every gap to the f32 instance, as a share of 1e-3·max|ref|, at least: "
           + ", ".join(f"{k} {v:.1f}×" for k, v in gaps.items()))
@@ -2531,11 +2588,16 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
         if d == "bfloat16" and len(step_ms[d]) == 1:
             profile_batch(lambda: tr.train_step(tpl, batch, mask=tmask),
                           f"one bf16 bigtown train step at batch {tbs}", top=12)
+            big_widen = widening_in_step(lambda: tr.train_step(tpl, batch, mask=tmask), tbs, n_ext)
         del tr
         torch.cuda.empty_cache()
     print(f"  train step at batch {tbs}: bf16 " + " / ".join(f"{v:.3f}" for v in step_ms["bfloat16"])
           + " ms, f32 " + " / ".join(f"{v:.3f}" for v in step_ms["float32"]) + f" ms (in turns; {card});"
           " 50 band_attention bf16 + 50 band_attention_bwd bf16 launches a step")
+    print(f"  the bf16 backward's widening pass (saved bf16 x_ext → f32, one a GATConv): "
+          f"{fmt_ms(big_widen['step'])} ms of device time in a step at batch {tbs} ("
+          f"{big_widen[256][0]} ops, {fmt_ms(big_widen[256][1])} ms at H·C 256, {big_widen[128][0]}, "
+          f"{fmt_ms(big_widen[128][1])} ms at 128; a profiler trace of the step)")
 
     # ---- 28: meganet through "flash" -----------------------------------------------
     mn = mega_tpl.n_node
@@ -2598,7 +2660,7 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
     torch.cuda.empty_cache()
     mtmask = (rng.random((mtbs, mn)).argsort(1) < int(mn * 0.95)).reshape(-1)
     mbatch = msnaps[:mtbs]
-    mstep_ms = {"float32": [], "bfloat16": []}
+    mstep_ms, mpeak = {"float32": [], "bfloat16": []}, {}
     for d in ("float32", "bfloat16", "bfloat16", "float32"):
         m = GATRes(25, 128, attn_impl="factored")
         m.load_state_dict(mmodels[d].state_dict())
@@ -2607,26 +2669,36 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
         tr.train_step(mega_tpl, mbatch, mask=mtmask)
         torch.cuda.synchronize()
         reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         mstep_ms[d].append(cuda_ms(lambda: tr.train_step(mega_tpl, mbatch, mask=mtmask), 0, 3))
+        mpeak[d] = max(mpeak.get(d, 0.0), torch.cuda.max_memory_allocated() / 1e9)
         launched = read_launches()
         names = (("band_attention_flash_bf16", "band_attention_flash_bwd_bf16") if d == "bfloat16"
                  else ("band_attention_flash", "band_attention_flash_bwd"))
         want = counts(band_spmm=75, band_spmm_bwd=75, **{names[0]: 150, names[1]: 150})
         if launched != want:
             raise SystemExit(f"FAIL meganet {d} step launches {launched}, expected {want}")
-        if d == "bfloat16":
+        if d == "bfloat16" and len(mstep_ms[d]) == 1:
             mega_step = launched
+            mega_widen = widening_in_step(lambda: tr.train_step(mega_tpl, mbatch, mask=mtmask), mtbs,
+                                          mbl.n_pad + mbl.W - mbl.BLK)
         del tr, m
         torch.cuda.empty_cache()
     print(f"  train step at batch {mtbs}: bf16 " + " / ".join(f"{v:.3f}" for v in mstep_ms["bfloat16"])
           + " ms, f32 " + " / ".join(f"{v:.3f}" for v in mstep_ms["float32"]) + f" ms (in turns; {card});"
           " 50 band_attention_flash bf16 + 50 band_attention_flash_bwd bf16 launches a step")
+    print(f"  peak device memory of the step at batch {mtbs}: bf16 {mpeak['bfloat16']:.3f} GB, f32 "
+          f"{mpeak['float32']:.3f} GB (the bf16 step saves its extended rows in bf16); the widening "
+          f"pass {fmt_ms(mega_widen['step'])} ms of device time in the step ({mega_widen[256][0]} "
+          f"ops, {fmt_ms(mega_widen[256][1])} ms at H·C 256, {mega_widen[128][0]}, "
+          f"{fmt_ms(mega_widen[128][1])} ms at 128; a profiler trace of the step)")
     del mmodels
     torch.cuda.empty_cache()
 
     rows = bf16_times(dev, card, randn, operands, big, mega_tpl, sbs, tbs, mbs, mtbs)
     return dict(rows=rows, gaps=gaps, step=per_step, big_serve=big_serve, mega_serve=mega_serve,
-                mega_step=mega_step)
+                mega_step=mega_step, widening={"bigtown_b8": big_widen, "meganet_b2": mega_widen},
+                mega_peak_gb=mpeak)
 
 
 def bf16_times(dev, card, randn, operands, big, mega_tpl, sbs, tbs, mbs, mtbs):
@@ -2644,8 +2716,8 @@ def bf16_times(dev, card, randn, operands, big, mega_tpl, sbs, tbs, mbs, mtbs):
     mix = mega_tpl.band_index("adj_mask").to(dev)
     # ---- 29: times of the bf16 instances beside the f32 ones ----------------------------
     print(f"[29] times of the bf16-operand instances beside their f32 instances on {card} (CUDA "
-          f"events, 20 launches after 3, in turns f32, bf16, bf16, f32; bounds: the f32 rows', the "
-          f"same bytes)")
+          f"events, 20 launches after 3, in turns f32, bf16, bf16, f32; the forwards read the rows "
+          f"stored in bf16, their bounds at 2-byte x rows; the backwards' bounds the f32 rows')")
     rows = []
 
     def timed(name, B, hc, net, f32, bf, plain, nbytes, ops):
@@ -2668,12 +2740,13 @@ def bf16_times(dev, card, randn, operands, big, mega_tpl, sbs, tbs, mbs, mtbs):
     for B in (sbs, tbs):
         for H, C in ((2, 128), (1, 128)):
             a_dst, a_src, x_ext, d_out = operands(mask, B, H, C)
+            xb = x_ext.to(torch.bfloat16)
             io = 4 * (B * n_pad * H + B * n_ext * H + B * n_ext * H * C + B * n_pad * H * C)
             timed("band_attention_bf16", B, H * C, "bigtown",
                   lambda: ba.band_attention_fwd(a_dst, a_src, x_ext, mask, 0.2, mask_ix),
-                  lambda: ba.band_attention_fwd(a_dst, a_src, x_ext, mask, 0.2, mask_ix, True),
-                  lambda: ba.band_attention_plain(a_dst, a_src, x_ext, mask, 0.2, True),
-                  io + f_ix + 4 * (nB + 1), B * H * mask_ix.nnz * (2 * C + 4))
+                  lambda: ba.band_attention_fwd(a_dst, a_src, xb, mask, 0.2, mask_ix, True),
+                  lambda: ba.band_attention_plain(a_dst, a_src, xb, mask, 0.2, True),
+                  io - 2 * B * n_ext * H * C + f_ix + 4 * (nB + 1), B * H * mask_ix.nnz * (2 * C + 4))
             bbytes = io + 4 * (B * n_pad * H + nB * B * W * H + B * n_ext * H * C) + b_ix
             for name, fn in (("band_attention_bwd_bf16", ba.band_attention_bwd),
                              ("band_attention_acc_bwd_bf16", ba.band_attention_acc_bwd)):
@@ -2682,7 +2755,7 @@ def bf16_times(dev, card, randn, operands, big, mega_tpl, sbs, tbs, mbs, mtbs):
                       lambda: fn(a_dst, a_src, x_ext, mask, d_out, 0.2, mask_ix, True),
                       lambda: ba.band_attention_bwd_plain(a_dst, a_src, x_ext, mask, d_out, 0.2, True),
                       bbytes, B * H * mask_ix.nnz * (4 * C + 12))
-            del a_dst, a_src, x_ext, d_out
+            del a_dst, a_src, x_ext, xb, d_out
             torch.cuda.empty_cache()
     mn_pad = mbl.n_pad
     mn_ext = mn_pad + mbl.W - mbl.BLK
@@ -2691,14 +2764,15 @@ def bf16_times(dev, card, randn, operands, big, mega_tpl, sbs, tbs, mbs, mtbs):
     for B in (mbs, mtbs):
         for H, C in ((2, 128), (1, 128)):
             a_dst, a_src, x_ext, d_out = operands(mmask, B, H, C)
-            out, m, Z = ba.band_attention_flash_fwd(a_dst, a_src, x_ext, mmask, 0.2, mix, True)
+            xb = x_ext.to(torch.bfloat16)
+            out, m, Z = ba.band_attention_flash_fwd(a_dst, a_src, xb, mmask, 0.2, mix, True)
             delta = (d_out * out).sum(dim=-1)
             small, wide_ = 4 * B * mn_pad * H, 4 * B * H * C
             timed("band_attention_flash_bf16", B, H * C, "meganet",
                   lambda: ba.band_attention_flash_fwd(a_dst, a_src, x_ext, mmask, 0.2, mix),
-                  lambda: ba.band_attention_flash_fwd(a_dst, a_src, x_ext, mmask, 0.2, mix, True),
-                  lambda: ba.band_attention_flash_plain(a_dst, a_src, x_ext, mmask, 0.2, True),
-                  3 * small + 4 * B * mn_ext * H + wide_ * (mn_ext + mn_pad) + mf_ix,
+                  lambda: ba.band_attention_flash_fwd(a_dst, a_src, xb, mmask, 0.2, mix, True),
+                  lambda: ba.band_attention_flash_plain(a_dst, a_src, xb, mmask, 0.2, True),
+                  3 * small + 4 * B * mn_ext * H + wide_ // 2 * mn_ext + wide_ * mn_pad + mf_ix,
                   B * H * mix.nnz * (2 * C + 8))
             args = (a_dst, a_src, x_ext, mmask, m, Z, delta, d_out, 0.2)
             timed("band_attention_flash_bwd_bf16", B, H * C, "meganet",
@@ -2707,7 +2781,7 @@ def bf16_times(dev, card, randn, operands, big, mega_tpl, sbs, tbs, mbs, mtbs):
                   lambda: ba.band_attention_flash_bwd_plain(*args, True),
                   5 * small + 4 * B * mn_ext * H + 4 * mbl.adj_mask.shape[0] * B * mbl.W * H
                   + wide_ * (2 * mn_ext + mn_pad) + mb_ix, B * H * mix.nnz * (4 * C + 12))
-            del a_dst, a_src, x_ext, d_out, out, m, Z, delta, args
+            del a_dst, a_src, x_ext, xb, d_out, out, m, Z, delta, args
             torch.cuda.empty_cache()
     return rows
 
@@ -3413,6 +3487,11 @@ def main() -> int:
             "f32_ms": r["f32_ms"], "device_ms": r["device_ms"],
             "gap_to_f32_in_1e-3_max_ref": s11["gaps"][name],
             "shape": f"{r['net']}, B {r['B']}, H·C 256",
+            **({"widening_device_ms_step": s11["widening"]["bigtown_b8"]["step"]}
+               if name == "band_attention_bwd_bf16" else {}),
+            **({"widening_device_ms_step": s11["widening"]["meganet_b2"]["step"],
+                "step_peak_gb_meganet_b2": s11["mega_peak_gb"]}
+               if name == "band_attention_flash_bwd_bf16" else {}),
             "by_shape": {f"B{b} HC{hc}": {k: q[k] for k in ("ms", "f32_ms", "device_ms", "plain_ms",
                                                            "bound_ms", "bytes")}
                          for (b, hc), q in shaped.items()},

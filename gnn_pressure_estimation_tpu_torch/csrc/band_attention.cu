@@ -24,10 +24,11 @@
 // vec != 0: C % 4 == 0 and x_ext, out 16-byte aligned (the wrapper checks).
 // n_empty: the number of band rows with no set column (mean is then
 // [B, nB, H*C] scratch; with none the pre-pass is not launched). bf16 != 0:
-// the bf16-operand instance (the TPU kernel's mx = bfloat16): out = sum
-// bf16(p) bf16(x) with p the normalised weight.
+// the bf16-operand instance (the TPU kernel's mx = bfloat16) over x_ext
+// stored in bf16: out = sum bf16(p) x with p the normalised weight; else
+// x_ext is f32.
 extern "C" int band_attention_fwd(const float* a_dst, const float* a_src_win,
-                                  const float* x_ext, const int* row_ptr,
+                                  const void* x_ext, const int* row_ptr,
                                   const int* col, const int* empty_ptr,
                                   float* mean, float* out, int B, int nB,
                                   int BLK, int W, int H, int C, int n_empty,

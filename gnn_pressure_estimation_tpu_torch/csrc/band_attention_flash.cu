@@ -33,10 +33,11 @@
 // vec != 0: C % 4 == 0 and x_ext, out 16-byte aligned (the wrapper checks).
 // n_empty: the number of band rows with no set column (mean is then
 // [B, nB, H*C] scratch; with none the pre-pass is not launched). bf16 != 0:
-// the bf16-operand instance (the TPU kernel's mx = bfloat16): out = sum
-// bf16(exp(z - m)) bf16(x) / Z, Z the sum of the unrounded numerators.
+// the bf16-operand instance (the TPU kernel's mx = bfloat16) over x_ext
+// stored in bf16: out = sum bf16(exp(z - m)) x / Z, Z the sum of the
+// unrounded numerators; else x_ext is f32.
 extern "C" int band_attention_flash_fwd(
-    const float* a_dst, const float* a_src_win, const float* x_ext,
+    const float* a_dst, const float* a_src_win, const void* x_ext,
     const int* row_ptr, const int* col, const int* empty_ptr, float* mean,
     float* out, float* m_out, float* z_out, int B, int nB, int BLK, int W,
     int H, int C, int n_empty, int vec, int bf16, float slope, void* stream) {

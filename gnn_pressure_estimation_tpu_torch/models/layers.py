@@ -83,7 +83,9 @@ class GATConv(nn.Module):
     streaming softmax), ``"window"`` (``ops.band_attention_window``, over
     window tensors the layer cuts with ``band_windows``; autograd folds their
     cotangents) or ``"acc"`` (``ops.band_attention_acc``, the extended array,
-    v2's forward and the owner-row backward). The JAX layer's
+    v2's forward and the owner-row backward); the three that read the
+    extended array build it from the projected rows inside their autograd
+    Function, in bf16 under ``attn_dtype`` bf16. The JAX layer's
     ``band_factored`` is not ported. The padded path gathers each node's
     ``D + 1`` slots (in-edges and the self-loop) of α_src and of the
     projected features, masks the empty slots, and takes the softmax over
@@ -144,17 +146,18 @@ class GATConv(nn.Module):
                                           graph.band_win_start, graph.band_W)
             xp_b = xp.view(B, n_pad, H, C)
             if graph.band_attn == "window":
-                attend = band_attention_window
+                attend, kw = band_attention_window, {}
                 x_in = bops.band_windows(xp_b, graph.band_win_start, graph.band_W)
             else:
-                attend = BAND_ATTEND[graph.band_attn]
-                x_in = bops.extend_rows(xp_b, graph.band_U, graph.band_R)
-            # the bf16-operand instances where the JAX layer takes its v2-family kernel
-            bf16 = {} if graph.band_attn == "window" else {"mxu_bf16": (
-                self.attn_dtype == torch.bfloat16 and self.negative_slope == 0.2
-                and H * C % 128 == 0)}
+                # the Function extends the projected rows itself: in bf16 for the
+                # bf16-operand instances, which run where the JAX layer takes its
+                # v2-family kernel
+                attend, x_in = BAND_ATTEND[graph.band_attn], xp_b
+                kw = {"halo": (graph.band_U, graph.band_R), "mxu_bf16": (
+                    self.attn_dtype == torch.bfloat16 and self.negative_slope == 0.2
+                    and H * C % 128 == 0)}
             out = attend(a_d.view(B, n_pad, H).contiguous(), a_src_win, x_in,
-                         graph.band_adj_mask, self.negative_slope, graph.band_adj_index, **bf16)
+                         graph.band_adj_mask, self.negative_slope, graph.band_adj_index, **kw)
         elif graph.padded:
             # per-node neighbour slots (in-edges, then the self-loop), masked
             # softmax over the slots

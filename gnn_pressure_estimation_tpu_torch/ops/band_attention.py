@@ -51,11 +51,18 @@ the f32 p); v4 rounds the numerator exp(z − m) and the x rows in the
 forward and divides by Z, the sum of the unrounded numerators, and rounds
 as v2 in the backward. Z of the bf16 instances is summed in double and
 rounded once, in the kernels and the plain versions alike, so the weight
-that is rounded is the same float whatever the order of the sum. Rows with
-no set column keep the f32 window mean. Every wrapper counts the launches of
-its f32 instance in ``launches`` and of its bf16 instance in
-``launches_bf16``; on a CPU tensor it runs the plain version with the same
-flag.
+that is rounded is the same float whatever the order of the sum. The
+forwards' extended rows are stored in bfloat16 under ``mxu_bf16``: the
+autograd Functions, given the projected rows and their halo widths
+(``halo=(U, R)``, the model's path), write x_ext once as bf16
+(:func:`~..ops.banded.extend_rows_bf16`), so the kernels gather 2-byte rows
+and each x is rounded once, as the TPU kernels' cast rounds it; the forward
+wrappers round f32 rows they are handed once themselves. The backwards widen
+the saved bf16 rows to f32 (exact) and return f32 gradients. Rows with no
+set column get the window mean of the rows the forward reads: bf16 rows,
+summed in f32, under ``mxu_bf16``. Every wrapper counts the launches of its
+f32 instance in ``launches`` and of its bf16 instance in ``launches_bf16``;
+on a CPU tensor it runs the plain version with the same flag.
 
 Bound on an H100 SXM at the bigtown GATRes-large shapes (B 32, n_pad 5,888,
 W 896, H·C 256): counted over the mask's nonzeros (0.51% dense) the forward
@@ -104,12 +111,29 @@ def _bf16_weights(z, on):
 
 def _bf16_product(eq: str, w: torch.Tensor, v: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
     """``einsum(eq, w, v)`` with both operands rounded to bf16 on the rows
-    with a set column (``real``) and in f32 on the others (the window mean
-    of a padded row stays f32)."""
+    with a set column (``real``); the others take w in f32 (the window mean
+    of a padded row: of the bf16 rows in the forwards, whose v is rounded
+    already)."""
     out = torch.einsum(eq, torch.where(real, round_bf16(w), 0.0), round_bf16(v))
     if not bool(real.all()):
         out = out + torch.einsum(eq, torch.where(real, 0.0, w), v)
     return out
+
+
+def _stored(fn: str, x_ext: torch.Tensor, mxu_bf16: bool) -> torch.Tensor:
+    """The extended rows as a forward reads them: f32, or under ``mxu_bf16``
+    bf16 (f32 rows rounded once here; the model's path hands bf16 rows).
+    bf16 rows without ``mxu_bf16`` raise: the f32 instances read f32."""
+    if x_ext.dtype == torch.bfloat16 and not mxu_bf16:
+        raise ValueError(f"{fn}: x_ext in bfloat16 is read only by the bf16-operand instance "
+                         "(mxu_bf16=True)")
+    return x_ext.to(torch.bfloat16) if mxu_bf16 else x_ext
+
+
+def _widened(x_ext: torch.Tensor) -> torch.Tensor:
+    """bf16 rows as f32 (exact), for the plain versions and the backwards;
+    rows of another dtype as they are."""
+    return x_ext.float() if x_ext.dtype == torch.bfloat16 else x_ext
 
 
 def band_attention_plain(
@@ -121,7 +145,9 @@ def band_attention_plain(
     mxu_bf16: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`band_attention_fwd`; ``mxu_bf16``:
-    ``out = Σ bf16(p)·bf16(x)`` with p the normalised weight."""
+    ``out = Σ bf16(p)·x`` with p the normalised weight and x the bf16 rows
+    (f32 rows rounded once), computed in f32."""
+    x_ext = _widened(_stored("band_attention_plain", x_ext, mxu_bf16))
     nB, BLK, W = adj_mask.shape
     x_win = bops.band_windows_ext(x_ext, nB, BLK, W)      # [nB, B, W, H, C]
     if not mxu_bf16:
@@ -176,10 +202,15 @@ def _bf16_window_bwd(p, zpre, on, real, x_win, d_out, delta, negative_slope):
             _bf16_product("nbiwh,nbihc->nbwhc", p, do_b, real))
 
 
-def _check(fn: str, a_dst, a_src_win, x, adj_mask):
+def _check(fn: str, a_dst, a_src_win, x, adj_mask, x_dtype=torch.float32):
     """Raise on what the kernels do not take; returns the int8 mask. ``x`` is
-    the extended array [B, n_ext, H, C] or, for the window kernels, the
-    materialised windows [nB, B, W, H, C]."""
+    the extended array [B, n_ext, H, C] (``x_dtype``: bf16 for the
+    bf16-operand forwards) or, for the window kernels, the materialised
+    windows [nB, B, W, H, C]."""
+    for name, t, dt in (("a_dst", a_dst, torch.float32), ("a_src_win", a_src_win, torch.float32),
+                        ("x", x, x_dtype)):
+        if t.dtype != dt or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"{fn}: {name} must be contiguous {dt} on {x.device}")
     nB, BLK, W = adj_mask.shape
     n_pad = nB * BLK
     if x.device.type != "cuda":
@@ -193,9 +224,6 @@ def _check(fn: str, a_dst, a_src_win, x, adj_mask):
         raise ValueError(
             f"{fn}: shapes a_dst {tuple(a_dst.shape)}, a_src_win {tuple(a_src_win.shape)}, "
             f"x {tuple(x.shape)} do not fit mask {tuple(adj_mask.shape)}")
-    for name, t in (("a_dst", a_dst), ("a_src_win", a_src_win), ("x", x)):
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device:
-            raise ValueError(f"{fn}: {name} must be contiguous f32 on {x.device}")
     if adj_mask.dtype == torch.bool:
         adj_mask = adj_mask.view(torch.int8)
     if adj_mask.dtype != torch.int8 or not adj_mask.is_contiguous() or adj_mask.device != x.device:
@@ -214,7 +242,8 @@ def band_attention_fwd(
 ) -> torch.Tensor:
     """a_dst [B, n_pad, H] · a_src_win [nB, B, W, H] · x_ext [B, n_ext, H, C]
     (n_ext = n_pad + W − BLK) · adj_mask [nB, BLK, W] (bool or int8)
-    → [B, n_pad, H, C], all f32. No autograd: see :func:`band_attention`.
+    → [B, n_pad, H, C], all f32 (``mxu_bf16``: x_ext bf16, or f32 rounded
+    once here). No autograd: see :func:`band_attention`.
 
     On CUDA tensors it launches the kernel (or raises); on CPU tensors it
     runs :func:`band_attention_plain`. ``index``: the mask's
@@ -225,11 +254,14 @@ def band_attention_fwd(
     only its shape and device are checked. ``band_attention_fwd.launches``
     counts kernel launches (one per call: the padded rows' window-mean
     pre-pass and the row pass are one launch of it); ``mxu_bf16`` launches
-    the bf16-operand instance, counted in ``launches_bf16``."""
+    the bf16-operand instance, which gathers bf16 rows, counted in
+    ``launches_bf16``."""
+    name = "band_attention_fwd"
+    x_ext = _stored(name, x_ext, mxu_bf16)
     if bops.use_plain(x_ext):
         return band_attention_plain(a_dst, a_src_win, x_ext, adj_mask, negative_slope, mxu_bf16)
-    name = "band_attention_fwd"
-    adj_mask = _check(name, a_dst, a_src_win, x_ext, adj_mask)
+    adj_mask = _check(name, a_dst, a_src_win, x_ext, adj_mask,
+                      torch.bfloat16 if mxu_bf16 else torch.float32)
     nB, BLK, W = adj_mask.shape
     B, _, H, C = x_ext.shape
     dev = x_ext.device
@@ -341,17 +373,42 @@ def band_attention_bwd(
 band_attention_bwd.launches = band_attention_bwd.launches_bf16 = 0
 
 
+def _extended(x: torch.Tensor, halo, mxu_bf16: bool) -> torch.Tensor:
+    """The extended rows a band Function saves and its forward reads: with
+    ``halo=(U, R)`` the extension of the projected rows ``x`` [B, n_pad, H,
+    C], in bf16 under ``mxu_bf16`` (each row rounded once); with ``halo=None``
+    ``x`` itself (the forward wrapper rounds f32 rows)."""
+    if halo is None:
+        return x
+    return (bops.extend_rows_bf16 if mxu_bf16 else bops.extend_rows)(x, *halo)
+
+
+def _rows_grad(d_x_ext: torch.Tensor, halo) -> torch.Tensor:
+    """The gradient of a band Function's x input from the f32 ``d x_ext``:
+    itself, or with ``halo=(U, R)`` its rows ``[U, U + n_pad)``, the
+    projected rows' (what the backward of ``torch.cat`` in
+    :func:`~..ops.banded.extend_rows` gives)."""
+    if halo is None:
+        return d_x_ext
+    U, R = halo
+    return d_x_ext[:, U:d_x_ext.shape[1] - R]
+
+
 class BandAttention(torch.autograd.Function):
     """The v2 forward kernel and the backward ``bwd`` names
     (:func:`band_attention_bwd`, or :func:`band_attention_acc_bwd` for the
     "acc" route) on CUDA tensors, or their plain versions on CPU tensors;
-    the bf16-operand instances of both with ``mxu_bf16``. Saves its inputs
-    only: the backward recomputes the softmax."""
+    the bf16-operand instances of both with ``mxu_bf16``. ``halo``: x is
+    the projected rows, extended here (see :func:`_extended`). Saves its
+    inputs and the extended rows (with ``halo``, bf16 under ``mxu_bf16``;
+    widened to f32 for the backward): the backward recomputes the softmax."""
 
     @staticmethod
-    def forward(ctx, a_dst, a_src_win, x_ext, adj_mask, negative_slope, index, bwd, mxu_bf16):
+    def forward(ctx, a_dst, a_src_win, x, adj_mask, negative_slope, index, bwd, mxu_bf16, halo):
+        x_ext = _extended(x, halo, mxu_bf16)
         ctx.save_for_backward(a_dst, a_src_win, x_ext, adj_mask)
         ctx.negative_slope, ctx.index, ctx.bwd, ctx.mxu_bf16 = negative_slope, index, bwd, mxu_bf16
+        ctx.halo = halo
         return band_attention_fwd(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index,
                                   mxu_bf16)
 
@@ -360,8 +417,10 @@ class BandAttention(torch.autograd.Function):
     def backward(ctx, d_out):
         a_dst, a_src_win, x_ext, adj_mask = ctx.saved_tensors
         d_a_dst, d_a_src_win, d_x_ext = ctx.bwd(
-            a_dst, a_src_win, x_ext, adj_mask, d_out, ctx.negative_slope, ctx.index, ctx.mxu_bf16)
-        return d_a_dst, d_a_src_win, d_x_ext, None, None, None, None, None
+            a_dst, a_src_win, _widened(x_ext), adj_mask, d_out, ctx.negative_slope, ctx.index,
+            ctx.mxu_bf16)
+        return (d_a_dst, d_a_src_win, _rows_grad(d_x_ext, ctx.halo), None, None, None, None, None,
+                None)
 
 
 def band_attention(
@@ -372,13 +431,19 @@ def band_attention(
     negative_slope: float = 0.2,
     index: Optional[bops.BandIndex] = None,
     mxu_bf16: bool = False,
+    halo: Optional[tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Differentiable banded attention, shapes as :func:`band_attention_fwd`.
     Gradients flow to ``a_dst``, ``a_src_win`` and ``x_ext``; the mask is a
     constant of the graph. ``index``: see :func:`band_attention_bwd`;
-    ``mxu_bf16``: the bf16-operand instances, forward and backward."""
+    ``mxu_bf16``: the bf16-operand instances, forward and backward, over
+    bf16 rows. ``halo=(U, R)``, as the model's layer passes it: ``x_ext``
+    is instead the projected rows [B, n_pad, H, C], f32, whose extended
+    array the Function writes itself (in bf16 under ``mxu_bf16``, so no f32
+    x_ext is built); their gradient is f32. ``halo=None`` takes a ready
+    extended array, as the kernel-level checks hand it."""
     return BandAttention.apply(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index,
-                               band_attention_bwd, mxu_bf16)
+                               band_attention_bwd, mxu_bf16, halo)
 
 
 # ---- the streaming-softmax route (v4) ---------------------------------------
@@ -419,10 +484,11 @@ def band_attention_flash_plain(
     ``(out [B, n_pad, H, C], m [B, n_pad, H], Z [B, n_pad, H])`` with m the
     row maximum of the masked logits and Z the sum of ``exp(z − m)``; a row
     with no set column has m = −1e9 and Z = W. ``mxu_bf16``: ``out =
-    Σ bf16(exp(z − m))·bf16(x) / Z``, Z the sum of the unrounded numerators
+    Σ bf16(exp(z − m))·x / Z``, Z the sum of the unrounded numerators
     (m is the row maximum: the TPU kernel's running maximum wherever the
     window fits its one forward chunk, as every layout the port runs
-    does)."""
+    does); x the bf16 rows (f32 rows rounded once), computed in f32."""
+    x_ext = _widened(_stored("band_attention_flash_plain", x_ext, mxu_bf16))
     nB, BLK, W = adj_mask.shape
     B = x_ext.shape[0]
     z, _, on = _logits(a_dst, a_src_win, adj_mask, negative_slope)
@@ -491,13 +557,15 @@ def band_attention_flash_fwd(
     walk (``csrc/band_rowwalk.cuh``) writing m and Z beside out.
     ``band_attention_flash_fwd.launches`` counts kernel launches (one per
     call: the window-mean pre-pass and the row pass are one launch of it);
-    ``mxu_bf16`` launches the bf16-operand instance, counted in
-    ``launches_bf16``."""
+    ``mxu_bf16`` launches the bf16-operand instance, which gathers bf16
+    rows (f32 ones are rounded once here), counted in ``launches_bf16``."""
+    name = "band_attention_flash_fwd"
+    x_ext = _stored(name, x_ext, mxu_bf16)
     if bops.use_plain(x_ext):
         return band_attention_flash_plain(a_dst, a_src_win, x_ext, adj_mask, negative_slope,
                                           mxu_bf16)
-    name = "band_attention_flash_fwd"
-    adj_mask = _check(name, a_dst, a_src_win, x_ext, adj_mask)
+    adj_mask = _check(name, a_dst, a_src_win, x_ext, adj_mask,
+                      torch.bfloat16 if mxu_bf16 else torch.float32)
     nB, BLK, W = adj_mask.shape
     B, _, H, C = x_ext.shape
     dev = x_ext.device
@@ -590,14 +658,16 @@ class BandAttentionFlash(torch.autograd.Function):
     output and the row statistics m, Z; the backward takes no row maximum or
     sum again. ``mxu_bf16``: the bf16-operand instances, forward and
     backward (delta from the bf16 forward's out, as the TPU wrapper takes
-    it)."""
+    it), the extended rows saved in bf16. ``halo`` as for
+    :class:`BandAttention`."""
 
     @staticmethod
-    def forward(ctx, a_dst, a_src_win, x_ext, adj_mask, negative_slope, index, mxu_bf16):
+    def forward(ctx, a_dst, a_src_win, x, adj_mask, negative_slope, index, mxu_bf16, halo):
+        x_ext = _extended(x, halo, mxu_bf16)
         out, m, Z = band_attention_flash_fwd(a_dst, a_src_win, x_ext, adj_mask, negative_slope,
                                              index, mxu_bf16)
         ctx.save_for_backward(a_dst, a_src_win, x_ext, adj_mask, m, Z, out)
-        ctx.negative_slope, ctx.index, ctx.mxu_bf16 = negative_slope, index, mxu_bf16
+        ctx.negative_slope, ctx.index, ctx.mxu_bf16, ctx.halo = negative_slope, index, mxu_bf16, halo
         return out
 
     @staticmethod
@@ -606,21 +676,22 @@ class BandAttentionFlash(torch.autograd.Function):
         a_dst, a_src_win, x_ext, adj_mask, m, Z, out = ctx.saved_tensors
         delta = (d_out * out).sum(dim=-1)                 # [B, n_pad, H]
         d_a_dst, d_a_src_win, d_x_ext = band_attention_flash_bwd(
-            a_dst, a_src_win, x_ext, adj_mask, m, Z, delta, d_out, ctx.negative_slope, ctx.index,
-            ctx.mxu_bf16)
-        return d_a_dst, d_a_src_win, d_x_ext, None, None, None, None
+            a_dst, a_src_win, _widened(x_ext), adj_mask, m, Z, delta, d_out, ctx.negative_slope,
+            ctx.index, ctx.mxu_bf16)
+        return d_a_dst, d_a_src_win, _rows_grad(d_x_ext, ctx.halo), None, None, None, None, None
 
 
 def band_attention_flash(
     a_dst: torch.Tensor, a_src_win: torch.Tensor, x_ext: torch.Tensor,
     adj_mask: torch.Tensor, negative_slope: float = 0.2,
     index: Optional[bops.BandIndex] = None, mxu_bf16: bool = False,
+    halo: Optional[tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Differentiable banded attention through the streaming-softmax route,
     shapes and gradients as :func:`band_attention`; ``mxu_bf16``: the
-    bf16-operand instances."""
+    bf16-operand instances; ``halo`` as for :func:`band_attention`."""
     return BandAttentionFlash.apply(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index,
-                                    mxu_bf16)
+                                    mxu_bf16, halo)
 
 
 # ---- the materialised-window route (v1) --------------------------------------
@@ -806,10 +877,12 @@ def band_attention_acc(
     a_dst: torch.Tensor, a_src_win: torch.Tensor, x_ext: torch.Tensor,
     adj_mask: torch.Tensor, negative_slope: float = 0.2,
     index: Optional[bops.BandIndex] = None, mxu_bf16: bool = False,
+    halo: Optional[tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Differentiable banded attention through the sliding-accumulator route:
     v2's forward kernel, as the reference's v3 reuses v2, and the owner-row
     backward :func:`band_attention_acc_bwd` (v2's passes); shapes and gradients as
-    :func:`band_attention`; ``mxu_bf16``: the bf16-operand instances."""
+    :func:`band_attention`; ``mxu_bf16``: the bf16-operand instances; ``halo``
+    as for :func:`band_attention`."""
     return BandAttention.apply(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index,
-                               band_attention_acc_bwd, mxu_bf16)
+                               band_attention_acc_bwd, mxu_bf16, halo)

@@ -297,9 +297,12 @@ def use_plain(t: torch.Tensor) -> bool:
 
 
 def vector_loads(x: torch.Tensor, C: int) -> bool:
-    """Whether a band kernel may read ``x``'s rows of C channels as float4:
-    C a multiple of 4 and the data 16-byte aligned (a view at an offset may
-    not be); else it takes its scalar variant."""
+    """Whether a band kernel may read ``x``'s rows of C channels packed, 4
+    channels of one head a load: f32 rows as a float4, bf16 rows (the
+    bf16-operand forwards) as one 8-byte quad. Both need C a multiple of 4
+    (rows, heads and quads then start on a 16- or 8-byte boundary) and the
+    data 16-byte aligned (a view at an offset may not be); else the kernel
+    takes its scalar variant."""
     return C % 4 == 0 and x.data_ptr() % 16 == 0
 
 
@@ -327,6 +330,20 @@ def extend_rows(x_bp: torch.Tensor, U: int, R: int) -> torch.Tensor:
         [pad((x_bp.shape[0], U) + x_bp.shape[2:]), x_bp,
          pad((x_bp.shape[0], R) + x_bp.shape[2:])], dim=1
     )
+
+
+def extend_rows_bf16(x_bp: torch.Tensor, U: int, R: int) -> torch.Tensor:
+    """The extended rows of :func:`extend_rows` stored in bfloat16: each row
+    of the f32 ``x_bp`` read once and rounded once (to nearest, ties to
+    even) as it is written, and only the U and R halo rows zeroed. The
+    bf16-operand band forwards gather these rows."""
+    B, n_pad = x_bp.shape[:2]
+    out = torch.empty((B, U + n_pad + R) + x_bp.shape[2:], dtype=torch.bfloat16,
+                      device=x_bp.device)
+    out[:, :U].zero_()
+    out[:, U + n_pad:].zero_()
+    out[:, U:U + n_pad].copy_(x_bp)
+    return out
 
 
 def band_windows_ext(x_ext: torch.Tensor, nB: int, BLK: int, W: int) -> torch.Tensor:

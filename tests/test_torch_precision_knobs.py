@@ -310,9 +310,9 @@ def test_bf16_routes_the_band_wrappers_by_width(monkeypatch):
     (conv1 H·C 256, conv2 128); GATRes-small width none."""
     seen = []
 
-    def spy(*args, mxu_bf16=False):
+    def spy(*args, mxu_bf16=False, **kw):
         seen.append(mxu_bf16)
-        return pba.band_attention(*args, mxu_bf16=mxu_bf16)
+        return pba.band_attention(*args, mxu_bf16=mxu_bf16, **kw)
 
     monkeypatch.setitem(layers.BAND_ATTEND, "dma", spy)
     jt = random_graph(np.random.default_rng(2), n=40, extra_edges=20)
