@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; none is caught):
    registers and spills: the f32 ones those from before the bf16-operand
    switch, the row walk's as they were before its window layout (which must
    leave them as they were), the window forward's and the dense softmax
-   backward's as they were first built.
+   backward's as they were first built; the bf16 column walk's as it
+   compiled when it first read the stored bf16 rows.
 3. Hold each kernel, forward and backward, against its plain PyTorch version
    on the card, at the bigtown band layout (B 1 and B 4) and at small ragged
    shapes (W not a multiple of 32, fully masked rows, H·C 64, C past one
@@ -179,12 +180,12 @@ Phases (any failure exits non-zero; none is caught):
     (bigtown layout, B 1, 8 and 32) and v4's pair (meganet layout, B 1, 2
     and 8), H·C 256 and 128, against their plain versions (atol and rtol
     1e-4; v3's backward equal to v2's bit for bit) and at least
-    1e-3·max|ref| from their f32 instances on the same inputs; the forwards
-    read x_ext stored in bf16, as the model's path hands it, and f32 rows
-    through the wrappers' cast must give the same output bit for bit; then
-    at ragged shapes (padded rows, rows of more than 32 entries, C past a
-    tile, C % 4 != 0, 33 and 40 heads) and on bf16 rows off 16-byte
-    alignment (the scalar loads).
+    1e-3·max|ref| from their f32 instances on the same inputs; forwards and
+    backwards read x_ext stored in bf16, as the model's path hands it, and
+    f32 rows through the wrappers' cast must give the same outputs bit for
+    bit; then at ragged shapes (padded rows, rows of more than 32 entries, C
+    past a tile, C % 4 != 0, 33 and 40 heads) and on bf16 rows off 16-byte
+    alignment (the scalar loads), forward and backward.
 27. bigtown, GATRes-large with ``attn_dtype="bfloat16"`` set by
     ``apply_model_knobs`` on the trained weights: the fixture
     ``artifacts/parity_train_bigtown_bf16.npz`` (the forward's output and
@@ -192,17 +193,17 @@ Phases (any failure exits non-zero; none is caught):
     launches and none of the f32 instance; the B 1 step under "dma" and under
     "acc" with the gates of phase 7 and exact launch counts), 64 snapshots at
     batch 32 through ``Inferencer`` and a batch-8 train step, each timed in
-    turns with the f32 model; the device time of the backward's pass that
-    widens the saved bf16 rows to f32 in that step.
+    turns with the f32 model; a profiler trace of each step: its device
+    time, and no op that copies a tensor of the extended rows' shape (the
+    backwards read the saved bf16 rows as they are), or the run fails.
 28. meganet through "flash" with ``attn_dtype="bfloat16"``: the 4-block
     fixture ``artifacts/parity_train_meganet_bf16.npz`` (forward statistics,
     B 1 step), 16 snapshots at batch 8 and a batch-2 step of the 25-block
     model, in turns with f32, exact launch counts; the step's peak memory
-    under bf16 and f32 and its widening pass.
+    under bf16 and f32, its device time and no copy of the extended rows.
 29. Times of the bf16 instances beside their f32 instances on the same
-    inputs (in turns; the forwards on bf16 rows), their plain versions and
-    their bounds (the forwards' at 2-byte x rows; the backwards' the f32
-    rows', which they still read), at bigtown B 32 and 8 and meganet B 8
+    inputs (in turns; the bf16 ones on bf16 rows), their plain versions and
+    their bounds at 2-byte x rows, at bigtown B 32 and 8 and meganet B 8
     and 2.
 
 The last line is ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
@@ -372,28 +373,57 @@ def step_device_ms(ms_by_width: dict):
     return None if None in ms_by_width.values() else 25 * sum(ms_by_width.values())
 
 
-def widening_in_step(run, B: int, n_ext: int) -> dict:
-    """Device ms of the pass that widens a bf16 backward's saved extended
-    rows to f32 (``x_ext.float()``, once a GATConv) in one train step
-    ``run``, read from a ``torch.profiler`` trace of that step: the
-    ``aten::_to_copy`` ops on tensors of the extended rows' shape [B, n_ext,
-    H, C] at GATRes-large's widths H·C 256 and 128, with the kernels they
-    launch (nothing else in a step copies a tensor of that shape). {H·C: (ops
-    in the step, ms), "step": ms}; ms None where the trace holds none."""
+def step_trace(run, B: int, n_ext: int) -> dict:
+    """One train step ``run`` under ``torch.profiler``: its device time (every
+    kernel of the step, summed; None where the trace holds none) and the
+    ``aten::_to_copy`` ops on tensors of the extended rows' shape
+    [B, n_ext, H, C] at GATRes-large's widths H·C 256 and 128, with their
+    device ms: a backward that widened the saved bf16 rows would make one a
+    GATConv, and nothing else in a step copies a tensor of that shape.
+    {"device_ms": ms, "copies": {H·C: ops}, "copy_ms": ms}."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+    copies, copy_us = {256: 0, 128: 0}, 0.0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         run()
         torch.cuda.synchronize()
-    out = {}
     for H, C in ((2, 128), (1, 128)):
         ev = [e for e in prof.key_averages(group_by_input_shape=True)
               if e.key == "aten::_to_copy" and e.input_shapes
               and list(e.input_shapes[0]) == [B, n_ext, H, C]]
-        ms = sum(e.device_time_total for e in ev) / 1e3
-        out[H * C] = (sum(e.count for e in ev), ms or None)
-    return {**out, "step": None if None in (v[1] for v in out.values())
-            else sum(v[1] for v in out.values())}
+        copies[H * C] += sum(e.count for e in ev)
+        copy_us += sum(e.device_time_total for e in ev)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return {"device_ms": busy / 1e3 or None, "copies": copies, "copy_ms": copy_us / 1e3}
+
+
+def no_row_copies(label: str, traces: dict) -> str:
+    """Fails if the bf16 step's trace holds a copy of the extended rows;
+    returns the report of both steps' device time."""
+    bf, f32 = traces["bfloat16"], traces["float32"]
+    if any(bf["copies"].values()):
+        raise SystemExit(f"FAIL {label}: the bf16 step copies tensors of the extended rows' shape "
+                         f"{bf['copies']} ({bf['copy_ms']:.4f} ms): its backwards must read the "
+                         f"saved bf16 rows as they are")
+    return (f"device time of the step (a profiler trace of each): bf16 {fmt_ms(bf['device_ms'])} "
+            f"ms, f32 {fmt_ms(f32['device_ms'])} ms; no op of the bf16 step copies a tensor of the "
+            f"extended rows' shape (ops at H·C 256 / 128: {bf['copies'][256]} / {bf['copies'][128]})")
+
+
+def band_bwd_bytes(B, nB, BLK, W, H, C, nnz, x_bytes=4, stats=False) -> int:
+    """Bytes a band-attention backward must move: x_ext read at ``x_bytes``
+    an element (2: the bf16 rows), dO read and d x_ext written at 4, a_dst,
+    a_src (one a node), d a_dst and d a_src_win [nB, B, W, H] at 4, with
+    ``stats`` v4's m, Z and delta too, and the index's row and column lists
+    (row_ptr, t_ptr, col, t_entry, t_row)."""
+    n_pad = nB * BLK
+    n_ext = n_pad + W - BLK
+    return (4 * B * n_pad * H * (5 if stats else 2) + 4 * B * n_ext * H + 4 * nB * B * W * H
+            + (x_bytes + 4) * B * n_ext * H * C + 4 * B * n_pad * H * C
+            + 4 * (n_pad + 1 + n_ext + 1 + 3 * nnz))
 
 
 def device_ms(fn, iters: int = 20):
@@ -2166,7 +2196,10 @@ F32_BAND_INSTANCES = {
 # the bf16-operand instances of the same sources, held like the f32 ones (read on an
 # NVIDIA H100 80GB HBM3; the row walks of v2 and v4 as the walk over bf16 rows
 # compiled when the extended rows were first stored in bf16: at NV 2 less spill
-# than the f32 instance, at NV 1 held to 48 registers for a fifth thread block)
+# than the f32 instance, at NV 1 held to 48 registers for a fifth thread block;
+# the column walk as it compiled when it first read those rows: x_ext[e] as packed
+# quads, a dO slot rounded two channels a conversion, no more spill than the
+# instance that read f32 rows and rounded them on load)
 BF16_BAND_INSTANCES = {
     "band_attention": {
         "band_rowwalk_kernel<2, false, false, false, true>": (64, 64, 72, 92),
@@ -2183,11 +2216,11 @@ BF16_BAND_INSTANCES = {
         "window_mean_bf16_kernel": (32, 0, 0, 0),
     },
     **{src: {
-        "columns_kernel<2, true, true, false, true>": (80, 8, 8, 16),
+        "columns_kernel<2, true, true, false, true>": (80, 8, 4, 8),
         "columns_kernel<2, false, false, false, true>": (80, 136, 152, 308),
         "columns_kernel<2, true, false, false, true>": (80, 8, 8, 8),
         "columns_kernel<1, true, true, false, true>": (64, 40, 40, 60),
-        "columns_kernel<1, false, false, false, true>": (64, 120, 132, 260),
+        "columns_kernel<1, false, false, false, true>": (64, 112, 120, 232),
         "columns_kernel<1, true, false, false, true>": (64, 40, 40, 64),
         **({} if src == "band_attention_flash_bwd" else {"weights_kernel<true>": (40, 0, 0, 0)}),
     } for src in ("band_attention_bwd", "band_attention_acc_bwd", "band_attention_flash_bwd")},
@@ -2282,22 +2315,26 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
         if gap:
             f32 = ba.band_attention_fwd(a_dst, a_src, x_ext, msk, 0.2, index)
             line.append(f"out {apart('band_attention_bf16', label, got, f32, ref):.3e}")
-        got = ba.band_attention_bwd(a_dst, a_src, x_ext, msk, d_out, 0.2, index, True)
-        ref = ba.band_attention_bwd_plain(a_dst, a_src, x_ext, msk, d_out, 0.2, True)
-        acc = ba.band_attention_acc_bwd(a_dst, a_src, x_ext, msk, d_out, 0.2, index, True)
+        got = ba.band_attention_bwd(a_dst, a_src, xb, msk, d_out, 0.2, index, True)
+        ref = ba.band_attention_bwd_plain(a_dst, a_src, xb, msk, d_out, 0.2, True)
+        acc = ba.band_attention_acc_bwd(a_dst, a_src, xb, msk, d_out, 0.2, index, True)
+        cast = ba.band_attention_bwd(a_dst, a_src, x_ext, msk, d_out, 0.2, index, True)
         f32 = ba.band_attention_bwd(a_dst, a_src, x_ext, msk, d_out, 0.2, index) if gap else ref
-        for part, g, r, q, f in zip(("d a_dst", "d a_src_win", "d x_ext"), got, ref, acc, f32):
+        for part, g, r, q, c, f in zip(("d a_dst", "d a_src_win", "d x_ext"), got, ref, acc, cast,
+                                       f32):
             held("band_attention_bwd_bf16", f"band_attention_bwd bf16 {label} {part}", g, r, False)
             held("band_attention_acc_bwd_bf16", f"band_attention_acc_bwd bf16 {label} {part}", q, r,
                  False)
             check_equal(f"band_attention_acc_bwd bf16 {label} {part} vs band_attention_bwd bf16", q, g)
+            check_equal(f"band_attention_bwd bf16 {label} {part}, f32 rows through the wrapper's "
+                        f"cast", c, g)
             if gap:
                 line.append(f"{part} {apart('band_attention_bwd_bf16', label, g, f, r):.3e}")
                 apart("band_attention_acc_bwd_bf16", label, q, f, r)
         print(f"  v2 / v3 bf16 {label}: within 1e-4 of the plain versions (max so far: forward "
               f"{max_err_of('band_attention_bf16'):.3e}, backward "
               f"{max_err_of('band_attention_bwd_bf16'):.3e}), v3's backward v2's bit for bit, "
-              f"the forward of f32 rows (cast once in the wrapper) that of the bf16 rows"
+              f"forward and backward of f32 rows (cast once in the wrapper) those of the bf16 rows"
               + (f"; from the f32 instance: " + ", ".join(line) if gap else ""))
         return a_dst, a_src, x_ext, d_out
 
@@ -2321,24 +2358,30 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
             line.append(f"out {apart('band_attention_flash_bf16', label, own[0], f32, ref[0]):.3e}")
         out, m, Z = ref
         delta = (d_out * out).sum(dim=-1)
-        args = (a_dst, a_src, x_ext, msk, m, Z, delta, d_out, 0.2)
+        args = (a_dst, a_src, xb, msk, m, Z, delta, d_out, 0.2)
         got = ba.band_attention_flash_bwd(*args, index, True)
         ref = ba.band_attention_flash_bwd_plain(*args, True)
-        mine = ba.band_attention_flash_bwd(a_dst, a_src, x_ext, msk, own[1], own[2],
+        mine = ba.band_attention_flash_bwd(a_dst, a_src, xb, msk, own[1], own[2],
                                            (d_out * own[0]).sum(dim=-1), d_out, 0.2, index, True)
-        f32 = ba.band_attention_flash_bwd(*args, index) if gap else ref
-        for part, g, g2, r, f in zip(("d a_dst", "d a_src_win", "d x_ext"), got, mine, ref, f32):
+        cast = ba.band_attention_flash_bwd(a_dst, a_src, x_ext, msk, m, Z, delta, d_out, 0.2, index,
+                                           True)
+        f32 = ba.band_attention_flash_bwd(a_dst, a_src, x_ext, msk, m, Z, delta, d_out, 0.2,
+                                          index) if gap else ref
+        for part, g, g2, r, c, f in zip(("d a_dst", "d a_src_win", "d x_ext"), got, mine, ref, cast,
+                                        f32):
             held("band_attention_flash_bwd_bf16", f"band_attention_flash_bwd bf16 {label} {part}", g, r,
                  False)
             held("band_attention_flash_bwd_bf16",
                  f"band_attention_flash_bwd bf16 {label} {part}, from the kernel's out, m, Z", g2, r,
                  False)
+            check_equal(f"band_attention_flash_bwd bf16 {label} {part}, f32 rows through the "
+                        f"wrapper's cast", c, g)
             if gap:
                 line.append(f"{part} {apart('band_attention_flash_bwd_bf16', label, g, f, r):.3e}")
         print(f"  v4 bf16 {label}: within 1e-4 of the plain versions (max so far: forward "
               f"{max_err_of('band_attention_flash_bf16'):.3e}, backward "
               f"{max_err_of('band_attention_flash_bwd_bf16'):.3e}); f32 rows through the cast: "
-              f"the same out, m, Z"
+              f"the same out, m, Z and gradients"
               + (f"; from the f32 instance: " + ", ".join(line) if gap else ""))
         return a_dst, a_src, x_ext, d_out, m, Z, delta
 
@@ -2372,8 +2415,8 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
         for B, H, C in shapes:
             check_v2("ragged", m_t, None, B, H, C, gap=False)
             check_v4("ragged", m_t, None, B, H, C, gap=False)
-    # bf16 rows 2 bytes off 16-byte alignment: the scalar loads
-    a_dst, a_src, x_ext, _ = operands(mask, 1, 2, 128)
+    # bf16 rows 2 bytes off 16-byte alignment: the scalar loads, forward and backward
+    a_dst, a_src, x_ext, d_out = operands(mask, 1, 2, 128)
     xo = torch.empty(x_ext.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(x_ext.shape)
     xo.copy_(x_ext)
     held("band_attention_bf16", "band_attention bf16 bigtown B1 H2 C128, rows off alignment",
@@ -2384,7 +2427,21 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
                           ba.band_attention_flash_plain(a_dst, a_src, xo, mask, 0.2, True)):
         held("band_attention_flash_bf16", f"band_attention_flash bf16 bigtown B1 H2 C128 {part}, "
              f"rows off alignment", g, r)
-    del a_dst, a_src, x_ext, xo
+    parts = ("d a_dst", "d a_src_win", "d x_ext")
+    for name, fn in (("band_attention_bwd_bf16", ba.band_attention_bwd),
+                     ("band_attention_acc_bwd_bf16", ba.band_attention_acc_bwd)):
+        got = fn(a_dst, a_src, xo, mask, d_out, 0.2, mask_ix, True)
+        ref = ba.band_attention_bwd_plain(a_dst, a_src, xo, mask, d_out, 0.2, True)
+        for part, g, r in zip(parts, got, ref):
+            held(name, f"{name[:-5]} bf16 bigtown B1 H2 C128 {part}, rows off alignment", g, r)
+    out, m, Z = ba.band_attention_flash_plain(a_dst, a_src, xo, mask, 0.2, True)
+    stats = (m, Z, (d_out * out).sum(dim=-1), d_out, 0.2)
+    for part, g, r in zip(parts, ba.band_attention_flash_bwd(a_dst, a_src, xo, mask, *stats, mask_ix,
+                                                             True),
+                          ba.band_attention_flash_bwd_plain(a_dst, a_src, xo, mask, *stats, True)):
+        held("band_attention_flash_bwd_bf16", f"band_attention_flash_bwd bf16 bigtown B1 H2 C128 "
+             f"{part}, rows off alignment", g, r)
+    del a_dst, a_src, x_ext, xo, d_out, out, m, Z, stats
     torch.cuda.synchronize()
     print("  every gap to the f32 instance, as a share of 1e-3·max|ref|, at least: "
           + ", ".join(f"{k} {v:.1f}×" for k, v in gaps.items()))
@@ -2569,7 +2626,7 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
     # a train step at batch 8, bf16 and f32 in turns
     tmask = (rng.random((tbs, n)).argsort(1) < int(n * 0.95)).reshape(-1)
     batch = snaps[:tbs]
-    step_ms = {"float32": [], "bfloat16": []}
+    step_ms, big_trace = {"float32": [], "bfloat16": []}, {}
     for d in ("float32", "bfloat16", "bfloat16", "float32"):
         tr = Trainer(bigtown_model(d)[0], preset.train_config(batch_size=tbs), tstats, tpl, device=dev)
         tr.train_step(tpl, batch, mask=tmask)                            # warm-up
@@ -2585,19 +2642,18 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
         losses = [float(tr.train_step(tpl, batch, mask=tmask)[0])]
         if not np.isfinite(losses).all():
             raise SystemExit(f"FAIL bigtown {d} step at batch {tbs}: loss {losses}")
-        if d == "bfloat16" and len(step_ms[d]) == 1:
-            profile_batch(lambda: tr.train_step(tpl, batch, mask=tmask),
-                          f"one bf16 bigtown train step at batch {tbs}", top=12)
-            big_widen = widening_in_step(lambda: tr.train_step(tpl, batch, mask=tmask), tbs, n_ext)
+        if len(step_ms[d]) == 1:
+            if d == "bfloat16":
+                profile_batch(lambda: tr.train_step(tpl, batch, mask=tmask),
+                              f"one bf16 bigtown train step at batch {tbs}", top=12)
+            big_trace[d] = step_trace(lambda: tr.train_step(tpl, batch, mask=tmask), tbs, n_ext)
         del tr
         torch.cuda.empty_cache()
     print(f"  train step at batch {tbs}: bf16 " + " / ".join(f"{v:.3f}" for v in step_ms["bfloat16"])
           + " ms, f32 " + " / ".join(f"{v:.3f}" for v in step_ms["float32"]) + f" ms (in turns; {card});"
           " 50 band_attention bf16 + 50 band_attention_bwd bf16 launches a step")
-    print(f"  the bf16 backward's widening pass (saved bf16 x_ext → f32, one a GATConv): "
-          f"{fmt_ms(big_widen['step'])} ms of device time in a step at batch {tbs} ("
-          f"{big_widen[256][0]} ops, {fmt_ms(big_widen[256][1])} ms at H·C 256, {big_widen[128][0]}, "
-          f"{fmt_ms(big_widen[128][1])} ms at 128; a profiler trace of the step)")
+    print(f"  train step at batch {tbs}, " + no_row_copies(f"bigtown bf16 step at batch {tbs}",
+                                                        big_trace))
 
     # ---- 28: meganet through "flash" -----------------------------------------------
     mn = mega_tpl.n_node
@@ -2660,7 +2716,8 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
     torch.cuda.empty_cache()
     mtmask = (rng.random((mtbs, mn)).argsort(1) < int(mn * 0.95)).reshape(-1)
     mbatch = msnaps[:mtbs]
-    mstep_ms, mpeak = {"float32": [], "bfloat16": []}, {}
+    mstep_ms, mega_trace = {"float32": [], "bfloat16": []}, {}
+    mpeak = {"float32": [], "bfloat16": []}             # GB, each turn
     for d in ("float32", "bfloat16", "bfloat16", "float32"):
         m = GATRes(25, 128, attn_impl="factored")
         m.load_state_dict(mmodels[d].state_dict())
@@ -2671,33 +2728,34 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
         mstep_ms[d].append(cuda_ms(lambda: tr.train_step(mega_tpl, mbatch, mask=mtmask), 0, 3))
-        mpeak[d] = max(mpeak.get(d, 0.0), torch.cuda.max_memory_allocated() / 1e9)
+        mpeak[d].append(torch.cuda.max_memory_allocated() / 1e9)
         launched = read_launches()
         names = (("band_attention_flash_bf16", "band_attention_flash_bwd_bf16") if d == "bfloat16"
                  else ("band_attention_flash", "band_attention_flash_bwd"))
         want = counts(band_spmm=75, band_spmm_bwd=75, **{names[0]: 150, names[1]: 150})
         if launched != want:
             raise SystemExit(f"FAIL meganet {d} step launches {launched}, expected {want}")
-        if d == "bfloat16" and len(mstep_ms[d]) == 1:
-            mega_step = launched
-            mega_widen = widening_in_step(lambda: tr.train_step(mega_tpl, mbatch, mask=mtmask), mtbs,
-                                          mbl.n_pad + mbl.W - mbl.BLK)
+        if len(mstep_ms[d]) == 1:
+            if d == "bfloat16":
+                mega_step = launched
+            mega_trace[d] = step_trace(lambda: tr.train_step(mega_tpl, mbatch, mask=mtmask), mtbs,
+                                       mbl.n_pad + mbl.W - mbl.BLK)
         del tr, m
         torch.cuda.empty_cache()
     print(f"  train step at batch {mtbs}: bf16 " + " / ".join(f"{v:.3f}" for v in mstep_ms["bfloat16"])
           + " ms, f32 " + " / ".join(f"{v:.3f}" for v in mstep_ms["float32"]) + f" ms (in turns; {card});"
           " 50 band_attention_flash bf16 + 50 band_attention_flash_bwd bf16 launches a step")
-    print(f"  peak device memory of the step at batch {mtbs}: bf16 {mpeak['bfloat16']:.3f} GB, f32 "
-          f"{mpeak['float32']:.3f} GB (the bf16 step saves its extended rows in bf16); the widening "
-          f"pass {fmt_ms(mega_widen['step'])} ms of device time in the step ({mega_widen[256][0]} "
-          f"ops, {fmt_ms(mega_widen[256][1])} ms at H·C 256, {mega_widen[128][0]}, "
-          f"{fmt_ms(mega_widen[128][1])} ms at 128; a profiler trace of the step)")
+    print(f"  peak device memory of the step at batch {mtbs} (each turn): bf16 "
+          + " / ".join(f"{v:.3f}" for v in mpeak["bfloat16"]) + " GB, f32 "
+          + " / ".join(f"{v:.3f}" for v in mpeak["float32"]) + " GB (the bf16 step saves its "
+          "extended rows in bf16); "
+          + no_row_copies(f"meganet bf16 step at batch {mtbs}", mega_trace))
     del mmodels
     torch.cuda.empty_cache()
 
     rows = bf16_times(dev, card, randn, operands, big, mega_tpl, sbs, tbs, mbs, mtbs)
     return dict(rows=rows, gaps=gaps, step=per_step, big_serve=big_serve, mega_serve=mega_serve,
-                mega_step=mega_step, widening={"bigtown_b8": big_widen, "meganet_b2": mega_widen},
+                mega_step=mega_step, traces={"bigtown_b8": big_trace, "meganet_b2": mega_trace},
                 mega_peak_gb=mpeak)
 
 
@@ -2716,8 +2774,8 @@ def bf16_times(dev, card, randn, operands, big, mega_tpl, sbs, tbs, mbs, mtbs):
     mix = mega_tpl.band_index("adj_mask").to(dev)
     # ---- 29: times of the bf16 instances beside the f32 ones ----------------------------
     print(f"[29] times of the bf16-operand instances beside their f32 instances on {card} (CUDA "
-          f"events, 20 launches after 3, in turns f32, bf16, bf16, f32; the forwards read the rows "
-          f"stored in bf16, their bounds at 2-byte x rows; the backwards' bounds the f32 rows')")
+          f"events, 20 launches after 3, in turns f32, bf16, bf16, f32; the bf16 instances read "
+          f"the rows stored in bf16, their bounds at 2-byte x rows)")
     rows = []
 
     def timed(name, B, hc, net, f32, bf, plain, nbytes, ops):
@@ -2736,7 +2794,6 @@ def bf16_times(dev, card, randn, operands, big, mega_tpl, sbs, tbs, mbs, mtbs):
               f"{nbytes / 1e6:.1f} MB; {r['bound_ms'] / r['ms']:.1%} of it reached)")
 
     f_ix = 4 * (n_pad + 1 + mask_ix.nnz)
-    b_ix = 4 * (n_pad + 1 + n_ext + 1 + 3 * mask_ix.nnz)
     for B in (sbs, tbs):
         for H, C in ((2, 128), (1, 128)):
             a_dst, a_src, x_ext, d_out = operands(mask, B, H, C)
@@ -2747,20 +2804,19 @@ def bf16_times(dev, card, randn, operands, big, mega_tpl, sbs, tbs, mbs, mtbs):
                   lambda: ba.band_attention_fwd(a_dst, a_src, xb, mask, 0.2, mask_ix, True),
                   lambda: ba.band_attention_plain(a_dst, a_src, xb, mask, 0.2, True),
                   io - 2 * B * n_ext * H * C + f_ix + 4 * (nB + 1), B * H * mask_ix.nnz * (2 * C + 4))
-            bbytes = io + 4 * (B * n_pad * H + nB * B * W * H + B * n_ext * H * C) + b_ix
+            bbytes = band_bwd_bytes(B, nB, BLK, W, H, C, mask_ix.nnz, 2)
             for name, fn in (("band_attention_bwd_bf16", ba.band_attention_bwd),
                              ("band_attention_acc_bwd_bf16", ba.band_attention_acc_bwd)):
                 timed(name, B, H * C, "bigtown",
                       lambda: fn(a_dst, a_src, x_ext, mask, d_out, 0.2, mask_ix),
-                      lambda: fn(a_dst, a_src, x_ext, mask, d_out, 0.2, mask_ix, True),
-                      lambda: ba.band_attention_bwd_plain(a_dst, a_src, x_ext, mask, d_out, 0.2, True),
+                      lambda: fn(a_dst, a_src, xb, mask, d_out, 0.2, mask_ix, True),
+                      lambda: ba.band_attention_bwd_plain(a_dst, a_src, xb, mask, d_out, 0.2, True),
                       bbytes, B * H * mask_ix.nnz * (4 * C + 12))
             del a_dst, a_src, x_ext, xb, d_out
             torch.cuda.empty_cache()
     mn_pad = mbl.n_pad
     mn_ext = mn_pad + mbl.W - mbl.BLK
     mf_ix = 4 * (mn_pad + 1 + mix.nnz)
-    mb_ix = 4 * (mn_pad + 1 + mn_ext + 1 + 3 * mix.nnz)
     for B in (mbs, mtbs):
         for H, C in ((2, 128), (1, 128)):
             a_dst, a_src, x_ext, d_out = operands(mmask, B, H, C)
@@ -2774,14 +2830,14 @@ def bf16_times(dev, card, randn, operands, big, mega_tpl, sbs, tbs, mbs, mtbs):
                   lambda: ba.band_attention_flash_plain(a_dst, a_src, xb, mmask, 0.2, True),
                   3 * small + 4 * B * mn_ext * H + wide_ // 2 * mn_ext + wide_ * mn_pad + mf_ix,
                   B * H * mix.nnz * (2 * C + 8))
-            args = (a_dst, a_src, x_ext, mmask, m, Z, delta, d_out, 0.2)
+            stats = (m, Z, delta, d_out, 0.2)
             timed("band_attention_flash_bwd_bf16", B, H * C, "meganet",
-                  lambda: ba.band_attention_flash_bwd(*args, mix),
-                  lambda: ba.band_attention_flash_bwd(*args, mix, True),
-                  lambda: ba.band_attention_flash_bwd_plain(*args, True),
-                  5 * small + 4 * B * mn_ext * H + 4 * mbl.adj_mask.shape[0] * B * mbl.W * H
-                  + wide_ * (2 * mn_ext + mn_pad) + mb_ix, B * H * mix.nnz * (4 * C + 12))
-            del a_dst, a_src, x_ext, xb, d_out, out, m, Z, delta, args
+                  lambda: ba.band_attention_flash_bwd(a_dst, a_src, x_ext, mmask, *stats, mix),
+                  lambda: ba.band_attention_flash_bwd(a_dst, a_src, xb, mmask, *stats, mix, True),
+                  lambda: ba.band_attention_flash_bwd_plain(a_dst, a_src, xb, mmask, *stats, True),
+                  band_bwd_bytes(B, mbl.adj_mask.shape[0], mbl.BLK, mbl.W, H, C, mix.nnz, 2, True),
+                  B * H * mix.nnz * (4 * C + 12))
+            del a_dst, a_src, x_ext, xb, d_out, out, m, Z, delta, stats
             torch.cuda.empty_cache()
     return rows
 
@@ -3487,9 +3543,9 @@ def main() -> int:
             "f32_ms": r["f32_ms"], "device_ms": r["device_ms"],
             "gap_to_f32_in_1e-3_max_ref": s11["gaps"][name],
             "shape": f"{r['net']}, B {r['B']}, H·C 256",
-            **({"widening_device_ms_step": s11["widening"]["bigtown_b8"]["step"]}
+            **({"step_trace_bigtown_b8": s11["traces"]["bigtown_b8"]}
                if name == "band_attention_bwd_bf16" else {}),
-            **({"widening_device_ms_step": s11["widening"]["meganet_b2"]["step"],
+            **({"step_trace_meganet_b2": s11["traces"]["meganet_b2"],
                 "step_peak_gb_meganet_b2": s11["mega_peak_gb"]}
                if name == "band_attention_flash_bwd_bf16" else {}),
             "by_shape": {f"B{b} HC{hc}": {k: q[k] for k in ("ms", "f32_ms", "device_ms", "plain_ms",

@@ -38,17 +38,22 @@
 // scratch_p, scratch_dz: [B, nnz, H] f32; scratch_s: [B, nB, H, C] f32, read
 // only when n_empty > 0. vec != 0: C % 4 == 0 and x_ext, dout 16-byte aligned
 // (the wrapper checks). All outputs are written in full. bf16 != 0: the
-// bf16-operand instance (csrc/band_bwd.cuh).
+// bf16-operand instance (csrc/band_bwd.cuh), x_ext in bf16; else f32.
 extern "C" int band_attention_bwd(
-    const float* a_dst, const float* a_src_win, const float* x_ext,
+    const float* a_dst, const float* a_src_win, const void* x_ext,
     const float* dout, const int* row_ptr, const int* col, const int* t_ptr,
     const int* t_entry, const int* t_row, const int* empty_ptr,
     const int* empty_row, float* scratch_p, float* scratch_dz,
     float* scratch_s, float* d_a_dst, float* d_a_src_win, float* d_x_ext,
     int B, int nB, int BLK, int W, int H, int C, int nnz, int n_empty, int vec,
     int bf16, float slope, void* stream) {
-  auto bwd = bf16 ? recompute_bwd<false, true> : recompute_bwd<false, false>;
-  return bwd(a_dst, a_src_win, x_ext, dout, row_ptr, col, t_ptr, t_entry, t_row, empty_ptr,
-             empty_row, scratch_p, scratch_dz, scratch_s, d_a_dst, d_a_src_win, d_x_ext, B, nB,
-             BLK, W, H, C, nnz, n_empty, vec, slope, (cudaStream_t)stream);
+  if (bf16)
+    return recompute_bwd<false, true>(
+        a_dst, a_src_win, static_cast<const __nv_bfloat16*>(x_ext), dout, row_ptr, col, t_ptr,
+        t_entry, t_row, empty_ptr, empty_row, scratch_p, scratch_dz, scratch_s, d_a_dst,
+        d_a_src_win, d_x_ext, B, nB, BLK, W, H, C, nnz, n_empty, vec, slope, (cudaStream_t)stream);
+  return recompute_bwd<false, false>(
+      a_dst, a_src_win, static_cast<const float*>(x_ext), dout, row_ptr, col, t_ptr, t_entry,
+      t_row, empty_ptr, empty_row, scratch_p, scratch_dz, scratch_s, d_a_dst, d_a_src_win,
+      d_x_ext, B, nB, BLK, W, H, C, nnz, n_empty, vec, slope, (cudaStream_t)stream);
 }

@@ -141,10 +141,11 @@ rows_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
 // scratch_p, scratch_dz: [B, nnz, H] f32; scratch_s: [B, nB, H, C] f32, read
 // only when n_empty > 0. vec != 0: C % 4 == 0 and x_ext, dout 16-byte aligned
 // (the wrapper checks). All outputs are written in full. bf16 != 0: the
-// bf16-operand instance: its columns pass rounds p, dO and x to bf16
-// (csrc/band_colwalk.cuh); the weights and rows passes are the f32 ones.
+// bf16-operand instance, x_ext in bf16 (else f32): its columns pass reads
+// the bf16 rows and rounds p and dO to bf16 (csrc/band_colwalk.cuh); the
+// weights and rows passes are the f32 ones.
 extern "C" int band_attention_flash_bwd(
-    const float* a_dst, const float* a_src_win, const float* x_ext,
+    const float* a_dst, const float* a_src_win, const void* x_ext,
     const float* m_in, const float* z_in, const float* delta, const float* dout,
     const int* row_ptr, const int* col, const int* t_ptr, const int* t_entry,
     const int* t_row, const int* empty_ptr, const int* empty_row, float* scratch_p,
@@ -168,10 +169,14 @@ extern "C" int band_attention_flash_bwd(
       scratch_s, B, nB, BLK, W, H, C, nnz, w_blocks, slope);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  auto columns = bf16 ? columns_pass<false, true> : columns_pass<false, false>;
-  const int rc = columns(vec, x_ext, dout, scratch_p, n_empty > 0 ? scratch_s : nullptr, t_ptr,
-                         t_entry, t_row, empty_ptr, scratch_dz, d_x_ext, B, nB, BLK, W, H, C, nnz,
-                         st);
+  const float* S = n_empty > 0 ? scratch_s : nullptr;
+  const int rc =
+      bf16 ? columns_pass<false, true>(vec, static_cast<const __nv_bfloat16*>(x_ext), dout,
+                                       scratch_p, S, t_ptr, t_entry, t_row, empty_ptr, scratch_dz,
+                                       d_x_ext, B, nB, BLK, W, H, C, nnz, st)
+           : columns_pass<false, false>(vec, static_cast<const float*>(x_ext), dout, scratch_p, S,
+                                        t_ptr, t_entry, t_row, empty_ptr, scratch_dz, d_x_ext, B,
+                                        nB, BLK, W, H, C, nnz, st);
   if (rc != 0) return rc;
   rows_kernel<<<threads_for((long long)B * n_pad * H), kThreads, 0, st>>>(
       a_dst, a_src_win, m_in, z_in, delta, row_ptr, col, scratch_dz, d_a_dst, B, nB, BLK, W, H,

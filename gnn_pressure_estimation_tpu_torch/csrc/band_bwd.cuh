@@ -50,9 +50,10 @@
 // the TPU kernels' mx = bfloat16. The weights pass takes the row's max, then
 // Z summed in double and rounded once, then p = exp(z - m) / Z: the p the
 // bf16 forward rounded, and the same float whatever the order of the sum.
-// The columns pass rounds p, dO and x to bf16 (d x = sum bf16(p) bf16(dO),
-// dp = bf16(dO) . bf16(x)); the rows pass takes delta and dz from the f32 p,
-// as the TPU kernel does. No atomics: every output element is written once and every
+// The columns pass reads x_ext stored in bf16, the rows the bf16 forward
+// gathered, and rounds p and dO to bf16 (d x = sum bf16(p) bf16(dO), dp =
+// bf16(dO) . x); the rows pass takes delta and dz from the f32 p, as the TPU
+// kernel does. No atomics: every output element is written once and every
 // sum is taken in a fixed order, so a run repeats to the bit.
 
 #pragma once
@@ -159,14 +160,14 @@ rows_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
 // == 0 and x, dout 16-byte aligned (the wrapper checks). x and d_x: x_ext
 // and d x_ext [B, n_ext, H, C], or with kWindow x_win and d x_win
 // [nB, B, W, H, C]. All outputs are written in full. kBf16: the
-// bf16-operand instance.
+// bf16-operand instance, x_ext in bf16.
 template <bool kWindow = false, bool kBf16 = false>
-int recompute_bwd(const float* a_dst, const float* a_src_win, const float* x, const float* dout,
-                  const int* row_ptr, const int* col, const int* t_ptr, const int* t_entry,
-                  const int* t_row, const int* empty_ptr, const int* empty_row, float* scratch_p,
-                  float* scratch_dz, float* scratch_s, float* d_a_dst, float* d_a_src_win,
-                  float* d_x, int B, int nB, int BLK, int W, int H, int C, int nnz, int n_empty,
-                  int vec, float slope, cudaStream_t st) {
+int recompute_bwd(const float* a_dst, const float* a_src_win, const typename XRow<kBf16>::T* x,
+                  const float* dout, const int* row_ptr, const int* col, const int* t_ptr,
+                  const int* t_entry, const int* t_row, const int* empty_ptr, const int* empty_row,
+                  float* scratch_p, float* scratch_dz, float* scratch_s, float* d_a_dst,
+                  float* d_a_src_win, float* d_x, int B, int nB, int BLK, int W, int H, int C,
+                  int nnz, int n_empty, int vec, float slope, cudaStream_t st) {
   const long long n_pad = (long long)nB * BLK;
   const long long n_ext = n_pad + W - BLK;
   if ((long long)B * n_pad * H == 0) return (int)cudaSuccess;

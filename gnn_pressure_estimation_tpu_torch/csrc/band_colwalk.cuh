@@ -44,16 +44,26 @@
 //          cell written once.
 //
 // kBf16: the bf16-operand instance (the TPU kernels' mx = bfloat16, GATRes's
-// attn_dtype): the operands of both products are rounded to bf16 as they
-// are read (operand<>, csrc/band_common.cuh): the staged dO rows, x_ext[e]
-// and p, so d x = sum bf16(p) bf16(dO) and dp = bf16(dO) . bf16(x), summed
-// in f32. The S of padded rows stays f32. The same bytes as the f32
-// instance, so the same bound.
+// attn_dtype): d x = sum bf16(p) bf16(dO) and dp = bf16(dO) . bf16(x),
+// summed in f32 in the f32 instance's order. x_ext is the bf16 rows the bf16
+// forwards gather (each x rounded once, when the rows were written): the
+// warp loads its row as packed quads of 4 bf16, 8 bytes a lane a slot, in
+// the f32 walk's channel layout (load_bf16_quads, csrc/band_common.cuh; its
+// scalar variant where the f32 walk takes one), holds them packed and widens
+// each, exactly, at the product. p and the staged f32 dO rows are rounded as
+// they are read (operand<>; a dO slot two channels a conversion, staged<>).
+// These are the operands of an instance that read f32 x and rounded it on
+// load, in the same order, so the outputs are its bits. The S of padded rows
+// stays f32. Bound: x_ext read at 2 bytes an element, dO at 4, d x_ext
+// written at 4. dO stays f32: a bf16 copy written first costs its pass more
+// than it saves the walk (PERF.md, tools/bf16_colwalk_variants.py).
 //
 // No atomics: every output element is written once and every sum is taken
 // in a fixed order, so a run repeats to the bit.
 
 #pragma once
+
+#include <type_traits>
 
 #include "band_common.cuh"
 
@@ -62,12 +72,28 @@ namespace {
 constexpr int kHeadGroup = 8;            // heads of one pass: their state sits in shared memory
 constexpr int kThreads = kWarps * 32;
 
+// The bf16-operand instance's columns pass (kBf16) at NV 1 and NV 2: the dO
+// rows it stages at once and the thread blocks an SM must hold.
+// tools/bf16_colwalk_variants.py builds copies of this file with these
+// rewritten.
+constexpr int kBf16Depth[2] = {8, 6};
+constexpr int kBf16MinBlocks[2] = {4, 3};
+
 // entries of a chunk whose dO rows the columns pass stages at once: 8 rows of
-// 128 channels or 6 of 256 (4 KB and 6 KB a warp)
-__host__ __device__ constexpr int stage_depth(int NV) { return NV == 1 ? 8 : 6; }
+// 128 channels or 6 of 256 (4 KB and 6 KB a warp); bf16: kBf16Depth
+__host__ __device__ constexpr int stage_depth(int NV, bool bf16 = false) {
+  return bf16 ? kBf16Depth[NV - 1] : NV == 1 ? 8 : 6;
+}
 // thread blocks an SM must hold for the columns pass: 4 (64 registers) at NV
-// 1, 3 (80) at NV 2
-__host__ __device__ constexpr int columns_min_blocks(int NV) { return NV == 1 ? 4 : 3; }
+// 1, 3 (80) at NV 2; bf16: kBf16MinBlocks
+__host__ __device__ constexpr int columns_min_blocks(int NV, bool bf16 = false) {
+  return bf16 ? kBf16MinBlocks[NV - 1] : NV == 1 ? 4 : 3;
+}
+
+// The element type of the x rows a columns instance reads: f32, or bf16 for
+// the bf16-operand instance.
+template <bool kBf16> struct XRow { using T = float; };
+template <> struct XRow<true> { using T = __nv_bfloat16; };
 
 __device__ __forceinline__ float leaky(float zpre, float slope) {
   return zpre >= 0.f ? zpre : slope * zpre;
@@ -150,6 +176,22 @@ __device__ __forceinline__ void stage_slot(float4* dst, const float* __restrict_
 
 __device__ __forceinline__ void stage_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
+// A staged dO slot as the product reads it: an f32 slot, rounded to bf16 in
+// the bf16-operand instance two channels a conversion (cvt.rn.bf16x2.f32;
+// the values of one conversion a channel, in fewer instructions).
+template <bool kBf16>
+__device__ __forceinline__ float4 staged(float4 s) {
+  if constexpr (kBf16) {
+    return bf16_quad(bf16_pack4(s));
+  } else {
+    return s;
+  }
+}
+
+// x_ext[e]'s slot as the product reads it: f32, or a packed bf16 quad widened
+__device__ __forceinline__ float4 x_value(float4 v) { return v; }
+__device__ __forceinline__ float4 x_value(uint2 q) { return bf16_quad(q); }
+
 // The end of the run of block blk's entries that starts at s: the entries
 // s .. t1-1 of an extended row are sorted by block, so those of blocks up to
 // blk are a prefix (a ballot over 32 at a time).
@@ -168,10 +210,10 @@ __device__ __forceinline__ int run_end(const int* __restrict__ t_row, int s, int
 // and row (add_segments). columns_min_blocks(NV) caps the registers (64 at
 // NV 1, 80 at NV 2, where a lane holds two float4 of x_ext[e] and of its sums).
 // kWindow: x_op and d_x_op in window layout, one run of entries per covering block.
-// kBf16: the operands rounded to bf16 as they are read.
+// kBf16: x_op in bf16, p and dO rounded to bf16 as they are read.
 template <int NV, bool kVec, bool kWhole, bool kWindow, bool kBf16>
-__global__ void __launch_bounds__(kThreads, columns_min_blocks(NV))
-columns_kernel(const float* __restrict__ x_op,      // x_ext [B, n_ext, H, C]; kWindow x_win
+__global__ void __launch_bounds__(kThreads, columns_min_blocks(NV, kBf16))
+columns_kernel(const typename XRow<kBf16>::T* __restrict__ x_op,   // x_ext; kWindow x_win
                const float* __restrict__ dout,      // [B, n_pad, H, C]
                const float* __restrict__ p_in,      // [B, nnz, H]
                const float* __restrict__ S,         // [B, nB, H, C] or null
@@ -182,10 +224,13 @@ columns_kernel(const float* __restrict__ x_op,      // x_ext [B, n_ext, H, C]; k
                float* __restrict__ dp_out,          // [B, nnz, H]
                float* __restrict__ d_x_op,          // d x_ext; kWindow d x_win [nB, B, W, H, C]
                int B, int nB, int BLK, int W, int H, int C, int nnz) {
+  static_assert(!(kWindow && kBf16), "the window layout has no bf16-operand instance");
+  using XV = std::conditional_t<kBf16, uint2, float4>;   // x_ext[e]'s slot: kBf16 a packed quad
   // per warp: the staged dO slots [kDepth][NV][32] float4, then p, dp [32][G]
   extern __shared__ float4 smem4[];
   constexpr int kTile = 128 * NV;
-  constexpr int kDepth = stage_depth(NV);
+  constexpr int kDepth = stage_depth(NV, kBf16);
+  constexpr int kSlots4 = kDepth * NV * 32;   // float4s of a warp's slots
   constexpr int kA = 4 / NV;             // entries whose partials reduce together
   constexpr int kRows = kVec ? NV : 4 * NV;   // rows of lanes a tile: one per slot or element
   const int lane = threadIdx.x & 31;
@@ -207,13 +252,13 @@ columns_kernel(const float* __restrict__ x_op,      // x_ext [B, n_ext, H, C]; k
   const bool asks = !kWindow && S != nullptr && blk_lo + lane <= blk_hi;
   const int e0 = asks ? empty_ptr[blk_lo + lane] : 0, e1 = asks ? empty_ptr[blk_lo + lane + 1] : 0;
   const int G = min(H, kHeadGroup);
-  float4* stage = smem4 + wib * kDepth * NV * 32 + lane;   // the lane's slots: stride 32
-  float* p_sh = reinterpret_cast<float*>(smem4 + kWarps * kDepth * NV * 32) + wib * 64 * G;
+  float4* stage = smem4 + wib * kSlots4 + lane;   // the lane's: stride 32
+  float* p_sh = reinterpret_cast<float*>(smem4 + kWarps * kSlots4) + wib * 64 * G;
   float* dp_sh = p_sh + 32 * G;
   const float* pb = p_in + (long long)b * nnz * H;
   float* dpb = dp_out + (long long)b * nnz * H;
   const float* dbase = dout + (long long)b * n_pad * HC;
-  const float* xe = x_op + ((long long)b * n_ext + e) * HC;   // not kWindow: the warp's rows
+  const auto* xe = x_op + ((long long)b * n_ext + e) * HC;   // not kWindow: the warp's rows
   float* dxe = d_x_op + ((long long)b * n_ext + e) * HC;
 
   for (int h0 = 0; h0 < H; h0 += G) {
@@ -221,16 +266,17 @@ columns_kernel(const float* __restrict__ x_op,      // x_ext [B, n_ext, H, C]; k
     const int ce = (h0 + hg) * C;
     for (int c0 = h0 * C; c0 < ce; c0 += kTile) {
       const bool first = c0 == h0 * C;
-      float4 xv[NV], acc[NV];
+      XV xv[NV];                            // kBf16: x_ext[e]'s quads, packed
+      float4 acc[NV];
       // the group's head of each of the lane's channels: one a float4 slot, or
       // one a scalar (0 past ce: loads give 0 there and stores skip)
       int head[NV][kVec ? 1 : 4];
       int seg[kWhole ? 1 : kRows];
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
-        if (!kWindow)
-          xv[v] = operand4<kBf16>(
-              load_slot<kVec>(xe, kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane, ce));
+        if constexpr (!kBf16)
+          if (!kWindow)
+            xv[v] = load_slot<kVec>(xe, kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane, ce);
         acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (kWhole) {
           head[v][0] = min(c0 + 128 * v, ce - 1) / C - h0;   // the row's head, lane-uniform
@@ -246,6 +292,9 @@ columns_kernel(const float* __restrict__ x_op,      // x_ext [B, n_ext, H, C]; k
             seg[4 * v + j] = segment_of(c0 + 128 * v + 32 * j, 1, lane, h0, hg, ce, C);
           }
         }
+      }
+      if constexpr (kBf16) {                 // x_ext[e]'s tile: NV quads of 4 bf16
+        load_bf16_quads<NV, kVec>(xe, c0, lane, ce, xv);
       }
 
       auto add_s = [&](int blk) {            // S of a covering block with padded rows
@@ -286,11 +335,12 @@ columns_kernel(const float* __restrict__ x_op,      // x_ext [B, n_ext, H, C]; k
           r_lo = s;
           r_hi = run_end(t_row, s, t1, blk, BLK, lane);
           cell = ((long long)blk * B + b) * W + e - (long long)blk * BLK;
-          if (r_hi > r_lo)                   // uniform: the run has entries, so dp needs x
+          if constexpr (!kBf16)
+            if (r_hi > r_lo)                 // uniform: the run has entries, so dp needs x
 #pragma unroll
-            for (int v = 0; v < NV; ++v)
-              xv[v] = operand4<kBf16>(load_slot<kVec>(
-                  x_op + cell * HC, kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane, ce));
+              for (int v = 0; v < NV; ++v)
+                xv[v] = load_slot<kVec>(x_op + cell * HC,
+                                        kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane, ce);
         }
         for (int s0 = r_lo; s0 < r_hi; s0 += 32) {   // one chunk of the entries that read e
           const int t = s0 + lane;
@@ -324,7 +374,7 @@ columns_kernel(const float* __restrict__ x_op,      // x_ext [B, n_ext, H, C]; k
                 const float* ps = p_sh + (r0 + qq) * G;
 #pragma unroll
                 for (int v = 0; v < NV; ++v) {
-                  const float4 a = operand4<kBf16>(stage[(qq * NV + v) * 32]), x = xv[v];
+                  const float4 a = staged<kBf16>(stage[(qq * NV + v) * 32]), x = x_value(xv[v]);
                   if (live) {
                     acc[v].x = fmaf(ps[head[v][0]], a.x, acc[v].x);
                     acc[v].y = fmaf(ps[head[v][kVec ? 0 : 1]], a.y, acc[v].y);
@@ -425,12 +475,12 @@ cells_kernel(const float* __restrict__ dz_in,     // [B, nnz, H]
 inline unsigned threads_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 template <int NV, bool kVec, bool kWhole, bool kWindow, bool kBf16>
-int launch_columns(const float* x, const float* dout, const float* p, const float* S,
-                   const int* t_ptr, const int* t_entry, const int* t_row, const int* empty_ptr,
-                   float* dp, float* d_x, int B, int nB, int BLK, int W, int H, int C, int nnz,
-                   cudaStream_t st) {
+int launch_columns(const typename XRow<kBf16>::T* x, const float* dout, const float* p,
+                   const float* S, const int* t_ptr, const int* t_entry, const int* t_row,
+                   const int* empty_ptr, float* dp, float* d_x, int B, int nB, int BLK, int W,
+                   int H, int C, int nnz, cudaStream_t st) {
   const long long n_ext = (long long)nB * BLK + W - BLK;
-  const size_t smem = (size_t)kWarps * (stage_depth(NV) * NV * 32 * sizeof(float4) +
+  const size_t smem = (size_t)kWarps * (stage_depth(NV, kBf16) * NV * 32 * sizeof(float4) +
                                         64 * min(H, kHeadGroup) * sizeof(float));
   auto kernel = columns_kernel<NV, kVec, kWhole, kWindow, kBf16>;
   if (smem > (48 << 10)) {                 // past the default 48 KB of dynamic shared memory
@@ -448,12 +498,12 @@ int launch_columns(const float* x, const float* dout, const float* p, const floa
 // so a group of H*C 128 wastes no half tile; the butterfly where a float4
 // slot row is one head. vec: C % 4 == 0 and x, dout 16-byte aligned.
 // kWindow: x and d_x are x_win and d x_win [nB, B, W, H, C]. kBf16: the
-// bf16-operand instance.
+// bf16-operand instance, x in bf16.
 template <bool kWindow = false, bool kBf16 = false>
-int columns_pass(int vec, const float* x, const float* dout, const float* p, const float* S,
-                 const int* t_ptr, const int* t_entry, const int* t_row, const int* empty_ptr,
-                 float* dp, float* d_x, int B, int nB, int BLK, int W, int H, int C, int nnz,
-                 cudaStream_t st) {
+int columns_pass(int vec, const typename XRow<kBf16>::T* x, const float* dout, const float* p,
+                 const float* S, const int* t_ptr, const int* t_entry, const int* t_row,
+                 const int* empty_ptr, float* dp, float* d_x, int B, int nB, int BLK, int W, int H,
+                 int C, int nnz, cudaStream_t st) {
   const bool narrow = min(H, kHeadGroup) * C <= 128;   // one float4 a lane fills the tile
   const bool whole = vec && C % 128 == 0;              // a float4 slot row is one head
   auto columns = narrow ? (whole ? launch_columns<1, true, true, kWindow, kBf16>

@@ -1,8 +1,8 @@
 // What the band kernels share: the warp layout, the warp-wide reductions,
 // the lane's 16-byte (or scalar) slot of an x row, the rounding of the
-// bf16-operand instances, and the pass that every attention backward runs
-// for band rows with no set column. Each .cu is one translation unit, so
-// everything sits in an unnamed namespace.
+// bf16-operand instances and their packed quads of a bf16 row, and the pass
+// that every attention backward runs for band rows with no set column. Each
+// .cu is one translation unit, so everything sits in an unnamed namespace.
 
 #pragma once
 
@@ -44,11 +44,53 @@ __device__ __forceinline__ float operand(float v) {
   return kBf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
-template <bool kBf16>
-__device__ __forceinline__ float4 operand4(float4 v) {
-  return kBf16 ? make_float4(operand<true>(v.x), operand<true>(v.y), operand<true>(v.z),
-                             operand<true>(v.w))
-               : v;
+// kBf16: the first channel of the lane's quad v (kVec: 4 channels of one
+// head) or the channel of its element e (scalar) in the tile at c0: the f32
+// walks' layout (load_slot's), so bf16 rows take vector_loads' rule.
+template <bool kVec>
+__device__ __forceinline__ int bf16_channel(int c0, int lane, int v, int e) {
+  return kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane + 32 * e;
+}
+
+// kBf16: the lane's NV quads of the bf16 row xr, each 4 bf16 packed in a
+// uint2 (0 past ce).
+template <int NV, bool kVec>
+__device__ __forceinline__ void load_bf16_quads(const __nv_bfloat16* __restrict__ xr, int c0,
+                                                int lane, int ce, uint2 (&q)[NV]) {
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    if constexpr (kVec) {
+      const int c = bf16_channel<true>(c0, lane, v, 0);
+      q[v] = c < ce ? __ldg(reinterpret_cast<const uint2*>(xr + c)) : make_uint2(0u, 0u);
+    } else {
+      unsigned s[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = bf16_channel<false>(c0, lane, v, e);
+        s[e] = c < ce ? __bfloat16_as_ushort(__ldg(xr + c)) : 0u;
+      }
+      q[v] = make_uint2(s[0] | s[1] << 16, s[2] | s[3] << 16);
+    }
+  }
+}
+
+// element e of a packed quad, widened to f32 (exact)
+__device__ __forceinline__ float bf16_elem(uint2 q, int e) {
+  const unsigned w = e < 2 ? q.x : q.y;
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(e & 1 ? w >> 16 : w & 0xffffu)));
+}
+
+// a packed quad widened to f32 (exact): its elements 0-3, as bf16_elem gives them
+__device__ __forceinline__ float4 bf16_quad(uint2 q) {
+  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
+                     __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
+}
+
+// four floats rounded to bf16 (to nearest, ties to even), two a conversion,
+// packed as a quad in bf16_elem's order
+__device__ __forceinline__ uint2 bf16_pack4(float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  return make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
 }
 
 // thread blocks of kWarps warps for a grid of one warp per work item

@@ -235,42 +235,6 @@ __device__ __noinline__ void row_stats_sweep(const float* __restrict__ ad,
   }
 }
 
-// kBf16: the first channel of the lane's quad v (kVec: 4 channels of one
-// head) or the channel of its element e (scalar) in the tile at c0: the f32
-// walk's layout.
-template <bool kVec>
-__device__ __forceinline__ int bf16_channel(int c0, int lane, int v, int e) {
-  return kVec ? c0 + 128 * v + 4 * lane : c0 + 128 * v + lane + 32 * e;
-}
-
-// kBf16: the lane's NV quads of the bf16 row xr, each 4 bf16 packed in a
-// uint2 (0 past ce).
-template <int NV, bool kVec>
-__device__ __forceinline__ void load_bf16_quads(const __nv_bfloat16* __restrict__ xr, int c0,
-                                                int lane, int ce, uint2 (&q)[NV]) {
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    if constexpr (kVec) {
-      const int c = bf16_channel<true>(c0, lane, v, 0);
-      q[v] = c < ce ? __ldg(reinterpret_cast<const uint2*>(xr + c)) : make_uint2(0u, 0u);
-    } else {
-      unsigned s[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = bf16_channel<false>(c0, lane, v, e);
-        s[e] = c < ce ? __bfloat16_as_ushort(__ldg(xr + c)) : 0u;
-      }
-      q[v] = make_uint2(s[0] | s[1] << 16, s[2] | s[3] << 16);
-    }
-  }
-}
-
-// element e of a packed quad, widened to f32 (exact)
-__device__ __forceinline__ float bf16_elem(uint2 q, int e) {
-  const unsigned w = e < 2 ? q.x : q.y;
-  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(e & 1 ? w >> 16 : w & 0xffffu)));
-}
-
 // The bf16-operand walk (kBf16; see the note at the top) of the warp's row r,
 // which has a set column: arguments as band_rowwalk_kernel's, x_ext [B,
 // n_ext, H, C] in bf16.

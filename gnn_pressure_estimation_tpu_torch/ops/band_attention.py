@@ -52,17 +52,19 @@ forward and divides by Z, the sum of the unrounded numerators, and rounds
 as v2 in the backward. Z of the bf16 instances is summed in double and
 rounded once, in the kernels and the plain versions alike, so the weight
 that is rounded is the same float whatever the order of the sum. The
-forwards' extended rows are stored in bfloat16 under ``mxu_bf16``: the
-autograd Functions, given the projected rows and their halo widths
-(``halo=(U, R)``, the model's path), write x_ext once as bf16
-(:func:`~..ops.banded.extend_rows_bf16`), so the kernels gather 2-byte rows
-and each x is rounded once, as the TPU kernels' cast rounds it; the forward
-wrappers round f32 rows they are handed once themselves. The backwards widen
-the saved bf16 rows to f32 (exact) and return f32 gradients. Rows with no
-set column get the window mean of the rows the forward reads: bf16 rows,
-summed in f32, under ``mxu_bf16``. Every wrapper counts the launches of its
-f32 instance in ``launches`` and of its bf16 instance in ``launches_bf16``;
-on a CPU tensor it runs the plain version with the same flag.
+extended rows are stored in bfloat16 under ``mxu_bf16``: the autograd
+Functions, given the projected rows and their halo widths (``halo=(U, R)``,
+the model's path), write x_ext once as bf16
+(:func:`~..ops.banded.extend_rows_bf16`) and save it so; the forward and
+backward kernels read those 2-byte rows, and each x is rounded once, as the
+TPU kernels' cast rounds it. Forward and backward wrappers round f32 rows
+they are handed under ``mxu_bf16`` once themselves, and refuse bf16 rows
+without it. The backwards take ``d_out`` in f32 and return f32 gradients.
+Rows with no set column get the window mean of the rows the forward reads:
+bf16 rows, summed in f32, under ``mxu_bf16``. Every wrapper counts the
+launches of its f32 instance in ``launches`` and of its bf16 instance in
+``launches_bf16``; on a CPU tensor it runs the plain version with the same
+flag.
 
 Bound on an H100 SXM at the bigtown GATRes-large shapes (B 32, n_pad 5,888,
 W 896, H·C 256): counted over the mask's nonzeros (0.51% dense) the forward
@@ -71,7 +73,8 @@ is memory-bound — x_ext (214 MB) read once and out (193 MB) written once,
 at 67 TFLOP/s f32. The v2 forward kernel walks the row lists of a
 :class:`~..ops.banded.BandIndex` of the mask, so its work follows the
 nonzeros and its floor is the byte bound. The backward reads x_ext and dO
-and writes d x_ext (≈0.19 ms at those shapes); it recomputes the softmax, as
+and writes d x_ext (≈0.19 ms at those shapes; ≈0.16 ms with x_ext in bf16
+under ``mxu_bf16``); it recomputes the softmax, as
 v2 does, and walks the same index (row lists, then the same entries grouped
 by the extended row they read), so the overlapping windows fold without
 atomics and a run repeats to the bit. The flash and window
@@ -121,9 +124,10 @@ def _bf16_product(eq: str, w: torch.Tensor, v: torch.Tensor, real: torch.Tensor)
 
 
 def _stored(fn: str, x_ext: torch.Tensor, mxu_bf16: bool) -> torch.Tensor:
-    """The extended rows as a forward reads them: f32, or under ``mxu_bf16``
-    bf16 (f32 rows rounded once here; the model's path hands bf16 rows).
-    bf16 rows without ``mxu_bf16`` raise: the f32 instances read f32."""
+    """The extended rows as a kernel, forward or backward, reads them: f32,
+    or under ``mxu_bf16`` bf16 (f32 rows rounded once here; the model's path
+    hands bf16 rows). bf16 rows without ``mxu_bf16`` raise: the f32
+    instances read f32."""
     if x_ext.dtype == torch.bfloat16 and not mxu_bf16:
         raise ValueError(f"{fn}: x_ext in bfloat16 is read only by the bf16-operand instance "
                          "(mxu_bf16=True)")
@@ -131,8 +135,8 @@ def _stored(fn: str, x_ext: torch.Tensor, mxu_bf16: bool) -> torch.Tensor:
 
 
 def _widened(x_ext: torch.Tensor) -> torch.Tensor:
-    """bf16 rows as f32 (exact), for the plain versions and the backwards;
-    rows of another dtype as they are."""
+    """bf16 rows as f32 (exact), for the plain versions; rows of another
+    dtype as they are."""
     return x_ext.float() if x_ext.dtype == torch.bfloat16 else x_ext
 
 
@@ -171,7 +175,8 @@ def band_attention_bwd_plain(
     a uniform softmax: it adds ``d_out/W`` to its W window rows of ``d x_ext``
     and nothing to the ``d a``'s (the mask zeroes the logits' gradient).
     ``mxu_bf16``: d x from bf16(p)ᵀ·bf16(dO), dp from bf16(dO)·bf16(x)ᵀ,
-    delta and dz from the f32 p."""
+    delta and dz from the f32 p; x the bf16 rows (f32 rows rounded once)."""
+    x_ext = _widened(_stored("band_attention_bwd_plain", x_ext, mxu_bf16))
     nB, BLK, W = adj_mask.shape
     x_win = bops.band_windows_ext(x_ext, nB, BLK, W)
     if mxu_bf16:
@@ -300,11 +305,12 @@ def _recompute_bwd(name, a_dst, a_src_win, x, adj_mask, d_out, negative_slope, i
     the softmax by the passes of ``csrc/band_bwd.cuh`` (v2's; v3's, the same;
     v1's, whose columns pass reads and writes window layout). ``x`` is x_ext
     [B, n_ext, H, C], or x_win [nB, B, W, H, C] for the window kernel, and the
-    third cotangent has its shape. p, dp and dz pass between the passes as
-    ``[B, nnz, H]`` scratch. ``mxu_bf16``: the bf16-operand instance or not,
-    for the entries that have one (None: the window kernel, which has
-    none). Returns ``(d a_dst, d a_src_win, d x)``."""
-    adj_mask = _check(name, a_dst, a_src_win, x, adj_mask)
+    third cotangent has its shape, in f32. p, dp and dz pass between the
+    passes as ``[B, nnz, H]`` scratch. ``mxu_bf16``: the bf16-operand
+    instance, x_ext in bf16, or not, for the entries that have one (None: the
+    window kernel, which has none). Returns ``(d a_dst, d a_src_win, d x)``."""
+    adj_mask = _check(name, a_dst, a_src_win, x, adj_mask,
+                      torch.bfloat16 if mxu_bf16 else torch.float32)
     nB, BLK, W = adj_mask.shape
     B, _, H = a_dst.shape
     C = x.shape[-1]
@@ -359,8 +365,9 @@ def band_attention_bwd(
     pass between them as ``[B, nnz, H]`` scratch.
     ``band_attention_bwd.launches`` counts kernel launches (one per call: the
     four launches of ``csrc/band_attention_bwd.cu`` are one launch of it);
-    ``mxu_bf16`` launches the bf16-operand instance, counted in
-    ``launches_bf16``."""
+    ``mxu_bf16`` launches the bf16-operand instance, which reads x_ext in
+    bf16 (f32 rows are rounded once here), counted in ``launches_bf16``."""
+    x_ext = _stored("band_attention_bwd", x_ext, mxu_bf16)
     if bops.use_plain(x_ext):
         return band_attention_bwd_plain(a_dst, a_src_win, x_ext, adj_mask, d_out, negative_slope,
                                         mxu_bf16)
@@ -400,8 +407,8 @@ class BandAttention(torch.autograd.Function):
     "acc" route) on CUDA tensors, or their plain versions on CPU tensors;
     the bf16-operand instances of both with ``mxu_bf16``. ``halo``: x is
     the projected rows, extended here (see :func:`_extended`). Saves its
-    inputs and the extended rows (with ``halo``, bf16 under ``mxu_bf16``;
-    widened to f32 for the backward): the backward recomputes the softmax."""
+    inputs and the extended rows (with ``halo``, bf16 under ``mxu_bf16``),
+    which the backward reads as they are: it recomputes the softmax."""
 
     @staticmethod
     def forward(ctx, a_dst, a_src_win, x, adj_mask, negative_slope, index, bwd, mxu_bf16, halo):
@@ -417,8 +424,7 @@ class BandAttention(torch.autograd.Function):
     def backward(ctx, d_out):
         a_dst, a_src_win, x_ext, adj_mask = ctx.saved_tensors
         d_a_dst, d_a_src_win, d_x_ext = ctx.bwd(
-            a_dst, a_src_win, _widened(x_ext), adj_mask, d_out, ctx.negative_slope, ctx.index,
-            ctx.mxu_bf16)
+            a_dst, a_src_win, x_ext, adj_mask, d_out, ctx.negative_slope, ctx.index, ctx.mxu_bf16)
         return (d_a_dst, d_a_src_win, _rows_grad(d_x_ext, ctx.halo), None, None, None, None, None,
                 None)
 
@@ -512,7 +518,9 @@ def band_attention_flash_bwd_plain(
     """Plain PyTorch version of :func:`band_attention_flash_bwd`: the weights
     rebuilt from the saved ``m``, ``Z`` as ``exp(z − m)/Z``, the softmax VJP's
     row term taken from ``delta`` ([B, n_pad, H]), window fold included.
-    ``mxu_bf16``: d x from bf16(p)ᵀ·bf16(dO), dp from bf16(dO)·bf16(x)ᵀ."""
+    ``mxu_bf16``: d x from bf16(p)ᵀ·bf16(dO), dp from bf16(dO)·bf16(x)ᵀ, x
+    the bf16 rows (f32 rows rounded once)."""
+    x_ext = _widened(_stored("band_attention_flash_bwd_plain", x_ext, mxu_bf16))
     nB, BLK, W = adj_mask.shape
     B = x_ext.shape[0]
     z, zpre, on = _logits(a_dst, a_src_win, adj_mask, negative_slope)
@@ -611,13 +619,16 @@ def band_attention_flash_bwd(
     extended row. p, dp and dz pass between them as ``[B, nnz, H]`` scratch.
     ``band_attention_flash_bwd.launches`` counts kernel launches (one per
     call: the passes of ``csrc/band_attention_flash_bwd.cu`` are one launch
-    of it); ``mxu_bf16`` launches the bf16-operand instance, counted in
+    of it); ``mxu_bf16`` launches the bf16-operand instance, which reads
+    x_ext in bf16 (f32 rows are rounded once here), counted in
     ``launches_bf16``."""
+    name = "band_attention_flash_bwd"
+    x_ext = _stored(name, x_ext, mxu_bf16)
     if bops.use_plain(x_ext):
         return band_attention_flash_bwd_plain(a_dst, a_src_win, x_ext, adj_mask, m, Z, delta,
                                               d_out, negative_slope, mxu_bf16)
-    name = "band_attention_flash_bwd"
-    adj_mask = _check(name, a_dst, a_src_win, x_ext, adj_mask)
+    adj_mask = _check(name, a_dst, a_src_win, x_ext, adj_mask,
+                      torch.bfloat16 if mxu_bf16 else torch.float32)
     nB, BLK, W = adj_mask.shape
     B, n_ext, H, C = x_ext.shape
     dev = x_ext.device
@@ -657,9 +668,9 @@ class BandAttentionFlash(torch.autograd.Function):
     tensors) or their plain versions (CPU tensors). Saves its inputs, its
     output and the row statistics m, Z; the backward takes no row maximum or
     sum again. ``mxu_bf16``: the bf16-operand instances, forward and
-    backward (delta from the bf16 forward's out, as the TPU wrapper takes
-    it), the extended rows saved in bf16. ``halo`` as for
-    :class:`BandAttention`."""
+    backward (delta from the bf16 forward's out and the f32 d_out, as the
+    TPU wrapper takes it), the extended rows saved in bf16 and read so by
+    both. ``halo`` as for :class:`BandAttention`."""
 
     @staticmethod
     def forward(ctx, a_dst, a_src_win, x, adj_mask, negative_slope, index, mxu_bf16, halo):
@@ -676,8 +687,8 @@ class BandAttentionFlash(torch.autograd.Function):
         a_dst, a_src_win, x_ext, adj_mask, m, Z, out = ctx.saved_tensors
         delta = (d_out * out).sum(dim=-1)                 # [B, n_pad, H]
         d_a_dst, d_a_src_win, d_x_ext = band_attention_flash_bwd(
-            a_dst, a_src_win, _widened(x_ext), adj_mask, m, Z, delta, d_out, ctx.negative_slope,
-            ctx.index, ctx.mxu_bf16)
+            a_dst, a_src_win, x_ext, adj_mask, m, Z, delta, d_out, ctx.negative_slope, ctx.index,
+            ctx.mxu_bf16)
         return d_a_dst, d_a_src_win, _rows_grad(d_x_ext, ctx.halo), None, None, None, None, None
 
 
@@ -859,8 +870,10 @@ def band_attention_acc_bwd(
     the kernel (or raises); on CPU tensors it runs
     :func:`band_attention_acc_bwd_plain`. ``band_attention_acc_bwd.launches``
     counts kernel launches (one per call: the four launches of the source are
-    one launch of it); ``mxu_bf16`` launches the bf16-operand instance,
-    counted in ``launches_bf16``."""
+    one launch of it); ``mxu_bf16`` launches the bf16-operand instance, which
+    reads x_ext in bf16 (f32 rows are rounded once here), counted in
+    ``launches_bf16``."""
+    x_ext = _stored("band_attention_acc_bwd", x_ext, mxu_bf16)
     if bops.use_plain(x_ext):
         return band_attention_acc_bwd_plain(a_dst, a_src_win, x_ext, adj_mask, d_out,
                                             negative_slope, mxu_bf16)

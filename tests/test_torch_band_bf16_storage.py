@@ -3,7 +3,7 @@ bfloat16 (``attn_dtype`` bf16 on the "dma", "flash" and "acc" routes).
 
 The glue writes x_ext once as bf16 from the f32 projected rows inside the
 autograd Function, so no f32 x_ext is built for the attention; the
-backward widens the saved rows and returns f32 gradients. Each x is the
+backward reads the saved rows and returns f32 gradients. Each x is the
 float that rounding on load gave (the round-on-load path: f32 x_ext, each
 element rounded as the product reads it), so a layer and a model through the stored
 rows equal that path bit for bit on the real rows, gradients included. Only
@@ -11,7 +11,7 @@ rows with no set column (padded band rows, which feed no real row) change:
 they are now the window mean of the bf16 rows. The reference below is that
 round-on-load path, written out here: f32 x_ext, the weights and rows
 rounded in the product, the padded rows' mean of the f32 rows, and the
-package's backward plain versions, which take f32 rows."""
+package's backward plain versions given those f32 rows."""
 
 import sys
 
