@@ -13,7 +13,10 @@ Phases (any failure exits non-zero; none is caught):
    switch, the row walk's as they were before its window layout (which must
    leave them as they were), the window forward's and the dense softmax
    backward's as they were first built; the bf16 column walk's as it
-   compiled when it first read the stored bf16 rows.
+   compiled when it first read the stored bf16 rows; the dense softmax
+   forward (v2's row walk on one block) at v2's numbers, f32 and bf16, and
+   the dense backward's bf16 instance at v2's, its dp-rounding rows pass at
+   the rows pass's.
 3. Hold each kernel, forward and backward, against its plain PyTorch version
    on the card, at the bigtown band layout (B 1 and B 4) and at small ragged
    shapes (W not a multiple of 32, fully masked rows, H·C 64, C past one
@@ -57,7 +60,11 @@ Phases (any failure exits non-zero; none is caught):
    one-way mask, rows and columns of more than 32 entries, C past one tile,
    H past a head group of the factored walk, B 1);
    atol and rtol 1e-4, random cotangents, a third of the nodes zeroed so
-   that a_d + a_s == 0 occurs.
+   that a_d + a_s == 0 occurs. At the same shapes the softmax pair's bf16
+   instances (``bf16=True``, GATConv's ``attn_dtype="bfloat16"``) against
+   their bf16 plain versions (1e-4; the backward on v and dO on a grid where
+   every dp is exact in f32, so both round the same dp to bf16), each at
+   least 1e-3·max|ref| from its f32 instance.
 9. Fixture parity: GATRes-small with the weights of
    ``artifacts/parity_train_synthctown.npz``: the serving forward per block
    and at the output against the JAX values (1e-3), exactly 30
@@ -72,14 +79,25 @@ Phases (any failure exits non-zero; none is caught):
     first epoch's checkpoint that must end bit-identical; step time (CUDA
     events), edges/s as ``bench.py`` counts them, peak memory; one GATRes-large
     step; ``torch.profiler`` splits of one serving batch and one train step.
-12. ``attn_impl="softmax"``: one serving batch and one train step of
-    GATRes-small through ``fused_attention`` (30 + 30 launches), held against
-    the factored model with the same weights.
-13. Times of the four dense kernels at B 32 beside their plain versions, the
-    einsum formulation the layer would otherwise run (the factored pair's,
-    forward and backward), and their byte bounds; the softmax backward (v2's
-    band backward on one block) by pass, and the softmax pair's device time
-    in a GATRes-small step (15 launches at conv1's shape, 15 at conv2's).
+12. ``attn_impl="softmax"``: the fixture
+    ``artifacts/parity_train_synthctown_softmax.npz`` (GATRes-small, the JAX
+    layer's XLA branch: per block and output within 1e-3, the B 1 step, 3
+    Adam steps, 30 + 30 launches); its bf16 twin ``…_softmax_bf16.npz``
+    (deviations per block beside the f32 model's, the blocks before the
+    first bf16 rounding flip held to 1e-3, the step failing only on a loss
+    no nearer the bf16 fixture than the f32 fixture's); then GATRes-small and
+    -large with seeded weights, f32 and ``attn_dtype="bfloat16"``: a serving
+    batch of 32 (30 / 50 launches of the instance, none of the other; the
+    f32 fields held against the plain versions) and a train step at batch
+    32 (as many backwards; small's f32 gradients held against the plain
+    step), each timed in turns f32, bf16, bf16, f32.
+13. Times of the four dense kernels and the softmax pair's bf16 instances at
+    B 32 beside their plain versions, the einsum formulation the layer would
+    otherwise run (the factored pair's, forward and backward), and their
+    byte bounds (the bf16 instances' at 2-byte v and at f32 v); the softmax
+    backward (v2's band backward on one block) by pass, and the softmax
+    pair's device time in a GATRes-small step (15 launches at conv1's shape,
+    15 at conv2's).
 
 14. The banded path at 23k nodes: meganet (``simgen.netgen.make_mega``, made
     from its seed; BLK 256, W 1920). The streaming-softmax band attention
@@ -207,7 +225,7 @@ Phases (any failure exits non-zero; none is caught):
     and 2.
 
 The last line is ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
-(all fifteen kernels, and the five wrappers' bf16-operand instances as rows
+(all fifteen kernels, and the seven wrappers' bf16-operand instances as rows
 of their own) and the ``nvidia-smi`` line come before it.
 """
 
@@ -487,7 +505,13 @@ def factored_bwd_einsum(mask, a_d, a_s, g_pv, g_nq):
     return d_p[..., : g_pv.shape[-1]], d_adj - d_p[..., g_pv.shape[-1]:]
 
 
-def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
+# blocks of GATRes-small through softmax under attn_dtype=bfloat16 before the first
+# bf16 rounding flip against the JAX package on the bf16 fixture (tools/bf16_flips.py
+# --network synthctown, on the CPU): held to 1e-3 on the card
+BF16_FLIP_FREE_BLOCKS = 2
+
+
+def dense_phases(dev, card, rng, held, max_err, reset_launches, read_launches, counts):
     """Phases 8-13: the dense path on synthctown. Returns the kernel rows
     (times and bounds at B 32) and the launch counts of its runs."""
     import tempfile
@@ -526,20 +550,62 @@ def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
         a_s[:, ::zero_every] = 0.0
         return a_d, a_s, [randn(B, n_, H, C) for _ in range(4)]
 
+    def grid(shape, step=2.0 ** -11):
+        """[B, n, H, C] values on the grid step·k, |·| ≤ bound ≤ 1/4 (up to 9
+        significant bits): their bf16 roundings stay on it, so a product of
+        two is a multiple of 2^-22 and a sum of C of them, below
+        C·bound² < 4 = 2^24·2^-22, is exact in f32 in any order."""
+        bound = 0.25
+        while shape[-1] * bound ** 2 >= 4:
+            bound /= 2
+        u = torch.rand(shape, generator=gen, device=dev) * 2 - 1
+        return torch.round(u * bound / step) * step
+
+    def shown_to_round(name, label, got16, got32, ref16):
+        """A bf16 instance at least 1e-3·max|ref| from its f32 instance."""
+        gap, top = float((got16 - got32).abs().max()), float(ref16.abs().max())
+        if gap < 1e-3 * top:
+            raise SystemExit(f"FAIL {name} {label}: only {gap:.3e} from the f32 instance "
+                             f"(max |ref| {top:.3e})")
+        return gap / top
+
+    parts = ("d a_dst", "d a_src", "d v")
+
     def check_dense(tag, msk, index, B, H, C, verbose=False):
         """All four kernels at one shape (the factored pair at D = C + 1),
-        random cotangents. Returns the operands."""
+        random cotangents; and the softmax pair's bf16 instances. Returns the
+        operands."""
         n_ = msk.shape[0]
         a_d, a_s, (v, d_out, _, _) = operands(B, n_, H, C)
         _, _, (rv, rq, g_pv, g_nq) = operands(B, n_, H, C + 1)
         label = f"{tag} B{B} H{H} C{C}"
-        held("fused_attention", f"fused_attention {label}",
-             ga.fused_attention_fwd(a_d, a_s, v, msk, 0.2, index),
+        out32 = ga.fused_attention_fwd(a_d, a_s, v, msk, 0.2, index)
+        held("fused_attention", f"fused_attention {label}", out32,
              ga.fused_attention_plain(a_d, a_s, v, msk, 0.2), verbose)
-        for part, g, r in zip(("d a_dst", "d a_src", "d v"),
-                              ga.fused_attention_bwd(a_d, a_s, v, msk, d_out, 0.2, index),
+        bwd32 = ga.fused_attention_bwd(a_d, a_s, v, msk, d_out, 0.2, index)
+        for part, g, r in zip(parts, bwd32,
                               ga.fused_attention_bwd_plain(a_d, a_s, v, msk, d_out, 0.2)):
             held("fused_attention_bwd", f"fused_attention_bwd {label} {part}", g, r, verbose)
+        # the bf16 instances: the forward on the random v, which both round; the
+        # backward against its plain version on v and dO on a grid where every dp
+        # is exact in f32, so both round the same dp to bf16 (on the random
+        # operands the two sums' last bits may differ and land a rounding a bf16
+        # step apart); each at least 1e-3·max|ref| from its f32 instance
+        ref16 = ga.fused_attention_plain(a_d, a_s, v, msk, 0.2, bf16=True)
+        out16 = ga.fused_attention_fwd(a_d, a_s, v, msk, 0.2, index, bf16=True)
+        held("fused_attention_bf16", f"fused_attention bf16 {label}", out16, ref16, verbose)
+        gaps = [shown_to_round("fused_attention_bf16", label, out16, out32, ref16)]
+        vg, dg = grid(v.shape), grid(v.shape)
+        for part, g, r in zip(parts, ga.fused_attention_bwd(a_d, a_s, vg, msk, dg, 0.2, index,
+                                                            bf16=True),
+                              ga.fused_attention_bwd_plain(a_d, a_s, vg, msk, dg, 0.2, bf16=True)):
+            held("fused_attention_bwd_bf16", f"fused_attention_bwd bf16 {label} {part} (grid)", g,
+                 r, verbose)
+        for part, g16, g32 in zip(parts, ga.fused_attention_bwd(a_d, a_s, v, msk, d_out, 0.2,
+                                                                index, bf16=True), bwd32):
+            gaps.append(shown_to_round("fused_attention_bwd_bf16", f"{label} {part}", g16, g32,
+                                       g16))
+        dense_gaps[label] = min(gaps)
         for part, g, r in zip(("t_pv", "t_nq"), ga.fused_factored_fwd(a_d, a_s, rv, rq, msk, index),
                               ga.fused_factored_plain(a_d, a_s, rv, rq, msk)):
             held("fused_factored", f"fused_factored {label} {part}", g, r, verbose)
@@ -550,6 +616,7 @@ def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
         return a_d, a_s, v, d_out, rv, rq, g_pv, g_nq
 
     shapes = ((2, 32), (1, 32), (2, 128), (1, 128))     # conv1, conv2 of small; of large
+    dense_gaps = {}
     for H, C in shapes:
         check_dense("synthctown", mask, ix, 1, H, C)
     # a one-way mask with rows and columns of more than 32 entries; C past one
@@ -562,7 +629,11 @@ def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
                     (1, 2, 128)):
         check_dense("ragged", rmask_t, None, B, H, C)      # index built from the mask's values
     torch.cuda.synchronize()
-    print("  B 1 and ragged shapes: all within atol/rtol 1e-4")
+    print(f"  B 1 and ragged shapes: all within atol/rtol 1e-4; the softmax pair's bf16 instances "
+          f"(forward on random v, backward on grid v and dO) within "
+          f"{max_err['fused_attention_bf16']:.3e} / {max_err['fused_attention_bwd_bf16']:.3e} of "
+          f"their bf16 plain versions and at least {min(dense_gaps.values()):.2e}·max|ref| from "
+          f"their f32 instances")
 
     # ---- 9: the synthctown fixture ------------------------------------------
     print("[9] synthctown fixture: GATRes-small against the JAX values")
@@ -570,9 +641,9 @@ def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
     fx = np.load(npz)
     stats = NormStats(norm_type="znorm", mean=float(fx["stats_mean"]), std=float(fx["stats_std"]))
 
-    def fixture_model(attn_impl="factored"):
-        m = GATRes(int(fx["num_blocks"]), int(fx["nc"]), attn_impl=attn_impl)
-        m.load_state_dict(params_from_parity_npz(npz))
+    def fixture_model(attn_impl="factored", path=npz, attn_dtype=None):
+        m = GATRes(int(fx["num_blocks"]), int(fx["nc"]), attn_impl=attn_impl, attn_dtype=attn_dtype)
+        m.load_state_dict(params_from_parity_npz(path))
         return m.to(dev)
 
     model = fixture_model().eval()
@@ -600,8 +671,9 @@ def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
     names = [k for k, _ in model.named_parameters()]
     xb1 = fx["x"][:, 0][None, :]
 
-    def fixture_step(attn_impl="factored"):
-        tr = Trainer(fixture_model(attn_impl), MODEL_REGISTRY["gatres_small"].train_config(batch_size=1), stats, tpl, device=dev)
+    def fixture_step(attn_impl="factored", path=npz, attn_dtype=None):
+        tr = Trainer(fixture_model(attn_impl, path, attn_dtype),
+                     MODEL_REGISTRY["gatres_small"].train_config(batch_size=1), stats, tpl, device=dev)
         g1, x1, m1, k1 = tr._prepare(tpl, xb1, fx["mask"], None, None)
         tr.model.train()
         loss, mets, _ = tr._masked_loss_and_metrics(g1, x1, x1, m1, k1, "train")
@@ -760,51 +832,188 @@ def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
     del trn, resumed
 
     # ---- 12: attn_impl="softmax" ------------------------------------------------
-    print('[12] attn_impl="softmax": GATRes-small through fused_attention')
-    soft = GATRes(15, 32, attn_impl="softmax")
-    soft.load_state_dict(models["gatres_small"].state_dict())
-    inf_s = Inferencer(soft, sstats, device=dev)
-    inf_f = Inferencer(models["gatres_small"], sstats, device=dev)
-    obs = inf_s.observed_indices(tpl, "random", mask_rate=0.95, seed=0)
+    print('[12] attn_impl="softmax": the softmax fixtures, then GATRes-small and -large through '
+          'fused_attention, f32 and bf16')
+
+    def fixture_forward(path, attn_dtype, want):
+        """Per-block and output deviations from the fixture at ``path`` of
+        GATRes-small through softmax, and the launches of that forward."""
+        f = np.load(path)
+        m = fixture_model("softmax", path, attn_dtype).eval()
+        acts = {}
+        hooks = [blk.register_forward_hook(lambda m_, i, o, k=k: acts.__setitem__(k, o))
+                 for k, blk in enumerate(m.blocks)]
+        reset_launches()
+        with torch.inference_mode():
+            out = m(torch.as_tensor(f["x_in"], device=dev), tpl.batch(1, device=dev))
+            torch.cuda.synchronize()
+        launched = read_launches()
+        for h in hooks:
+            h.remove()
+        if launched != want or not torch.isfinite(out).all():
+            raise SystemExit(f"FAIL softmax fixture forward: launches {launched}, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+        blocks = [float((a.cpu() - torch.as_tensor(f[f"ours_act_block_{k}"])).abs().max())
+                  for k, a in sorted(acts.items())]
+        return blocks, float((out.cpu() - torch.as_tensor(f["ours_out"])).abs().max())
+
+    # (a) the f32 fixture (the JAX layer's XLA branch): per block and the B 1 step at the gates
+    snpz = os.path.join(REPO, "artifacts", "parity_train_synthctown_softmax.npz")
+    sfx = np.load(snpz)
+    blocks, out_err = fixture_forward(snpz, None, counts(fused_attention=30))
+    if max(blocks + [out_err]) > 1e-3:
+        raise SystemExit(f"FAIL softmax fixture forward: worst block {max(blocks):.3e}, output "
+                         f"{out_err:.3e} (1e-3)")
     reset_launches()
-    pred_s = inf_s.infer(tpl, snaps[:bs], obs, scaled=True, batch_size=bs).pred
-    soft_fwd = read_launches()
-    if soft_fwd != counts(fused_attention=30):
-        raise SystemExit(f"FAIL softmax serving launches {soft_fwd}")
-    with bops.plain_versions():
-        pred_sp = inf_s.infer(tpl, snaps[:bs], obs, scaled=True, batch_size=bs).pred
-    err = check_close("softmax served batch vs plain versions", torch.as_tensor(pred_s),
-                      torch.as_tensor(pred_sp), 1e-3, 1e-4, verbose=False)
-    pred_f = inf_f.infer(tpl, snaps[:bs], obs, scaled=True, batch_size=bs).pred
-    print(f"  serving batch: 30 fused_attention launches; within {err:.3e} m of the plain versions' "
-          f"and {float(np.abs(pred_s - pred_f).max()):.3e} m of the factored model's")
+    trs, loss_s1, mets_s1, grads_s1 = fixture_step("softmax", snpz)
+    launched = read_launches()
+    if launched != counts(fused_attention=30, fused_attention_bwd=30):
+        raise SystemExit(f"FAIL launches per softmax fixture step {launched}")
+    if abs(loss_s1 - float(sfx["loss"])) > 1e-4 * abs(float(sfx["loss"])):
+        raise SystemExit(f"FAIL softmax fixture loss {loss_s1!r} against {float(sfx['loss'])!r}")
+    for k, v in mets_s1.items():
+        ref, atol = float(sfx[f"metric_{k}"]), 1e-3 if k in ("train_corr", "train_r2") else 1e-4
+        if abs(float(v) - ref) > 1e-3 * abs(ref) + atol:
+            raise SystemExit(f"FAIL softmax fixture metric {k}: {float(v)!r} against {ref!r}")
+    worst = grads_within("softmax fixture B 1 step vs JAX", names, grads_s1,
+                         [torch.as_tensor(sfx[f"grad_{k}"], device=dev) for k in names])
+    losses3 = [float(trs.train_step(tpl, xb1, mask=sfx["mask"])[0]) for _ in range(3)]
+    perr, pnoise = adam_param_errors(trs.model.named_parameters(), sfx)
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(losses3, sfx["step_losses"]))
+    if perr > 3e-4 or pnoise > 3 * 2 * 5e-4 or lerr > 1e-3:
+        raise SystemExit(f"FAIL softmax fixture after 3 Adam steps: parameters off by {perr:.3e} "
+                         f"(3e-4; {pnoise:.3e} where the gradient is noise, 3e-3), step losses by "
+                         f"{lerr:.3e} relative (1e-3)")
+    print(f"  f32 fixture ({bytes(sfx['path']).decode()} branch): worst block {max(blocks):.3e}, "
+          f"output {out_err:.3e}; B 1 step loss {loss_s1:.7f} against {float(sfx['loss']):.7f}, "
+          f"{len(names)} gradients within 1e-3·max|g_ref| + 1e-6, the worst at {worst:.1%}; after "
+          f"3 Adam steps parameters within {perr:.3e} ({pnoise:.3e} where the first gradient is "
+          f"below its tolerance), step losses within {lerr:.3e}; launches 30 + 30")
+    del trs, grads_s1
+
+    # (b) the bf16 fixture: a rounding that the two packages' f32 sums put on either
+    # side of a bf16 boundary (a flip) moves a value by 2^-8 of its size, and every
+    # conv rounds its output: reported beside the f32 model's distance from it, the
+    # blocks before the first flip the CPU shows (tools/bf16_flips.py) held to 1e-3,
+    # and the run fails on a loss no nearer the bf16 fixture than the f32 fixture's
+    bnpz = os.path.join(REPO, "artifacts", "parity_train_synthctown_softmax_bf16.npz")
+    bfx = np.load(bnpz)
+    b16, out16 = fixture_forward(bnpz, torch.bfloat16, counts(fused_attention_bf16=30))
+    b32, out32 = fixture_forward(bnpz, None, counts(fused_attention=30))
+    if max(b16[:BF16_FLIP_FREE_BLOCKS]) > 1e-3:
+        raise SystemExit(f"FAIL bf16 softmax fixture: blocks 0-{BF16_FLIP_FREE_BLOCKS - 1} off by "
+                         f"{max(b16[:BF16_FLIP_FREE_BLOCKS]):.3e} (1e-3)")
+    first = next((k for k, e in enumerate(b16) if e > 1e-3), None)
+    reset_launches()
+    trb, loss_b1, _, grads_b1 = fixture_step("softmax", bnpz, torch.bfloat16)
+    launched = read_launches()
+    if launched != counts(fused_attention_bf16=30, fused_attention_bwd_bf16=30):
+        raise SystemExit(f"FAIL launches per bf16 softmax fixture step {launched}")
+    if not all(torch.isfinite(g).all() for g in grads_b1):
+        raise SystemExit("FAIL bf16 softmax fixture step: non-finite gradients")
+    l16, l32 = float(bfx["loss"]), float(sfx["loss"])
+    if abs(loss_b1 - l16) >= abs(l32 - l16):
+        raise SystemExit(f"FAIL bf16 softmax fixture loss {loss_b1!r}: no nearer the bf16 "
+                         f"fixture's {l16!r} than the f32 fixture's {l32!r} is")
+    shares = lambda gs: [float((g - r).abs().max()) / (1e-3 * float(r.abs().max()) + 1e-6)  # noqa: E731
+                         for g, r in zip(gs, [torch.as_tensor(bfx[f"grad_{k}"], device=dev)
+                                              for k in names])]
+    mine = shares(grads_b1)
+    theirs = shares([torch.as_tensor(sfx[f"grad_{k}"], device=dev) for k in names])
+    print(f"  bf16 fixture: blocks against JAX " + ", ".join(f"{e:.2e}" for e in b16)
+          + f" (output {out16:.3e}; " + ("all within 1e-3" if first is None else
+          f"within 1e-3 up to block {first - 1}") + f"; blocks 0-{BF16_FLIP_FREE_BLOCKS - 1} held); "
+          f"the f32 model's: " + ", ".join(f"{e:.2e}" for e in b32) + f" (output {out32:.3e}); "
+          f"B 1 step loss {loss_b1:.7f} against {l16:.7f} ({abs(loss_b1 - l16) / l16:.2e} relative; "
+          f"the f32 fixture's {l32:.7f}, {abs(l32 - l16) / l16:.2e}); gradients as shares of "
+          f"1e-3·max|g_ref| + 1e-6: {sum(q > 1 for q in mine)} of {len(names)} beyond 1, the worst "
+          f"{max(mine):.1%}, the median {float(np.median(mine)):.1%} (the f32 fixture's: "
+          f"{sum(q > 1 for q in theirs)} beyond 1, the worst {max(theirs):.1%}); launches 30 + 30")
+    del trb, grads_b1
+    torch.cuda.empty_cache()
+
+    # (c) serving and a train step at batch 32: small and large, f32 and bf16, timed
+    # in turns; each f32 batch and small's f32 step held against the plain versions
     smask = rng.random((tbs, n)).argsort(1) < int(n * 0.95)
+    soft_serve, soft_step_launch, soft_ms_by, serve_by = {}, {}, {}, {}
+    fwd_of = {None: "fused_attention", torch.bfloat16: "fused_attention_bf16"}
+    bwd_of = {None: "fused_attention_bwd", torch.bfloat16: "fused_attention_bwd_bf16"}
+    for preset, blocks, nc in (("gatres_small", 15, 32), ("gatres_large", 25, 128)):
+        def soft_model(dtype):
+            m = GATRes(blocks, nc, attn_impl="softmax", attn_dtype=dtype)
+            m.load_state_dict(models[preset].state_dict())
+            return m
 
-    def soft_step():
-        m = GATRes(15, 32, attn_impl="softmax")
-        m.load_state_dict(models["gatres_small"].state_dict())
-        tr = Trainer(m, MODEL_REGISTRY["gatres_small"].train_config(batch_size=tbs), sstats, tpl,
-                     device=dev)
-        g1, x1, m1, k1 = tr._prepare(tpl, batch, smask.reshape(-1), None, None)
-        tr.model.train()
-        loss, _, _ = tr._masked_loss_and_metrics(g1, x1, x1, m1, k1, "train")
-        grads = torch.autograd.grad(loss, list(tr.model.parameters()))
-        torch.cuda.synchronize()
-        return tr, float(loss.detach()), grads
+        def soft_trainer(dtype):
+            return Trainer(soft_model(dtype), MODEL_REGISTRY[preset].train_config(batch_size=tbs),
+                           sstats, tpl, device=dev)
 
-    reset_launches()
-    tr_s, loss_s, grads_s = soft_step()
-    soft_step_launches = read_launches()
-    if soft_step_launches != counts(fused_attention=30, fused_attention_bwd=30):
-        raise SystemExit(f"FAIL softmax train step launches {soft_step_launches}")
-    with bops.plain_versions():
-        _, loss_sp, grads_sp = soft_step()
-    worst_s = grads_within("softmax kernel step vs plain step", names, grads_s, grads_sp)
-    soft_ms = cuda_ms(lambda: tr_s.train_step(tpl, batch, generator=tgen), 5, 30)
-    print(f"  train step at batch {tbs}: 30 + 30 launches; loss {loss_s:.7f} / {loss_sp:.7f} (plain), "
-          f"gradients within 1e-3·max|g_ref| + 1e-6 of the plain step's, the worst at {worst_s:.1%}; "
-          f"{soft_ms:.3f} ms per step")
-    del tr_s, grads_s, grads_sp
+        def soft_grads(tr):
+            g1, x1, m1, k1 = tr._prepare(tpl, batch, smask.reshape(-1), None, None)
+            tr.model.train()
+            loss, _, _ = tr._masked_loss_and_metrics(g1, x1, x1, m1, k1, "train")
+            grads = torch.autograd.grad(loss, list(tr.model.parameters()))
+            torch.cuda.synchronize()
+            return float(loss.detach()), grads
+
+        infs = {d: Inferencer(soft_model(d), sstats, device=dev) for d in fwd_of}
+        obs = infs[None].observed_indices(tpl, "random", mask_rate=0.95, seed=0)
+        preds = {}
+        for d, inf in infs.items():
+            reset_launches()
+            preds[d] = inf.infer(tpl, snaps[:bs], obs, scaled=True, batch_size=bs).pred
+            got = read_launches()
+            if got != counts(**{fwd_of[d]: 2 * blocks}):
+                raise SystemExit(f"FAIL softmax {preset} {d} serving launches {got}")
+            soft_serve[(preset, d)] = got[fwd_of[d]]
+            if preds[d].shape != (bs, n) or not np.isfinite(preds[d]).all():
+                raise SystemExit(f"FAIL softmax {preset} {d} serving output is not a finite field")
+        with bops.plain_versions():
+            pred_p = infs[None].infer(tpl, snaps[:bs], obs, scaled=True, batch_size=bs).pred
+        err = check_close(f"softmax {preset} served batch vs plain versions",
+                          torch.as_tensor(preds[None]), torch.as_tensor(pred_p), 1e-3, 1e-4,
+                          verbose=False)
+        pred_f = Inferencer(models[preset], sstats, device=dev).infer(
+            tpl, snaps[:bs], obs, scaled=True, batch_size=bs).pred
+        trs = {d: soft_trainer(d) for d in fwd_of}
+        for d, tr in trs.items():
+            reset_launches()
+            loss_d, grads_d = soft_grads(tr)
+            got = read_launches()
+            if got != counts(**{fwd_of[d]: 2 * blocks, bwd_of[d]: 2 * blocks}):
+                raise SystemExit(f"FAIL softmax {preset} {d} train step launches {got}")
+            if not all(torch.isfinite(g).all() for g in grads_d):
+                raise SystemExit(f"FAIL softmax {preset} {d} train step: non-finite gradients")
+            soft_step_launch[(preset, d)] = got
+            if d is None and preset == "gatres_small":
+                with bops.plain_versions():
+                    loss_p, grads_p = soft_grads(soft_trainer(None))
+                worst_s = grads_within("softmax kernel step vs plain step",
+                                       [k for k, _ in tr.model.named_parameters()], grads_d, grads_p)
+            del grads_d
+        # in turns: f32, bf16, bf16, f32
+        serve_by[preset], soft_ms_by[preset] = {d: [] for d in fwd_of}, {d: [] for d in fwd_of}
+        for d in (None, torch.bfloat16, torch.bfloat16, None):
+            serve_by[preset][d].append(cuda_ms(lambda: infs[d].infer(
+                tpl, snaps, obs, scaled=True, batch_size=bs), 1, 1) / (len(snaps) // bs))
+            soft_ms_by[preset][d].append(cuda_ms(
+                lambda: trs[d].train_step(tpl, batch, generator=tgen), 2, 5))
+        print(f"  {preset}: a serving batch of {bs}: {2 * blocks} fused_attention launches (f32) / "
+              f"{2 * blocks} of its bf16 instance; the f32 fields within {err:.3e} m of the plain "
+              f"versions', {float(np.abs(preds[None] - pred_f).max()):.3e} m of the factored model's; "
+              f"the bf16 fields {float(np.abs(preds[torch.bfloat16] - preds[None]).max()):.3e} m from "
+              f"the f32 ones; a train step: {2 * blocks} + {2 * blocks} launches each"
+              + (f", the f32 step's gradients within 1e-3·max|g_ref| + 1e-6 of the plain step's, "
+                 f"the worst at {worst_s:.1%}" if preset == "gatres_small" else "")
+              + f"; ms a serving batch f32 "
+              + " / ".join(f"{v:.3f}" for v in serve_by[preset][None]) + ", bf16 "
+              + " / ".join(f"{v:.3f}" for v in serve_by[preset][torch.bfloat16])
+              + "; ms a step f32 " + " / ".join(f"{v:.3f}" for v in soft_ms_by[preset][None])
+              + ", bf16 " + " / ".join(f"{v:.3f}" for v in soft_ms_by[preset][torch.bfloat16])
+              + f" (in turns f32, bf16, bf16, f32; {card})")
+        del infs, trs
+        torch.cuda.empty_cache()
+    soft_ms = soft_ms_by["gatres_small"][None][0]
 
     # ---- 13: kernel times at B 32 -------------------------------------------------
     print(f"[13] dense kernel times at B {bs} on {card}")
@@ -815,6 +1024,7 @@ def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
         a_d, a_s, v, d_out, rv, rq, g_pv, g_nq = check_dense("synthctown", mask, ix, bs, H, C)
         a_bytes, D = 4 * 2 * bs * n * H, C + 1
         wide = lambda k, w: 4 * k * bs * n * H * w  # noqa: E731  (k tensors [B, n, H, w])
+        vb = v.to(torch.bfloat16)          # the bf16 copy of v that the layer's Function saves
         for name, fn, plain, einsum, nbytes, ops in (
             ("fused_attention", lambda: ga.fused_attention_fwd(a_d, a_s, v, mask, 0.2, ix),
              lambda: ga.fused_attention_plain(a_d, a_s, v, mask, 0.2), None,
@@ -823,6 +1033,16 @@ def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
              lambda: ga.fused_attention_bwd(a_d, a_s, v, mask, d_out, 0.2, ix),
              lambda: ga.fused_attention_bwd_plain(a_d, a_s, v, mask, d_out, 0.2), None,
              2 * a_bytes + wide(3, C) + ix_bytes["fwd"] + ix_bytes["bwd"],
+             bs * H * nnz * (4 * C + 14)),
+            # the bf16 instances on the bf16 v: 2-byte v rows, f32 everything else
+            ("fused_attention_bf16",
+             lambda: ga.fused_attention_fwd(a_d, a_s, vb, mask, 0.2, ix, bf16=True),
+             lambda: ga.fused_attention_plain(a_d, a_s, vb, mask, 0.2, bf16=True), None,
+             a_bytes + wide(1.5, C) + ix_bytes["fwd"], bs * H * nnz * (2 * C + 6)),
+            ("fused_attention_bwd_bf16",
+             lambda: ga.fused_attention_bwd(a_d, a_s, vb, mask, d_out, 0.2, ix, bf16=True),
+             lambda: ga.fused_attention_bwd_plain(a_d, a_s, vb, mask, d_out, 0.2, bf16=True), None,
+             2 * a_bytes + wide(2.5, C) + ix_bytes["fwd"] + ix_bytes["bwd"],
              bs * H * nnz * (4 * C + 14)),
             ("fused_factored", lambda: ga.fused_factored_fwd(a_d, a_s, rv, rq, mask, ix),
              lambda: ga.fused_factored_plain(a_d, a_s, rv, rq, mask),
@@ -840,18 +1060,22 @@ def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
                      einsum_ms=cuda_ms(einsum, 2, 5) if einsum else None, library_ms=None,
                      bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
                      bound_by="bytes" if t_bytes >= t_ops else "operations")
+            if name.endswith("_bf16"):     # the same work with v in f32
+                r["bound_f32_ms"] = max(t_ops, (nbytes + wide(0.5, C)) / PEAK_BYTES_S * 1e3)
             rows.append(r)
             dms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
             ein = "" if einsum is None else f", einsum formulation {r['einsum_ms']:.4f} ms"
+            b32 = f"; {r['bound_f32_ms']:.5f} ms at f32 v" if "bound_f32_ms" in r else ""
             print(f"  {name} H {H} C {C}: {r['ms']:.4f} ms a call (CUDA events over 50 calls of the "
                   f"wrapper), {dms} on the device, plain {r['plain_ms']:.4f} ms{ein}, library none "
                   f"(no PyTorch call computes a batched gate or mask over an n×n pattern), bound "
-                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}, {nbytes / 1e6:.2f} MB)")
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}, {nbytes / 1e6:.2f} MB{b32})")
             if name == "fused_attention_bwd":     # the band backward's passes on one block
                 print("    device ms by pass: " + ", ".join(f"{k} {ms:.4f}" for k, ms in split))
     # the softmax pair's launches in a GATRes-small step: 15 at conv1's shape, 15 at conv2's
     soft_dev = {}
-    for name in ("fused_attention", "fused_attention_bwd"):
+    for name in ("fused_attention", "fused_attention_bwd", "fused_attention_bf16",
+                 "fused_attention_bwd_bf16"):
         dev_ms = [r["device_ms"] for r in rows if r["name"] == name and r["C"] == 32]
         soft_dev[name] = None if None in dev_ms else 15 * sum(dev_ms)
         print(f"  {name} in a GATRes-small softmax step: 15 x conv1 + 15 x conv2 = "
@@ -859,9 +1083,12 @@ def dense_phases(dev, card, rng, held, reset_launches, read_launches, counts):
     return dict(
         rows=rows, nnz=nnz, n=n, serve_launches=serve_launches, serve_ms=serve_ms,
         fit_launches=fit_launches, train_ms=train_ms, train_peak=train_peak, soft_ms=soft_ms,
-        soft_launches={"fused_attention": soft_fwd["fused_attention"],
-                       "fused_attention_bwd": soft_step_launches["fused_attention_bwd"]},
-        soft_dev=soft_dev)
+        soft_launches={fwd_of[d]: sum(soft_serve[(p_, d)] for p_ in ("gatres_small", "gatres_large"))
+                       for d in fwd_of} | {
+            bwd_of[d]: sum(soft_step_launch[(p_, d)][bwd_of[d]]
+                           for p_ in ("gatres_small", "gatres_large")) for d in fwd_of},
+        soft_serve_ms=serve_by, soft_step_ms=soft_ms_by, soft_dev=soft_dev,
+        dense_gaps=dense_gaps)
 
 
 
@@ -2146,15 +2373,18 @@ def dense_walk_phase(dev, card, held, reset_launches, read_launches, counts, ptx
 # bytes, spill stores, spill loads. kBf16 adds a last template argument, the row
 # walk's window layout (kWindow) the one before it; the f32 instances must compile
 # to exactly these. The window forward's row walk and the dense softmax backward
-# (the band backward's passes on one block) are recorded as they first compiled.
+# (the band backward's passes on one block) are recorded as they first compiled;
+# the dense softmax forward (v2's row walk on one block) builds v2's instances.
+V2_ROWWALK_F32 = {
+    "band_rowwalk_kernel<2, false, false, false, false>": (64, 96, 108, 180),
+    "band_rowwalk_kernel<2, true, false, false, false>": (64, 80, 88, 104),
+    "band_rowwalk_kernel<1, false, false, false, false>": (64, 24, 24, 24),
+    "band_rowwalk_kernel<1, true, false, false, false>": (64, 24, 20, 20),
+    "window_mean_kernel<false>": (32, 0, 0, 0),
+}
 F32_BAND_INSTANCES = {
-    "band_attention": {
-        "band_rowwalk_kernel<2, false, false, false, false>": (64, 96, 108, 180),
-        "band_rowwalk_kernel<2, true, false, false, false>": (64, 80, 88, 104),
-        "band_rowwalk_kernel<1, false, false, false, false>": (64, 24, 24, 24),
-        "band_rowwalk_kernel<1, true, false, false, false>": (64, 24, 20, 20),
-        "window_mean_kernel<false>": (32, 0, 0, 0),
-    },
+    "band_attention": V2_ROWWALK_F32,
+    "fused_attention": V2_ROWWALK_F32,
     "band_attention_flash": {
         "band_rowwalk_kernel<2, false, true, false, false>": (64, 96, 104, 184),
         "band_rowwalk_kernel<2, true, true, false, false>": (64, 72, 80, 104),
@@ -2199,15 +2429,19 @@ F32_BAND_INSTANCES = {
 # than the f32 instance, at NV 1 held to 48 registers for a fifth thread block;
 # the column walk as it compiled when it first read those rows: x_ext[e] as packed
 # quads, a dO slot rounded two channels a conversion, no more spill than the
-# instance that read f32 rows and rounded them on load)
+# instance that read f32 rows and rounded them on load; the dense softmax pair's
+# bf16 instances are v2's, with the rows pass that rounds dp as it first compiled,
+# at rows_kernel's numbers)
+V2_ROWWALK_BF16 = {
+    "band_rowwalk_kernel<2, false, false, false, true>": (64, 64, 72, 92),
+    "band_rowwalk_kernel<2, true, false, false, true>": (64, 24, 28, 28),
+    "band_rowwalk_kernel<1, false, false, false, true>": (48, 112, 108, 140),
+    "band_rowwalk_kernel<1, true, false, false, true>": (48, 96, 64, 60),
+    "window_mean_bf16_kernel": (32, 0, 0, 0),
+}
 BF16_BAND_INSTANCES = {
-    "band_attention": {
-        "band_rowwalk_kernel<2, false, false, false, true>": (64, 64, 72, 92),
-        "band_rowwalk_kernel<2, true, false, false, true>": (64, 24, 28, 28),
-        "band_rowwalk_kernel<1, false, false, false, true>": (48, 112, 108, 140),
-        "band_rowwalk_kernel<1, true, false, false, true>": (48, 96, 64, 60),
-        "window_mean_bf16_kernel": (32, 0, 0, 0),
-    },
+    "band_attention": V2_ROWWALK_BF16,
+    "fused_attention": V2_ROWWALK_BF16,
     "band_attention_flash": {
         "band_rowwalk_kernel<2, false, true, false, true>": (64, 64, 88, 180),
         "band_rowwalk_kernel<2, true, true, false, true>": (64, 16, 12, 12),
@@ -2223,7 +2457,9 @@ BF16_BAND_INSTANCES = {
         "columns_kernel<1, false, false, false, true>": (64, 112, 120, 232),
         "columns_kernel<1, true, false, false, true>": (64, 40, 40, 64),
         **({} if src == "band_attention_flash_bwd" else {"weights_kernel<true>": (40, 0, 0, 0)}),
-    } for src in ("band_attention_bwd", "band_attention_acc_bwd", "band_attention_flash_bwd")},
+        **({"rows_round_dp_kernel": (32, 8, 4, 4)} if src == "fused_attention_bwd" else {}),
+    } for src in ("band_attention_bwd", "band_attention_acc_bwd", "band_attention_flash_bwd",
+                  "fused_attention_bwd")},
 }
 # the bf16-operand instances: counter name → (the source, and the kernel of ``main``'s
 # wrappers, that holds it; the line of the Pallas program it replaces, built with
@@ -2234,6 +2470,14 @@ BF16_INSTANCES = {
     "band_attention_bwd_bf16": ("band_attention_bwd", 313),
     "band_attention_acc_bwd_bf16": ("band_attention_acc_bwd", 1416),
     "band_attention_flash_bwd_bf16": ("band_attention_flash_bwd", 677),
+}
+# the dense softmax pair's bf16 instances (GATConv's attn_dtype=bfloat16 with
+# attn_impl="softmax"): counter name → (the kernel of ``main``'s wrappers; the line in
+# TPU_DENSE_SRC of the Pallas program of that direction, which has no bf16 build: the
+# instances follow the JAX layer's XLA branch, gnn_pressure_estimation_tpu/models/layers.py)
+DENSE_BF16_INSTANCES = {
+    "fused_attention_bf16": ("fused_attention", 70),
+    "fused_attention_bwd_bf16": ("fused_attention_bwd", 82),
 }
 
 
@@ -2921,7 +3165,8 @@ def main() -> int:
     # every kernel instance's count: (wrapper, attribute); the bf16-operand instances
     # count in their wrapper's launches_bf16
     counters = {**{k: (w, "launches") for k, w in wrappers.items()},
-                **{k: (wrappers[w], "launches_bf16") for k, (w, _) in BF16_INSTANCES.items()}}
+                **{k: (wrappers[w], "launches_bf16")
+                   for k, (w, _) in {**BF16_INSTANCES, **DENSE_BF16_INSTANCES}.items()}}
 
     def reset_launches():
         for w, attr in counters.values():
@@ -3376,7 +3621,7 @@ def main() -> int:
                 "band_attention_bwd": f"{TPU_SRC}:313", "band_spmm_bwd": f"{TPU_SRC}:1164"}
     del trn
     torch.cuda.empty_cache()
-    dense = dense_phases(dev, card, rng, held, reset_launches, read_launches, counts)
+    dense = dense_phases(dev, card, rng, held, max_err, reset_launches, read_launches, counts)
     big = dict(tpl=tpl, npz=npz, x=fx["x"], tfx=tfx, mask=mask, mask_ix=mask_ix, ptxas=ptxas)
     mega = mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big)
     s5 = slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, big)
@@ -3417,28 +3662,43 @@ def main() -> int:
     # the dense kernels: headline row H 2 (conv1 of GATRes-small: C 32, D 33); the
     # factored pair counts the synthctown serving and fit runs, the attention pair
     # the attn_impl="softmax" batch and step
-    dense_replaces = {"fused_attention": 70, "fused_attention_bwd": 82,
-                      "fused_factored": 224, "fused_factored_bwd": 240}
+    # the softmax pair and its bf16 instances count phase 12's serving batches and
+    # train steps of GATRes-small and -large
+    dense_replaces = {"fused_attention": ("fused_attention", 70),
+                      "fused_attention_bwd": ("fused_attention_bwd", 82),
+                      **DENSE_BF16_INSTANCES,
+                      "fused_factored": ("fused_factored", 224),
+                      "fused_factored_bwd": ("fused_factored_bwd", 240)}
     dense_launches = {"fused_factored": sum(dense["serve_launches"].values()),
                       "fused_factored_bwd": dense["fit_launches"]["fused_factored_bwd"],
                       **dense["soft_launches"]}
-    for name, line in dense_replaces.items():
+    soft_times = {p_: {"serve_ms_f32": dense["soft_serve_ms"][p_][None],
+                       "serve_ms_bf16": dense["soft_serve_ms"][p_][torch.bfloat16],
+                       "step_ms_f32": dense["soft_step_ms"][p_][None],
+                       "step_ms_bf16": dense["soft_step_ms"][p_][torch.bfloat16]}
+                  for p_ in dense["soft_serve_ms"]}
+    for name, (src, line) in dense_replaces.items():
         shaped = {(r["H"], r["C"]): r for r in dense["rows"] if r["name"] == name}
         r = shaped[(2, 32)]
         if not dense_launches[name]:
             raise SystemExit(f"FAIL {name} was not launched on the dense path")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"gnn_pressure_estimation_tpu_torch/csrc/{name}.cu",
+            "source": f"gnn_pressure_estimation_tpu_torch/csrc/{src}.cu",
             "replaces": f"{TPU_DENSE_SRC}:{line}", "launches": dense_launches[name],
             "max_abs_err": max_err[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "device_ms": r["device_ms"], "einsum_ms": r["einsum_ms"],
+            **({"bound_f32_v_ms": r["bound_f32_ms"],
+                "min_gap_to_f32_in_max_ref": min(dense["dense_gaps"].values())}
+               if "bound_f32_ms" in r else {}),
+            **({"synthctown_b32_softmax_ms": soft_times} if name == "fused_attention" else {}),
             **({"launch_weighted_device_ms_small_step": dense["soft_dev"][name]}
                if name in dense["soft_dev"] else {}),
             "shape": f"B 32, n {dense['n']}, nonzeros {dense['nnz']}, H 2, C 32",
             "by_shape": {f"H{h} C{c}": {k: q[k] for k in ("ms", "device_ms", "plain_ms", "einsum_ms",
-                                                          "bound_ms", "bytes")}
+                                                          "bound_ms", "bound_f32_ms", "bytes")
+                                        if k in q}
                          for (h, c), q in shaped.items()},
             **({} if not name.startswith("fused_factored") else {
                 "walk_by_shape": {f"H{q['H']} C{q['C']}": {

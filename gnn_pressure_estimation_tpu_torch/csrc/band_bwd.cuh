@@ -46,14 +46,17 @@
 // same order, so their d a_dst and d a_src_win agree to the bit when x_win is
 // cut from x_ext.
 //
-// kBf16 (v2 and v3; v1 has no such instance): the bf16-operand backward of
-// the TPU kernels' mx = bfloat16. The weights pass takes the row's max, then
+// kBf16 (v2, v3 and the dense softmax; v1 has no such instance): the
+// bf16-operand backward of the TPU kernels' mx = bfloat16, and of the dense
+// layer's attn_dtype = bfloat16. The weights pass takes the row's max, then
 // Z summed in double and rounded once, then p = exp(z - m) / Z: the p the
 // bf16 forward rounded, and the same float whatever the order of the sum.
 // The columns pass reads x_ext stored in bf16, the rows the bf16 forward
 // gathered, and rounds p and dO to bf16 (d x = sum bf16(p) bf16(dO), dp =
 // bf16(dO) . x); the rows pass takes delta and dz from the f32 p, as the TPU
-// kernel does. No atomics: every output element is written once and every
+// kernel does. The dense instance (kRoundDp) also rounds dp to bf16 there, as
+// the XLA product of the dense layer rounds its output; that layer rounds d x
+// itself. No atomics: every output element is written once and every
 // sum is taken in a fixed order, so a run repeats to the bit.
 
 #pragma once
@@ -119,15 +122,18 @@ weights_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
 }
 
 // dz over dp and d a_dst: one thread per (b, row, head), h fastest.
-__global__ void __launch_bounds__(kThreads)
-rows_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
-            const float* __restrict__ a_src_win,  // [nB, B, W, H]
-            const int* __restrict__ row_ptr,      // [n_pad + 1]
-            const int* __restrict__ col,          // [nnz]
-            const float* __restrict__ p_in,       // [B, nnz, H]
-            float* __restrict__ dp_dz,            // [B, nnz, H]: dp in, dz out
-            float* __restrict__ d_a_dst,          // [B, n_pad, H]
-            int B, int nB, int BLK, int W, int H, int nnz, float slope) {
+// kRoundDp: dp is rounded to bf16 as it is read, before delta and dz (the
+// dense softmax's bf16 instance: the XLA product that gives dp there has a
+// bf16 output); a kernel of its own, so rows_kernel's code stays as it was.
+template <bool kRoundDp>
+__device__ __forceinline__ void rows_body(const float* __restrict__ a_dst,
+                                          const float* __restrict__ a_src_win,
+                                          const int* __restrict__ row_ptr,
+                                          const int* __restrict__ col,
+                                          const float* __restrict__ p_in,
+                                          float* __restrict__ dp_dz, float* __restrict__ d_a_dst,
+                                          int B, int nB, int BLK, int W, int H, int nnz,
+                                          float slope) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long n_pad = (long long)nB * BLK;
   if (i >= (long long)B * n_pad * H) return;
@@ -140,18 +146,42 @@ rows_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
   float* dk = dp_dz + b * (long long)nnz * H + h;
   float delta = 0.f;
 #pragma unroll 4
-  for (int k = k0; k < k1; ++k) delta = fmaf(pk[(long long)k * H], dk[(long long)k * H], delta);
+  for (int k = k0; k < k1; ++k)
+    delta = fmaf(pk[(long long)k * H], operand<kRoundDp>(dk[(long long)k * H]), delta);
   const float ad = a_dst[i];
   const float* asrc = a_src_win + (blk * B + b) * (long long)W * H + h;
   float dsum = 0.f;
 #pragma unroll 4
   for (int k = k0; k < k1; ++k) {
-    float dz = pk[(long long)k * H] * (dk[(long long)k * H] - delta);
+    float dz = pk[(long long)k * H] * (operand<kRoundDp>(dk[(long long)k * H]) - delta);
     if (ad + __ldg(asrc + (long long)col[k] * H) < 0.f) dz *= slope;
     dk[(long long)k * H] = dz;
     dsum += dz;
   }
   d_a_dst[i] = dsum;                     // 0 for a row with no set column
+}
+
+__global__ void __launch_bounds__(kThreads)
+rows_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
+            const float* __restrict__ a_src_win,  // [nB, B, W, H]
+            const int* __restrict__ row_ptr,      // [n_pad + 1]
+            const int* __restrict__ col,          // [nnz]
+            const float* __restrict__ p_in,       // [B, nnz, H]
+            float* __restrict__ dp_dz,            // [B, nnz, H]: dp in, dz out
+            float* __restrict__ d_a_dst,          // [B, n_pad, H]
+            int B, int nB, int BLK, int W, int H, int nnz, float slope) {
+  rows_body<false>(a_dst, a_src_win, row_ptr, col, p_in, dp_dz, d_a_dst, B, nB, BLK, W, H, nnz,
+                   slope);
+}
+
+__global__ void __launch_bounds__(kThreads)
+rows_round_dp_kernel(const float* __restrict__ a_dst, const float* __restrict__ a_src_win,
+                     const int* __restrict__ row_ptr, const int* __restrict__ col,
+                     const float* __restrict__ p_in, float* __restrict__ dp_dz,
+                     float* __restrict__ d_a_dst, int B, int nB, int BLK, int W, int H, int nnz,
+                     float slope) {
+  rows_body<true>(a_dst, a_src_win, row_ptr, col, p_in, dp_dz, d_a_dst, B, nB, BLK, W, H, nnz,
+                  slope);
 }
 
 
@@ -160,8 +190,9 @@ rows_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
 // == 0 and x, dout 16-byte aligned (the wrapper checks). x and d_x: x_ext
 // and d x_ext [B, n_ext, H, C], or with kWindow x_win and d x_win
 // [nB, B, W, H, C]. All outputs are written in full. kBf16: the
-// bf16-operand instance, x_ext in bf16.
-template <bool kWindow = false, bool kBf16 = false>
+// bf16-operand instance, x_ext in bf16. kRoundDp: the rows pass rounds dp to
+// bf16 (rows_round_dp_kernel; only the dense softmax's bf16 instance).
+template <bool kWindow = false, bool kBf16 = false, bool kRoundDp = false>
 int recompute_bwd(const float* a_dst, const float* a_src_win, const typename XRow<kBf16>::T* x,
                   const float* dout, const int* row_ptr, const int* col, const int* t_ptr,
                   const int* t_entry, const int* t_row, const int* empty_ptr, const int* empty_row,
@@ -188,7 +219,8 @@ int recompute_bwd(const float* a_dst, const float* a_src_win, const typename XRo
                                        t_ptr, t_entry, t_row, empty_ptr, scratch_dz, d_x, B, nB,
                                        BLK, W, H, C, nnz, st);
   if (rc != 0) return rc;
-  rows_kernel<<<threads_for((long long)B * n_pad * H), kThreads, 0, st>>>(
+  (kRoundDp ? rows_round_dp_kernel : rows_kernel)<<<threads_for((long long)B * n_pad * H),
+                                                     kThreads, 0, st>>>(
       a_dst, a_src_win, row_ptr, col, scratch_p, scratch_dz, d_a_dst, B, nB, BLK, W, H, nnz,
       slope);
   err = cudaGetLastError();

@@ -43,16 +43,25 @@
 
 // The index: the MaskIndex's lists, the BandIndex of mask[None] (empty_ptr
 // [0, 0], empty_row empty). scratch_p, scratch_dz: [B, nnz, H] f32. vec != 0:
-// C % 4 == 0 and v, dout 16-byte aligned (the wrapper checks). All outputs
-// are written in full.
+// C % 4 == 0 and v, dout 16-byte aligned (the wrapper checks). bf16 != 0: the
+// bf16-operand instance (the dense layer's attn_dtype = bfloat16) over v
+// stored in bf16, as the bf16 forward read it: p and dO rounded for their
+// products, dp rounded to bf16 in the rows pass before delta and dz (the
+// XLA product that gives dp has a bf16 output); d v is written unrounded in
+// f32 and the layer rounds it. All outputs are written in full.
 extern "C" int fused_attention_bwd(
-    const float* a_dst, const float* a_src, const float* v, const float* dout,
+    const float* a_dst, const float* a_src, const void* v, const float* dout,
     const int* row_ptr, const int* col, const int* t_ptr, const int* t_entry,
     const int* t_row, const int* empty_ptr, const int* empty_row, float* scratch_p,
     float* scratch_dz, float* d_a_dst, float* d_a_src, float* d_v, int B, int n, int H,
-    int C, int nnz, int vec, float slope, void* stream) {
-  return recompute_bwd<false, false>(a_dst, a_src, v, dout, row_ptr, col, t_ptr, t_entry, t_row,
-                                     empty_ptr, empty_row, scratch_p, scratch_dz, nullptr,
-                                     d_a_dst, d_a_src, d_v, B, 1, n, n, H, C, nnz, 0, vec, slope,
-                                     (cudaStream_t)stream);
+    int C, int nnz, int vec, int bf16, float slope, void* stream) {
+  if (bf16)
+    return recompute_bwd<false, true, true>(
+        a_dst, a_src, static_cast<const __nv_bfloat16*>(v), dout, row_ptr, col, t_ptr, t_entry,
+        t_row, empty_ptr, empty_row, scratch_p, scratch_dz, nullptr, d_a_dst, d_a_src, d_v, B, 1,
+        n, n, H, C, nnz, 0, vec, slope, (cudaStream_t)stream);
+  return recompute_bwd<false, false>(a_dst, a_src, static_cast<const float*>(v), dout, row_ptr,
+                                     col, t_ptr, t_entry, t_row, empty_ptr, empty_row, scratch_p,
+                                     scratch_dz, nullptr, d_a_dst, d_a_src, d_v, B, 1, n, n, H, C,
+                                     nnz, 0, vec, slope, (cudaStream_t)stream);
 }

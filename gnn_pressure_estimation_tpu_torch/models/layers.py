@@ -98,10 +98,12 @@ class GATConv(nn.Module):
     JAX layer reaches its v2-family kernel (negative slope 0.2, H·C a
     multiple of 128); dense ``factored``, the operands ``v·[x, 1]`` and
     ``q·[x, 1]`` stored in bf16 (the JAX layer's default, XLA, branch);
-    dense ``onepass``, the numerator and the features stored in bf16. The
-    window route, narrower banded layers and the padded mode ignore it, as
-    in the JAX layer; dense ``softmax`` with bf16 raises (not ported: the
-    JAX layer also rounds the product's output there). ``gate_dtype`` is
+    dense ``onepass``, the numerator and the features stored in bf16; dense
+    ``softmax``, the bf16 instances of ``ops.fused_attention`` (the features
+    stored in bf16, the normalised weights rounded for the product, the
+    product's output, dp and d x rounded to bf16, as the JAX layer's XLA
+    branch rounds them). The window route, narrower banded layers and the
+    padded mode ignore it, as in the JAX layer. ``gate_dtype`` is
     accepted and changes nothing: the gate is 0/1, exact in either type, and
     the factored kernel never stores it.
     """
@@ -181,11 +183,7 @@ class GATConv(nn.Module):
         bf16 = self.attn_dtype == torch.bfloat16
         store = round_bf16 if bf16 else (lambda t: t)
         if self.attn_impl == "softmax":
-            if bf16:
-                raise NotImplementedError(
-                    "attn_impl='softmax' with attn_dtype=bfloat16 on the dense path is not yet "
-                    "ported (ROADMAP Queue 1 item 8; the fused_attention redesign, Queue 2)")
-            return fused_attention(a_d, a_s, xp_b, mask, sl, index)
+            return fused_attention(a_d, a_s, xp_b, mask, sl, index, bf16)
         C = xp_b.shape[-1]
         with torch.no_grad():
             # the row max of the logits from the sender halves alone: LeakyReLU

@@ -10,7 +10,10 @@ template's ``[n, n]`` adjacency mask (self-loops in) and
 * :func:`fused_attention` (``csrc/fused_attention.cu`` and ``_bwd.cu``):
   ``out[b, i, h] = Σ_j softmax_j(where(M_ij, where(s_ij >= 0, s_ij, slope·s_ij),
   −1e9)) · v[b, j, h]``. The backward recomputes the softmax from the saved
-  inputs and returns ``(d a_dst, d a_src, d v)``.
+  inputs and returns ``(d a_dst, d a_src, d v)``. ``bf16`` (GATConv's
+  ``attn_dtype=bfloat16``): v stored in bf16, the weights rounded to bf16
+  for the product, and the output, dp and d v rounded to bf16, where the
+  JAX layer's XLA branch rounds them.
 * :func:`fused_factored` (``csrc/fused_factored.cu`` and ``_bwd.cu``): the
   aggregation of the factored rewrite, ``t_pv = P @ rhs_v`` and
   ``t_nq = (M − P) @ rhs_q`` with the 0/1 gate ``P = M · [s >= 0]``. The gate
@@ -22,9 +25,10 @@ Layout: the layer's own. ``a_dst``, ``a_src`` are ``[B, n, H]``; ``v``,
 ``rhs_v``, ``rhs_q`` and every output are ``[B, n, H, ·]``. The TPU kernels
 take ``[B, H, n, ·]`` and the JAX layer transposes before and after them;
 here nothing is transposed. Nor is n padded to a lane multiple or are graphs
-grouped per step: in the attention forward a warp owns one (graph, row,
-head); the attention backward is v2's band backward on the band of one block
-(nB 1, BLK = W = n: ``csrc/band_bwd.cuh``: a thread per (graph, row, head)
+grouped per step: the attention pair is v2's band attention on the band of
+one block (nB 1, BLK = W = n), the forward its row walk
+(``csrc/band_rowwalk.cuh``: a warp per (graph, row) for all heads), the
+backward its five passes (``csrc/band_bwd.cuh``: a thread per (graph, row, head)
 for p and dz, a warp per (graph, column) for all heads' d v and dp, a
 thread per (graph, column, head) for d a_src); in the factored pair a warp owns
 one (graph, node) with all its heads (the walk of ``csrc/dense_walk.cuh``,
@@ -69,6 +73,7 @@ import numpy as np
 import torch
 
 from gnn_pressure_estimation_tpu_torch.ops import _build
+from gnn_pressure_estimation_tpu_torch.ops.band_attention import _count, round_bf16
 from gnn_pressure_estimation_tpu_torch.ops.banded import use_plain, vector_loads
 
 NEG_INF = -1e9  # mask value of the dense attention logits (finite: no inf − inf)
@@ -148,31 +153,58 @@ def mask_index_of(mask: torch.Tensor) -> MaskIndex:
 
 # ---- plain versions ---------------------------------------------------------
 
-def _softmax_p(a_dst, a_src, mask, negative_slope):
-    """(zpre, p): the pre-activation sums [B, i, j, H] and the masked softmax."""
+def _softmax_p(a_dst, a_src, mask, negative_slope, bf16=False):
+    """(zpre, p): the pre-activation sums [B, i, j, H] and the masked softmax;
+    ``bf16``: its sum taken in double and rounded once, as the bf16 kernels
+    take it (the weight they round then does not depend on the sum's order)."""
     zpre = a_dst[:, :, None, :] + a_src[:, None, :, :]
     # not F.leaky_relu: its gradient at z == 0 is the slope, the JAX package's
     # is 1, and two masked (zeroed) neighbours meet exactly there
     z = torch.where(zpre >= 0, zpre, negative_slope * zpre)
     z = torch.where(mask.bool()[None, :, :, None], z, NEG_INF)
-    return zpre, torch.softmax(z, dim=2)
+    if not bf16:
+        return zpre, torch.softmax(z, dim=2)
+    e = torch.exp(z - z.amax(dim=2, keepdim=True))
+    return zpre, e / e.sum(dim=2, keepdim=True, dtype=torch.float64).to(e.dtype)
 
 
-def fused_attention_plain(a_dst, a_src, v, mask, negative_slope: float = 0.2):
-    """Plain PyTorch version of :func:`fused_attention_fwd`."""
-    _, p = _softmax_p(a_dst, a_src, mask, negative_slope)
+def _stored(fn: str, v: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """v as the kernels read it: f32, or under ``bf16`` in bf16 (f32 rounded
+    once here; the layer's Function hands its bf16 copy). bf16 without
+    ``bf16`` raises: the f32 instances read f32."""
+    if v.dtype == torch.bfloat16 and not bf16:
+        raise ValueError(f"{fn}: v in bfloat16 is read only by the bf16 instance (bf16=True)")
+    return v.to(torch.bfloat16) if bf16 else v
+
+
+def fused_attention_plain(a_dst, a_src, v, mask, negative_slope: float = 0.2,
+                          bf16: bool = False):
+    """Plain PyTorch version of :func:`fused_attention_fwd`; ``bf16``:
+    ``Σ bf16(p)·bf16(v)`` in f32, not rounded (the layer rounds it)."""
+    _, p = _softmax_p(a_dst, a_src, mask, negative_slope, bf16)
+    if bf16:
+        p, v = round_bf16(p), _stored("fused_attention_plain", v, True).float()
     return torch.einsum("bijh,bjhc->bihc", p, v)
 
 
-def fused_attention_bwd_plain(a_dst, a_src, v, mask, d_out, negative_slope: float = 0.2):
+def fused_attention_bwd_plain(a_dst, a_src, v, mask, d_out, negative_slope: float = 0.2,
+                              bf16: bool = False):
     """Plain PyTorch version of :func:`fused_attention_bwd`: the explicit
-    formulas on the dense ``[B, n, n, H]`` tensors."""
-    zpre, p = _softmax_p(a_dst, a_src, mask, negative_slope)
+    formulas on the dense ``[B, n, n, H]`` tensors. ``bf16``: dO rounded for
+    both products, dp = bf16(bf16(dO)·bf16(v)), d v = Σ bf16(p)·bf16(dO) in
+    f32, not rounded (the layer rounds it), delta and dz from the f32 p."""
+    zpre, p = _softmax_p(a_dst, a_src, mask, negative_slope, bf16)
+    pv = p
+    if bf16:
+        v = _stored("fused_attention_bwd_plain", v, True).float()
+        d_out, pv = round_bf16(d_out), round_bf16(p)
     dp = torch.einsum("bihc,bjhc->bijh", d_out, v)
+    if bf16:
+        dp = round_bf16(dp)
     dz = p * (dp - (p * dp).sum(dim=2, keepdim=True))
     # the sign of the pre-activation, not of LeakyReLU's output (masked: p = 0)
     dz = torch.where(zpre >= 0, dz, negative_slope * dz)
-    return dz.sum(dim=2), dz.sum(dim=1), torch.einsum("bijh,bihc->bjhc", p, d_out)
+    return dz.sum(dim=2), dz.sum(dim=1), torch.einsum("bijh,bihc->bjhc", pv, d_out)
 
 
 def _gates(a_dst, a_src, mask, dtype):
@@ -198,9 +230,10 @@ def fused_factored_bwd_plain(a_dst, a_src, mask, g_pv, g_nq):
 
 # ---- kernel wrappers --------------------------------------------------------
 
-def _check(fn: str, a_dst, a_src, wide: dict, index: MaskIndex):
+def _check(fn: str, a_dst, a_src, wide: dict, index: MaskIndex, bf16: tuple = ()):
     """Raise on what the kernels do not take. ``wide``: name → [B, n, H, ·]
-    tensor, all of one shape."""
+    tensor, all of one shape; those named in ``bf16`` in bfloat16, the rest
+    f32."""
     first = next(iter(wide.values()))
     dev = first.device
     if dev.type != "cuda":
@@ -214,8 +247,9 @@ def _check(fn: str, a_dst, a_src, wide: dict, index: MaskIndex):
     for name, t in {"a_dst": a_dst, "a_src": a_src, **wide}.items():
         if name in wide and t.shape != first.shape:
             raise ValueError(f"{fn}: {name} {tuple(t.shape)} does not fit {tuple(first.shape)}")
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != dev:
-            raise ValueError(f"{fn}: {name} must be contiguous f32 on {dev}")
+        dt = torch.bfloat16 if name in bf16 else torch.float32
+        if t.dtype != dt or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{fn}: {name} must be contiguous {dt} on {dev}")
     if index.n != n or index.col.device != dev:
         raise ValueError(f"{fn}: the mask index does not belong to this n and device")
 
@@ -246,32 +280,39 @@ def _launch(fn_name: str, lib: str, ptrs, ints, floats=()):
 
 
 def fused_attention_fwd(a_dst, a_src, v, mask, negative_slope: float = 0.2,
-                        index: Optional[MaskIndex] = None) -> torch.Tensor:
+                        index: Optional[MaskIndex] = None, bf16: bool = False) -> torch.Tensor:
     """a_dst, a_src [B, n, H] · v [B, n, H, C] · mask [n, n] → [B, n, H, C],
-    all f32. No autograd: see :func:`fused_attention`.
+    all f32 (``bf16``: v bf16, or f32 rounded once here). No autograd: see
+    :func:`fused_attention`.
 
     ``index`` is the mask's :class:`MaskIndex` on the same device (the
     graph's cached one on the model's path); without it the index is built
     from the mask's values. On CUDA tensors it launches the kernel (or
-    raises); on CPU tensors it runs :func:`fused_attention_plain`.
-    ``fused_attention_fwd.launches`` counts kernel launches."""
+    raises); on CPU tensors it runs :func:`fused_attention_plain`. The
+    kernel is v2's band row walk (``csrc/band_rowwalk.cuh``) on the band of
+    one block (nB 1, BLK = W = n), over the index's row lists.
+    ``fused_attention_fwd.launches`` counts kernel launches; ``bf16``
+    launches v2's bf16-operand instance (``Σ bf16(p)·v``, output not
+    rounded), counted in ``launches_bf16``."""
+    name = "fused_attention_fwd"
+    v = _stored(name, v, bf16)
     if use_plain(v):
-        return fused_attention_plain(a_dst, a_src, v, mask, negative_slope)
+        return fused_attention_plain(a_dst, a_src, v, mask, negative_slope, bf16)
     ix = _index(mask, index)
-    _check("fused_attention_fwd", a_dst, a_src, {"v": v}, ix)
+    _check(name, a_dst, a_src, {"v": v}, ix, ("v",) if bf16 else ())
     B, n, H, C = v.shape
-    out = torch.empty_like(v)
-    _launch("fused_attention_fwd", "fused_attention",
-            (a_dst, a_src, v, ix.row_ptr, ix.col, out), (B, n, H, C), (float(negative_slope),))
-    fused_attention_fwd.launches += 1
+    out = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    _launch(name, "fused_attention", (a_dst, a_src, v, ix.row_ptr, ix.col, out),
+            (B, n, H, C, int(vector_loads(v, C)), int(bf16)), (float(negative_slope),))
+    _count(fused_attention_fwd, bf16)
     return out
 
 
-fused_attention_fwd.launches = 0
+fused_attention_fwd.launches = fused_attention_fwd.launches_bf16 = 0
 
 
 def fused_attention_bwd(a_dst, a_src, v, mask, d_out, negative_slope: float = 0.2,
-                        index: Optional[MaskIndex] = None):
+                        index: Optional[MaskIndex] = None, bf16: bool = False):
     """The cotangents ``(d a_dst, d a_src, d v)`` of :func:`fused_attention_fwd`
     for the output cotangent ``d_out`` [B, n, H, C]; the softmax is recomputed.
     ``index``, devices: as the forward. The kernel runs the dense softmax as a
@@ -279,28 +320,34 @@ def fused_attention_bwd(a_dst, a_src, v, mask, d_out, negative_slope: float = 0.
     per entry from the row lists; d v and dp per entry in one all-heads walk
     over the column lists; dz and d a_dst per row; d a_src per column.
     ``fused_attention_bwd.launches`` counts kernel launches (one per call:
-    the four launches of the passes are one launch of it)."""
+    the four launches of the passes are one launch of it); ``bf16`` launches
+    the bf16-operand instance over v in bf16 (f32 rounded once here), which
+    rounds dp to bf16 before dz and returns d v unrounded, counted in
+    ``launches_bf16``."""
+    name = "fused_attention_bwd"
+    v = _stored(name, v, bf16)
     if use_plain(v):
-        return fused_attention_bwd_plain(a_dst, a_src, v, mask, d_out, negative_slope)
+        return fused_attention_bwd_plain(a_dst, a_src, v, mask, d_out, negative_slope, bf16)
     ix = _index(mask, index)
     d_out = d_out.contiguous()
-    _check("fused_attention_bwd", a_dst, a_src, {"v": v, "d_out": d_out}, ix)
+    _check(name, a_dst, a_src, {"v": v, "d_out": d_out}, ix, ("v",) if bf16 else ())
     B, n, H, C = v.shape
-    d_a_dst, d_a_src, d_v = torch.empty_like(a_dst), torch.empty_like(a_src), torch.empty_like(v)
+    d_a_dst, d_a_src = torch.empty_like(a_dst), torch.empty_like(a_src)
+    d_v = torch.empty(v.shape, dtype=torch.float32, device=v.device)
     # per-entry softmax weight, and dp then dz, passed between the passes
     sp, sdz = (torch.empty((B, max(ix.nnz, 1), H), dtype=torch.float32, device=v.device)
                for _ in range(2))
     vec = vector_loads(v, C) and vector_loads(d_out, C)
-    _launch("fused_attention_bwd", "fused_attention_bwd",
+    _launch(name, "fused_attention_bwd",
             (a_dst, a_src, v, d_out, ix.row_ptr, ix.col, ix.t_ptr, ix.t_entry, ix.t_row,
              ix.empty_ptr, ix.empty_row, sp, sdz, d_a_dst, d_a_src, d_v),
-            (B, n, H, C, ix.nnz, int(vec)),
+            (B, n, H, C, ix.nnz, int(vec), int(bf16)),
             (float(negative_slope),))
-    fused_attention_bwd.launches += 1
+    _count(fused_attention_bwd, bf16)
     return d_a_dst, d_a_src, d_v
 
 
-fused_attention_bwd.launches = 0
+fused_attention_bwd.launches = fused_attention_bwd.launches_bf16 = 0
 
 
 def fused_factored_fwd(a_dst, a_src, rhs_v, rhs_q, mask,
@@ -353,20 +400,29 @@ fused_factored_bwd.launches = 0
 class FusedAttention(torch.autograd.Function):
     """Forward and backward through the kernels (CUDA tensors) or through
     their plain versions (CPU tensors). Saves its inputs only: the backward
-    recomputes the softmax."""
+    recomputes the softmax. ``bf16`` (the layer's ``attn_dtype=bfloat16``):
+    v is rounded once into a bf16 copy, which both instances read and which
+    is saved in place of v; the output and d v are rounded to bf16 (kept in
+    f32), as the JAX layer's XLA branch rounds its product's output and the
+    cotangent of its bf16 operand."""
 
     @staticmethod
-    def forward(ctx, a_dst, a_src, v, mask, negative_slope, index):
+    def forward(ctx, a_dst, a_src, v, mask, negative_slope, index, bf16):
+        if bf16:
+            v = v.to(torch.bfloat16)
         ctx.save_for_backward(a_dst, a_src, v, mask)
-        ctx.negative_slope, ctx.index = negative_slope, index
-        return fused_attention_fwd(a_dst, a_src, v, mask, negative_slope, index)
+        ctx.negative_slope, ctx.index, ctx.bf16 = negative_slope, index, bf16
+        out = fused_attention_fwd(a_dst, a_src, v, mask, negative_slope, index, bf16)
+        return round_bf16(out) if bf16 else out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, d_out):
         a_dst, a_src, v, mask = ctx.saved_tensors
-        return (*fused_attention_bwd(a_dst, a_src, v, mask, d_out, ctx.negative_slope, ctx.index),
-                None, None, None)
+        d_a_dst, d_a_src, d_v = fused_attention_bwd(a_dst, a_src, v, mask, d_out,
+                                                    ctx.negative_slope, ctx.index, ctx.bf16)
+        return (d_a_dst, d_a_src, round_bf16(d_v) if ctx.bf16 else d_v,
+                None, None, None, None)
 
 
 class FusedFactored(torch.autograd.Function):
@@ -389,12 +445,14 @@ class FusedFactored(torch.autograd.Function):
 
 
 def fused_attention(a_dst, a_src, v, mask, negative_slope: float = 0.2,
-                    index: Optional[MaskIndex] = None) -> torch.Tensor:
+                    index: Optional[MaskIndex] = None, bf16: bool = False) -> torch.Tensor:
     """Differentiable dense masked GAT attention, shapes as
-    :func:`fused_attention_fwd`. Gradients flow to ``a_dst``, ``a_src`` and
-    ``v``; the mask is a constant of the graph."""
+    :func:`fused_attention_fwd`, all f32. Gradients flow to ``a_dst``,
+    ``a_src`` and ``v``; the mask is a constant of the graph. ``bf16``: the
+    bf16 instances, forward and backward, with the output and d v rounded
+    to bf16 (see :class:`FusedAttention`)."""
     return FusedAttention.apply(a_dst.contiguous(), a_src.contiguous(), v.contiguous(),
-                                mask, negative_slope, index)
+                                mask, negative_slope, index, bf16)
 
 
 def fused_factored(a_dst, a_src, rhs_v, rhs_q, mask, index: Optional[MaskIndex] = None):

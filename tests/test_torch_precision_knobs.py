@@ -49,6 +49,7 @@ from gnn_pressure_estimation_tpu_torch.models.gatres import GATRes
 from gnn_pressure_estimation_tpu_torch.models.layers import GATConv, SimpleMeanConv
 from gnn_pressure_estimation_tpu_torch.models.presets import apply_model_knobs, select_model
 from gnn_pressure_estimation_tpu_torch.ops import band_attention as pba
+from gnn_pressure_estimation_tpu_torch.ops import graph_attention as ga
 from gnn_pressure_estimation_tpu_torch.train import TrainConfig, Trainer
 from gnn_pressure_estimation_tpu_torch.utils.masking import masked_count
 from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats
@@ -359,9 +360,144 @@ def test_dense_bf16_step_matches_jax_default_branch(rng, monkeypatch, impl):
     assert not np.array_equal(out, out32)
 
 
-def test_dense_softmax_bf16_raises():
+# ---- dense softmax: the bf16 instances of fused_attention ----------------------------------
+
+BF16_STEP = 2.0 ** -8      # one bf16 step: a rounding that lands on the other side
+
+
+def _within_a_bf16_step(got, ref, what, share=0.01):
+    """Each value within one bf16 step (2^-8·|ref|) plus 1e-5 + 1e-5·max|ref|,
+    and at most ``share`` of them beyond the second term: a sum rounded to
+    bf16 may land a step away where the two packages' f32 sums differ in
+    their last bit."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    err, fine = np.abs(got - ref), 1e-5 + 1e-5 * float(np.abs(ref).max())
+    assert (err <= BF16_STEP * np.abs(ref) + fine).all(), f"{what}: {err.max():.3e}"
+    assert (err > fine).mean() <= share, f"{what}: {(err > fine).sum()} of {err.size} a step off"
+
+
+def _dense_pair(n, B):
+    """A JAX and a port dense graph of one random template, B graphs."""
+    jt = random_graph(np.random.default_rng(7), n=n, extra_edges=n // 2)
+    jg = jt.batch(B, mode="dense")
+    assert jg.dense and jg.fused_attn is None
+    return jt, jg, GraphTemplate(jt.n_node, jt.senders, jt.receivers).batch(B, "dense", None, "cpu")
+
+
+@pytest.mark.parametrize("H,C,concat", [(2, 8, True), (1, 16, False)])
+def test_gatconv_dense_softmax_bf16_matches_jax_layer(rng, monkeypatch, H, C, concat):
+    """The JAX layer's XLA branch (GNN_TPU_FUSED_ATTN unset) against the
+    port's bf16 plain versions. x, the weights and the cotangent on dyadic
+    grids (2^-3, 2^-4, 2^-6): xp and the logit halves are exact in f32 in any
+    order and so is each dp, so the two packages round the same dp. The
+    output and d x hold the product's bf16 rounding, whose f32 sum runs in
+    another order in each package: each value within one bf16 step, at most
+    1% a step off; the parameter gradients within 1e-3·max|g| + 1e-6 (the
+    fixtures' training gate); the output at least 5e-4·max|ref| from the JAX
+    f32 layer's."""
+    _set_route_env(monkeypatch, None)
+    B, n, cin = 2, 30, 12
+    jt, jg, pg = _dense_pair(n, B)
+    x = _dyadic(rng, (B * n, cin), 2.0 ** -3, 1.0)
+    g = _dyadic(rng, (B * n, H * C if concat else C), 2.0 ** -6, 1.0)
+    jl = JaxGATConv(out_channels=C, heads=H, concat=concat, attn_impl="softmax",
+                    attn_dtype=jnp.bfloat16)
+    params = jl.init(jax.random.PRNGKey(0), jnp.asarray(x), jg)
+    params = {"params": {k: jnp.asarray(_dyadic(rng, v.shape, 2.0 ** -4, 0.5)) if k != "bias"
+                         else v + 0.125 for k, v in params["params"].items()}}
+    ref, vjp = jax.vjp(lambda p, xx: jl.apply(p, xx, jg), params, jnp.asarray(x))
+    jgrads, jdx = vjp(jnp.asarray(g))
+    ref32 = jl.clone(attn_dtype=None).apply(params, jnp.asarray(x), jg)
+
+    layer = GATConv(cin, C, heads=H, concat=concat, attn_dtype=torch.bfloat16)
+    p = jax.tree.map(np.asarray, params)["params"]
+    with torch.no_grad():
+        layer.lin.weight.copy_(torch.from_numpy(p["w"].T.copy()))
+        for f in ("att_src", "att_dst", "bias"):
+            getattr(layer, f).copy_(torch.from_numpy(p[f].copy()))
+    px = torch.from_numpy(x).requires_grad_()
+    out = layer(px, pg)
+    _within_a_bf16_step(out.detach().numpy(), ref, "forward")
+    gap = float(np.abs(out.detach().numpy() - np.asarray(ref32)).max())
+    assert gap >= 5e-4 * float(np.abs(ref).max()), f"only {gap:.3e} from the f32 layer"
+    grads = torch.autograd.grad((out * torch.from_numpy(g)).sum(), [px, *layer.parameters()])
+    _within_a_bf16_step(grads[0].numpy(), jdx, "d x")
+    jg_p = jax.tree.map(np.asarray, jgrads)["params"]
+    want = {"lin.weight": jg_p["w"].T, "att_src": jg_p["att_src"], "att_dst": jg_p["att_dst"],
+            "bias": jg_p["bias"]}
+    names = [k for k, _ in layer.named_parameters()]
+    _grads_close(names, grads[1:], {k: torch.from_numpy(np.array(v)) for k, v in want.items()},
+                 "dense softmax bf16")
+
+
+def test_gatres_dense_softmax_bf16_matches_jax_model(rng, monkeypatch):
+    """Two blocks on a dense graph: the forward within the fixtures' 1e-3 of
+    the JAX bf16 model (past the first layer no grid survives), and not the
+    f32 model's."""
+    _set_route_env(monkeypatch, None)
+    B, n = 2, 30
+    jt, jg, pg = _dense_pair(n, B)
+    x = rng.standard_normal((B * n, 1)).astype(np.float32)
+    jm = JaxGATRes(num_blocks=2, channels=16, attn_impl="softmax", attn_dtype=jnp.bfloat16)
+    params = jm.init(jax.random.PRNGKey(1), jnp.asarray(x), jg)
+    params = jax.tree.map(lambda a: a + 0.1 * jnp.asarray(rng.standard_normal(a.shape), a.dtype),
+                          params)
+    ref = np.asarray(jm.apply(params, jnp.asarray(x), jg))
+    model = GATRes(2, 16, attn_impl="softmax", attn_dtype=torch.bfloat16)
+    model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
+    with torch.no_grad():
+        out = model(torch.from_numpy(x), pg).numpy()
+        apply_model_knobs(model, attn_dtype="float32")
+        out32 = model(torch.from_numpy(x), pg).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-3)
+    assert np.abs(out - out32).max() > 1e-5 * np.abs(ref).max(), "the knob did nothing"
+
+
+def test_dense_softmax_bf16_step_matches_jax_trainer(rng, monkeypatch):
+    """One train step of a 2-block GATRes with attn_impl="softmax" and
+    attn_dtype=bfloat16 against the JAX Trainer (its XLA branch): the loss
+    within 1e-5 relative, every gradient within the fixtures' training gate
+    1e-3·max|g| + 1e-6."""
+    _set_route_env(monkeypatch, None)
+    n, bs, blocks, nc = 30, 3, 2, 8
+    jt = random_graph(rng, n=n, extra_edges=14)
+    pt = GraphTemplate(jt.n_node, jt.senders, jt.receivers)
+    kw = dict(batch_size=bs, mask_rate=0.8, criterion="mse", donate_state=False, seed=0)
+    stats = dict(norm_type="znorm", mean=1.0, std=3.0)
+    jtr = JaxTrainer(JaxGATRes(num_blocks=blocks, channels=nc, attn_impl="softmax",
+                               attn_dtype=jnp.bfloat16),
+                     JaxTrainConfig(**kw), JaxNormStats(**stats), jt)
+    ptr = Trainer(GATRes(blocks, nc, attn_impl="softmax", attn_dtype=torch.bfloat16),
+                  TrainConfig(**kw), NormStats(**stats), pt, device="cpu")
+    jtr.params = jax.tree.map(
+        lambda a: a + 0.1 * jnp.asarray(rng.standard_normal(a.shape), jnp.float32), jtr.params)
+    ptr.model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, jtr.params)))
+    loss, jloss, names, grads, ref, graph, x, jg, jx = _step(jtr, ptr, jt, pt, rng, bs, 0.8)
+    assert jg.dense and jg.fused_attn is None
+    np.testing.assert_allclose(loss, jloss, rtol=1e-5)
+    _grads_close(names, grads, ref, "dense softmax bf16 step")
+
+
+def test_dense_softmax_bf16_takes_the_bf16_instances_and_saves_bf16_v(monkeypatch):
+    """Every dense GATConv of a bf16 softmax model hands both wrappers its
+    bf16 copy of v with bf16=True (the Function saves that copy, no f32 v);
+    the f32 model hands f32 v with bf16=False."""
+    seen = []
+
+    def spy(wrapper):
+        def run(*args):                  # the Function passes v third and bf16 last
+            seen.append((wrapper.__name__, args[2].dtype, args[-1]))
+            return wrapper(*args)
+        return run
+
+    for name in ("fused_attention_fwd", "fused_attention_bwd"):
+        monkeypatch.setattr(ga, name, spy(getattr(ga, name)))
     jt = random_graph(np.random.default_rng(0), n=12, extra_edges=6)
     graph = GraphTemplate(jt.n_node, jt.senders, jt.receivers).batch(1, "dense", None, "cpu")
-    model = GATRes(1, 4, attn_impl="softmax", attn_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        model(torch.ones(jt.n_node, 1), graph)
+    for dtype, want in ((torch.bfloat16, (torch.bfloat16, True)),
+                        (None, (torch.float32, False))):
+        seen.clear()
+        model = GATRes(2, 8, attn_impl="softmax", attn_dtype=dtype)
+        model(torch.ones(jt.n_node, 1), graph).square().sum().backward()
+        assert [s[0] for s in seen] == ["fused_attention_fwd"] * 4 + ["fused_attention_bwd"] * 4
+        assert all(s[1:] == want for s in seen)

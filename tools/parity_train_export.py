@@ -4,7 +4,7 @@
     python tools/parity_train_export.py --network synthctown # GATRes-small, dense
     python tools/parity_train_export.py --network meganet --blocks 4   # GATRes-large width, banded
         [--out PATH] [--path pallas|xla] [--preset gatres_small|gatres_large] [--seed N]
-        [--attn-dtype float32|bfloat16]
+        [--attn-dtype float32|bfloat16] [--attn-impl factored|softmax]
 
 Runs on the CPU, batch 1, criterion mse, ``NormStats(znorm, mean 50, std 10)``,
 one explicit node mask (mask_rate 0.95, drawn with numpy from ``--seed``).
@@ -55,6 +55,14 @@ forward and backward. It writes ``parity_train_<network>_bf16.npz``, which
 holds ``attn_dtype`` and, on bigtown too, the serving forward as meganet's
 file holds it (``x_in``, ``ours_out``, ``block_absmax``, ``block_mean``):
 the activations of 25 blocks would not fit a small file.
+
+``--attn-impl softmax`` (synthctown only; default ``factored``) builds the
+model with the dense masked softmax and writes
+``parity_train_synthctown_softmax.npz`` (``…_softmax_bf16.npz`` with
+``--attn-dtype bfloat16``). It runs the JAX layer's default branch, plain XLA
+(``GNN_TPU_FUSED_ATTN`` unset: the Pallas ``fused_attn`` ignores
+``attn_dtype``), so it takes ``--path xla``, the default there; under bf16
+that branch rounds the weights, the features and the product's output.
 
 ``--path pallas`` (default) runs the Pallas kernels in interpret mode on the
 CPU: on bigtown the v2 band attention and the band SpMM as ``template.batch``
@@ -149,16 +157,27 @@ def main() -> int:
     ap.add_argument("--weights", default=os.path.join(ROOT, "artifacts", "parity_r5_trained.npz"),
                     help="bigtown only: the parity fixture that holds the weights and x")
     ap.add_argument("--inp", default=None)
-    ap.add_argument("--path", choices=("pallas", "xla"), default="pallas")
+    ap.add_argument("--path", choices=("pallas", "xla"), default=None,
+                    help="default pallas; xla with --attn-impl softmax, its only path")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--attn-dtype", choices=("float32", "bfloat16"), default="float32")
+    ap.add_argument("--attn-impl", choices=("factored", "softmax"), default="factored",
+                    help="synthctown only: the dense formulation")
     args = ap.parse_args()
     dense = args.network == "synthctown"
     mega = args.network == "meganet"
     bf16 = args.attn_dtype == "bfloat16"
+    softmax = args.attn_impl == "softmax"
+    if softmax and not dense:
+        ap.error("--attn-impl softmax is a dense formulation: --network synthctown")
+    if args.path is None:
+        args.path = "xla" if softmax else "pallas"
+    if softmax and args.path != "xla":
+        ap.error("--attn-impl softmax runs the JAX layer's XLA branch: --path xla")
     out_path = args.out or os.path.join(
-        ROOT, "artifacts", f"parity_train_{args.network}{'_bf16' if bf16 else ''}.npz")
+        ROOT, "artifacts", f"parity_train_{args.network}{'_softmax' if softmax else ''}"
+                           f"{'_bf16' if bf16 else ''}.npz")
     inp = args.inp or os.path.join(ROOT, "inputs", f"{args.network}.inp")
     if dense and args.path == "pallas":
         os.environ["GNN_TPU_FUSED_FACTORED"] = "1"      # read by GraphTemplate.batch
@@ -196,7 +215,7 @@ def main() -> int:
             else PRESETS[args.preset or "gatres_small"]
         d = drawn_weights(rng, *shape)
         d["x"] = rng.standard_normal((n, 1)).astype(np.float32)
-        attn_impl = "factored"                                   # as both GATRes presets ask
+        attn_impl = args.attn_impl                               # both presets ask factored
     else:
         d = dict(np.load(args.weights))
         attn_impl = "softmax"                                    # banded: the kernels either way
@@ -210,7 +229,8 @@ def main() -> int:
     params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), flax_tree_from_npz(d))
     graph = trainer._batched_graph(tpl, 1)
     if dense:
-        if not graph.dense or (graph.fused_factored is not None) != (args.path == "pallas"):
+        if (not graph.dense or graph.fused_attn is not None
+                or (graph.fused_factored is not None) != (args.path == "pallas")):
             raise SystemExit(f"the dense graph does not run the {args.path} path")
     elif args.path == "xla":
         graph = dataclasses.replace(graph, band_attn=None, band_attn_dma=None,
@@ -249,14 +269,15 @@ def main() -> int:
     t0 = time.time()
     (loss, mets), grads = value_and_grad(params)
     loss = float(loss)
-    print(f"path {args.path}, attn_dtype {args.attn_dtype}: loss {loss:.8g} in "
-          f"{time.time() - t0:.1f} s (first call, traced and compiled)")
+    print(f"path {args.path}, attn_impl {attn_impl}, attn_dtype {args.attn_dtype}: "
+          f"loss {loss:.8g} in {time.time() - t0:.1f} s (first call, traced and compiled)")
     payload = {
         "path": np.bytes_(args.path.encode()), "mask": mask, "mask_rate": np.float64(cfg.mask_rate),
         "n_masked": np.int64(k), "loss": np.float64(loss),
         "stats_mean": np.float64(stats.mean), "stats_std": np.float64(stats.std),
         "lr": np.float64(cfg.lr), "weight_decay": np.float64(cfg.weight_decay),
         "attn_dtype": np.bytes_(args.attn_dtype.encode()),
+        "attn_impl": np.bytes_(attn_impl.encode()),
     }
     if dense or mega or bf16:
         # the weights (bigtown: those of --weights), the snapshot and the
