@@ -224,6 +224,29 @@ Phases (any failure exits non-zero; none is caught):
     their bounds at 2-byte x rows, at bigtown B 32 and 8 and meganet B 8
     and 2.
 
+30. The snapshot store and the solver: the C++ hydraulic solver (the port's
+    copy of ``hydraulic.cpp``) built into ``_build/``, timed;
+    ``artifacts/eval_bigtown.zip`` (bigtown snapshots from the JAX generator,
+    Blosc-lz4 chunks) read by the port's ``ZarrZipReader`` into the train and
+    test ``WDNDataset``s: every split and the scaled arrays bit-equal to the
+    JAX package's (SHA-256 in ``artifacts/parity_eval_bigtown.npz``), the
+    statistics within 1e-12 relative; 4 noise scenes of bigtown
+    (``make_noisy_scenes``, ``backend="cpp"``, the fixture's seed): the
+    perturbed demands bit-equal to JAX's, the pressures within 1e-4 m, the
+    solver's time a scene.
+31. Clean evaluation on the card: the trained GATRes-large
+    (``parity_r5_trained.npz``) through ``Evaluator`` on the test split at the
+    fixture's batch, banded, routed to ``"dma"``, the fixture's masks
+    replayed in order and its ``sensor_names``: every trial's loss and five
+    metrics within 1e-3 relative + 1e-4 of the JAX values, corr and r2 within
+    1e-3; exactly 50 ``band_attention`` + 25 ``band_spmm`` launches a forward
+    (the Timer's warm-ups included) and no other kernel; then twice with the
+    port's own mask draws from one seed, bit-identical; ``test_time`` and
+    ``test_throughput`` from the CUDA-event ``Timer``.
+32. noisy11 and noisyNN on phase 30's scenes through the scene-batched path
+    (the 4 scenes as one batch), replayed masks, the same gates and launch
+    counts; a summary line of the evaluation times.
+
 The last line is ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
 (all fifteen kernels, and the seven wrappers' bf16-operand instances as rows
 of their own) and the ``nvidia-smi`` line come before it.
@@ -3086,6 +3109,235 @@ def bf16_times(dev, card, randn, operands, big, mega_tpl, sbs, tbs, mbs, mtbs):
     return rows
 
 
+EVAL_EXACT = ("test_loss", "test_error", "test_0.1", "test_mae", "test_rmse", "test_mynse")
+
+
+def sha(a) -> str:
+    """SHA-256 of an array's bytes, dtype and shape (``tools/eval_parity_export.py``)."""
+    import hashlib
+
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(a.tobytes() + f"{a.dtype.str}{a.shape}".encode()).hexdigest()
+
+
+def eval_values_within(label: str, got, ref, names) -> tuple[float, str]:
+    """Per-trial rows [loss, metrics in ``names`` order] against the JAX
+    fixture's: loss and five metrics within 1e-3 relative + 1e-4, corr and r2
+    within 1e-3. Returns the worst share of its gate reached and where."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    if got.shape != ref.shape:
+        raise SystemExit(f"FAIL {label}: {got.shape[0]} trials, the fixture has {ref.shape[0]}")
+    worst = (0.0, "")
+    for j, name in enumerate(["test_loss", *names]):
+        corr = name.startswith(("test_corr", "test_r2"))
+        gate = np.full(len(ref), 1e-3) if corr else 1e-4 + 1e-3 * np.abs(ref[:, j])
+        share = float(np.max(np.abs(got[:, j] - ref[:, j]) / gate))
+        if share > 1.0:
+            raise SystemExit(f"FAIL {label} {name}: {got[:, j].tolist()} against the JAX "
+                             f"{ref[:, j].tolist()}")
+        worst = max(worst, (share, f"{label} {name}"))
+    return worst
+
+
+def eval_phases(dev, card, reset_launches, read_launches, counts, weights_npz):
+    """Phases 30-32: the snapshot store, the hydraulic solver and the
+    multi-trial evaluation of the trained GATRes-large on bigtown against
+    ``artifacts/parity_eval_bigtown.npz``. Returns the times."""
+    from gnn_pressure_estimation_tpu_torch.data import noisy
+    from gnn_pressure_estimation_tpu_torch.data.dataset import WDNDataset
+    from gnn_pressure_estimation_tpu_torch.data.zarrzip import ZarrZipReader
+    from gnn_pressure_estimation_tpu_torch.evaluation import harness
+    from gnn_pressure_estimation_tpu_torch.evaluation.harness import (
+        EvalConfig, Evaluator, make_noisy_scenes)
+    from gnn_pressure_estimation_tpu_torch.models.presets import select_model
+    from gnn_pressure_estimation_tpu_torch.simgen import solver_cpp
+    from gnn_pressure_estimation_tpu_torch.weights import params_from_parity_npz
+
+    fx = np.load(os.path.join(REPO, "artifacts", "parity_eval_bigtown.npz"))
+    zip_path = os.path.join(REPO, "artifacts", "eval_bigtown.zip")
+    inp = os.path.join(REPO, "inputs", "bigtown.inp")
+    names = [str(v) for v in fx["metric_names"]]
+
+    # ---- 30: the store and the solver -------------------------------------------
+    print("[30] the zarr-zip store and the hydraulic solver")
+    t0 = time.perf_counter()
+    so = solver_cpp.build()
+    print(f"  hydraulic solver built in {time.perf_counter() - t0:.2f} s ({so.name}, -march=native "
+          f"on this host)")
+    t0 = time.perf_counter()
+    with ZarrZipReader(zip_path) as r:
+        raw = {s: r.read_array(f"pressure/{s}") for s in ("train", "valid", "test")}
+    t_read = time.perf_counter() - t0
+    train = WDNDataset([zip_path], [inp], from_set="train")
+    test = WDNDataset([zip_path], [inp], from_set="test", stats=train.stats)
+    t_ds = time.perf_counter() - t0 - t_read
+    got_sha = {**{f"sha_raw_{s}": sha(a) for s, a in raw.items()},
+               "sha_train": sha(train.members[0].array), "sha_test": sha(test.members[0].array)}
+    for k, v in got_sha.items():
+        if v != bytes(fx[k]).decode():
+            raise SystemExit(f"FAIL {k}: the port's array is not the JAX package's bit for bit")
+    for k in ("mean", "std", "min", "max"):
+        got, ref = getattr(train.stats, k), float(fx[f"stats_{k}"])
+        if abs(got - ref) > 1e-12 * abs(ref):
+            raise SystemExit(f"FAIL stats {k}: {got!r} against the JAX {ref!r}")
+    stats = train.stats
+    print(f"  eval_bigtown.zip (blosc-lz4): splits {', '.join(f'{s} {a.shape}' for s, a in raw.items())} "
+          f"read in {t_read:.2f} s, train and test WDNDatasets in {t_ds:.2f} s; the raw splits and "
+          f"the scaled arrays bit-equal to the JAX package's (SHA-256), stats within 1e-12 "
+          f"(mean {stats.mean:.6f}, std {stats.std:.6f})")
+
+    common = dict(mask_rate=float(fx["mask_rate"]), seed=int(fx["seed"]), gpu_warmup_times=10,
+                  sensor_names=[str(v) for v in fx["sensor_names"]])
+    n_scenes = int(fx["num_scenes"])
+    ncfg = dict(num_test_trials=n_scenes, batch_size=int(fx["batch_size"]),
+                mean_dmd=float(fx["mean_dmd"]), std_dmd=float(fx["std_dmd"]), **common)
+    solves, solve = [], noisy.solve
+
+    def timed_solve(ns, backend=None):
+        t = time.perf_counter()
+        res = solve(ns, backend=backend)
+        solves.append((ns.demand.copy(), res.pressure.copy(), time.perf_counter() - t))
+        return res
+
+    noisy.solve = timed_solve
+    try:
+        t0 = time.perf_counter()
+        scenes = make_noisy_scenes([inp], EvalConfig(test_type="noisy11", **ncfg), stats,
+                                   backend="cpp")
+        t_scenes = time.perf_counter() - t0
+    finally:
+        noisy.solve = solve
+    if len(solves) != n_scenes or len({id(s.members[0].template) for s in scenes}) != 1:
+        raise SystemExit("FAIL the noise scenes are not one solve each on one shared template")
+    gap = 0.0
+    for i, (demand, pressure, _) in enumerate(solves):
+        if not np.array_equal(demand, fx["scene_demand"][i]):
+            raise SystemExit(f"FAIL scene {i}: the perturbed demands differ from the JAX package's")
+        gap = max(gap, float(np.max(np.abs(pressure - fx["scene_pressure"][i]))))
+    if gap > 1e-4:
+        raise SystemExit(f"FAIL scene pressures {gap:.3e} m from the JAX package's (bound 1e-4)")
+    solve_s = [t for _, _, t in solves]
+    print(f"  {n_scenes} noise scenes of bigtown (seed {common['seed']}, backend cpp): perturbed "
+          f"demands bit-equal to the JAX package's, pressures within {gap:.3e} m of them; solver "
+          f"{np.mean(solve_s) * 1e3:.1f} ms a scene ({', '.join(f'{t * 1e3:.1f}' for t in solve_s)}), "
+          f"{t_scenes:.2f} s with parsing and the template")
+
+    model, _ = select_model("gatres_large", device=dev)
+    model.load_state_dict(params_from_parity_npz(weights_npz))
+
+    def evaluate(kind, cfg, datasets, replay=True):
+        """One ``Evaluator.evaluate`` with the fixture's masks replayed (or the
+        port's own draws); returns the results, the per-call rows, the
+        forwards, the launches and the wall time."""
+        rows, forwards = [], [0]
+        queue = [np.unpackbits(r)[:int(fx[f"{kind}_mask_width"])].astype(bool)
+                 for r in fx[f"{kind}_masks"]]
+
+        def replayed(generator, n_graph, n, mask_rate, required_idx=None, shared=False,
+                     device="cpu"):
+            if not queue:
+                raise SystemExit(f"FAIL {kind}: the port draws more masks than the JAX package")
+            m = queue.pop(0)
+            if m.size != n_graph * n:
+                raise SystemExit(f"FAIL {kind}: a mask of {n_graph} x {n} where JAX drew {m.size}")
+            return torch.as_tensor(m, device=device)
+
+        run_trial, run_scenes, draw = Evaluator.run_trial, Evaluator.run_scene_trials, \
+            harness.batch_node_mask
+
+        def trial(self, *a, **kw):
+            loss, mets = run_trial(self, *a, **kw)
+            rows.append([loss, *(mets[k] for k in names)])
+            return loss, mets
+
+        def scene_rows(self, *a, **kw):
+            out = run_scenes(self, *a, **kw)
+            rows.extend([[r["loss"], *(r["mets"][k] for k in names)] for r in out]
+                        + [[r["s_loss"], *(r["s_mets"][k] for k in names)] for r in out])
+            return out
+
+        Evaluator.run_trial, Evaluator.run_scene_trials = trial, scene_rows
+        if replay:
+            harness.batch_node_mask = replayed
+        hook = model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+        ev = Evaluator(model, cfg, stats, device=dev)
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            res = ev.evaluate(datasets, log_fn=lambda m: print("    " + m.strip()) if m.strip() else None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            Evaluator.run_trial, Evaluator.run_scene_trials = run_trial, run_scenes
+            harness.batch_node_mask = draw
+            hook.remove()
+        if replay and queue:
+            raise SystemExit(f"FAIL {kind}: {len(queue)} of the fixture's masks were not drawn")
+        routes = {(g.band_attn, g.banded) for g in ev._graphs.values()}
+        if routes != {("dma", True)}:
+            raise SystemExit(f"FAIL {kind}: graphs {routes}, expected banded through 'dma'")
+        return res, rows, forwards[0], launches, wall, ev
+
+    def held(kind, res, rows, fwd, launches, wall, expect_fwd):
+        if fwd != expect_fwd:
+            raise SystemExit(f"FAIL {kind}: {fwd} forwards, expected {expect_fwd}")
+        expect = counts(band_attention=50 * fwd, band_spmm=25 * fwd)
+        if launches != expect:
+            raise SystemExit(f"FAIL {kind} launches {launches}, expected {expect}")
+        if kind == "clean":          # run_trial calls: all-nodes, then sensors, per trial
+            got_a, got_s = rows[0::2], rows[1::2]
+        else:                        # scene rows: all-nodes rows, then sensor rows
+            got_a, got_s = rows[:len(rows) // 2], rows[len(rows) // 2:]
+        worst, where = max(
+            eval_values_within(f"{kind} all nodes", got_a, fx[f"{kind}_values"], names),
+            eval_values_within(f"{kind} sensors", got_s, fx[f"{kind}_sensor_values"], names))
+        loss_d, met_d, sen_d = res
+        for key, v in {**loss_d, **met_d, **sen_d}.items():
+            if not np.isfinite(v):
+                raise SystemExit(f"FAIL {kind} {key} is not finite")
+        t_ms, thr = met_d["test_time_mean"], met_d["test_throughput_mean"]
+        print(f"  {kind}: {len(got_a)} trials, MAE {met_d['test_mae_mean']:.4f} m (sensors "
+              f"{sen_d['test_mae_sensor_mean']:.4f}), corr {met_d['test_corr_mean']:.4f}; every "
+              f"trial's loss and metrics within their gates of the JAX values (worst {worst:.1%} "
+              f"of a gate, {where}); {fwd} forwards, launches {launches['band_attention']} band_attention + "
+              f"{launches['band_spmm']} band_spmm (50 + 25 a forward), no other kernel; Timer "
+              f"(CUDA events, 10 warm-ups): test_time {t_ms:.4f} ms (the reference's formula: "
+              f"batch times weighted by their snapshots over the dataset), test_throughput "
+              f"{thr:.2f} snapshots/s, on {card}; {wall:.2f} s for the {2 * len(got_a)} passes")
+        return dict(trials=len(got_a), forwards=fwd, ms_per_snapshot=t_ms, snapshots_per_s=thr,
+                    mae=met_d["test_mae_mean"], worst_gate_share=worst, worst_at=where, wall_s=wall)
+
+    # ---- 31: clean evaluation on the card ----------------------------------------
+    print("[31] clean evaluation: GATRes-large (trained) on the bigtown test split")
+    trials, bs = int(fx["num_trials"]), int(fx["batch_size"])
+    ccfg = EvalConfig(test_type="clean", num_test_trials=trials, batch_size=bs, **common)
+    n_batches = -(-len(test) // bs)
+    out = {"clean": held("clean", *evaluate("clean", ccfg, test)[:5], 10 + trials * 2 * n_batches)}
+    own = []
+    for _ in range(2):
+        res = evaluate("clean", ccfg, test, replay=False)[0]
+        own.append([{k: v for k, v in d.items() if not k.startswith(("test_time", "test_throughput"))}
+                    for d in res])
+    if own[0] != own[1]:
+        raise SystemExit("FAIL two clean evaluations from one seed differ")
+    print(f"  the port's own mask draws, twice from seed {common['seed']}: bit-identical results "
+          f"(MAE {own[0][1]['test_mae_mean']:.4f} m)")
+
+    # ---- 32: noisy evaluation on the card ----------------------------------------
+    print("[32] noisy11 and noisyNN on the scenes of phase 30, the scene-batched path")
+    for kind, draws in (("noisy11", 1), ("noisyNN", n_scenes)):
+        cfg = EvalConfig(test_type=kind, **ncfg)
+        res, rows, fwd, launches, wall, ev = evaluate(kind, cfg, scenes)
+        if [bs_ for _, bs_ in ev._graphs] != [n_scenes]:
+            raise SystemExit(f"FAIL {kind} did not batch the {n_scenes} scenes into one graph")
+        out[kind] = held(kind, res, rows, fwd, launches, wall, 10 + 2 * draws)
+    out["solver_ms_per_scene"] = float(np.mean(solve_s) * 1e3)
+    print(f"  evaluation summary on {card}: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3628,6 +3880,7 @@ def main() -> int:
     s10 = dense_walk_phase(dev, card, held, reset_launches, read_launches, counts, ptxas)
     s11 = bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, counts, big,
                       mega["tpl"])
+    eval_phases(dev, card, reset_launches, read_launches, counts, npz)
 
     kernels = []
     for name in band_wrappers:

@@ -8,9 +8,13 @@ module paths so each counterpart is easy to find:
   ops, hand-written CUDA kernels (``csrc/*.cu``, built at first use by
   ``ops/_build.py``)
 - ``models``     — ``GATConv``, ``SimpleMeanConv``, ``GATRes``, presets
-- ``data``       — INP parsing, template building, the in-memory snapshot
-  dataset and its loader (numpy only)
-- ``evaluation`` — the serving surface, ``Inferencer``
+- ``data``       — INP parsing, the zarr-zip store and its codecs, template
+  building, the snapshot dataset from zips or memory, its loader, the
+  online-simulation (noisy) dataset (numpy only)
+- ``simgen``     — the network generator and the hydraulic solver (NumPy, and
+  C++ built with ``make`` at first use into ``_build/``)
+- ``evaluation`` — the serving surface, ``Inferencer``; the multi-trial
+  harness, ``Evaluator``, and its ``Timer``
 - ``train``      — ``Trainer``, ``TrainConfig``, AutoClip, early stopping,
   checkpoints
 - ``utils``      — scaling, node masks, metrics

@@ -1,11 +1,21 @@
-"""Template building from an INP topology and the snapshot dataset (numpy
-only).
+"""Snapshot datasets: zarr-zip pressure arrays + INP topology → templates
+and scaled snapshot arrays (numpy only).
 
-The counterparts of ``get_keep_list``, ``build_template``, ``WDNDataset`` and
-``SnapshotLoader`` in ``gnn_pressure_estimation_tpu/data/dataset.py``. The
-zarr-zip store is not ported yet, so a :class:`WDNDataset` is built from
-arrays in memory (:meth:`WDNDataset.from_members`); building one from zips
-raises.
+The counterparts of ``get_keep_list``, ``build_template``, ``WDNDataset``,
+``stacked_dataset`` and ``SnapshotLoader`` in
+``gnn_pressure_estimation_tpu/data/dataset.py`` (reference
+utils/DataLoader.py):
+
+- Each (zip, inp) pair yields one :class:`GraphTemplate` plus a scaled
+  ``[num_snapshots, n_kept]`` array; the loader batches snapshots of one
+  template together.
+- Normalization statistics are computed over the concatenation of all member
+  arrays exactly like the reference (DataLoader.py:142-155) and propagate
+  train → valid/test through :class:`NormStats`.
+- Node-type removal mirrors ``get_keep_list`` (DataLoader.py:40-58).
+
+:meth:`WDNDataset.from_members` builds a dataset from arrays already in
+memory and already scaled.
 """
 
 from __future__ import annotations
@@ -16,8 +26,9 @@ from typing import Optional, Sequence
 import numpy as np
 
 from gnn_pressure_estimation_tpu_torch.core.graph import GraphTemplate
-from gnn_pressure_estimation_tpu_torch.data.inp import WaterNetwork
-from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats
+from gnn_pressure_estimation_tpu_torch.data.inp import WaterNetwork, parse_inp
+from gnn_pressure_estimation_tpu_torch.data.zarrzip import ZarrZipReader
+from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats, scale_edges_with, scale_with
 
 REMOVALS = ("keep_list", "reservoir", "tank", "keep_junction", "keep_all")
 
@@ -71,23 +82,123 @@ def build_template(
     return tpl, kept_names
 
 
+def _take_columns(
+    array: np.ndarray,
+    col_names: list[str],
+    keep_list: Optional[list[str]],
+    order: Optional[list[int]] = None,
+) -> np.ndarray:
+    """Select the zarr columns of kept nodes. ``col_names`` is the store's
+    own column-name list when recorded (``ordered_names_by_attr`` —
+    generators with skip_nodes write compacted columns), else the canonical
+    node order (reference analog DataLoader.py:244-252). ``order`` gives the
+    exact column positions to take (template kept-node order)."""
+    if keep_list is None:
+        return array
+    if array.shape[-1] < len(col_names):
+        raise ValueError(
+            f"snapshot width {array.shape[-1]} < named columns {len(col_names)}"
+        )
+    if order is None:
+        keep = set(keep_list)
+        order = [i for i, n in enumerate(col_names) if n in keep]
+    return np.take(array, order, axis=-1)
+
+
 @dataclasses.dataclass
 class _Member:
     template: GraphTemplate
-    array: np.ndarray          # [S, n_kept] snapshots, scaled
+    array: np.ndarray          # [S, n_kept] snapshots, scaled after __init__
     kept_names: list
     wn: Optional[WaterNetwork]
 
 
 class WDNDataset:
-    """Multi-network snapshot dataset: one :class:`_Member` (template and
-    ``[S, n]`` scaled snapshots) per network, and the normalization
-    statistics they were scaled with."""
+    """Multi-zip snapshot dataset (reference WDNDataset, DataLoader.py:61-258):
+    one :class:`_Member` (template and ``[S, n]`` scaled snapshots) per
+    (zip, inp) pair, and the normalization statistics they were scaled with.
 
-    def __init__(self, zip_paths: Sequence[str], inp_paths: Sequence[str], **kwargs):
-        raise NotImplementedError(
-            "reading snapshot zips needs the zarr-zip layer (data/zarrzip.py, data/codecs.py), "
-            "which is not yet ported; build the dataset in memory with WDNDataset.from_members")
+    Pass ``stats=None`` to compute the statistics from this dataset (the
+    training set), or the train stats for valid/test.
+    """
+
+    def __init__(
+        self,
+        zip_paths: Sequence[str],
+        inp_paths: Sequence[str],
+        feature: str = "pressure",
+        from_set: str = "train",
+        num_records: Optional[int] = None,
+        removal: str = "keep_junction",
+        stats: Optional[NormStats] = None,
+        edge_attrs: Optional[Sequence[str]] = None,
+        norm_type: str = "znorm",
+        do_scale: bool = True,
+    ):
+        assert norm_type in ("znorm", "minmax", "unused")
+        assert removal in REMOVALS, f"removal {removal!r} not in {REMOVALS}"
+        assert len(zip_paths) == len(inp_paths)
+        if edge_attrs is not None:
+            assert set(edge_attrs).issubset({"diameter", "length", "valve_mask"})
+
+        self.feature = feature
+        self.from_set = from_set
+        self.norm_type = norm_type
+        self.edge_attrs = tuple(edge_attrs) if edge_attrs else None
+        self.members: list[_Member] = [
+            self._collect(zp, ip, feature, from_set, num_records, removal)
+            for zp, ip in zip(zip_paths, inp_paths)
+        ]
+
+        if stats is None:
+            flat = np.concatenate([m.array.ravel() for m in self.members])
+            stats = NormStats.from_array(flat, norm_type)
+            if self.edge_attrs:
+                stats = stats.with_edge_stats(
+                    np.concatenate([m.template.edge_attr for m in self.members], axis=0))
+        else:
+            stats = dataclasses.replace(stats, norm_type=norm_type)
+        self.stats = stats
+
+        scaled = do_scale and norm_type in ("znorm", "minmax")
+        for m in self.members:
+            m.array = (scale_with(m.array, stats) if scaled else m.array).astype(np.float32)
+            if scaled and self.edge_attrs and m.template.edge_attr is not None:
+                m.template.edge_attr = scale_edges_with(m.template.edge_attr, stats).astype(
+                    np.float32)
+
+        self._lengths = [len(m.array) for m in self.members]
+        self.length = sum(self._lengths)
+
+    # -- reference ``collect`` analog (DataLoader.py:206-258) --------------
+    def _collect(self, zip_path, inp_path, feature, from_set, num_records, removal):
+        wn = parse_inp(inp_path)
+        with ZarrZipReader(zip_path) as r:
+            root = r.root()
+            attrs = root.attrs
+            if not r.is_group(feature):
+                raise KeyError(f"feature {feature!r} not in zarr store {zip_path}")
+            array = np.asarray(root[feature][from_set])
+        if num_records is not None:
+            array = array[:num_records]
+        keep_list = get_keep_list(wn, removal, attrs, feature)
+        col_names = (attrs.get("ordered_names_by_attr") or {}).get(feature) or wn.node_names
+        if keep_list is not None:
+            # a node skipped at generation time has no column to reconstruct
+            have = set(col_names)
+            dropped = [nm for nm in keep_list if nm not in have]
+            if dropped:
+                print(f"WARN! {len(dropped)} kept nodes have no columns in {zip_path}; dropped")
+                keep_list = [nm for nm in keep_list if nm in have]
+        tpl, kept = build_template(wn, keep_list, self.edge_attrs, name=inp_path)
+        # columns selected in the template's kept-node order so data rows and
+        # graph nodes align even for stores with reordered/compacted columns
+        col_pos = {nm: i for i, nm in enumerate(col_names)}
+        array = _take_columns(array, col_names, kept, order=[col_pos[nm] for nm in kept])
+        assert array.shape[-1] == tpl.n_node, (
+            f"snapshot width {array.shape[-1]} != template nodes {tpl.n_node}"
+        )
+        return _Member(template=tpl, array=np.asarray(array, np.float64), kept_names=kept, wn=wn)
 
     @classmethod
     def from_members(cls, members: Sequence[_Member], stats: Optional[NormStats] = None,
@@ -106,11 +217,46 @@ class WDNDataset:
         return self.length
 
     def __add__(self, other: "WDNDataset") -> "WDNDataset":
-        """Concatenate datasets; their stats must already be aligned (the
-        same train stats)."""
-        return WDNDataset.from_members(
+        """Concatenate datasets (reference ``test_ds + train_ds + valid_ds``,
+        DataLoader.py:505); their stats must already be aligned (the same
+        train stats)."""
+        out = WDNDataset.from_members(
             list(self.members) + list(other.members), self.stats, self.feature,
             f"{self.from_set}+{other.from_set}", self.norm_type)
+        out.edge_attrs = self.edge_attrs
+        return out
+
+
+def stacked_dataset(
+    zip_path: str,
+    inp_path: str,
+    stats: NormStats,
+    feature: str = "pressure",
+    removal: str = "keep_junction",
+    edge_attrs: Optional[Sequence[str]] = None,
+    norm_type: str = "znorm",
+    sets: Sequence[str] = ("test", "train", "valid"),
+    num_tests: Optional[int] = None,
+) -> WDNDataset:
+    """Concatenate splits into one evaluation dataset (reference
+    ``get_stacked_set``/``get_stacked_set2``, DataLoader.py:426-604 — incl.
+    the capped variant: stop adding splits once ``num_tests`` records are
+    reached)."""
+    out: Optional[WDNDataset] = None
+    remaining = num_tests
+    for fs in sets:
+        if remaining is not None and remaining <= 0:
+            break
+        ds = WDNDataset(
+            [zip_path], [inp_path], feature=feature, from_set=fs,
+            num_records=remaining, removal=removal, stats=stats,
+            edge_attrs=edge_attrs, norm_type=norm_type,
+        )
+        if remaining is not None:
+            remaining -= len(ds)
+        out = ds if out is None else out + ds
+    assert out is not None
+    return out
 
 
 class SnapshotLoader:

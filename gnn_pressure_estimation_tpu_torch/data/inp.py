@@ -15,8 +15,8 @@ Canonical node order (the dataset/zarr contract): junctions in file order,
 then reservoirs, then tanks — matching EPANET's index assignment for INPs
 with standard section order. Link order: pipes, pumps, valves in file order.
 
-Units: quantities are kept in INP units here; conversion to SI happens in the
-JAX package's ``simgen.units`` at solve time (mirrors the reference's pint usage,
+Units: quantities are kept in INP units here; conversion to SI happens in
+``simgen.units`` at solve time (mirrors the reference's pint usage,
 epynet_utils.py:256-323).
 """
 

@@ -7,7 +7,8 @@ input is the scaled field with unobserved nodes zeroed; the output is
 descaled with the normalization stats; observed nodes are served at their
 readings. The observed set can be explicit node names, the sensors plug-in
 (``evaluation/sensors.py``), or a seeded random draw at ``1 - mask_rate``
-density.
+density. :class:`InferenceResult` writes the fields as ``.npz`` or ``.csv``
+in the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -31,6 +32,34 @@ class InferenceResult:
     observed: np.ndarray          # [n] bool — nodes whose values were given
     true: Optional[np.ndarray] = None   # [S, n] descaled ground truth if known
     metrics: dict = field(default_factory=dict)  # on hidden nodes, if truth
+
+    def save_npz(self, path: str):
+        payload = dict(
+            node_names=np.asarray(self.node_names),
+            pred=self.pred,
+            observed=self.observed,
+        )
+        if self.true is not None:
+            payload["true"] = self.true
+        np.savez(path, **payload)
+
+    def save_csv(self, path: str):
+        import csv
+
+        with open(path, "w", newline="") as f:
+            wr = csv.writer(f)
+            cols = ["snapshot", "node", "observed", "pred"]
+            if self.true is not None:
+                cols += ["true", "abs_error"]
+            wr.writerow(cols)
+            for s in range(self.pred.shape[0]):
+                for i, name in enumerate(self.node_names):
+                    row = [s, name, int(self.observed[i]),
+                           f"{self.pred[s, i]:.6g}"]
+                    if self.true is not None:
+                        row += [f"{self.true[s, i]:.6g}",
+                                f"{abs(self.pred[s, i] - self.true[s, i]):.6g}"]
+                    wr.writerow(row)
 
 
 class Inferencer:

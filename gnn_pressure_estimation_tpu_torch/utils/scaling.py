@@ -5,14 +5,14 @@ the reference ``assert mean and std`` / ``assert min and max`` crash whenever a
 statistic is exactly 0.0 (SURVEY.md §2 quirks). Here everything is eps-guarded
 and works for scalars, NumPy arrays or torch tensors.
 
-A copy of ``gnn_pressure_estimation_tpu/utils/scaling.py`` without the edge
-statistics (GATRes takes no edge attributes), kept here so the PyTorch
-package imports nothing of the JAX package.
+A copy of ``gnn_pressure_estimation_tpu/utils/scaling.py``, kept here so the
+PyTorch package imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Optional
 
 import numpy as np
 
@@ -21,15 +21,19 @@ EPS = 1e-8
 
 @dataclasses.dataclass(frozen=True)
 class NormStats:
-    """The normalization contract a model was trained under (reference
-    train.py:433-451, auxil.py:223-233); the JAX package's edge statistics
-    are left out, since GATRes takes no edge attributes."""
+    """The normalization contract carried through datasets and checkpoints
+    (reference saves mean/std/min/max + edge stats + norm_type in every
+    checkpoint — train.py:433-451, auxil.py:223-233)."""
 
     norm_type: str = "znorm"  # znorm | minmax | unused
     mean: float = 0.0
     std: float = 1.0
     min: float = 0.0
     max: float = 1.0
+    edge_mean: Optional[Any] = None
+    edge_std: Optional[Any] = None
+    edge_min: Optional[Any] = None
+    edge_max: Optional[Any] = None
 
     @staticmethod
     def from_array(arr, norm_type: str = "znorm") -> "NormStats":
@@ -37,17 +41,25 @@ class NormStats:
         return NormStats(norm_type=norm_type, mean=float(flat.mean()), std=float(flat.std()),
                          min=float(flat.min()), max=float(flat.max()))
 
+    def with_edge_stats(self, edge_arr) -> "NormStats":
+        ea = np.asarray(edge_arr, dtype=np.float64)
+        return dataclasses.replace(self, edge_mean=ea.mean(axis=0), edge_std=ea.std(axis=0),
+                                   edge_min=ea.min(axis=0), edge_max=ea.max(axis=0))
+
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        for k, v in d.items():
+            if isinstance(v, np.ndarray):
+                d[k] = v.tolist()
+        return d
 
     @staticmethod
     def from_dict(d: dict) -> "NormStats":
-        """Accepts the JAX package's dict too: its edge statistics, which the
-        port does not carry, must be absent or null."""
+        """The inverse of :meth:`to_dict`; reads the JAX package's dict too."""
         d = dict(d)
         for k in ("edge_mean", "edge_std", "edge_min", "edge_max"):
-            if d.pop(k, None) is not None:
-                raise NotImplementedError("edge statistics are not yet ported")
+            if d.get(k) is not None:
+                d[k] = np.asarray(d[k], dtype=np.float64)
         return NormStats(**d)
 
 
@@ -80,3 +92,7 @@ def scale_with(data, stats: NormStats):
 def descale_with(scaled, stats: NormStats):
     return descale(scaled, stats.norm_type, stats.mean, stats.std, stats.min, stats.max)
 
+
+def scale_edges_with(edge_attr, stats: NormStats):
+    return scale(edge_attr, stats.norm_type, stats.edge_mean, stats.edge_std,
+                 stats.edge_min, stats.edge_max)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from gnn_pressure_estimation_tpu_torch.core.graph import GraphTemplate
+from gnn_pressure_estimation_tpu_torch.evaluation import EvalConfig, Evaluator
 from gnn_pressure_estimation_tpu_torch.evaluation.infer import Inferencer
 from gnn_pressure_estimation_tpu_torch.models.gatres import GATRes
 from gnn_pressure_estimation_tpu_torch.models.presets import select_model
@@ -37,7 +38,10 @@ def test_port_imports_no_jax():
     assert {"train/loop.py", "train/checkpoint.py", "train/autoclip.py", "utils/masking.py",
             "utils/metrics.py", "data/dataset.py", "ops/band_spmm.py", "simgen/netgen.py",
             "simgen/__init__.py", "ops/band_attention.py", "ops/padded.py",
-            "ops/window_gather.py"} <= scanned
+            "ops/window_gather.py", "data/codecs.py", "data/zarrzip.py", "data/noisy.py",
+            "simgen/units.py", "simgen/network_state.py", "simgen/solver_py.py",
+            "simgen/solver_cpp.py", "simgen/solver_api.py", "evaluation/timer.py",
+            "evaluation/harness.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -48,13 +52,21 @@ ALLOWED = {"torch", "numpy", "scipy", "gnn_pressure_estimation_tpu_torch"} | set
 
 @pytest.mark.parametrize("rel", ["simgen/netgen.py", "data/inp.py", "ops/band_attention.py",
                                  "ops/banded.py", "ops/_build.py", "core/graph.py",
-                                 "ops/padded.py", "ops/window_gather.py", "models/layers.py"])
+                                 "ops/padded.py", "ops/window_gather.py", "models/layers.py",
+                                 "data/codecs.py", "data/zarrzip.py", "data/dataset.py",
+                                 "data/noisy.py", "simgen/units.py", "simgen/network_state.py",
+                                 "simgen/solver_py.py", "simgen/solver_cpp.py",
+                                 "simgen/solver_api.py", "evaluation/timer.py",
+                                 "evaluation/harness.py"])
 def test_module_imports_only_what_the_port_may(rel):
     """The modules this slice added or extended import torch, numpy, scipy,
     the standard library and the port itself, nothing else."""
     mods = {m.split(".")[0] for m in _imported_modules(PORT / rel)}
+    if rel == "data/codecs.py":
+        # imported inside the zstd branches only, as in the JAX package: optional
+        mods -= {"zstandard"}
     assert mods <= ALLOWED, mods - ALLOWED
-    if rel in ("simgen/netgen.py", "data/inp.py"):
+    if rel.startswith(("simgen/", "data/")):
         assert "torch" not in mods                      # numpy only, as in the JAX package
 
 
@@ -104,6 +116,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
         Inferencer(GATRes(1, 4), NormStats())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(GATRes(1, 4), TrainConfig(), NormStats(), tpl)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Evaluator(GATRes(1, 4), EvalConfig(), NormStats())
+    assert Evaluator(GATRes(1, 4), EvalConfig(), NormStats(), device="cpu").device.type == "cpu"
     # asking for the CPU works
     assert tpl.batch(2, device="cpu").dense
     assert tpl.batch(2, mode="padded", device="cpu").padded

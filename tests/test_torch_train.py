@@ -260,7 +260,8 @@ def test_unported_options_raise(rng):
     tpl = GraphTemplate(jt.n_node, jt.senders, jt.receivers)
     with pytest.raises(NotImplementedError, match="epochs_per_dispatch"):
         Trainer(GATRes(1, 4), TrainConfig(epochs_per_dispatch=2), NormStats(), tpl, device="cpu")
-    with pytest.raises(NotImplementedError, match="zarr"):
+    # the zarr-zip store is ported: a dataset of files that do not exist raises
+    with pytest.raises(FileNotFoundError):
         WDNDataset(["a.zip"], ["a.inp"])
     with pytest.raises(ValueError, match="masks 0"):
         Trainer(GATRes(1, 4), TrainConfig(mask_rate=0.01, batch_size=2), NormStats(), tpl,

@@ -179,8 +179,12 @@ def test_norm_stats_dict_matches_jax():
         assert getattr(a, f) == getattr(b, f)
     assert NormStats.from_dict(b.to_dict()) == a            # the JAX dict (null edge stats) loads
     assert NormStats.from_dict(a.to_dict()) == a
-    with pytest.raises(NotImplementedError):
-        NormStats.from_dict({**a.to_dict(), "edge_mean": [1.0]})
+    # edge statistics cross both ways (the JAX dict's lists load as arrays)
+    e = JaxNormStats.from_array(arr, "minmax").with_edge_stats(arr.T)
+    back = NormStats.from_dict(e.to_dict())
+    np.testing.assert_array_equal(back.edge_mean, e.edge_mean)
+    np.testing.assert_array_equal(back.edge_max, a.with_edge_stats(arr.T).edge_max)
+    assert back.to_dict() == e.to_dict()
 
 
 @pytest.mark.parametrize("shuffle,drop_last", [(True, False), (False, False), (True, True)])
