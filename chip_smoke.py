@@ -246,6 +246,33 @@ Phases (any failure exits non-zero; none is caught):
 32. noisy11 and noisyNN on phase 30's scenes through the scene-batched path
     (the 4 scenes as one batch), replayed masks, the same gates and launch
     counts; a summary line of the evaluation times.
+33. The port's command line (``cli.main``, as a user calls it, on the card by
+    default) for GATRes-large on bigtown at full depth and width: ``generate``
+    from ``configs/bigtown.ini`` with the options the JAX generator was given
+    for ``artifacts/eval_bigtown.zip`` (``tools/eval_parity_export.py``: 80
+    scenarios, seed 1234, backend cpp): train, valid and test pressures of
+    the same shapes (40, 8, 32 × 5,821) and within 1e-6 m of that store's;
+    the seconds taken and the solver backend that ran.
+34. ``train --model gatres_large`` on phase 33's zip (banded, BLK 256,
+    routed to ``"dma"``): 2 epochs at batch 8 with ``--do_test``, ``--log_method
+    wandb`` (the JSONL fallback: the card has no wandb) and a profiler trace
+    of epoch 2; each train step launches 50 ``band_attention`` + 50
+    ``band_attention_bwd`` + 25 ``band_spmm`` + 25 ``band_spmm_bwd`` and each
+    forward 50 + 25, no other kernel; best and last checkpoints with layout
+    banded / 256; the log and the trace (naming the band kernels) written;
+    a resume from the last checkpoint for a third epoch ("continuing at 3");
+    the epoch times.
+35. ``eval`` of phase 34's best checkpoint: clean (2 trials, batch 16) and
+    noisyNN (1 scene): 50 + 25 launches a forward, ``test_time`` and
+    ``test_throughput``.
+36. ``infer`` on a checkpoint built on the card from
+    ``artifacts/parity_r5_trained.npz`` and the statistics of
+    ``eval_bigtown.zip``'s train split (``save_checkpoint``), with the flags
+    of ``artifacts/parity_infer_bigtown.npz`` (``tools/cli_parity_export.py``:
+    the JAX ``cli infer`` on the flax checkpoint of the same weights and
+    statistics): one forward of 50 + 25 launches, observed nodes at their
+    true values, the same observed set and ``pred`` within 1e-3 of the JAX
+    fields; npz and csv written.
 
 The last line is ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
 (all fifteen kernels, and the seven wrappers' bf16-operand instances as rows
@@ -3338,6 +3365,272 @@ def eval_phases(dev, card, reset_launches, read_launches, counts, weights_npz):
     return out
 
 
+BAND_KERNELS = ("band_rowwalk_kernel", "columns_kernel", "band_spmm_fwd_kernel",
+                "band_spmm_bwd_kernel")
+
+
+def cli_phases(dev, card, reset_launches, read_launches, counts, weights_npz, device_flags=()):
+    """Phases 33-36: the port's command line through ``cli.main``, on the card
+    (``device_flags`` stays empty there; a CPU rehearsal passes ``--device
+    cpu``). Returns the times."""
+    import configparser
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+    import tempfile
+
+    from gnn_pressure_estimation_tpu_torch import cli
+    from gnn_pressure_estimation_tpu_torch.data import WDNDataset
+    from gnn_pressure_estimation_tpu_torch.data.zarrzip import ZarrZipReader
+    from gnn_pressure_estimation_tpu_torch.evaluation import Evaluator
+    from gnn_pressure_estimation_tpu_torch.models.gatres import GATRes
+    from gnn_pressure_estimation_tpu_torch.models.presets import select_model
+    from gnn_pressure_estimation_tpu_torch.train import Trainer, load_checkpoint, save_checkpoint
+    from gnn_pressure_estimation_tpu_torch.weights import params_from_parity_npz
+
+    inp = os.path.join(REPO, "inputs", "bigtown.inp")
+    ref_zip = os.path.join(REPO, "artifacts", "eval_bigtown.zip")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    forwards, steps, epoch_ms, evals = [0], [], [], []
+
+    def count_forward(module, args, out):
+        if isinstance(module, GATRes):
+            forwards[0] += 1
+
+    def counted_step(self, *a, **kw):
+        before = read_launches()
+        out = train_step(self, *a, **kw)
+        after = read_launches()
+        steps.append({k: after[k] - before[k] for k in after})
+        return out
+
+    def timed(fn, kind):
+        def run(self, *a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(self, *a, **kw)
+            sync()
+            epoch_ms.append((kind, (time.perf_counter() - t0) * 1e3))
+            return out
+        return run
+
+    def captured_evaluate(self, *a, **kw):
+        res = evaluate(self, *a, **kw)
+        evals.append(res)
+        return res
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def run(label, argv):
+        """``cli.main(argv)``; its output shown (indented, the temporary
+        directory as <tmp>) and returned with the seconds taken."""
+        buf = io.StringIO()
+        sync()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            sync()
+        finally:
+            for ln in buf.getvalue().strip().splitlines():
+                print("    " + ln.replace(tmp, "<tmp>"))
+        if rc != 0:
+            raise SystemExit(f"FAIL cli {label} exited {rc}")
+        return buf.getvalue(), time.perf_counter() - t0
+
+    def held_launches(label, n_steps=0):
+        launches, fwd = read_launches(), forwards[0]
+        expect = counts(band_attention=50 * fwd, band_spmm=25 * fwd,
+                        band_attention_bwd=50 * n_steps, band_spmm_bwd=25 * n_steps)
+        if not fwd or launches != expect:
+            raise SystemExit(f"FAIL {label}: {fwd} forwards, {n_steps} steps, launches {launches}, "
+                             f"expected {expect}")
+        return fwd
+
+    def start():
+        reset_launches()
+        forwards[0] = 0
+        steps.clear()
+        epoch_ms.clear()
+        evals.clear()
+
+    train_step, evaluate = Trainer.train_step, Evaluator.evaluate
+    one_epoch = (Trainer.train_one_epoch, Trainer.eval_one_epoch)
+    hook = torch.nn.modules.module.register_module_forward_hook(count_forward)
+    Trainer.train_step, Evaluator.evaluate = counted_step, captured_evaluate
+    Trainer.train_one_epoch = timed(one_epoch[0], "train")
+    Trainer.eval_one_epoch = timed(one_epoch[1], "val")
+    out = {}
+    try:
+        # ---- 33: generate ----------------------------------------------------------
+        print("[33] cli generate: bigtown, 80 scenarios, the options of artifacts/eval_bigtown.zip")
+        cp = configparser.ConfigParser()
+        cp.read(os.path.join(REPO, "configs", "bigtown.ini"))
+        cp.set("general", "wn_inp_path", inp)
+        cp.set("general", "storage_dir", os.path.join(tmp, "bigtown"))
+        cp.set("general", "num_scenarios", "80")
+        ini = os.path.join(tmp, "bigtown.ini")
+        with open(ini, "w") as f:
+            cp.write(f)
+        text, gen_s = run("generate", [
+            "generate", "--config", ini, "--gen_demand", "--gen_res_total_head",
+            "--update_totalhead_method", "add_max_elevation", "--accept_warning_code",
+            "--pressure_lowerbound", "-5", "--pressure_upperbound", "500", "--att", "pressure",
+            "--batch_size", "10", "--executors", "1", "--train_ratio", "0.5", "--valid_ratio",
+            "0.1", "--seed", "1234", "--no-save_params", "--backend", "cpp"])
+        backend = next(ln.split(":", 1)[1].strip() for ln in text.splitlines()
+                       if ln.startswith("solver backend:"))
+        gen_zip = os.path.join(tmp, "bigtown.zip")
+        splits = ("train", "valid", "test")
+        with ZarrZipReader(gen_zip) as r:
+            got = {s: r.read_array(f"pressure/{s}") for s in splits}
+        with ZarrZipReader(ref_zip) as r:
+            ref = {s: r.read_array(f"pressure/{s}") for s in splits}
+        shapes = {s: got[s].shape for s in splits}
+        if shapes != {s: ref[s].shape for s in splits} or \
+                shapes != {"train": (40, 5821), "valid": (8, 5821), "test": (32, 5821)}:
+            raise SystemExit(f"FAIL generate: splits {shapes}, the JAX store's "
+                             f"{ {s: ref[s].shape for s in splits} }")
+        gap = max(float(np.max(np.abs(got[s] - ref[s]))) for s in splits)
+        if gap > 1e-6:
+            raise SystemExit(f"FAIL generate: pressures {gap:.3e} m from the JAX store's (bound 1e-6)")
+        print(f"  generated in {gen_s:.2f} s, solver backend {backend}: splits "
+              f"{', '.join(f'{s} {shapes[s]}' for s in splits)}, pressures within {gap:.3e} m of "
+              f"eval_bigtown.zip (the JAX generator's)")
+        out["generate"] = dict(seconds=gen_s, backend=backend, max_abs_gap_m=gap)
+
+        # ---- 34: train ---------------------------------------------------------------
+        print("[34] cli train --model gatres_large on phase 33's zip: 2 epochs at batch 8, "
+              "--do_test, JSONL log, profiler trace; then a resume")
+        if importlib.util.find_spec("wandb") is not None:
+            sys.modules["wandb"] = None   # a wandb run would reach for the network
+            print("  wandb is installed here: blocked, so the run takes the JSONL fallback")
+        save, prof_dir = os.path.join(tmp, "run"), os.path.join(tmp, "prof")
+        train = ["train", "--model", "gatres_large", "--dataset_paths", gen_zip,
+                 "--input_paths", inp, "--batch_size", "8", "--mask_rate", "0.95",
+                 "--agg_mode", "banded", "--band_block", "256", "--save_path", save,
+                 "--variant", "smoke", *device_flags]
+        start()
+        text, train_s = run("train", train + [
+            "--epochs", "2", "--do_test", "--log_method", "wandb", "--profile_dir", prof_dir,
+            "--profile_epochs", "1"])
+        per_step = counts(band_attention=50, band_spmm=25, band_attention_bwd=50, band_spmm_bwd=25)
+        if len(steps) != 10 or any(s != per_step for s in steps):
+            raise SystemExit(f"FAIL train: {len(steps)} steps (expected 10), launches a step "
+                             f"{[s for s in steps if s != per_step][:1]} where {per_step}")
+        fwd = held_launches("train", len(steps))
+        if "falling back to JSONL logging" not in text:
+            raise SystemExit("FAIL train: --log_method wandb did not fall back to JSONL")
+        log = os.path.join(save, "gatres_large_smoke.jsonl")
+        with open(log) as f:
+            events = [json.loads(ln)["event"] for ln in f]
+        if events != ["start", "epoch", "epoch", "finish"]:
+            raise SystemExit(f"FAIL train: the JSONL log holds {events}")
+        trace = os.path.join(prof_dir, "gatres_large_smoke.trace.json")
+        with open(trace) as f:
+            trace_text = f.read()
+        missing = [k for k in BAND_KERNELS if k not in trace_text]
+        if missing and dev.type == "cuda":
+            raise SystemExit(f"FAIL train: the profiler trace names no {missing}")
+        for which in ("best", "last"):
+            _, opt, meta = load_checkpoint(os.path.join(save, f"{which}_gatres_large_smoke.ckpt"))
+            lay = meta["extra"]["layout"]
+            if (lay["agg_mode"], lay["band_block"]) != ("banded", 256) or not opt:
+                raise SystemExit(f"FAIL train: the {which} checkpoint's layout {lay}")
+        if meta["epoch"] != 2:
+            raise SystemExit(f"FAIL train: the last checkpoint is of epoch {meta['epoch']}")
+        ep = [round(ms, 3) for _, ms in epoch_ms]
+        do_test = evals[0][1]
+        print(f"  {train_s:.2f} s: {len(steps)} train steps of 50 + 50 band attention and 25 + 25 "
+              f"band SpMM launches (dma, no other kernel), {fwd} forwards of 50 + 25 (steps, "
+              f"validation, the --do_test evaluation); epochs (train, val) ms {ep}; --do_test "
+              f"MAE {do_test['test_mae_mean']:.4f} m, test_time {do_test['test_time_mean']:.4f} ms; "
+              f"checkpoints banded / 256, log {events}, trace "
+              f"{os.path.getsize(trace) / 1e6:.1f} MB naming "
+              f"{[k for k in BAND_KERNELS if k in trace_text]}")
+        out["train"] = dict(seconds=train_s, epoch_ms=ep, steps=len(steps), forwards=fwd,
+                            do_test_ms=do_test["test_time_mean"])
+        start()
+        text, resume_s = run("resume", train + [
+            "--epochs", "3", "--model_path", os.path.join(save, "last_gatres_large_smoke.ckpt")])
+        if "continuing at 3" not in text or len(steps) != 5 or any(s != per_step for s in steps):
+            raise SystemExit(f"FAIL resume: {len(steps)} steps, 'continuing at 3' "
+                             f"{'continuing at 3' in text}")
+        held_launches("resume", len(steps))
+        ep3 = [round(ms, 3) for _, ms in epoch_ms]
+        print(f"  resumed at epoch 3 in {resume_s:.2f} s: 5 steps at the same launches; epoch 3 "
+              f"(train, val) ms {ep3}")
+        out["resume"] = dict(seconds=resume_s, epoch_ms=ep3)
+
+        # ---- 35: eval ---------------------------------------------------------------------
+        print("[35] cli eval of phase 34's best checkpoint: clean (2 trials, batch 16), noisyNN "
+              "(1 scene, batch 4)")
+        best = os.path.join(save, "best_gatres_large_smoke.ckpt")
+        for kind, flags in (("clean", ["--num_test_trials", "2", "--batch_size", "16"]),
+                            ("noisyNN", ["--num_test_trials", "1", "--batch_size", "4"])):
+            start()
+            _, eval_s = run(kind, ["eval", "--model", "gatres_large", "--model_path", best,
+                                   "--test_data_path", gen_zip, "--test_input_path", inp,
+                                   "--test_type", kind, *flags, *device_flags])
+            fwd = held_launches(kind)
+            met = evals[0][1]
+            if not all(np.isfinite(v) for d in evals[0] for v in d.values()):
+                raise SystemExit(f"FAIL eval {kind}: a non-finite value")
+            print(f"  {kind}: {eval_s:.2f} s, {fwd} forwards of 50 + 25 launches; MAE "
+                  f"{met['test_mae_mean']:.4f} m, test_time {met['test_time_mean']:.4f} ms, "
+                  f"test_throughput {met['test_throughput_mean']:.2f} snapshots/s on {card}")
+            out[kind] = dict(seconds=eval_s, forwards=fwd, test_time_ms=met["test_time_mean"],
+                             test_throughput=met["test_throughput_mean"],
+                             mae=met["test_mae_mean"])
+
+        # ---- 36: infer against the JAX cli infer ------------------------------------------
+        print("[36] cli infer on the trained weights against the JAX cli infer "
+              "(artifacts/parity_infer_bigtown.npz)")
+        fx = np.load(os.path.join(REPO, "artifacts", "parity_infer_bigtown.npz"))
+        model, _ = select_model("gatres_large", device=dev)
+        model.load_state_dict(params_from_parity_npz(weights_npz))
+        stats = WDNDataset([ref_zip], [inp], from_set="train").stats
+        ckpt = os.path.join(tmp, "trained.ckpt")
+        save_checkpoint(ckpt, model.state_dict(), stats=stats,
+                        extra={"layout": {"agg_mode": None, "band_block": None}})
+        del model
+        flags = [os.path.join(REPO, a) if os.path.exists(os.path.join(REPO, a)) else str(a)
+                 for a in fx["argv"]]
+        npz, csv = os.path.join(tmp, "pred.npz"), os.path.join(tmp, "pred.csv")
+        start()
+        _, infer_s = run("infer", ["infer", "--model", "gatres_large", "--model_path", ckpt, *flags,
+                                   "--out_npz", npz, "--out_csv", csv, *device_flags])
+        fwd = held_launches("infer")
+        res = np.load(npz)
+        obs = res["observed"].astype(bool)
+        if fwd != 1 or not np.array_equal(obs, fx["observed"]) or \
+                not np.array_equal(res["node_names"], fx["node_names"]):
+            raise SystemExit(f"FAIL infer: {fwd} forwards, or another observed set or node order")
+        if not np.array_equal(res["pred"][:, obs], res["true"][:, obs]) or \
+                np.abs(res["true"] - fx["true"]).max() > 1e-5:
+            raise SystemExit("FAIL infer: observed nodes not served at their true values")
+        with open(csv) as f:
+            n_rows = sum(1 for _ in f)
+        gap = float(np.abs(res["pred"] - fx["pred"]).max())
+        print(f"  {infer_s:.2f} s: {res['pred'].shape[0]} snapshots x {res['pred'].shape[1]} nodes, "
+              f"{int(obs.sum())} observed (served at their values), one forward of 50 + 25 "
+              f"launches; pred within {gap:.3e} of the JAX cli infer's (bound 1e-3); csv "
+              f"{n_rows} lines")
+        if gap > 1e-3 or not np.isfinite(res["pred"]).all():
+            raise SystemExit(f"FAIL infer: pred {gap:.3e} from the JAX cli infer's (bound 1e-3)")
+        out["infer"] = dict(seconds=infer_s, max_abs_gap=gap)
+    finally:
+        hook.remove()
+        Trainer.train_step, Evaluator.evaluate = train_step, evaluate
+        Trainer.train_one_epoch, Trainer.eval_one_epoch = one_epoch
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  command-line summary on {card}: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3881,6 +4174,7 @@ def main() -> int:
     s11 = bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, counts, big,
                       mega["tpl"])
     eval_phases(dev, card, reset_launches, read_launches, counts, npz)
+    cli_phases(dev, card, reset_launches, read_launches, counts, npz)
 
     kernels = []
     for name in band_wrappers:

@@ -41,13 +41,28 @@ def test_port_imports_no_jax():
             "ops/window_gather.py", "data/codecs.py", "data/zarrzip.py", "data/noisy.py",
             "simgen/units.py", "simgen/network_state.py", "simgen/solver_py.py",
             "simgen/solver_cpp.py", "simgen/solver_api.py", "evaluation/timer.py",
-            "evaluation/harness.py"} <= scanned
+            "evaluation/harness.py", "cli.py", "utils/logging.py", "simgen/config.py",
+            "simgen/tokens.py", "simgen/executor.py", "simgen/runner.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
 
 
 ALLOWED = {"torch", "numpy", "scipy", "gnn_pressure_estimation_tpu_torch"} | set(sys.stdlib_module_names)
+# optional packages, imported only inside the functions that need them, as in
+# the JAX package: the zstd codec, the 'ran_cluster' formula, the wandb
+# logger and the generation's debug figure
+LAZY = {"data/codecs.py": {"zstandard"}, "simgen/tokens.py": {"sklearn"},
+        "utils/logging.py": {"wandb"}, "simgen/runner.py": {"matplotlib"}}
+
+
+def _top_level_modules(path: Path):
+    """Modules imported by the module's own statements, outside any function."""
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
 
 
 @pytest.mark.parametrize("rel", ["simgen/netgen.py", "data/inp.py", "ops/band_attention.py",
@@ -57,14 +72,16 @@ ALLOWED = {"torch", "numpy", "scipy", "gnn_pressure_estimation_tpu_torch"} | set
                                  "data/noisy.py", "simgen/units.py", "simgen/network_state.py",
                                  "simgen/solver_py.py", "simgen/solver_cpp.py",
                                  "simgen/solver_api.py", "evaluation/timer.py",
-                                 "evaluation/harness.py"])
+                                 "evaluation/harness.py", "cli.py", "utils/logging.py",
+                                 "simgen/config.py", "simgen/tokens.py", "simgen/executor.py",
+                                 "simgen/runner.py"])
 def test_module_imports_only_what_the_port_may(rel):
     """The modules this slice added or extended import torch, numpy, scipy,
     the standard library and the port itself, nothing else."""
     mods = {m.split(".")[0] for m in _imported_modules(PORT / rel)}
-    if rel == "data/codecs.py":
-        # imported inside the zstd branches only, as in the JAX package: optional
-        mods -= {"zstandard"}
+    lazy = LAZY.get(rel, set())
+    assert not lazy & set(_top_level_modules(PORT / rel))
+    mods -= lazy
     assert mods <= ALLOWED, mods - ALLOWED
     if rel.startswith(("simgen/", "data/")):
         assert "torch" not in mods                      # numpy only, as in the JAX package
