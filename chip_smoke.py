@@ -274,9 +274,47 @@ Phases (any failure exits non-zero; none is caught):
     true values, the same observed set and ``pred`` within 1e-3 of the JAX
     fields; npz and csv written.
 
+37. The model zoo's shapes: the band SpMM against its plain version over the
+    count bands ``cnt`` and ``cnt_sl`` and the signed Chebyshev band (f32)
+    on bigtown at C 1, 30, 32, 60 and 120 (the scalar loads below C % 4 == 0),
+    v2 at H 2 C 32 and H 1 C 1 on bigtown and ``fused_attention`` at both on
+    synthctown, B 1 and B 8, forward and backward, random cotangents, atol
+    and rtol 1e-4; then the band SpMM pair at B 32 at those widths (and 128)
+    timed beside its plain version, ``torch.sparse.mm`` (CSR) and its byte
+    bound.
+38. Fixture parity of the six zoo presets (GIN, GAT, GCN2, ChebNet,
+    GraphConvWat, m_GCN cut to 4 of its 45 aggregations) on bigtown (banded,
+    BLK 256, ``"dma"``, B 1) against ``artifacts/parity_zoo_<model>.npz``
+    (``tools/parity_zoo_export.py``, the JAX ``Trainer``): the port's dataset
+    gives the fixture's snapshot and edge attributes; every layer on the
+    fixture's rows and the output within 1e-3 (relative to max|ref| where it
+    exceeds 1); one step: loss rtol 1e-4, each gradient within
+    1e-3·max|g_ref| + 1e-6, the same step through the plain versions, 3 Adam
+    steps at phase 7's gates; exactly the launches of ``ZOO_FWD`` /
+    ``ZOO_BWD`` and none of any other kernel.
+39. Serving: ``Inferencer`` answers 64 bigtown snapshots at batch 32 for each
+    preset (seeded weights): ms per batch (CUDA events), launches, peak
+    memory, a profiler split of one GraphConvWat batch; GAT and GIN serve a
+    batch of 32 on synthctown (dense; GAT through ``fused_attention``), held
+    against the plain versions.
+40. Training on bigtown: ``Trainer.fit`` for 2 epochs, GIN at batch 8 and
+    m_GCN at batch 4 (mae, minmax, edge attributes), each resumed from epoch
+    1 to a bit-identical end (``ops.segment`` sums without atomics); step
+    ms, edges/s, peak memory; 3 steps of GAT, GCN2, ChebNet and GraphConvWat
+    at batch 8 with their launches.
+41. ``GATResRemask`` and ``GATResRemaskStack`` (15 blocks, nc 32) on bigtown
+    at batch 4: one forward against the plain versions, 30 ``band_attention``
+    + 15 / 1 ``band_spmm`` launches.
+42. ``cli.main`` ``train`` (one epoch, batch 8), ``eval`` (clean) and ``infer``
+    with ``--model gin`` and ``--model mgcn`` (the preset's edge attributes,
+    mae and minmax) on ``artifacts/eval_bigtown.zip``, the store phase 33
+    regenerates: seconds and launches of each.
+
 The last line is ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
 (all fifteen kernels, and the seven wrappers' bf16-operand instances as rows
-of their own) and the ``nvidia-smi`` line come before it.
+of their own; the rows the zoo launches carry ``zoo_launches``, the band SpMM
+pair its times at the zoo's widths) and the ``nvidia-smi`` line come before
+it.
 """
 
 from __future__ import annotations
@@ -3631,6 +3669,667 @@ def cli_phases(dev, card, reset_launches, read_launches, counts, weights_npz, de
     return out
 
 
+# the model zoo's kernel launches on bigtown (banded, "dma") at the presets' size: one
+# forward, and the backward of one train step (zoo_launches_of derives them from a
+# model; phase 38 holds the presets to this table). A layer whose input needs no
+# gradient launches no backward: GIN's first sum reads the input, and the Chebyshev
+# terms of the input (a first ChebConv's, which no parameter enters) need none
+ZOO = ("gin", "gat", "gcn2", "chebnet", "graphconvwat", "mgcn")
+ZOO_BATCHES = (1, 8, 32)    # phase 37's batches: the fixtures', training's and serving's
+ZOO_FWD = {"gin": {"band_spmm": 15}, "gat": {"band_attention": 10}, "gcn2": {"band_spmm": 64},
+           "chebnet": {"band_spmm": 43}, "graphconvwat": {"band_spmm": 377}, "mgcn": {}}
+ZOO_BWD = {"gin": {"band_spmm_bwd": 14}, "gat": {"band_attention_bwd": 10},
+           "gcn2": {"band_spmm_bwd": 64}, "chebnet": {"band_spmm_bwd": 20},
+           "graphconvwat": {"band_spmm_bwd": 138}, "mgcn": {}}
+
+
+def zoo_launches_of(model) -> tuple[dict, dict]:
+    """(launches of one banded forward, of its backward in a train step) of a
+    zoo model, from its layers."""
+    from gnn_pressure_estimation_tpu_torch.models import zoo
+
+    n = len(getattr(model, "convs", ()))
+    if isinstance(model, zoo.GIN):
+        return {"band_spmm": n}, {"band_spmm_bwd": n - 1}
+    if isinstance(model, zoo.GAT):
+        return {"band_attention": n}, {"band_attention_bwd": n}
+    if isinstance(model, zoo.GCN2):
+        return {"band_spmm": n}, {"band_spmm_bwd": n}
+    if isinstance(model, (zoo.ChebNet, zoo.GraphConvWat)):
+        ks = [c.K - 1 for c in model.convs]
+        return {"band_spmm": sum(ks)}, {"band_spmm_bwd": sum(ks[1:])}
+    if isinstance(model, zoo.MGCN):
+        return {}, {}
+    raise TypeError(f"not a zoo model: {type(model).__name__}")
+
+
+ZOO_WIDTHS = (1, 30, 32, 60, 120)
+
+
+def fixture_gap(label: str, got, ref) -> float:
+    """max|got − ref| against the fixture's gate, 1e-3 relative to max|ref|
+    where its values exceed 1 (1e-3 absolute below); fails past it. Returns
+    the deviation relative to max|ref|."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise SystemExit(f"FAIL {label}: shape {got.shape} against {ref.shape}, or not finite")
+    err, top = float(np.abs(got - ref).max()), float(np.abs(ref).max())
+    if err > 1e-3 * max(1.0, top):
+        raise SystemExit(f"FAIL {label}: off by {err:.3e} (max |ref| {top:.3e})")
+    return err / max(top, 1e-30)
+
+
+def relative_gap(label: str, got: torch.Tensor, ref: torch.Tensor, tol: float) -> float:
+    """max|got − ref| ≤ tol·max(1, max|ref|); fails past it. Returns the
+    deviation relative to max|ref|."""
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise SystemExit(f"FAIL {label}: shape {tuple(got.shape)} against {tuple(ref.shape)}, "
+                         "or not finite")
+    err, top = float((got - ref).abs().max()), float(ref.abs().max())
+    if err > tol * max(1.0, top):
+        raise SystemExit(f"FAIL {label}: off by {err:.3e} (max |ref| {top:.3e}, gate "
+                         f"{tol} x max(1, max|ref|))")
+    return err / max(top, 1e-30)
+
+
+def zoo_phases(dev, card, held, reset_launches, read_launches, counts, device_flags=()) -> dict:
+    """Phases 37-42: the model zoo and the remask variants on the card
+    (``device_flags`` stays empty there; a CPU rehearsal passes ``--device
+    cpu`` to the command line). Returns what the ``kernels`` line reports of
+    them."""
+    import contextlib
+    import io
+    import json as js
+    import shutil
+    import tempfile
+
+    from gnn_pressure_estimation_tpu_torch import cli
+    from gnn_pressure_estimation_tpu_torch.data import WDNDataset
+    from gnn_pressure_estimation_tpu_torch.data.dataset import build_template, get_keep_list
+    from gnn_pressure_estimation_tpu_torch.data.inp import parse_inp
+    from gnn_pressure_estimation_tpu_torch.evaluation.infer import Inferencer
+    from gnn_pressure_estimation_tpu_torch.models import presets
+    from gnn_pressure_estimation_tpu_torch.models.remask import GATResRemask, GATResRemaskStack
+    from gnn_pressure_estimation_tpu_torch.models.zoo import GIN, MGCN
+    from gnn_pressure_estimation_tpu_torch.ops import banded as bops
+    from gnn_pressure_estimation_tpu_torch.ops.band_attention import (
+        band_attention_bwd, band_attention_bwd_plain, band_attention_fwd, band_attention_plain,
+    )
+    from gnn_pressure_estimation_tpu_torch.ops.band_spmm import (
+        band_spmm_bwd, band_spmm_bwd_plain, band_spmm_fwd, band_spmm_plain,
+    )
+    from gnn_pressure_estimation_tpu_torch.ops.graph_attention import (
+        fused_attention_bwd, fused_attention_bwd_plain, fused_attention_fwd, fused_attention_plain,
+    )
+    from gnn_pressure_estimation_tpu_torch.train import Trainer, load_checkpoint
+    from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats
+    from gnn_pressure_estimation_tpu_torch.weights import params_from_fixture
+
+    out, phase_s = {}, {}
+    zip_path = os.path.join(REPO, "artifacts", "eval_bigtown.zip")
+    inp = os.path.join(REPO, "inputs", "bigtown.inp")
+    gen = torch.Generator(device=dev).manual_seed(37)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    splits = {}
+
+    def bigtown(preset):
+        """The train and test splits of ``eval_bigtown.zip`` read by the port,
+        scaled by the preset's normalisation, with its edge attributes."""
+        key = (preset.norm_type, preset.edge_attrs)
+        if key not in splits:
+            kw = dict(norm_type=preset.norm_type, edge_attrs=preset.edge_attrs)
+            tr = WDNDataset([zip_path], [inp], from_set="train", **kw)
+            va = WDNDataset([zip_path], [inp], from_set="valid", stats=tr.stats, **kw)
+            te = WDNDataset([zip_path], [inp], from_set="test", stats=tr.stats, **kw)
+            splits[key] = (tr, va, te)
+        return splits[key]
+
+    tpl0 = bigtown(presets.MODEL_REGISTRY["gin"])[2].members[0].template
+    bl = tpl0.band_layout()
+    nB, BLK, W = bl.adj_mask.shape
+    n_pad, n_ext = bl.n_pad, bl.n_pad + W - BLK
+
+    # ---- 37: the kernels against their plain versions at the zoo's shapes ----------
+    t_phase = time.perf_counter()
+    print("[37] kernels vs plain versions at the zoo's shapes: the band SpMM over the two count "
+          "bands it is given (cnt: adj, mean, cheb; cnt_sl: gcn) on bigtown at C 1, 30, 32, 60, "
+          "120; v2 and fused_attention at H 2 C 32 and H 1 C 1; B 1, 8 and 32 (serving)")
+    bands = {"cnt": (torch.as_tensor(bl.adj_cnt, device=dev), tpl0.band_index("adj_cnt").to(dev)),
+             "cnt_sl": (torch.as_tensor(bl.adj_cnt_sl, device=dev),
+                        tpl0.band_index("adj_cnt_sl").to(dev))}
+    for B in ZOO_BATCHES:
+        for C in ZOO_WIDTHS:
+            for tag, (band, ix) in bands.items():
+                x_ext, d_out = randn(B, n_ext, C), randn(B, n_pad, C)
+                label = f"{tag} B{B} C{C}"
+                held("band_spmm", f"band_spmm {label}", band_spmm_fwd(band, x_ext, ix),
+                     band_spmm_plain(band, x_ext), verbose=False)
+                held("band_spmm_bwd", f"band_spmm_bwd {label}", band_spmm_bwd(band, d_out, ix),
+                     band_spmm_bwd_plain(band, d_out), verbose=False)
+    mask = torch.as_tensor(bl.adj_mask.view(np.int8), device=dev)
+    mask_ix = tpl0.band_index("adj_mask").to(dev)
+    for B in ZOO_BATCHES:
+        for H, C in ((2, 32), (1, 1)):
+            args = (randn(B, n_pad, H), randn(nB, B, W, H), randn(B, n_ext, H, C), mask)
+            d_out = randn(B, n_pad, H, C)
+            label = f"bigtown B{B} H{H} C{C}"
+            held("band_attention", f"band_attention {label}", band_attention_fwd(*args, 0.2, mask_ix),
+                 band_attention_plain(*args, 0.2), verbose=False)
+            for part, g, r in zip(("d a_dst", "d a_src_win", "d x_ext"),
+                                  band_attention_bwd(*args, d_out, 0.2, mask_ix),
+                                  band_attention_bwd_plain(*args, d_out, 0.2)):
+                held("band_attention_bwd", f"band_attention_bwd {label} {part}", g, r, verbose=False)
+    swn = parse_inp(os.path.join(REPO, "inputs", "synthctown.inp"))
+    stpl, _ = build_template(swn, get_keep_list(swn, "keep_junction", None, "pressure"), None,
+                             name="synthctown")
+    sn = stpl.n_node
+    smask = torch.as_tensor(stpl.dense_operators()["adj_sl_mask"], device=dev)
+    sidx = stpl.dense_index().to(dev)
+    for B in ZOO_BATCHES:
+        for H, C in ((2, 32), (1, 1)):
+            a_d, a_s, v = randn(B, sn, H), randn(B, sn, H), randn(B, sn, H, C)
+            d_o = randn(B, sn, H, C)
+            label = f"synthctown B{B} H{H} C{C}"
+            o = fused_attention_fwd(a_d, a_s, v, smask, 0.2, sidx)
+            held("fused_attention", f"fused_attention {label}", o,
+                 fused_attention_plain(a_d, a_s, v, smask, 0.2), verbose=False)
+            for part, g, r in zip(("d a_d", "d a_s", "d v"),
+                                  fused_attention_bwd(a_d, a_s, v, smask, d_o, 0.2, sidx),
+                                  fused_attention_bwd_plain(a_d, a_s, v, smask, d_o, 0.2)):
+                held("fused_attention_bwd", f"fused_attention_bwd {label} {part}", g, r,
+                     verbose=False)
+    print("  every shape within atol and rtol 1e-4: band_spmm at 2 bands x 5 widths x 3 batches, "
+          "forward and backward; v2 and fused_attention at 2 shapes x 3 batches, forward and "
+          "backward")
+    # the band SpMM at the zoo's widths, serving batch: kernel, plain, torch.sparse.mm
+    # (CSR over the same band, extended rows as columns; its transpose for the
+    # backward), byte bound over the nonzeros
+    cnt, cnt_ix = bands["cnt"]
+    blk_i, r_i, j_i = np.nonzero(bl.adj_cnt)
+    vals = torch.as_tensor(bl.adj_cnt[blk_i, r_i, j_i].astype(np.float32), device=dev)
+    rows_g, cols_e = blk_i * BLK + r_i, blk_i * BLK + j_i
+    csr = torch.sparse_coo_tensor(torch.as_tensor(np.stack([rows_g, cols_e]), device=dev), vals,
+                                  (n_pad, n_ext)).to_sparse_csr()
+    csr_t = torch.sparse_coo_tensor(torch.as_tensor(np.stack([cols_e, rows_g]), device=dev), vals,
+                                    (n_ext, n_pad)).to_sparse_csr()
+    nnz = cnt_ix.nnz
+    widths = {}
+    bs = 32
+    for C in ZOO_WIDTHS + (128,):
+        x_ext, d_out = randn(bs, n_ext, C), randn(bs, n_pad, C)
+        x2d = x_ext.permute(1, 0, 2).reshape(n_ext, bs * C).contiguous()
+        d2d = d_out.permute(1, 0, 2).reshape(n_pad, bs * C).contiguous()
+        check_close(f"band_spmm B{bs} C{C} vs torch.sparse.mm", band_spmm_fwd(cnt, x_ext, cnt_ix),
+                    torch.sparse.mm(csr, x2d).reshape(n_pad, bs, C).permute(1, 0, 2), TOL, TOL,
+                    verbose=False)
+        io_bytes = 4 * (bs * n_ext * C + bs * n_pad * C)
+        fwd_b = (io_bytes + 4 * (n_pad + 1 + 2 * nnz)) / PEAK_BYTES_S * 1e3
+        bwd_b = (io_bytes + 4 * (n_ext + 1 + 2 * nnz)) / PEAK_BYTES_S * 1e3
+        ops = 2 * bs * C * nnz / PEAK_F32_S * 1e3
+        r = widths[C] = dict(
+            ms=cuda_ms(lambda: band_spmm_fwd(cnt, x_ext, cnt_ix), 3, 20),
+            device_ms=device_ms(lambda: band_spmm_fwd(cnt, x_ext, cnt_ix)),
+            plain_ms=cuda_ms(lambda: band_spmm_plain(cnt, x_ext), 1, 3),
+            library_ms=cuda_ms(lambda: torch.sparse.mm(csr, x2d), 3, 20),
+            bound_ms=max(fwd_b, ops), bound_by="bytes" if fwd_b >= ops else "operations",
+            bwd_ms=cuda_ms(lambda: band_spmm_bwd(cnt, d_out, cnt_ix), 3, 20),
+            bwd_device_ms=device_ms(lambda: band_spmm_bwd(cnt, d_out, cnt_ix)),
+            bwd_plain_ms=cuda_ms(lambda: band_spmm_bwd_plain(cnt, d_out), 1, 3),
+            bwd_library_ms=cuda_ms(lambda: torch.sparse.mm(csr_t, d2d), 3, 20),
+            bwd_bound_ms=max(bwd_b, ops), vector_loads=bool(bops.vector_loads(x_ext, C)))
+        print(f"  band_spmm bigtown B {bs} C {C} ({'packed' if r['vector_loads'] else 'scalar'} "
+              f"loads): kernel {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), plain "
+              f"{r['plain_ms']:.4f}, torch.sparse.mm {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} reached); "
+              f"backward {r['bwd_ms']:.4f} (device {fmt_ms(r['bwd_device_ms'])}), plain "
+              f"{r['bwd_plain_ms']:.4f}, transposed CSR {r['bwd_library_ms']:.4f}, bound "
+              f"{r['bwd_bound_ms']:.5f}")
+        del x_ext, d_out, x2d, d2d
+    out["widths"] = widths
+    torch.cuda.empty_cache()
+    phase_s[37] = time.perf_counter() - t_phase
+
+    # ---- 38: fixture parity on bigtown, banded, B 1 ----------------------------------
+    t_phase = time.perf_counter()
+    print("[38] fixture parity: the six presets on bigtown (banded, BLK 256, dma, B 1) against "
+          "artifacts/parity_zoo_<model>.npz")
+    zoo_launches = dict.fromkeys(("band_spmm", "band_spmm_bwd", "band_attention",
+                                  "band_attention_bwd", "fused_attention"), 0)
+
+    def tally(launched):
+        for k in zoo_launches:
+            zoo_launches[k] += launched.get(k, 0)
+
+    def fixture_model(fx):
+        name = fx["model"].item().decode()
+        preset = presets.MODEL_REGISTRY[name]
+        # the preset's model class and widths with the fixture's cut (m_GCN's n_aggr)
+        model = preset.build(**js.loads(fx["hparams"].item())).to(dev)
+        model.load_state_dict(params_from_fixture(fx, model, "param"))
+        return model, preset
+
+    def one_step(tr, tpl, fx):
+        g1, x1, m1, k1 = tr._prepare(tpl, fx["x"][None], fx["mask"], None, None)
+        tr.model.train()
+        loss, _, _ = tr._masked_loss_and_metrics(g1, x1, x1, m1, k1, "train")
+        grads = torch.autograd.grad(loss, list(tr.model.parameters()))
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads
+
+    fixture_report = {}
+    for name in ZOO:
+        fx = np.load(os.path.join(REPO, "artifacts", f"parity_zoo_{name}.npz"))
+        model, preset = fixture_model(fx)
+        if zoo_launches_of(model) != (ZOO_FWD[name], ZOO_BWD[name]):
+            raise SystemExit(f"FAIL {name}: its layers launch {zoo_launches_of(model)}, the "
+                             f"table says {(ZOO_FWD[name], ZOO_BWD[name])}")
+        _, _, te = bigtown(preset)
+        tpl = te.members[0].template
+        if not np.array_equal(te.members[0].array[0], fx["x"]):
+            raise SystemExit(f"FAIL {name}: the port's scaled snapshot differs from the fixture's")
+        if preset.edge_attrs and np.abs(tpl.edge_attr - fx["edge_attr"]).max() > \
+                1e-6 * np.abs(fx["edge_attr"]).max():
+            raise SystemExit(f"FAIL {name}: the port's scaled edge attributes differ")
+        n = tpl.n_node
+        graph = tpl.batch(1, device=dev)
+        if not graph.banded or graph.band_attn != "dma":
+            raise SystemExit(f"FAIL {name}: bigtown did not take the banded dma layout")
+        x = torch.as_tensor(fx["x"][:, None], device=dev)
+        m = torch.as_tensor(fx["mask"], device=dev)
+        xp = graph.pack_nodes(torch.where(m[:, None], 0.0, x), n)
+        acts = {}
+        hooks = [model.get_submodule(str(k)).register_forward_hook(
+            lambda mod, a, o, k=str(k): acts.__setitem__(k, o)) for k in fx["act_layers"]]
+        model.eval()
+        reset_launches()
+        with torch.no_grad():
+            y = graph.unpack_nodes(model(xp, graph), n)
+        torch.cuda.synchronize()
+        fwd = read_launches()
+        for h in hooks:
+            h.remove()
+        if fwd != counts(**ZOO_FWD[name]):
+            raise SystemExit(f"FAIL {name} forward launches {fwd}, expected {ZOO_FWD[name]}")
+        rows = fx["act_rows"]
+        layer_gap = max(fixture_gap(f"{name} layer {k}",
+                                    graph.unpack_nodes(acts[str(k)], n)[rows].cpu(),
+                                    fx[f"act/{k}"]) for k in fx["act_layers"])
+        out_gap = fixture_gap(f"{name} output", y.cpu(), fx["out"])
+        del acts
+        # one train step, then the same step through the plain versions
+        tr = Trainer(model, preset.train_config(batch_size=1), te.stats, tpl, device=dev)
+        names = [k for k, _ in model.named_parameters()]
+        reset_launches()
+        loss, grads = one_step(tr, tpl, fx)
+        step = read_launches()
+        expect = counts(**ZOO_FWD[name], **ZOO_BWD[name])
+        if step != expect:
+            raise SystemExit(f"FAIL {name} step launches {step}, expected {expect}")
+        tally(step)
+        if abs(loss - float(fx["loss"])) > 1e-4 * abs(float(fx["loss"])):
+            raise SystemExit(f"FAIL {name} loss {loss!r} against the fixture's {float(fx['loss'])!r}")
+        gref = params_from_fixture(fx, model, "grad")
+        worst = grads_within(f"{name} step vs JAX", names, grads,
+                             [gref[k].to(dev) for k in names])
+        plain_model, _ = fixture_model(fx)
+        trp = Trainer(plain_model, preset.train_config(batch_size=1), te.stats, tpl, device=dev)
+        reset_launches()
+        with bops.plain_versions():
+            loss_p, grads_p = one_step(trp, tpl, fx)
+        if any(read_launches().values()):
+            raise SystemExit(f"FAIL {name}: the plain step launched a kernel")
+        worst_p = grads_within(f"{name} kernel step vs plain step", names, grads, grads_p)
+        del trp, plain_model, grads_p
+        reset_launches()
+        losses3 = [float(tr.train_step(tpl, fx["x"][None], mask=fx["mask"])[0]) for _ in range(3)]
+        tally(read_launches())
+        p3 = params_from_fixture(fx, model, "p3")
+        perr = pnoise = 0.0
+        for k, p in model.named_parameters():
+            if k not in p3:
+                continue
+            err = (p.detach().cpu() - p3[k]).abs()
+            g_abs = gref[k].abs()
+            real = g_abs > 1e-3 * g_abs.max() + 1e-6
+            perr = max(perr, float(err[real].max()) if real.any() else 0.0)
+            pnoise = max(pnoise, float(err[~real].max()) if (~real).any() else 0.0)
+        lerr = max(abs(a - b) / abs(b) for a, b in zip(losses3, fx["step_losses"]))
+        if perr > 3e-4 or pnoise > 3 * 2 * 5e-4 or lerr > 1e-3:
+            raise SystemExit(f"FAIL {name} after 3 Adam steps: parameters off by {perr:.3e} "
+                             f"(3e-4; {pnoise:.3e} where the gradient is noise, 3e-3), step "
+                             f"losses by {lerr:.3e} relative (1e-3)")
+        fixture_report[name] = dict(layer_rel=layer_gap, out_rel=out_gap, grad_share=worst,
+                                    plain_grad_share=worst_p, p3=perr, p3_noise=pnoise,
+                                    loss=loss, loss_plain=loss_p)
+        print(f"  {name}: {len(fx['act_layers'])} layers within {layer_gap:.3e} of max|ref| (worst), "
+              f"output {out_gap:.3e}; launches: a forward {ZOO_FWD[name] or 'none'}, a step's "
+              f"backward {ZOO_BWD[name] or 'none'}; loss {loss:.7g} against "
+              f"{float(fx['loss']):.7g}; {len(names)} gradients, the worst at {worst:.1%} of "
+              f"1e-3·max|g_ref| + 1e-6 (kernels vs plain {worst_p:.1%}); 3 Adam steps: "
+              f"parameters within {perr:.3e} ({pnoise:.3e} where the gradient is noise), step "
+              f"losses within {lerr:.3e} relative")
+        del tr, model, grads
+        torch.cuda.empty_cache()
+    out["fixtures"] = fixture_report
+    phase_s[38] = time.perf_counter() - t_phase
+
+    # ---- 39: serving ------------------------------------------------------------------
+    t_phase = time.perf_counter()
+    print("[39] serving: Inferencer answers 64 bigtown snapshots at batch 32 for each preset "
+          "(seeded weights), and one batch of 32 of each preset that launches a kernel is held "
+          "against the plain versions (max|d| <= 1e-4 max(1, max|ref|)); then GAT and GIN on "
+          "synthctown (dense), one batch of 32 against the plain versions")
+    serve = {}
+    for name in ZOO:
+        preset = presets.MODEL_REGISTRY[name]
+        tr_ds, _, te = bigtown(preset)
+        tpl = te.members[0].template
+        snaps = np.concatenate([te.members[0].array, tr_ds.members[0].array])[:64]
+        model, _ = presets.select_model(name, device=dev, seed=0)
+        fwd_n = zoo_launches_of(model)[0]
+        inf = Inferencer(model, te.stats, device=dev)
+        obs = inf.observed_indices(tpl, "random", mask_rate=0.95, seed=0)
+        inf.infer(tpl, snaps[:bs], obs, scaled=True, batch_size=bs)            # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = inf.infer(tpl, snaps, obs, scaled=True, batch_size=bs, with_truth=True)
+        end.record()
+        end.synchronize()
+        got = read_launches()
+        n_batches = len(snaps) // bs
+        expect = counts(**{k: v * n_batches for k, v in fwd_n.items()})
+        if got != expect:
+            raise SystemExit(f"FAIL {name} serving launches {got}, expected {expect}")
+        tally(got)
+        if res.pred.shape != snaps.shape or not np.isfinite(res.pred).all():
+            raise SystemExit(f"FAIL {name} serving output is not a finite [S, n] field")
+        ms = start.elapsed_time(end) / n_batches
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        gap = None
+        if fwd_n:
+            # the serving batch through the kernels and through their plain versions
+            g = tpl.batch(bs, device=dev)
+            xp = g.pack_nodes(torch.as_tensor(snaps[:bs].reshape(-1, 1), device=dev), tpl.n_node)
+            reset_launches()
+            with torch.no_grad():
+                y = model(xp, g)
+                torch.cuda.synchronize()
+                launched = read_launches()
+                reset_launches()
+                with bops.plain_versions():
+                    y_p = model(xp, g)
+            torch.cuda.synchronize()
+            if launched != counts(**fwd_n) or any(read_launches().values()):
+                raise SystemExit(f"FAIL {name}: the held batch launched {launched} through the "
+                                 f"kernels (expected {fwd_n}), or a kernel under plain_versions")
+            gap = relative_gap(f"{name} bigtown batch of {bs} vs plain", y, y_p, TOL)
+            del xp, y, y_p
+        serve[name] = dict(ms=ms, peak_gb=peak, launches_per_batch=fwd_n, plain_gap=gap)
+        print(f"  {name}: {len(snaps)} snapshots at batch {bs}: {ms:.3f} ms per batch, launches "
+              f"per batch {fwd_n or 'none'}, peak device memory {peak:.3f} GB"
+              + (f"; a batch within {gap:.3e} of max|ref| of the plain versions"
+                 if gap is not None else ""))
+        if name == "graphconvwat":
+            profile_batch(lambda: inf.infer(tpl, snaps[:bs], obs, scaled=True, batch_size=bs),
+                          "one GraphConvWat batch of 32 (377 band SpMMs)", top=12)
+        del inf, model
+        torch.cuda.empty_cache()
+    sstats = NormStats(norm_type="znorm", mean=50.0, std=10.0)
+    srng = np.random.default_rng(39)
+    ssnaps = srng.standard_normal((bs, sn)).astype(np.float32)
+    sgraph = stpl.batch(bs, device=dev)
+    for name, kernel in (("gat", "fused_attention"), ("gin", None)):
+        model, _ = presets.select_model(name, device=dev, seed=0)
+        inf = Inferencer(model, sstats, device=dev)
+        obs = inf.observed_indices(stpl, "random", mask_rate=0.95, seed=0)
+        inf.infer(stpl, ssnaps, obs, scaled=True, batch_size=bs)
+        torch.cuda.synchronize()
+        reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        inf.infer(stpl, ssnaps, obs, scaled=True, batch_size=bs)
+        end.record()
+        end.synchronize()
+        got = read_launches()
+        expect = counts(**({kernel: len(model.convs)} if kernel else {}))
+        if got != expect:
+            raise SystemExit(f"FAIL synthctown {name} serving launches {got}, expected {expect}")
+        tally(got)
+        x = torch.as_tensor(ssnaps.reshape(-1, 1), device=dev)
+        with torch.no_grad():
+            y = model(x, sgraph)
+            with bops.plain_versions():
+                y_p = model(x, sgraph)
+        err = check_close(f"synthctown {name} batch vs plain", y, y_p, TOL, TOL, verbose=False)
+        serve[f"synthctown_{name}"] = dict(ms=start.elapsed_time(end), max_abs_err=err)
+        print(f"  synthctown (dense) {name}: batch of {bs} {start.elapsed_time(end):.3f} ms, "
+              f"launches {dict((k, v) for k, v in got.items() if v) or 'none'}, within {err:.3e} "
+              f"of the plain versions")
+        del inf, model
+    out["serve"] = serve
+    phase_s[39] = time.perf_counter() - t_phase
+
+    # ---- 40: training ----------------------------------------------------------------
+    t_phase = time.perf_counter()
+    print("[40] training on bigtown: Trainer.fit for 2 epochs, GIN at batch 8 and m_GCN at batch "
+          "4, each resumed from epoch 1 to a bit-identical end; 3 steps of the other four")
+    train = {}
+    for name, tbs in (("gin", 8), ("mgcn", 4)):
+        preset = presets.MODEL_REGISTRY[name]
+        tr_ds, va_ds, _ = bigtown(preset)
+        tpl = tr_ds.members[0].template
+
+        def trainer(save, epochs):
+            m, p = presets.select_model(name, device=dev, seed=0)
+            return Trainer(m, p.train_config(batch_size=tbs, mask_rate=0.95, seed=0, epochs=epochs,
+                                              save_path=save), tr_ds.stats, tpl, device=dev)
+
+        with tempfile.TemporaryDirectory() as dir_full, tempfile.TemporaryDirectory() as dir_cut:
+            trn = trainer(dir_full, 2)
+            fwd_n, bwd_n = zoo_launches_of(trn.model)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            log = []
+            best = trn.fit(tr_ds, va_ds, log_fn=lambda s: None,
+                           on_epoch_end=lambda ep, mets: log.append(mets))
+            torch.cuda.synchronize()
+            fit_launches = read_launches()
+            fit_peak = torch.cuda.max_memory_allocated() / 1e9
+            n_tr = 2 * -(-len(tr_ds.members[0].array) // tbs)
+            n_va = 2 * -(-len(va_ds.members[0].array) // tbs)
+            expect = counts(**{k: v * (n_tr + n_va) for k, v in fwd_n.items()},
+                            **{k: v * n_tr for k, v in bwd_n.items()})
+            if fit_launches != expect:
+                raise SystemExit(f"FAIL {name} fit launches {fit_launches}, expected {expect}")
+            tally(fit_launches)
+            tl = [mt["train_loss"] for mt in log]
+            vl = [mt["val_loss"] for mt in log]
+            if len(tl) != 2 or not np.isfinite(tl + vl).all():
+                raise SystemExit(f"FAIL {name} fit: train {tl}, val {vl}")
+            trainer(dir_cut, 1).fit(tr_ds, va_ds, log_fn=lambda s: None)
+            resumed = trainer(dir_cut, 2)
+            resumed.restore(os.path.join(dir_cut, f"last_{name}.ckpt"), log_fn=lambda s: None)
+            resumed.fit(tr_ds, va_ds, log_fn=lambda s: None)
+            torch.cuda.synchronize()
+            sa, sb = trn.opt_state_dict(), resumed.opt_state_dict()
+            same = (all(torch.equal(a, b) for a, b in zip(trn.model.state_dict().values(),
+                                                         resumed.model.state_dict().values()))
+                    and sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa))
+            if not same:
+                raise SystemExit(f"FAIL the resumed {name} run did not end bit-identical")
+            meta = load_checkpoint(os.path.join(dir_full, f"last_{name}.ckpt"))[2]
+            if meta["epoch"] != 2 or meta["stats"].norm_type != preset.norm_type:
+                raise SystemExit(f"FAIL {name} checkpoint meta {meta['epoch']}, {meta['stats']}")
+            batch = tr_ds.members[0].array[:tbs]
+            tgen = torch.Generator().manual_seed(0)
+            torch.cuda.reset_peak_memory_stats()
+            step_ms = cuda_ms(lambda: trn.train_step(tpl, batch, generator=tgen), 2, 10)
+            peak = max(fit_peak, torch.cuda.max_memory_allocated() / 1e9)
+        train[name] = dict(batch=tbs, step_ms=step_ms, edges_per_s=tbs * tpl.n_edge / step_ms * 1e3,
+                           peak_gb=peak, train_loss=tl, val_loss=vl, fit_s=best["train_time_s"])
+        print(f"  {name} fit at batch {tbs}: train loss {tl}, val loss {vl} ({preset.criterion}, "
+              f"{preset.norm_type}), {best['train_time_s']:.2f} s; launches "
+              f"{dict((k, v) for k, v in fit_launches.items() if v) or 'none'}; resumed from "
+              f"epoch 1 and ended bit-identical; step {step_ms:.3f} ms "
+              f"({tbs * tpl.n_edge / step_ms * 1e3:.0f} edges/s), peak device memory {peak:.3f} GB")
+        del trn, resumed
+        torch.cuda.empty_cache()
+    for name in ("gat", "gcn2", "chebnet", "graphconvwat"):
+        preset = presets.MODEL_REGISTRY[name]
+        tr_ds, _, _ = bigtown(preset)
+        tpl = tr_ds.members[0].template
+        m, _ = presets.select_model(name, device=dev, seed=0)
+        fwd_n, bwd_n = zoo_launches_of(m)
+        tr = Trainer(m, preset.train_config(batch_size=8, seed=0), tr_ds.stats, tpl, device=dev)
+        batch = tr_ds.members[0].array[:8]
+        tgen = torch.Generator().manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses = [float(tr.train_step(tpl, batch, generator=tgen)[0]) for _ in range(3)]
+        torch.cuda.synchronize()
+        got = read_launches()
+        expect = counts(**{k: 3 * v for k, v in fwd_n.items()},
+                        **{k: 3 * v for k, v in bwd_n.items()})
+        if got != expect or not np.isfinite(losses).all():
+            raise SystemExit(f"FAIL {name} 3 steps: launches {got}, expected {expect}; {losses}")
+        tally(got)
+        step_ms = cuda_ms(lambda: tr.train_step(tpl, batch, generator=tgen), 1, 3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        train[name] = dict(batch=8, step_ms=step_ms, edges_per_s=8 * tpl.n_edge / step_ms * 1e3,
+                           peak_gb=peak, losses=losses)
+        print(f"  {name} 3 steps at batch 8: losses {[round(v, 6) for v in losses]}, launches a step "
+              f"{fwd_n} + {bwd_n}; step {step_ms:.3f} ms "
+              f"({8 * tpl.n_edge / step_ms * 1e3:.0f} edges/s), peak device memory {peak:.3f} GB")
+        del tr, m
+        torch.cuda.empty_cache()
+    out["train"] = train
+    phase_s[40] = time.perf_counter() - t_phase
+
+    # ---- 41: remask --------------------------------------------------------------------
+    t_phase = time.perf_counter()
+    print("[41] remask: GATResRemask and GATResRemaskStack (15 blocks, nc 32) on bigtown, one "
+          "forward at batch 4 against the plain versions")
+    _, _, te = bigtown(presets.MODEL_REGISTRY["gin"])
+    tpl = te.members[0].template
+    n = tpl.n_node
+    g4 = tpl.batch(4, device=dev)
+    x = torch.as_tensor(te.members[0].array[:4].reshape(-1, 1), device=dev)
+    bm = torch.as_tensor(np.random.default_rng(41).random(4 * n) < 0.95, device=dev)
+    xp = g4.pack_nodes(torch.where(bm[:, None], 0.0, x), n)
+    bmp = g4.pack_nodes(bm.to(torch.float32)[:, None], n)[:, 0] > 0.5
+    remask = {}
+    for cls, spmm in ((GATResRemask, 15), (GATResRemaskStack, 1)):
+        torch.manual_seed(0)
+        model = cls(15, 32).to(dev).eval()
+        with torch.no_grad():
+            reset_launches()
+            y = model(xp, g4, bmp)
+            torch.cuda.synchronize()
+            got = read_launches()
+            with bops.plain_versions():
+                y_p = model(xp, g4, bmp)
+        if got != counts(band_attention=30, band_spmm=spmm):
+            raise SystemExit(f"FAIL {cls.__name__} launches {got}")
+        err = check_close(f"{cls.__name__} vs plain", y, y_p, TOL, TOL, verbose=False)
+        ms = cuda_ms(lambda: model(xp, g4, bmp), 1, 5)
+        remask[cls.__name__] = dict(max_abs_err=err, ms=ms)
+        print(f"  {cls.__name__}: 30 band_attention + {spmm} band_spmm launches, within {err:.3e} "
+              f"of the plain versions, {ms:.3f} ms a batch of 4")
+    out["remask"] = remask
+    phase_s[41] = time.perf_counter() - t_phase
+
+    # ---- 42: the command line ------------------------------------------------------------
+    t_phase = time.perf_counter()
+    print("[42] the command line: train (one epoch, batch 8), eval (clean) and infer with --model "
+          "gin and --model mgcn on artifacts/eval_bigtown.zip, the store phase 33 regenerates")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    forwards, steps = [0], [0]
+
+    def count_forward(module, args, o):
+        if isinstance(module, (GIN, MGCN)):
+            forwards[0] += 1
+
+    def counted_step(self, *a, **kw):
+        steps[0] += 1
+        return train_step(self, *a, **kw)
+
+    def run(label, argv):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            for ln in buf.getvalue().strip().splitlines()[-6:]:
+                print("    " + ln.replace(tmp, "<tmp>"))
+        if rc != 0:
+            raise SystemExit(f"FAIL cli {label} exited {rc}")
+        return time.perf_counter() - t0
+
+    train_step = Trainer.train_step
+    hook = torch.nn.modules.module.register_module_forward_hook(count_forward)
+    Trainer.train_step = counted_step
+    cli_report = {}
+    try:
+        for name in ("gin", "mgcn"):
+            save = os.path.join(tmp, name)
+            fwd_n, bwd_n = zoo_launches_of(presets.select_model(name, device=dev, seed=0)[0])
+            for cmd, argv in (
+                    ("train", ["train", "--model", name, "--dataset_paths", zip_path,
+                               "--input_paths", inp, "--batch_size", "8", "--epochs", "1",
+                               "--save_path", save, "--variant", "zoo"]),
+                    ("eval", ["eval", "--model", name, "--model_path",
+                              os.path.join(save, f"best_{name}_zoo.ckpt"), "--test_data_path",
+                              zip_path, "--test_input_path", inp, "--test_type", "clean",
+                              "--num_test_trials", "2", "--batch_size", "16"]),
+                    ("infer", ["infer", "--model", name, "--model_path",
+                               os.path.join(save, f"best_{name}_zoo.ckpt"), "--test_data_path",
+                               zip_path, "--test_input_path", inp, "--from_set", "test",
+                               "--observed", "random", "--batch_size", "8",
+                               "--num_snapshots", "8"])):
+                argv = argv + list(device_flags)
+                reset_launches()
+                forwards[0] = steps[0] = 0
+                sec = run(f"{cmd} {name}", argv)
+                got = read_launches()
+                expect = counts(**{k: v * forwards[0] for k, v in fwd_n.items()},
+                                **{k: v * steps[0] for k, v in bwd_n.items()})
+                if got != expect or not forwards[0]:
+                    raise SystemExit(f"FAIL cli {cmd} {name}: {forwards[0]} forwards, {steps[0]} "
+                                     f"steps, launches {got}, expected {expect}")
+                tally(got)
+                cli_report[f"{cmd}_{name}"] = dict(seconds=sec, forwards=forwards[0],
+                                                   steps=steps[0])
+                print(f"  {cmd} --model {name}: {sec:.2f} s, {forwards[0]} forwards, {steps[0]} "
+                      f"steps, launches {dict((k, v) for k, v in got.items() if v) or 'none'}")
+            if name == "mgcn":
+                sd = load_checkpoint(os.path.join(save, "best_mgcn_zoo.ckpt"))[0]
+                meta = load_checkpoint(os.path.join(save, "best_mgcn_zoo.ckpt"))[2]
+                if sd["edge.weight"].shape[1] != 2 or meta["stats"].norm_type != "minmax":
+                    raise SystemExit("FAIL cli train mgcn: not the preset's edge attributes and "
+                                     "minmax")
+    finally:
+        hook.remove()
+        Trainer.train_step = train_step
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["cli"] = cli_report
+    phase_s[42] = time.perf_counter() - t_phase
+    out["zoo_launches"] = zoo_launches
+    out["phase_s"] = phase_s
+    print(f"  zoo summary on {card}: phases' seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f"; zoo launches {zoo_launches}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4175,6 +4874,7 @@ def main() -> int:
                       mega["tpl"])
     eval_phases(dev, card, reset_launches, read_launches, counts, npz)
     cli_phases(dev, card, reset_launches, read_launches, counts, npz)
+    zoo = zoo_phases(dev, card, held, reset_launches, read_launches, counts)
 
     kernels = []
     for name in band_wrappers:
@@ -4359,6 +5059,20 @@ def main() -> int:
                                                            "bound_ms", "bytes")}
                          for (b, hc), q in shaped.items()},
         })
+    # the zoo's main path (phases 38-42) launches the band pair, v2 and the dense softmax
+    # forward at new shapes; the band SpMM's times at the zoo's widths (phase 37)
+    for k in kernels:
+        if k["name"] in zoo["zoo_launches"]:
+            if not zoo["zoo_launches"][k["name"]]:
+                raise SystemExit(f"FAIL {k['name']} was not launched on the zoo's path")
+            k["zoo_launches"] = zoo["zoo_launches"][k["name"]]
+        if k["name"] in ("band_spmm", "band_spmm_bwd"):
+            pre = "bwd_" if k["name"].endswith("_bwd") else ""
+            k["zoo_by_width_b32"] = {
+                f"C{C}": {"ms": w[f"{pre}ms"], "device_ms": w[f"{pre}device_ms"],
+                          "plain_ms": w[f"{pre}plain_ms"], "library_ms": w[f"{pre}library_ms"],
+                          "bound_ms": w[f"{pre}bound_ms"], "packed_loads": w["vector_loads"]}
+                for C, w in zoo["widths"].items()}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -17,9 +17,12 @@ kernels' plain PyTorch versions on the host.
 - ``mkconfig`` — a generation INI from an INP's value ranges
 - ``netgen``   — a synthetic network as an INP file
 
-What the port does not have yet exits non-zero, naming the ROADMAP Queue 1
-item that brings it: the model zoo (``--model gin`` … ``mgcn``, item 6), the
-mesh and multi-host runs (``--mesh``, ``--distributed``, item 7), bf16
+``--model`` takes every name of the JAX registry: GATRes-small and -large
+and the baseline zoo (``gin``, ``gat``, ``gcn2``, ``chebnet``,
+``graphconvwat``, ``mgcn``), each with its preset's criterion,
+normalisation and edge attributes unless a flag overrides them. What the
+port does not have yet exits non-zero, naming the ROADMAP Queue 1 item that
+brings it: the mesh and multi-host runs (``--mesh``, ``--distributed``, item 7), bf16
 activations and matmul precisions other than ``highest`` (item 8), several
 epochs per dispatch (item 2) and ``benchmark`` (item 1).
 
@@ -41,8 +44,7 @@ def _add_train_flags(p: argparse.ArgumentParser):
     p.add_argument("--model", default="gatres_small",
                    choices=["gatres_small", "gatres_large", "gin", "graphconvwat",
                             "chebnet", "mgcn", "gcn2", "gat"],
-                   help="gatres_small | gatres_large; the others are not yet ported "
-                        "(ROADMAP Queue 1 item 6)")
+                   help="a preset of the model registry")
     p.add_argument("--lr", default=0.0005, type=float)
     p.add_argument("--weight_decay", default=0.000006, type=float)
     p.add_argument("--epochs", default=500, type=int)
@@ -126,11 +128,7 @@ def _add_train_flags(p: argparse.ArgumentParser):
 def _refuse(args, *checks: str):
     """Exit non-zero, naming the ROADMAP item, where ``args`` asks for what the
     port does not have yet. ``checks`` names the flags this command acts on."""
-    from gnn_pressure_estimation_tpu_torch.models.presets import NOT_YET_PORTED
-
     reasons = {
-        "model": (args.model in NOT_YET_PORTED,
-                  f"--model {args.model} is not yet ported (ROADMAP Queue 1 item 6, the model zoo)"),
         "mesh": (bool(args.mesh),
                  "--mesh is not yet ported (ROADMAP Queue 1 item 7, parallel)"),
         "distributed": (args.distributed,
@@ -158,9 +156,15 @@ def _device(args):
 
 
 def _model(args, dev, seed: int = 0):
-    from gnn_pressure_estimation_tpu_torch.models.presets import apply_model_knobs, select_model
+    """The ``--model`` preset's model; m_GCN embeds as many edge attributes
+    as ``--use_data_edge_attrs`` (or the preset) names, none without them."""
+    from gnn_pressure_estimation_tpu_torch.models.presets import (
+        MODEL_REGISTRY, apply_model_knobs, select_model,
+    )
 
-    model, preset = select_model(args.model, device=dev, seed=seed)
+    preset = MODEL_REGISTRY[args.model]
+    edge_dim = None if preset.edge_attrs is None else len(_edge_attrs(args, preset) or ())
+    model, preset = select_model(args.model, device=dev, seed=seed, edge_dim=edge_dim)
     try:
         model = apply_model_knobs(model, attn_impl=args.attn_impl, gate_dtype=args.gate_dtype)
     except (ValueError, NotImplementedError) as e:
@@ -253,7 +257,7 @@ class _EpochProfiler:
 
 
 def cmd_train(args):
-    _refuse(args, "model", "mesh", "distributed", "activation_dtype", "matmul_precision",
+    _refuse(args, "mesh", "distributed", "activation_dtype", "matmul_precision",
             "epochs_per_dispatch")
     from gnn_pressure_estimation_tpu_torch.train import TrainConfig, Trainer
     from gnn_pressure_estimation_tpu_torch.utils.logging import make_logger
@@ -329,7 +333,7 @@ def cmd_train(args):
 
 
 def cmd_eval(args):
-    _refuse(args, "model", "mesh")
+    _refuse(args, "mesh")
     from gnn_pressure_estimation_tpu_torch.data import WDNDataset
     from gnn_pressure_estimation_tpu_torch.evaluation import EvalConfig, Evaluator
     from gnn_pressure_estimation_tpu_torch.evaluation.harness import make_noisy_scenes
@@ -394,7 +398,6 @@ def cmd_eval(args):
 def cmd_infer(args):
     """Serving surface: reconstruct full pressure fields from sparse
     observations and export them."""
-    _refuse(args, "model")
     from gnn_pressure_estimation_tpu_torch.data import WDNDataset
     from gnn_pressure_estimation_tpu_torch.evaluation.infer import Inferencer
 

@@ -6,7 +6,11 @@ topology, copied from the JAX package as far as the ported modes need it:
 the receiver-sorted edge list, in-degrees, the dense ``[n, n]`` operators
 and the RCM band layout with its default-block tracking. :class:`BatchedGraph`
 holds what the ported layers read for ``B`` copies of one template, as
-tensors on one device.
+tensors on one device: the operators of each mode (the attention mask, and
+the mean, GCN, Chebyshev and adjacency aggregations the model zoo reads),
+and in every mode the receiver-sorted edge list with its slot tables
+(``ops.segment``) and the edge attributes, which only m_GCN reads and
+which are therefore built on first use.
 
 Three aggregation modes are ported: ``dense`` (templates of at most
 :attr:`GraphTemplate.DENSE_THRESHOLD` nodes), ``banded`` (larger ones) and
@@ -17,7 +21,7 @@ name). The edge-list ``segment`` mode is not.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -81,6 +85,7 @@ class GraphTemplate:
         self._band_index_cache: dict = {}
         self._dense_index = None
         self._degree_cache: Optional[dict] = None
+        self._edge_cache: dict = {}
 
     def dense_operators(self) -> dict:
         """Template-level [n, n] operators shared by every graph in a batch:
@@ -120,10 +125,11 @@ class GraphTemplate:
         fixed axis, with no scatter at any graph size. The self-loop variant
         appends one slot holding the node itself (always valid). Each comes
         with its transpose tables (``ops.padded.build_transpose_tables``),
-        which the gather's backward walks. Host-built once and cached.
-
-        The JAX package's tables also carry GCN and Chebyshev slot weights;
-        they serve models the port does not have, and are left out."""
+        which the gather's backward walks, and with its slot weights: the
+        Chebyshev weight −1/√(d_i d_j) of each in-edge slot (``cheb_dp``)
+        and the GCN weight 1/√((d_i+1)(d_j+1)) of each slot, the self-loop's
+        included (``gcn_dp_sl``); zero on empty slots. Host-built once and
+        cached."""
         if self._degree_cache is not None:
             return self._degree_cache
         from gnn_pressure_estimation_tpu_torch.ops.padded import build_transpose_tables
@@ -132,15 +138,23 @@ class GraphTemplate:
         D = max(self.max_degree, 1)
         senders_dp = np.zeros((n, D), np.int32)
         mask_dp = np.zeros((n, D), bool)
+        cheb_dp = np.zeros((n, D), np.float32)
+        with np.errstate(divide="ignore"):
+            dq = np.where(self.in_degree > 0, 1.0 / np.sqrt(np.maximum(self.in_degree, 1.0)), 0.0)
+        cheb_norm = (-(dq[self.senders] * dq[self.receivers])).astype(np.float32)
         slot = np.zeros(n, np.int32)
-        for s, r in zip(self.senders, self.receivers):
+        for s, r, cw in zip(self.senders, self.receivers, cheb_norm):
             j = slot[r]
             senders_dp[r, j] = s
             mask_dp[r, j] = True
+            cheb_dp[r, j] = cw
             slot[r] += 1
         # self-loop slot appended last
         senders_sl = np.concatenate([senders_dp, np.arange(n, dtype=np.int32)[:, None]], axis=1)
         mask_sl = np.concatenate([mask_dp, np.ones((n, 1), bool)], axis=1)
+        dinv = (1.0 / np.sqrt(self.in_degree + 1.0)).astype(np.float32)
+        gcn_dp = np.where(mask_dp, dinv[:, None] * dinv[senders_dp], 0.0)
+        gcn_sl = np.concatenate([gcn_dp, (dinv * dinv)[:, None]], axis=1).astype(np.float32)
         out_flat, out_mask = build_transpose_tables(senders_dp, mask_dp, n)
         out_flat_sl, out_mask_sl = build_transpose_tables(senders_sl, mask_sl, n)
         self._degree_cache = {
@@ -148,12 +162,36 @@ class GraphTemplate:
             "mask_dp": mask_dp,
             "senders_dp_sl": senders_sl,
             "mask_dp_sl": mask_sl,
+            "gcn_dp_sl": gcn_sl,
+            "cheb_dp": cheb_dp,
             "out_flat": out_flat,
             "out_mask": out_mask,
             "out_flat_sl": out_flat_sl,
             "out_mask_sl": out_mask_sl,
         }
         return self._degree_cache
+
+    def edge_list(self, band_block: Optional[int] = None, banded: bool = False) -> dict:
+        """The receiver-sorted edge list with its slot tables
+        (``ops.segment.build_edge_slots``), host-built once and cached:
+        ``senders``, ``receivers``, ``order`` (each edge's index in the
+        template's own list, which orders the edge attributes) and the
+        tables. In original node order, or with ``banded`` in the band
+        layout's perm + pad space, re-sorted by receiver as the JAX
+        package's banded batch sorts it."""
+        from gnn_pressure_estimation_tpu_torch.ops.segment import build_edge_slots
+
+        bl = self.band_layout(band_block) if banded else None
+        key = (bl.BLK, bl.W) if banded else None
+        if key not in self._edge_cache:
+            if banded:
+                inv = bl.inv_perm.astype(np.int32)
+                s, r, order = _sort_by_receiver(inv[self.senders], inv[self.receivers])
+            else:
+                s, r, order = self.senders, self.receivers, np.arange(self.n_edge)
+            self._edge_cache[key] = {"senders": s, "receivers": r, "order": order,
+                                     **build_edge_slots(s, r, bl.n_pad if banded else self.n_node)}
+        return self._edge_cache[key]
 
     def dense_index(self):
         """The compressed set cells (``ops.graph_attention.MaskIndex``) of
@@ -189,8 +227,9 @@ class GraphTemplate:
     def band_index(self, kind: str, block: Optional[int] = None):
         """The compressed nonzeros (``ops.banded.BandIndex``) of one band of
         the layout, which the backward kernels walk: ``kind`` is ``adj_mask``
-        (attention) or ``adj_cnt`` (mean conv). Host-built once and cached
-        beside the layout."""
+        (attention), ``adj_cnt`` (mean conv, GIN's sum, Chebyshev) or
+        ``adj_cnt_sl`` (the GCN aggregation, self-loops counted). Host-built
+        once and cached beside the layout."""
         bl = self.band_layout(block)
         key = (kind, bl.BLK, bl.W)
         if key not in self._band_index_cache:
@@ -255,15 +294,34 @@ class GraphTemplate:
         self._batch_cache[key] = g
         return g
 
+    def _edges(self, B: int, band_block: Optional[int], banded: bool, dev):
+        """The builder of a batch's edge list (``BatchedGraph.edges``) and
+        edge attributes (the template's ``edge_attr``, the dataset's scaled
+        values, in the list's order, tiled over the batch), which the batch
+        calls on first use."""
+        def build() -> dict:
+            from gnn_pressure_estimation_tpu_torch.ops.segment import EdgeSlots
+
+            el = self.edge_list(band_block, banded)
+            n = self.band_layout(band_block).n_pad if banded else self.n_node
+            ea = None if self.edge_attr is None else torch.as_tensor(
+                np.tile(np.asarray(self.edge_attr, np.float32)[el["order"]], (B, 1)), device=dev)
+            return {"edges": EdgeSlots.tiled(el["senders"], el["receivers"], el, B, n, dev),
+                    "edge_attr": ea}
+        return build
+
     def _build_batch(self, B: int, mode: str, band_block: Optional[int], dev,
                      band_attn: Optional[str]) -> "BatchedGraph":
         if mode == "dense":
             d = self.dense_operators()
+
+            def op(k):
+                return torch.as_tensor(d[k], device=dev)
             return BatchedGraph(
                 n_graph=B, nodes_per_graph=self.n_node, device=dev,
-                adj_sl_mask=torch.as_tensor(d["adj_sl_mask"], device=dev),
-                adj_sl_index=self.dense_index().to(dev),
-                mean_mat=torch.as_tensor(d["mean_mat"], device=dev),
+                adj_sl_mask=op("adj_sl_mask"), adj_sl_index=self.dense_index().to(dev),
+                mean_mat=op("mean_mat"), gcn_mat=op("gcn_mat"), cheb_mat=op("cheb_mat"),
+                adj_mat=op("adj_mat"), edge_source=self._edges(B, None, False, dev),
             )
         if mode == "padded":
             return self._build_padded(B, dev)
@@ -275,9 +333,13 @@ class GraphTemplate:
             n_graph=B, nodes_per_graph=bl.n_pad, device=dev,
             band_adj_mask=torch.as_tensor(bl.adj_mask.view(np.int8), device=dev),
             band_cnt=torch.as_tensor(bl.adj_cnt, device=dev),
+            band_cnt_sl=torch.as_tensor(bl.adj_cnt_sl, device=dev),
             band_adj_index=self.band_index("adj_mask", band_block).to(dev),
             band_cnt_index=self.band_index("adj_cnt", band_block).to(dev),
+            band_cnt_sl_index=self.band_index("adj_cnt_sl", band_block).to(dev),
             band_inv_deg=torch.as_tensor(bl.inv_deg_perm, device=dev),
+            band_dinv_sl=torch.as_tensor(bl.dinv_sl_perm, device=dev),
+            band_dinv=torch.as_tensor(bl.dinv_perm, device=dev),
             band_perm=torch.as_tensor(bl.perm, dtype=torch.long, device=dev),
             band_inv_perm=torch.as_tensor(bl.inv_perm, dtype=torch.long, device=dev),
             band_win_start=bl.win_start,
@@ -286,6 +348,7 @@ class GraphTemplate:
             band_U=U,
             band_R=R,
             band_attn=band_attn,
+            edge_source=self._edges(B, band_block, True, dev),
         )
 
     def _build_padded(self, B: int, dev) -> "BatchedGraph":
@@ -312,6 +375,8 @@ class GraphTemplate:
             out_flat=shifted(dt["out_flat"], n * D), out_mask=tiled(dt["out_mask"]),
             out_flat_sl=shifted(dt["out_flat_sl"], n * (D + 1)), out_mask_sl=tiled(dt["out_mask_sl"]),
             inv_degree=torch.as_tensor(np.tile(self.inv_degree, B), device=dev),
+            gcn_dp_sl=tiled(dt["gcn_dp_sl"]), cheb_dp=tiled(dt["cheb_dp"]),
+            edge_source=self._edges(B, None, False, dev),
         )
 
 
@@ -321,15 +386,21 @@ class BatchedGraph:
 
     Dense mode carries the template-level ``[n, n]`` attention mask, the
     compressed index of its set cells that the dense-mode kernels walk, and
-    the mean operator, shared by every graph. Banded mode works in RCM-permuted,
-    padded node space (``nodes_per_graph == band_n_pad``): it carries the
-    ``[nB, BLK, W]`` int8 adjacency mask (self-loops included) and int8
-    edge-count band, each with the compressed index of its nonzeros that the
-    kernels walk, the 1/deg row scale, the permutation, and the name of the
+    the mean, GCN, Chebyshev and adjacency operators, shared by every graph.
+    Banded mode works in RCM-permuted, padded node space (``nodes_per_graph
+    == band_n_pad``): it carries the ``[nB, BLK, W]`` int8 adjacency mask
+    (self-loops included) and the int8 edge-count bands without and with
+    self-loops, each with the compressed index of its nonzeros that the
+    kernels walk, the scale vectors that factor every parameter-free band
+    (mean = 1/deg ⊙ counts; GCN = dinv_sl ⊙ counts_sl ⊙ dinv_sl; Chebyshev =
+    −dinv ⊙ counts ⊙ dinv), the permutation, and the name of the
     band-attention kernel its GATConvs go through (``band_attn``). Padded mode
     works in original node order (``nodes_per_graph == n``): it carries each
     node's in-edge slots ``[B·n, D]`` (and ``[B·n, D+1]`` with the self-loop
-    slot) with their masks, the transpose tables of each, and 1/deg.
+    slot) with their masks, the transpose tables of each, 1/deg and the GCN
+    and Chebyshev slot weights. Every mode gives the receiver-sorted edge list of
+    the batch in its node space (``edges``) and the edge attributes in that
+    list's order (``edge_attr``, or None), both built on the first read.
     """
 
     n_graph: int
@@ -338,11 +409,18 @@ class BatchedGraph:
     adj_sl_mask: Optional[torch.Tensor] = None     # [n, n] bool
     adj_sl_index: Optional[object] = None          # MaskIndex of adj_sl_mask
     mean_mat: Optional[torch.Tensor] = None        # [n, n] f32
+    gcn_mat: Optional[torch.Tensor] = None         # [n, n] f32 D^-1/2 (A+I) D^-1/2
+    cheb_mat: Optional[torch.Tensor] = None        # [n, n] f32 −D^-1/2 A D^-1/2
+    adj_mat: Optional[torch.Tensor] = None         # [n, n] f32 edge counts
     band_adj_mask: Optional[torch.Tensor] = None   # [nB, BLK, W] int8 0/1
     band_cnt: Optional[torch.Tensor] = None        # [nB, BLK, W] int8 counts
+    band_cnt_sl: Optional[torch.Tensor] = None     # [nB, BLK, W] int8 counts + self-loops
     band_adj_index: Optional[object] = None        # BandIndex of band_adj_mask
     band_cnt_index: Optional[object] = None        # BandIndex of band_cnt
+    band_cnt_sl_index: Optional[object] = None     # BandIndex of band_cnt_sl
     band_inv_deg: Optional[torch.Tensor] = None    # [n_pad] f32
+    band_dinv_sl: Optional[torch.Tensor] = None    # [n_pad] f32 1/sqrt(deg+1)
+    band_dinv: Optional[torch.Tensor] = None       # [n_pad] f32 1/sqrt(deg), 0 at deg 0
     band_perm: Optional[torch.Tensor] = None       # [n] long
     band_inv_perm: Optional[torch.Tensor] = None   # [n] long
     band_win_start: Optional[tuple] = None
@@ -360,10 +438,37 @@ class BatchedGraph:
     out_flat_sl: Optional[torch.Tensor] = None     # transpose of senders_dp_sl
     out_mask_sl: Optional[torch.Tensor] = None
     inv_degree: Optional[torch.Tensor] = None      # [B·n] f32 1/deg (0 at deg 0)
+    gcn_dp_sl: Optional[torch.Tensor] = None       # [B·n, D+1] f32 GCN slot weights
+    cheb_dp: Optional[torch.Tensor] = None         # [B·n, D] f32 Chebyshev slot weights
+    # builds {"edges": ops.segment.EdgeSlots, "edge_attr": [B·E, d] f32 or None}
+    edge_source: Optional[Callable[[], dict]] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _edge_cache: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def n_node(self) -> int:
+        return self.n_graph * self.nodes_per_graph
 
     @property
     def dense(self) -> bool:
         return self.mean_mat is not None
+
+    def _edge_tables(self) -> dict:
+        if not self._edge_cache and self.edge_source is not None:
+            # cached and shared like the batch: built outside inference mode
+            with torch.inference_mode(False):
+                self._edge_cache.update(self.edge_source())
+        return self._edge_cache
+
+    @property
+    def edges(self):
+        """The batch's receiver-sorted edge list (``ops.segment.EdgeSlots``)."""
+        return self._edge_tables().get("edges")
+
+    @property
+    def edge_attr(self) -> Optional[torch.Tensor]:
+        """[B·E, d] f32 edge attributes in ``edges``' order, or None."""
+        return self._edge_tables().get("edge_attr")
 
     @property
     def banded(self) -> bool:

@@ -29,6 +29,8 @@ from gnn_pressure_estimation_tpu_torch.models.layers import GATConv, SimpleMeanC
 
 
 class GATResBlock(nn.Module):
+    FLAX_NAMES = {"conv1": "GATConv_0", "conv2": "GATConv_1"}
+
     def __init__(self, channels: int, attn_impl: str = "softmax", attn_dtype=None,
                  gate_dtype=None):
         super().__init__()
@@ -56,6 +58,8 @@ class GATRes(nn.Module):
     has no dropout or batch statistics. ``attn_impl``, ``attn_dtype`` and
     ``gate_dtype`` go to every ``GATConv`` (``models.presets.apply_model_knobs``
     sets them on a built model)."""
+
+    FLAX_NAMES = {"blocks": "block_{}"}
 
     def __init__(self, num_blocks: int = 15, channels: int = 32,
                  out_channels: int = 1, in_channels: int = 1,

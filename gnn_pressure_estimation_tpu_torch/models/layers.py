@@ -1,25 +1,38 @@
-"""Graph conv layers of GATRes as torch modules.
+"""Graph conv layers as torch modules: GATRes's and the model zoo's.
 
-The counterparts of ``GATConv`` and ``SimpleMeanConv`` in
-``gnn_pressure_estimation_tpu/models/layers.py``, in the dense, banded and
-degree-padded aggregation modes. Attention math matches PyG GATConv
-(LeakyReLU 0.2, self-loops added, per-receiver softmax).
+The counterparts of the layers of ``gnn_pressure_estimation_tpu/models/layers.py``
+(``GATConv``, ``SimpleMeanConv``, ``GCNConv``, ``GCN2Conv``, ``ChebConv``,
+``MLP``, ``GINConv``, ``GENConv``) in the dense, banded and degree-padded
+aggregation modes. Attention math matches PyG GATConv (LeakyReLU 0.2,
+self-loops added, per-receiver softmax).
 
 On the banded path every GATConv goes through one of the four routes of
-``ops.band_attention`` (the graph's ``band_attn``) and every SimpleMeanConv
-through ``ops.band_spmm``; on the dense path a GATConv
-goes through ``ops.graph_attention`` (``fused_factored`` or
+``ops.band_attention`` (the graph's ``band_attn``), and every
+parameter-free aggregation (the mean, GIN's neighbour sum, the GCN and
+Chebyshev operators: :func:`_band_agg`) through ``ops.band_spmm`` on the
+int8 count band, its row and column scales applied outside; on the dense
+path a GATConv goes through ``ops.graph_attention`` (``fused_factored`` or
 ``fused_attention``, by ``attn_impl``), at any width and any n: autograd
 Functions that launch the hand-written kernels, forward and backward, when
 the graph lies on a CUDA device, and run the kernels' plain versions on the
 CPU. The graph carries the compressed index of each mask or band that the
-kernels walk. The dense SimpleMeanConv is one ``torch.einsum`` with the
-``[n, n]`` mean operator, as in the JAX layer. The padded path gathers
-neighbour slots with ``ops.padded`` and reduces over them in plain torch, as
-the JAX layer does in plain XLA.
+kernels walk. The dense aggregations are one ``torch.einsum`` with the
+template's ``[n, n]`` operator, as in the JAX layers. The padded path
+gathers neighbour slots with ``ops.padded`` and reduces over them in plain
+torch, as the JAX layers do in plain XLA. GENConv gathers over the edge list
+and sums per receiver with ``ops.segment`` in every mode, as the JAX layer
+does.
 
-Parameters are initialised glorot-uniform (weights) and zero (biases), as
-the JAX layers do, from an optional ``torch.Generator``.
+Divergence from the JAX layers: at channel widths that are not a multiple
+of 128 the JAX banded aggregations take plain XLA over the float bands
+(``band_adj``, ``band_gcn``, ``band_cheb``); here every width goes through
+the kernel over the counts and the scales. The math is the same; the order
+of the sums differs.
+
+Parameters are initialised as the JAX layers do, from an optional
+``torch.Generator``: glorot-uniform for conv weights (flax's fans: a
+``[K, in, out]`` Chebyshev weight has fan_in K·in, fan_out K·out),
+U(±1/√fan_in) for the MLP and GIN heads (``torch_linear``), zero biases.
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ from torch import nn
 
 from gnn_pressure_estimation_tpu_torch.core.graph import BatchedGraph
 from gnn_pressure_estimation_tpu_torch.ops import banded as bops
+from gnn_pressure_estimation_tpu_torch.ops import segment
 from gnn_pressure_estimation_tpu_torch.ops.band_attention import (
     band_attention, band_attention_acc, band_attention_flash, band_attention_window, round_bf16,
 )
@@ -61,6 +75,79 @@ def glorot_(t: torch.Tensor, fan_in: int, fan_out: int,
     flax's ``glorot_uniform`` for the same parameter."""
     bound = math.sqrt(6.0 / (fan_in + fan_out))
     return t.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def torch_linear_(t: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """U(±1/√fan_in) in place: ``torch.nn.Linear``'s default weight bound,
+    the JAX layers' ``torch_linear`` initialiser."""
+    bound = 1.0 / math.sqrt(fan_in)
+    return t.uniform_(-bound, bound, generator=generator)
+
+
+def _band_agg(kind: str, x: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
+    """A parameter-free banded aggregation through ``ops.band_spmm`` on the
+    int8 count band, the factored scales applied outside (x in perm + pad
+    space, [B·n_pad, C] → [B·n_pad, C]): ``"adj"`` the counts; ``"mean"``
+    rows × 1/deg; ``"gcn"`` the counts with self-loops, rows and columns ×
+    1/√(deg+1); ``"cheb"`` columns × 1/√deg, rows × −1/√deg."""
+    B, n_pad = graph.n_graph, graph.band_n_pad
+    band, index, rs, cs = graph.band_cnt, graph.band_cnt_index, None, None
+    if kind == "mean":
+        rs = graph.band_inv_deg
+    elif kind == "gcn":
+        band, index = graph.band_cnt_sl, graph.band_cnt_sl_index
+        rs = cs = graph.band_dinv_sl
+    elif kind == "cheb":
+        rs, cs = -graph.band_dinv, graph.band_dinv
+    elif kind != "adj":
+        raise ValueError(f"unknown band aggregation {kind!r}")
+    xb = x.reshape(B, n_pad, -1)
+    if cs is not None:
+        xb = xb * cs[None, :, None]
+    out = band_spmm(band, bops.extend_rows(xb, graph.band_U, graph.band_R), index)
+    if rs is not None:
+        out = out * rs[None, :, None]
+    return out.reshape(B * n_pad, -1)
+
+
+def _dense_agg(mat: torch.Tensor, x: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
+    """``out[b] = mat @ x[b]`` with a template-level [n, n] operator."""
+    B, n = graph.n_graph, graph.nodes_per_graph
+    return torch.einsum("ij,bjc->bic", mat, x.reshape(B, n, -1)).reshape(B * n, -1)
+
+
+def _padded_weighted_agg(gather_fn, x: torch.Tensor, w_dp: torch.Tensor) -> torch.Tensor:
+    """Σ_d w[n, d] · x[senders[n, d]]: the degree-padded weighted sum (the
+    weights are zero on empty slots)."""
+    return torch.einsum("nd,ndc->nc", w_dp, gather_fn(x))
+
+
+def _padded_sum(x: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
+    """Σ over each node's valid in-edge slots."""
+    return torch.where(graph.mask_dp[..., None], graph.gather_dp(x), 0.0).sum(dim=1)
+
+
+def _aggregate(kind: str, x: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
+    """One of the parameter-free aggregations in the graph's mode: ``"adj"``
+    (the neighbour sum), ``"mean"``, ``"gcn"`` (symmetric-normalised, with
+    self-loops) or ``"cheb"`` (the scaled Laplacian −D^-1/2 A D^-1/2)."""
+    if graph.dense:
+        mat = {"adj": graph.adj_mat, "mean": graph.mean_mat, "gcn": graph.gcn_mat,
+               "cheb": graph.cheb_mat}[kind]
+        return _dense_agg(mat, x, graph)
+    if graph.banded:
+        return _band_agg(kind, x, graph)
+    if graph.padded:
+        if kind == "adj":
+            return _padded_sum(x, graph)
+        if kind == "mean":
+            return _padded_sum(x, graph) * graph.inv_degree[:, None]
+        if kind == "gcn":
+            return _padded_weighted_agg(graph.gather_dp_sl, x, graph.gcn_dp_sl)
+        return _padded_weighted_agg(graph.gather_dp, x, graph.cheb_dp)
+    raise NotImplementedError("the segment aggregation mode is not yet ported")
 
 
 class GATConv(nn.Module):
@@ -107,6 +194,8 @@ class GATConv(nn.Module):
     accepted and changes nothing: the gate is 0/1, exact in either type, and
     the factored kernel never stores it.
     """
+
+    FLAX_NAMES = {"lin.weight": "w"}   # the projection is the flax module's leaf w
 
     def __init__(self, in_channels: int, out_channels: int, heads: int = 1,
                  concat: bool = True, negative_slope: float = 0.2,
@@ -224,17 +313,192 @@ class SimpleMeanConv(nn.Module):
     the valid in-edge slots and scales by 1/deg."""
 
     def forward(self, x: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
-        B = graph.n_graph
-        if graph.dense:
-            out = torch.einsum("ij,bjc->bic", graph.mean_mat, x.view(B, graph.nodes_per_graph, -1))
-        elif graph.banded:
-            x_ext = bops.extend_rows(x.view(B, graph.band_n_pad, -1), graph.band_U, graph.band_R)
-            out = band_spmm(graph.band_cnt, x_ext, graph.band_cnt_index) \
-                * graph.band_inv_deg[None, :, None]
-        elif graph.padded:
-            nbr = graph.gather_dp(x)                                            # [N, D, C]
-            out = torch.where(graph.mask_dp[..., None], nbr, 0.0).sum(dim=1) \
-                * graph.inv_degree[:, None]
+        return _aggregate("mean", x, graph)
+
+
+class GCNConv(nn.Module):
+    """GCN conv: symmetric normalisation with self-loops, D^-1/2 (A+I)
+    D^-1/2 · x W (+ bias). ``normalize=False`` is PyG's flag: the plain
+    neighbour sum, no self-loops, no normalisation (the remask stack's
+    stem)."""
+
+    FLAX_NAMES = {"lin.weight": "w"}   # the projection is the flax module's leaf w
+
+    def __init__(self, in_channels: int, out_channels: int, use_bias: bool = True,
+                 normalize: bool = True):
+        super().__init__()
+        self.in_channels, self.out_channels, self.normalize = in_channels, out_channels, normalize
+        self.lin = nn.Linear(in_channels, out_channels, bias=False)
+        self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        glorot_(self.lin.weight, self.in_channels, self.out_channels, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
+        out = _aggregate("gcn" if self.normalize else "adj", self.lin(x), graph)
+        return out if self.bias is None else out + self.bias
+
+
+class GCN2Conv(nn.Module):
+    """GCNII layer (Chen et al. 2020), PyG ``GCN2Conv`` with shared weights:
+    H = (1−α)·Â x + α·x0; out = (1−β)·H + β·(H W), β = log(θ/ℓ + 1)."""
+
+    FLAX_NAMES = {"lin.weight": "w"}
+
+    def __init__(self, channels: int, alpha: float = 0.1, theta: float = 0.5,
+                 layer_index: int = 1):
+        super().__init__()
+        self.channels, self.alpha = channels, alpha
+        self.beta = math.log(theta / layer_index + 1.0)
+        self.lin = nn.Linear(channels, channels, bias=False)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        glorot_(self.lin.weight, self.channels, self.channels, generator)
+
+    def forward(self, x: torch.Tensor, x0: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
+        h = (1.0 - self.alpha) * _aggregate("gcn", x, graph) + self.alpha * x0
+        return (1.0 - self.beta) * h + self.beta * self.lin(h)
+
+
+class ChebConv(nn.Module):
+    """Chebyshev spectral conv, PyG ``ChebConv`` (sym norm, λmax = 2): the
+    scaled Laplacian is L̃ = −D^-1/2 A D^-1/2; T0 = x, T1 = L̃ x,
+    Tk = 2 L̃ T(k−1) − T(k−2); out = Σ Tk Wk (+ bias). The weight keeps the
+    JAX layout, ``[K, in, out]``. Any K is a plain loop over the recurrence
+    (the JAX layer rolls K > 8 into one ``lax.scan``, which changes its
+    program, not its math)."""
+
+    FLAX_NAMES = {"weight": "w"}
+
+    def __init__(self, in_channels: int, out_channels: int, K: int, use_bias: bool = True):
+        super().__init__()
+        self.in_channels, self.out_channels, self.K = in_channels, out_channels, K
+        self.weight = nn.Parameter(torch.empty(K, in_channels, out_channels))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        K = self.K
+        glorot_(self.weight, K * self.in_channels, K * self.out_channels, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
+        w = self.weight
+        tx_prev, out = x, x @ w[0]
+        if self.K > 1:
+            tx = _aggregate("cheb", x, graph)
+            out = out + tx @ w[1]
+            for k in range(2, self.K):
+                tx_next = 2.0 * _aggregate("cheb", tx, graph) - tx_prev
+                out = out + tx_next @ w[k]
+                tx_prev, tx = tx, tx_next
+        return out if self.bias is None else out + self.bias
+
+
+class MLP(nn.Module):
+    """Linear stack with SELU between hidden layers (the reference's custom
+    MLP, which GIN and m_GCN use); weights U(±1/√fan_in), zero biases. The
+    JAX layer's dropout, which no model of the zoo sets, is not ported."""
+
+    FLAX_NAMES = {"layers": "Dense_{}"}
+
+    def __init__(self, in_channels: int, dims: tuple, use_bias: bool = True):
+        super().__init__()
+        widths = (in_channels,) + tuple(dims)
+        self.layers = nn.ModuleList(nn.Linear(a, b, bias=use_bias)
+                                    for a, b in zip(widths[:-1], widths[1:]))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for lin in self.layers:
+            torch_linear_(lin.weight, lin.in_features, generator)
+            if lin.bias is not None:
+                nn.init.zeros_(lin.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, lin in enumerate(self.layers):
+            x = lin(x)
+            if i < len(self.layers) - 1:
+                x = F.selu(x)
+        return x
+
+
+class GINConv(nn.Module):
+    """GIN conv: ``nn((1+eps)·x + Σ_j x_j)``, no self-loops; ``nn`` is the
+    SELU MLP of ``mlp_dims`` or, with ``linear_out``, a bias-free Linear."""
+
+    FLAX_NAMES = {"mlp": "MLP_0", "lin": "Dense_0"}
+
+    def __init__(self, in_channels: int, mlp_dims: Optional[tuple] = None,
+                 linear_out: Optional[int] = None, eps: float = 0.0):
+        super().__init__()
+        if (mlp_dims is None) == (linear_out is None):
+            raise ValueError("GINConv takes mlp_dims or linear_out")
+        self.eps = eps
+        self.mlp = MLP(in_channels, mlp_dims) if mlp_dims is not None else None
+        self.lin = nn.Linear(in_channels, linear_out, bias=False) if linear_out else None
+        self.out_channels = mlp_dims[-1] if mlp_dims is not None else linear_out
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        if self.mlp is not None:
+            self.mlp.reset_parameters(generator)
         else:
-            raise NotImplementedError("the segment aggregation mode is not yet ported")
-        return out.reshape(B * graph.nodes_per_graph, -1)
+            torch_linear_(self.lin.weight, self.lin.in_features, generator)
+
+    def forward(self, x: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
+        h = (1.0 + self.eps) * x + _aggregate("adj", x, graph)
+        return self.mlp(h) if self.mlp is not None else self.lin(h)
+
+
+class GENConv(nn.Module):
+    """m_GCN's GENConvolution (the reference's GraphModels.py:277-397):
+
+        message = selu(concat(x_j, e_ij)) + eps      (eps 1e-7)
+        e_ij    = edge_emb + |x_src − x_dst|
+        latent  = Σ_j message                         (add aggregation)
+        latent  = res(latent) [mlp] or tanh(res(latent)) [not mlp]
+        latent += x_i                                 (residual)
+        latent  = MLP(latent)                         [mlp only]
+
+    Over the edge list in every mode: ``ops.segment`` gathers the endpoints
+    and sums per receiver, with no atomics. ``edge_emb`` says whether the
+    layer takes edge embeddings (then ``res`` reads 2·latent channels); the
+    JAX layer infers that from its first call. The JAX layer's ``residual``
+    and ``dropout`` options, which m_GCN never changes, are not ported."""
+
+    def __init__(self, latent_dim: int, edge_emb: bool = True, use_bias: bool = False,
+                 num_layers: int = 2, eps: float = 1e-7):
+        super().__init__()
+        d = latent_dim
+        self.latent_dim, self.edge_emb, self.eps = d, edge_emb, eps
+        self.res = nn.Linear(2 * d if edge_emb else d, d, bias=use_bias)
+        self.mlp = MLP(d, tuple([2 * d] * (num_layers - 1) + [d]), use_bias=use_bias)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        torch_linear_(self.res.weight, self.res.in_features, generator)
+        if self.res.bias is not None:
+            nn.init.zeros_(self.res.bias)
+        self.mlp.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, graph: BatchedGraph, edge_emb: Optional[torch.Tensor],
+                mlp: bool = True) -> torch.Tensor:
+        if (edge_emb is not None) != self.edge_emb:
+            raise ValueError(f"GENConv built with edge_emb={self.edge_emb} got "
+                             f"{'no ' if edge_emb is None else ''}edge embeddings")
+        edges = graph.edges
+        x_src = segment.gather_src(x, edges)
+        if edge_emb is not None:
+            e = edge_emb + torch.abs(x_src - segment.gather(x, edges))
+            msg = torch.cat([x_src, e], dim=-1)
+        else:
+            msg = x_src
+        latent = segment.segment_sum(F.selu(msg) + self.eps, edges)
+        latent = (self.res(latent) if mlp else torch.tanh(self.res(latent))) + x
+        return self.mlp(latent) if mlp else latent

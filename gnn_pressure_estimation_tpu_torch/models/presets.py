@@ -1,14 +1,17 @@
 """Model presets — name → (constructor, training-config contract).
 
-The counterpart of ``gnn_pressure_estimation_tpu/models/presets.py``. Only
-the GATRes presets are ported; the other names of the JAX registry raise.
+The counterpart of ``gnn_pressure_estimation_tpu/models/presets.py``: the
+eight names of the JAX registry, GATRes-small and -large and the baseline
+zoo, each with its criterion, normalisation and edge attributes.
 ``apply_model_knobs`` sets the attention knobs (``attn_impl``,
-``attn_dtype``, ``gate_dtype``) on a built model, as the JAX CLI does.
+``attn_dtype``, ``gate_dtype``) on a built model, as the JAX CLI does, and
+raises where the JAX function raises: on a model without the knob.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -17,14 +20,13 @@ from torch import nn
 from gnn_pressure_estimation_tpu_torch.device import resolve_device
 from gnn_pressure_estimation_tpu_torch.models.gatres import GATRes
 from gnn_pressure_estimation_tpu_torch.models.layers import ATTN_IMPLS, check_dtype_knob
-
-NOT_YET_PORTED = ("gin", "graphconvwat", "chebnet", "mgcn", "gcn2", "gat")
+from gnn_pressure_estimation_tpu_torch.models.zoo import GAT, GCN2, GIN, MGCN, ChebNet, GraphConvWat
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelPreset:
     name: str
-    build: Callable[[], nn.Module]
+    build: Callable[..., nn.Module]   # the model class at the preset's hyperparameters
     criterion: str = "mse"          # mse | mae | sce
     norm_type: str = "znorm"        # znorm | minmax | unused
     edge_attrs: Optional[tuple] = None
@@ -46,11 +48,38 @@ MODEL_REGISTRY: dict[str, ModelPreset] = {
     # path runs the windowed softmax either way, through the kernel the graph
     # names (train_config(band_attn=..., band_block=...) passes the choice on)
     "gatres_small": ModelPreset(
-        "gatres_small", lambda: GATRes(num_blocks=15, channels=32, attn_impl="factored"),
+        "gatres_small",
+        functools.partial(GATRes, num_blocks=15, channels=32, attn_impl="factored"),
         criterion="mse", norm_type="znorm",
     ),
     "gatres_large": ModelPreset(
-        "gatres_large", lambda: GATRes(num_blocks=25, channels=128, attn_impl="factored"),
+        "gatres_large",
+        functools.partial(GATRes, num_blocks=25, channels=128, attn_impl="factored"),
+        criterion="mse", norm_type="znorm",
+    ),
+    "gin": ModelPreset(
+        "gin", functools.partial(GIN, num_blocks=15, channels=32),
+        criterion="mse", norm_type="znorm",
+    ),
+    "graphconvwat": ModelPreset(
+        "graphconvwat", functools.partial(GraphConvWat), criterion="mse", norm_type="minmax",
+    ),
+    "chebnet": ModelPreset(
+        "chebnet", functools.partial(ChebNet, channels=32), criterion="mse", norm_type="znorm",
+    ),
+    # edge_dim is the number of edge attributes, which the JAX model reads
+    # off the graph at init: select_model(..., edge_dim=) sets it
+    "mgcn": ModelPreset(
+        "mgcn",
+        functools.partial(MGCN, latent_dim=96, n_aggr=45, n_hops=1, num_layers=2, edge_dim=2),
+        criterion="mae", norm_type="minmax", edge_attrs=("diameter", "length"),
+    ),
+    "gcn2": ModelPreset(
+        "gcn2", functools.partial(GCN2, num_blocks=64, channels=32),
+        criterion="mse", norm_type="znorm",
+    ),
+    "gat": ModelPreset(
+        "gat", functools.partial(GAT, num_blocks=10, channels=32),
         criterion="mse", norm_type="znorm",
     ),
 }
@@ -91,15 +120,22 @@ def apply_model_knobs(model: nn.Module, attn_impl=None, gate_dtype=None,
     return model
 
 
-def select_model(name: str, device="cuda", seed: int = 0) -> tuple[nn.Module, ModelPreset]:
-    """The preset's model with glorot weights drawn from ``seed``, on
-    ``device`` (raises if that is CUDA and no card is present)."""
+def select_model(name: str, device="cuda", seed: int = 0,
+                 edge_dim: Optional[int] = None) -> tuple[nn.Module, ModelPreset]:
+    """The preset's model with its weights drawn from ``seed`` as the JAX
+    layers draw them, on ``device`` (raises if that is CUDA and no card is
+    present). ``edge_dim``, for a preset with edge attributes (m_GCN), is
+    the number of attributes the data carries, which the JAX model reads
+    off the graph; None keeps the preset's."""
     dev = resolve_device(device)
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(f"model '{name}' is not yet ported")
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model '{name}'; available: {sorted(MODEL_REGISTRY)}")
     preset = MODEL_REGISTRY[name]
-    model = preset.make()
+    if edge_dim is None:
+        model = preset.make()
+    elif preset.edge_attrs is None:
+        raise ValueError(f"model '{name}' reads no edge attributes; edge_dim does not apply")
+    else:
+        model = preset.build(edge_dim=edge_dim)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(dev), preset

@@ -274,14 +274,17 @@ class Trainer:
         return loss.detach(), mets
 
     def _block_grad_norms(self) -> dict:
-        """Gradient norm of every top-level part whose name holds block, mlp,
-        res or gcn (``grad_norm_block_3`` …), as the JAX package logs them."""
+        """Gradient norm of every top-level part whose flax name holds block,
+        mlp, res or gcn (``grad_norm_block_3``, ``grad_norm_gcn_0``,
+        ``grad_norm_GCN2Conv_5`` …), as the JAX package logs them."""
+        from gnn_pressure_estimation_tpu_torch.weights import flax_names
+
+        names = flax_names(self.model)
         groups: dict[str, list] = {}
-        for name, p in self.model.named_parameters():
+        for key, p in self.model.named_parameters():
             if p.grad is None:
                 continue
-            parts = name.split(".")
-            top = f"{parts[0][:-1]}_{parts[1]}" if parts[0] == "blocks" else parts[0]
+            top = names[key][0][0]
             if any(tag in top.lower() for tag in ("block", "mlp", "res", "gcn")):
                 groups.setdefault(top, []).append(p.grad)
         return {f"grad_norm_{k}": _global_norm(v) for k, v in groups.items()}

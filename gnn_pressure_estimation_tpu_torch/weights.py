@@ -1,52 +1,101 @@
-"""Carry GATRes weights across from the JAX package.
+"""Carry weights across from the JAX package: GATRes, the model zoo and the
+remask variants.
 
-``params_from_flax`` maps a JAX/Flax GATRes parameter tree, given as nested
-dicts of arrays (``params["params"]["block_i"]["GATConv_0"]["w"]`` …), onto
-the port's ``state_dict``. ``params_from_parity_npz`` does the same for the
-torch-layout parity fixtures that ``tools/parity_export.py`` writes
-(``w_lin0``, ``blk{i}_conv{j}_lin_w`` …). ``params_to_flax`` is the inverse
-of the first. Any tree of the parameters' structure maps the same way, so
-gradients and Adam moments cross too: ``adam_state_from_optax`` turns
-optax's ``mu``/``nu``/``count`` into the ``state`` of
+``params_from_flax`` maps a JAX/Flax parameter tree, given as nested dicts
+of arrays (``params["params"]["block_i"]["GATConv_0"]["w"]`` …), onto the
+``state_dict`` of a port model of the same structure; ``params_to_flax`` is
+its inverse. Both read :func:`flax_names`, the one table of each model:
+every module class states in ``FLAX_NAMES`` the flax name of each part
+whose name differs (``{"blocks": "block_{}"}``, ``{"conv1": "GATConv_0"}``,
+``{"convs": "GINConv_{}"}``, ``{"lin.weight": "w"}`` …), and an
+``nn.Linear`` is a flax ``Dense``, its ``weight`` [out, in] the ``kernel``
+[in, out] transposed. ``params_from_parity_npz`` maps the torch-layout
+GATRes parity fixtures that ``tools/parity_export.py`` writes (``w_lin0``,
+``blk{i}_conv{j}_lin_w`` …). Any tree of the parameters' structure maps the
+same way, so gradients and Adam moments cross too: ``adam_state_from_optax``
+turns optax's ``mu``/``nu``/``count`` into the ``state`` of
 ``torch.optim.Adam.state_dict()``. None of this needs JAX: the arrays are
 read through numpy.
-
-Layout (Flax → port):
-  lin0/kernel [in, nc]             → lin0.weight [nc, in] (transposed), lin0.bias
-  block_i/GATConv_0/w [in, H·C]    → blocks.i.conv1.lin.weight [H·C, in]
-  block_i/GATConv_0/att_src|att_dst [1, H, C] → blocks.i.conv1.att_src|att_dst
-  block_i/GATConv_0/bias           → blocks.i.conv1.bias
-  (GATConv_1 ↔ conv2; SimpleMeanConv has no parameters)
-  lin1/kernel [nc, 1]              → lin1.weight [1, nc], lin1.bias
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
-def params_from_flax(tree) -> dict[str, torch.Tensor]:
+def _leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def flax_names(model: nn.Module) -> dict[str, tuple[tuple[str, ...], bool]]:
+    """Each ``state_dict`` key of ``model``, in ``named_parameters()`` order,
+    → (its flax parameter path, whether the array is transposed), from the
+    ``FLAX_NAMES`` table of each module on the way: a child's flax name (a
+    ModuleList's ``"{}"`` takes the index), a parameter's, or, keyed
+    ``"<child>.weight"``, the flax leaf that a bias-free projection child
+    is. Names not in a table are the same in flax."""
+    out = {}
+
+    def walk(mod: nn.Module, port: str, flax: tuple):
+        table = getattr(mod, "FLAX_NAMES", {})
+        dense = isinstance(mod, nn.Linear)
+        for name, _ in mod.named_parameters(recurse=False):
+            kernel = dense and name == "weight"
+            out[port + name] = (flax + ("kernel" if kernel else table.get(name, name),), kernel)
+        for name, child in mod.named_children():
+            if name + ".weight" in table:
+                out[f"{port}{name}.weight"] = (flax + (table[name + ".weight"],), True)
+            elif isinstance(child, nn.ModuleList):
+                for i, c in enumerate(child):
+                    walk(c, f"{port}{name}.{i}.", flax + (table[name].format(i),))
+            else:
+                walk(child, f"{port}{name}.", flax + (table.get(name, name),))
+
+    walk(model, "", ())
+    return out
+
+
+def params_from_flax(tree, model: nn.Module) -> dict[str, torch.Tensor]:
+    """A flax parameter tree (or any tree of its structure) → ``model``'s
+    ``state_dict``, of the leaves present; raises on a leaf the model does
+    not have."""
     p = tree["params"] if "params" in tree else tree
+    leaves = dict(_leaves(p))
     sd = {}
-    for lin in ("lin0", "lin1"):
-        sd[f"{lin}.weight"] = _t(np.asarray(p[lin]["kernel"]).T)
-        sd[f"{lin}.bias"] = _t(p[lin]["bias"])
-    i = 0
-    while f"block_{i}" in p:
-        blk = p[f"block_{i}"]
-        for j, conv in enumerate(("GATConv_0", "GATConv_1"), start=1):
-            c, pre = blk[conv], f"blocks.{i}.conv{j}"
-            sd[f"{pre}.lin.weight"] = _t(np.asarray(c["w"]).T)
-            sd[f"{pre}.att_src"] = _t(c["att_src"])
-            sd[f"{pre}.att_dst"] = _t(c["att_dst"])
-            sd[f"{pre}.bias"] = _t(c["bias"])
-        i += 1
+    for key, (path, transpose) in flax_names(model).items():
+        if path in leaves:
+            a = leaves.pop(path)
+            sd[key] = _t(np.asarray(a).T if transpose else a)
+    if leaves:
+        raise ValueError(f"{type(model).__name__} has no parameter for the flax leaves "
+                         f"{sorted('/'.join(k) for k in leaves)[:4]}")
     return sd
+
+
+def params_from_fixture(fx, model: nn.Module, prefix: str = "param") -> dict[str, torch.Tensor]:
+    """A fixture that stores a flax tree flat, one array per
+    ``<prefix>/<flax path>`` key (``tools/parity_zoo_export.py``: ``param``,
+    ``grad``, ``p3``), → ``model``'s ``state_dict`` (of the keys present)."""
+    tree: dict = {}
+    for key in fx.files if hasattr(fx, "files") else fx:
+        if not key.startswith(prefix + "/"):
+            continue
+        *mods, leaf = key[len(prefix) + 1:].split("/")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.asarray(fx[key])
+    return params_from_flax(tree, model)
 
 
 def params_from_parity_npz(path) -> dict[str, torch.Tensor]:
@@ -65,37 +114,29 @@ def params_from_parity_npz(path) -> dict[str, torch.Tensor]:
     return sd
 
 
-def params_to_flax(state_dict) -> dict:
-    """The inverse of :func:`params_from_flax`: a ``state_dict`` (or any dict
-    of that structure) → ``{"params": nested dicts of numpy arrays}``."""
-    def a(k):
-        return np.array(torch.as_tensor(state_dict[k]).detach().cpu().numpy(), copy=True)
-
-    p = {lin: {"kernel": a(f"{lin}.weight").T, "bias": a(f"{lin}.bias")}
-         for lin in ("lin0", "lin1")}
-    i = 0
-    while f"blocks.{i}.conv1.bias" in state_dict:
-        p[f"block_{i}"] = {
-            f"GATConv_{j - 1}": {
-                "w": a(f"blocks.{i}.conv{j}.lin.weight").T,
-                "att_src": a(f"blocks.{i}.conv{j}.att_src"),
-                "att_dst": a(f"blocks.{i}.conv{j}.att_dst"),
-                "bias": a(f"blocks.{i}.conv{j}.bias"),
-            }
-            for j in (1, 2)
-        }
-        i += 1
+def params_to_flax(state_dict, model: nn.Module) -> dict:
+    """The inverse of :func:`params_from_flax`: a ``state_dict`` of
+    ``model`` (or any dict of that structure) → ``{"params": nested dicts of
+    numpy arrays}``."""
+    names = flax_names(model)
+    p: dict = {}
+    for key, v in state_dict.items():
+        path, transpose = names[key]
+        a = np.array(torch.as_tensor(v).detach().cpu().numpy(), copy=True)
+        node = p
+        for m in path[:-1]:
+            node = node.setdefault(m, {})
+        node[path[-1]] = a.T if transpose else a
     return {"params": p}
 
 
-def adam_state_from_optax(mu_tree, nu_tree, count, param_names) -> dict[int, dict]:
+def adam_state_from_optax(mu_tree, nu_tree, count, model: nn.Module) -> dict[int, dict]:
     """optax ``ScaleByAdamState`` (``mu``, ``nu`` as nested dicts of arrays,
-    ``count``) → the ``state`` part of ``torch.optim.Adam.state_dict()``,
-    indexed in the order of ``param_names`` (the model's
-    ``named_parameters()`` order)."""
-    mu, nu = params_from_flax(mu_tree), params_from_flax(nu_tree)
+    ``count``) → the ``state`` part of ``torch.optim.Adam.state_dict()`` for
+    ``model``, indexed in its ``named_parameters()`` order."""
+    mu, nu = params_from_flax(mu_tree, model), params_from_flax(nu_tree, model)
     return {
         i: {"step": torch.tensor(float(count), dtype=torch.float32),
             "exp_avg": mu[name], "exp_avg_sq": nu[name]}
-        for i, name in enumerate(param_names)
+        for i, (name, _) in enumerate(model.named_parameters())
     }

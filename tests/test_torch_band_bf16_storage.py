@@ -275,8 +275,9 @@ def test_gatres_two_blocks_stored_rows_equal_round_on_load(rng, monkeypatch, rou
 def test_model_path_hands_bf16_rows_and_builds_no_f32_x_ext(rng, monkeypatch, route):
     """GATRes under attn_dtype bf16: every bf16-operand forward receives its
     x_ext in bf16, and ``extend_rows`` (f32) extends no projected rows
-    [B, n_pad, H, C]: it runs only for SimpleMeanConv and for the windows of
-    the logit halves a_s [B, n_pad, H] (``band_windows``)."""
+    [B, n_pad, H, C]: it runs only for SimpleMeanConv (through the banded
+    aggregation ``_band_agg``, which it shares with the model zoo) and for
+    the windows of the logit halves a_s [B, n_pad, H] (``band_windows``)."""
     tpl, g = _graph(route)
     n = tpl.n_node
     seen, callers = [], []
@@ -288,7 +289,10 @@ def test_model_path_hands_bf16_rows_and_builds_no_f32_x_ext(rng, monkeypatch, ro
         return real_fwd(a_dst, a_src_win, x_ext, *args)
 
     def spy_ext(x_bp, U, R):
-        callers.append((sys._getframe(1).f_code.co_qualname, x_bp.dim()))
+        caller = sys._getframe(1).f_code.co_qualname
+        if caller == "_band_agg":       # called by _aggregate, called by the layer
+            caller = f"{sys._getframe(3).f_code.co_qualname} > _band_agg"
+        callers.append((caller, x_bp.dim()))
         return real_ext(x_bp, U, R)
     monkeypatch.setattr(pba, name, spy_fwd)
     monkeypatch.setattr(bops, "extend_rows", spy_ext)
@@ -297,5 +301,6 @@ def test_model_path_hands_bf16_rows_and_builds_no_f32_x_ext(rng, monkeypatch, ro
     x = g.pack_nodes(torch.as_tensor(rng.standard_normal((2 * n, 1)), dtype=torch.float32), n)
     model(x.requires_grad_(), g).sum().backward()
     assert seen == [(torch.bfloat16, True)] * 4
-    assert sorted(set(callers)) == [("SimpleMeanConv.forward", 3), ("band_windows", 3)]
-    assert callers.count(("SimpleMeanConv.forward", 3)) == 2
+    assert sorted(set(callers)) == [("SimpleMeanConv.forward > _band_agg", 3),
+                                    ("band_windows", 3)]
+    assert callers.count(("SimpleMeanConv.forward > _band_agg", 3)) == 2

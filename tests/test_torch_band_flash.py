@@ -380,7 +380,7 @@ def test_train_step_on_banded_minitown_matches_jax_trainer(rng, monkeypatch, rou
                      JaxNormStats(**stats), jt)
     ptr = Trainer(GATRes(2, nc), TrainConfig(band_attn=route, **kw), NormStats(**stats), pt,
                   device="cpu")
-    ptr.model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, jtr.params)))
+    ptr.model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, jtr.params), ptr.model))
     xb = rng.standard_normal((bs, n)).astype(np.float32)
     k = masked_count(n, 0.5)
     mask = np.zeros((bs, n), bool)
@@ -411,7 +411,7 @@ def test_train_step_on_banded_minitown_matches_jax_trainer(rng, monkeypatch, rou
     for name in mets:
         np.testing.assert_allclose(float(mets[name]), float(jmets[name]), rtol=1e-4, atol=2e-5,
                                    err_msg=name)
-    ref = params_from_flax(jax.tree.map(np.asarray, jgrads))
+    ref = params_from_flax(jax.tree.map(np.asarray, jgrads), ptr.model)
     for (name, _), g in zip(ptr.model.named_parameters(), grads):
         np.testing.assert_allclose(g.numpy(), ref[name].numpy(), rtol=1e-3, atol=1e-5, err_msg=name)
 

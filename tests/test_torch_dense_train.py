@@ -76,7 +76,7 @@ def test_dense_train_step_matches_jax_trainer(rng, monkeypatch, impl, env, crite
     # biases off zero, so that the masked (zeroed) nodes do not all share one logit
     jparams = jax.tree.map(
         lambda a: a + 0.1 * jnp.asarray(rng.standard_normal(a.shape), jnp.float32), jtr.params)
-    ptr.model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, jparams)))
+    ptr.model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, jparams), ptr.model))
 
     jg = jtr._batched_graph(jt, bs)
     assert jg.dense
@@ -103,7 +103,7 @@ def test_dense_train_step_matches_jax_trainer(rng, monkeypatch, impl, env, crite
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
     for k in mets:
         np.testing.assert_allclose(float(mets[k]), float(jmets[k]), rtol=1e-4, atol=2e-5, err_msg=k)
-    ref = params_from_flax(jax.tree.map(np.asarray, jgrads))
+    ref = params_from_flax(jax.tree.map(np.asarray, jgrads), ptr.model)
     for (name, _), g in zip(ptr.model.named_parameters(), grads):
         np.testing.assert_allclose(g.numpy(), ref[name].numpy(), rtol=1e-3, atol=1e-5, err_msg=name)
 
@@ -115,7 +115,7 @@ def test_dense_train_step_matches_jax_trainer(rng, monkeypatch, impl, env, crite
         updates, jopt = jtr.tx.update(g, jopt, jp)
         jp = optax.apply_updates(jp, updates)
         ptr.train_step(pt, xb, mask=mask)
-    ref = params_from_flax(jax.tree.map(np.asarray, jp))
+    ref = params_from_flax(jax.tree.map(np.asarray, jp), ptr.model)
     for name, p in ptr.model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), ref[name].numpy(), rtol=0, atol=2e-5,
                                    err_msg=name)

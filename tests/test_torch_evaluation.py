@@ -72,7 +72,7 @@ def setup(tmp_path_factory):
         np.asarray, jmodel.init(jax.random.PRNGKey(0), jnp.zeros((g.n_node, 1)), g))
     params["params"]["lin1"]["kernel"] = params["params"]["lin1"]["kernel"] * 100.0
     model = GATRes(2, 8)
-    model.load_state_dict(params_from_flax(params))
+    model.load_state_dict(params_from_flax(params, model))
     names = jtest.members[0].template.node_names
     return dict(jtest=jtest, test=test, jstats=jtrain.stats, stats=train.stats, jmodel=jmodel,
                 params=params, model=model, sensors=[names[3], names[0], names[11]])

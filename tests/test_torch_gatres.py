@@ -47,8 +47,8 @@ def test_gatres_matches_jax(rng, mode, attn_impl):
     ref = jm.apply(params, jx, jg)
     ref = np.asarray(jg.unpack_nodes(ref, n) if mode == "banded" else ref)
 
-    model = _port_model(2, 64, attn_impl,
-                        params_from_flax(jax.tree_util.tree_map(np.asarray, params)))
+    model = _port_model(2, 64, attn_impl, params_from_flax(
+        jax.tree_util.tree_map(np.asarray, params), GATRes(2, 64)))
     with torch.no_grad():
         tx = torch.from_numpy(x)
         out = model(pg.pack_nodes(tx, n) if mode == "banded" else tx, pg)
@@ -96,8 +96,9 @@ def test_flax_and_npz_weights_agree(tmp_path, rng):
             for f in ("att_src", "att_dst", "bias"):
                 payload[f"blk{i}_conv{j}_{f}"] = c[f]
     np.savez(tmp_path / "w.npz", **payload)
-    a, b = params_from_flax(p), params_from_parity_npz(tmp_path / "w.npz")
-    assert a.keys() == b.keys() == GATRes(2, 8).state_dict().keys()
+    model = GATRes(2, 8)
+    a, b = params_from_flax(p, model), params_from_parity_npz(tmp_path / "w.npz")
+    assert a.keys() == b.keys() == model.state_dict().keys()
     for k in a:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
 

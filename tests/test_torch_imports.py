@@ -42,7 +42,9 @@ def test_port_imports_no_jax():
             "simgen/units.py", "simgen/network_state.py", "simgen/solver_py.py",
             "simgen/solver_cpp.py", "simgen/solver_api.py", "evaluation/timer.py",
             "evaluation/harness.py", "cli.py", "utils/logging.py", "simgen/config.py",
-            "simgen/tokens.py", "simgen/executor.py", "simgen/runner.py"} <= scanned
+            "simgen/tokens.py", "simgen/executor.py", "simgen/runner.py", "ops/segment.py",
+            "models/zoo.py", "models/remask.py", "models/presets.py", "models/__init__.py",
+            "weights.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -74,7 +76,9 @@ def _top_level_modules(path: Path):
                                  "simgen/solver_api.py", "evaluation/timer.py",
                                  "evaluation/harness.py", "cli.py", "utils/logging.py",
                                  "simgen/config.py", "simgen/tokens.py", "simgen/executor.py",
-                                 "simgen/runner.py"])
+                                 "simgen/runner.py", "ops/segment.py", "models/zoo.py",
+                                 "models/remask.py", "models/presets.py", "models/__init__.py",
+                                 "weights.py"])
 def test_module_imports_only_what_the_port_may(rel):
     """The modules this slice added or extended import torch, numpy, scipy,
     the standard library and the port itself, nothing else."""
@@ -144,8 +148,17 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("name", ["gin", "gat", "chebnet"])
 def test_unported_presets_raise(name):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        select_model(name, device="cpu")
+    """These presets were refused until the model zoo was ported; the test
+    keeps its name and now holds that they build on the CPU at the preset's
+    size, their weights drawn from the seed, and raise without a card."""
+    model, preset = select_model(name, device="cpu", seed=1)
+    assert preset.name == name and next(model.parameters()).device.type == "cpu"
+    again, _ = select_model(name, device="cpu", seed=1)
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(), again.parameters()))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            select_model(name)
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):

@@ -32,7 +32,7 @@ def pair(rng):
     g = jt.batch(1)
     params = jm.init(jax.random.PRNGKey(0), np.zeros((g.n_node, 1), np.float32), g)
     model = GATRes(1, 64)
-    model.load_state_dict(params_from_flax(jax.tree_util.tree_map(np.asarray, params)))
+    model.load_state_dict(params_from_flax(jax.tree_util.tree_map(np.asarray, params), model))
     return jt, pt, jm, params, model
 
 

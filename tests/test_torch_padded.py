@@ -108,12 +108,12 @@ def test_gatres_padded_matches_jax_model(rng, nc):
         params)
 
     model = GATRes(2, nc)
-    model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
+    model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params), model))
     out = model(torch.from_numpy(x), pg)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
     grads = torch.autograd.grad((torch.tanh(out) * torch.from_numpy(w)).sum(),
                                 list(model.parameters()))
-    want = params_from_flax(jax.tree.map(np.asarray, jgrads))
+    want = params_from_flax(jax.tree.map(np.asarray, jgrads), model)
     for (name, _), g in zip(model.named_parameters(), grads):
         np.testing.assert_allclose(g.numpy(), want[name].numpy(), rtol=1e-4, atol=1e-5,
                                    err_msg=name)
@@ -150,7 +150,7 @@ def test_train_step_padded_matches_jax_trainer(rng):
     jtr = JaxTrainer(JaxGATRes(num_blocks=1, channels=8), JaxTrainConfig(**kw),
                      JaxNormStats(**stats), jt)
     ptr = Trainer(GATRes(1, 8), TrainConfig(**kw), NormStats(**stats), pt, device="cpu")
-    ptr.model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, jtr.params)))
+    ptr.model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, jtr.params), ptr.model))
     xb = rng.standard_normal((bs, n)).astype(np.float32)
     k = masked_count(n, 0.5)
     mask = np.zeros((bs, n), bool)
@@ -179,7 +179,7 @@ def test_train_step_padded_matches_jax_trainer(rng):
     for name in mets:
         np.testing.assert_allclose(float(mets[name]), float(jmets[name]), rtol=1e-4, atol=2e-5,
                                    err_msg=name)
-    ref = params_from_flax(jax.tree.map(np.asarray, jgrads))
+    ref = params_from_flax(jax.tree.map(np.asarray, jgrads), ptr.model)
     for (name, _), g in zip(ptr.model.named_parameters(), grads):
         np.testing.assert_allclose(g.numpy(), ref[name].numpy(), rtol=1e-3, atol=1e-5, err_msg=name)
 

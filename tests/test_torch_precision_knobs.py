@@ -151,10 +151,10 @@ def test_params_from_flax_carries_a_bf16_model_unchanged():
     x = jnp.zeros((jt.n_node, 1), jnp.float32)
     p16 = JaxGATRes(2, 8, attn_dtype=jnp.bfloat16).init(jax.random.PRNGKey(3), x, jg)
     p32 = JaxGATRes(2, 8).init(jax.random.PRNGKey(3), x, jg)
-    sd16, sd32 = (params_from_flax(jax.tree.map(np.asarray, p)) for p in (p16, p32))
+    model = GATRes(2, 8, attn_dtype=torch.bfloat16)
+    sd16, sd32 = (params_from_flax(jax.tree.map(np.asarray, p), model) for p in (p16, p32))
     assert sd16.keys() == sd32.keys()
     assert all(v.dtype == torch.float32 and torch.equal(v, sd32[k]) for k, v in sd16.items())
-    model = GATRes(2, 8, attn_dtype=torch.bfloat16)
     model.load_state_dict(sd16)
 
 
@@ -239,7 +239,7 @@ def _step(jtr, ptr, jt, pt, rng, bs, mask_rate):
     names = [k for k, _ in ptr.model.named_parameters()]
     grads = torch.autograd.grad(loss, list(ptr.model.parameters()))
     return float(loss.detach()), float(jloss), names, grads, \
-        params_from_flax(jax.tree.map(np.asarray, jgrads)), graph, x, jg, jx
+        params_from_flax(jax.tree.map(np.asarray, jgrads), ptr.model), graph, x, jg, jx
 
 
 @pytest.mark.parametrize("route", BF16_ROUTES)
@@ -262,7 +262,7 @@ def test_gatres_large_width_bf16_matches_jax_model_and_step(rng, monkeypatch, ro
                      JaxTrainConfig(**kw), JaxNormStats(**stats), jt)
     model = apply_model_knobs(GATRes(3, nc), attn_dtype="bfloat16")
     ptr = Trainer(model, TrainConfig(band_attn=route, **kw), NormStats(**stats), pt, device="cpu")
-    ptr.model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, jtr.params)))
+    ptr.model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, jtr.params), ptr.model))
     loss, jloss, names, grads, ref, graph, x, jg, jx = _step(jtr, ptr, jt, pt, rng, bs, 0.5)
     assert jg.band_attn_dma is not None and graph.band_attn == route
     np.testing.assert_allclose(loss, jloss, rtol=1e-5)
@@ -345,7 +345,7 @@ def test_dense_bf16_step_matches_jax_default_branch(rng, monkeypatch, impl):
                   NormStats(**stats), pt, device="cpu")
     jtr.params = jax.tree.map(
         lambda a: a + 0.1 * jnp.asarray(rng.standard_normal(a.shape), jnp.float32), jtr.params)
-    ptr.model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, jtr.params)))
+    ptr.model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, jtr.params), ptr.model))
     loss, jloss, names, grads, ref, graph, x, jg, jx = _step(jtr, ptr, jt, pt, rng, bs, 0.8)
     assert jg.dense and jg.fused_factored is None and jg.fused_attn is None
     np.testing.assert_allclose(loss, jloss, rtol=1e-5)
@@ -444,7 +444,7 @@ def test_gatres_dense_softmax_bf16_matches_jax_model(rng, monkeypatch):
                           params)
     ref = np.asarray(jm.apply(params, jnp.asarray(x), jg))
     model = GATRes(2, 16, attn_impl="softmax", attn_dtype=torch.bfloat16)
-    model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
+    model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params), model))
     with torch.no_grad():
         out = model(torch.from_numpy(x), pg).numpy()
         apply_model_knobs(model, attn_dtype="float32")
@@ -471,7 +471,7 @@ def test_dense_softmax_bf16_step_matches_jax_trainer(rng, monkeypatch):
                   TrainConfig(**kw), NormStats(**stats), pt, device="cpu")
     jtr.params = jax.tree.map(
         lambda a: a + 0.1 * jnp.asarray(rng.standard_normal(a.shape), jnp.float32), jtr.params)
-    ptr.model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, jtr.params)))
+    ptr.model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, jtr.params), ptr.model))
     loss, jloss, names, grads, ref, graph, x, jg, jx = _step(jtr, ptr, jt, pt, rng, bs, 0.8)
     assert jg.dense and jg.fused_attn is None
     np.testing.assert_allclose(loss, jloss, rtol=1e-5)

@@ -89,7 +89,7 @@ def test_train_step_matches_jax_trainer(rng, kind, criterion, clip):
     jtr = JaxTrainer(JaxGATRes(num_blocks=1, channels=nc), JaxTrainConfig(**kw),
                      JaxNormStats(**stats), jt)
     ptr = Trainer(GATRes(1, nc), TrainConfig(**kw), NormStats(**stats), pt, device="cpu")
-    ptr.model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, jtr.params)))
+    ptr.model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, jtr.params), ptr.model))
 
     xb = rng.standard_normal((bs, n)).astype(np.float32)
     mask = _explicit_mask(rng, bs, n, 0.5)
@@ -125,7 +125,7 @@ def test_train_step_matches_jax_trainer(rng, kind, criterion, clip):
         # atol: an untrained model's corr is near 0, a small difference of f32 sums
         np.testing.assert_allclose(float(mets[k]), float(jmets[k]), rtol=1e-4, atol=2e-5,
                                    err_msg=k)
-    ref = params_from_flax(jax.tree.map(np.asarray, jgrads))
+    ref = params_from_flax(jax.tree.map(np.asarray, jgrads), ptr.model)
     # sce normalises over the feature axis, which is one wide here: its exact
     # gradient is 0 and both frameworks return rounding noise (~1e-5)
     g_rtol, g_atol = (0.0, 1e-4) if criterion == "sce" else (1e-3, 1e-5)
@@ -146,7 +146,7 @@ def test_train_step_matches_jax_trainer(rng, kind, criterion, clip):
     # sce only the step's bound 2·lr holds.
     free = criterion == "mse"
     p_atol = {"mse": 2e-5, "mae": 5e-4, "sce": 2 * 5e-4 + 2e-5}[criterion]
-    start = params_from_flax(jax.tree.map(np.asarray, jtr.params))
+    start = params_from_flax(jax.tree.map(np.asarray, jtr.params), ptr.model)
     jp, jopt = jtr.params, jtr.opt_state
     moved = 0.0
     for step in range(5):
@@ -158,7 +158,7 @@ def test_train_step_matches_jax_trainer(rng, kind, criterion, clip):
         ptr.train_step(pt, xb, mask=mask)
         if free and step < 4:
             continue
-        ref = params_from_flax(jax.tree.map(np.asarray, jp))
+        ref = params_from_flax(jax.tree.map(np.asarray, jp), ptr.model)
         for name, p in ptr.model.named_parameters():
             np.testing.assert_allclose(p.detach().numpy(), ref[name].numpy(), rtol=0, atol=p_atol,
                                        err_msg=f"{name} after step {step + 1}")
@@ -175,9 +175,9 @@ def _load_optax_state(ptr, jparams, jopt, names):
     states = [s for s in jax.tree.leaves(jopt, is_leaf=is_state) if is_state(s)]
     adam = next(s for s in states if isinstance(s, optax.ScaleByAdamState))
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
-    ptr.model.load_state_dict(params_from_flax(to_np(jparams)))
+    ptr.model.load_state_dict(params_from_flax(to_np(jparams), ptr.model))
     ptr.optimizer.load_state_dict({
-        "state": adam_state_from_optax(to_np(adam.mu), to_np(adam.nu), int(adam.count), names),
+        "state": adam_state_from_optax(to_np(adam.mu), to_np(adam.nu), int(adam.count), ptr.model),
         "param_groups": ptr.optimizer.state_dict()["param_groups"]})
     for s in states:
         if isinstance(s, AutoClipState):
@@ -299,9 +299,9 @@ def test_preset_feeds_train_config():
 def test_params_to_flax_round_trip(rng):
     model = GATRes(2, 4)
     sd = model.state_dict()
-    tree = params_to_flax(sd)
+    tree = params_to_flax(sd, model)
     assert set(tree["params"]) == {"lin0", "lin1", "block_0", "block_1"}
-    back = params_from_flax(tree)
+    back = params_from_flax(tree, model)
     assert back.keys() == sd.keys()
     for k in sd:
         assert torch.equal(back[k], sd[k]), k

@@ -72,6 +72,7 @@ def main():
     from gnn_pressure_estimation_tpu.cli import main as jax_cli
     from gnn_pressure_estimation_tpu.data.dataset import WDNDataset
     from gnn_pressure_estimation_tpu.train.checkpoint import save_checkpoint
+    from gnn_pressure_estimation_tpu_torch.models.presets import select_model
     from gnn_pressure_estimation_tpu_torch.train.checkpoint import load_checkpoint
     from gnn_pressure_estimation_tpu_torch.weights import params_from_parity_npz
     from parity_train_export import flax_tree_from_npz
@@ -85,7 +86,7 @@ def main():
         torch_ckpt = os.path.join(tmp, "gatres_large.torch.ckpt")
         save_checkpoint(flax_ckpt, flax_tree_from_npz(dict(np.load(NPZ))), stats=stats,
                         extra={"layout": {"agg_mode": None, "band_block": None}})
-        convert(flax_ckpt, torch_ckpt)
+        convert(flax_ckpt, torch_ckpt, select_model("gatres_large", device="cpu")[0])
         params, opt_state, meta = load_checkpoint(torch_ckpt)
         ref = params_from_parity_npz(NPZ)
         if params.keys() != ref.keys() or any(not torch.equal(params[k], ref[k]) for k in ref):
