@@ -310,11 +310,41 @@ Phases (any failure exits non-zero; none is caught):
     mae and minmax) on ``artifacts/eval_bigtown.zip``, the store phase 33
     regenerates: seconds and launches of each.
 
+The parallel strategies (``parallel/``; each phase prints its ranks'
+backend, by the rule of ``parallel.mesh.choose_backend``):
+
+43. Every band kernel (SpMM; v2, v4, v3, v1; forward and backward) on each
+    rank's chunk of bigtown's 1×2 halo layout (the last rank's padded with an
+    empty block), x_ext random on every row, the halo rows included, at B 8
+    and 32, H·C 256 and 128, against its plain version (atol, rtol 1e-4).
+44. bigtown GATRes-large (25 blocks, nc 128) at B 8 on a 1×1 mesh under NCCL
+    (one rank started through ``parallel.launch``): an eval step and a train
+    step against the single-device ``Trainer``'s on this card: loss rtol
+    1e-5, each gradient within 1e-3·max|g| + 1e-6, outputs within
+    1e-5·max(1, max|ref|) (bit-equality reported), 50 + 25 launches a
+    forward and 50 + 25 backwards a step; step ms, exchange ms and peak
+    memory per rank.
+45. The same on a 1×2 halo mesh of two gloo ranks sharing the card; the
+    ranks' parameters bit-identical after the step.
+46. ``"flash"``, ``"acc"`` and ``"window"`` on the 1×2 mesh, GATRes 4 blocks
+    at full width, the same gates.
+47. meganet GATRes-large serving at B 8 on the 1×2 mesh, routed to
+    ``"flash"`` (50 + 25 launches a rank), against the single-device forward.
+48. synthctown GATRes-small, the graphs strategy at 2×1, B 32, through the
+    fused factored kernels (30 + 30 launches a rank); ``DistributedTrainer``
+    at 1×2, B 8, the edge partition (no kernel).
+49. ``Evaluator(mesh=)`` at 1×2 on ``eval_bigtown.zip``'s test split, one
+    clean trial, against the single-device ``Evaluator`` (same seeds, same
+    masks).
+50. ``cli train --mesh 1,2`` for one epoch and a resume to two, ``cli eval
+    --mesh 1,2``, a two-process ``--distributed`` train.
+
 The last line is ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
 (all fifteen kernels, and the seven wrappers' bf16-operand instances as rows
 of their own; the rows the zoo launches carry ``zoo_launches``, the band SpMM
-pair its times at the zoo's widths) and the ``nvidia-smi`` line come before
-it.
+pair its times at the zoo's widths, the rows the mesh phases launch
+``mesh_launches``, summed over their ranks) and the ``nvidia-smi`` line come
+before it.
 """
 
 from __future__ import annotations
@@ -4330,6 +4360,662 @@ def zoo_phases(dev, card, held, reset_launches, read_launches, counts, device_fl
     return out
 
 
+# ---- phases 43-50: the parallel strategies over torch.distributed -------------------------
+
+MESH_ENTRY = "chip_smoke:mesh_rank"
+# the kernels the mesh phases (44-49) run on their ranks
+MESH_KERNELS = ("band_attention", "band_spmm", "band_attention_bwd", "band_spmm_bwd",
+                "band_attention_flash", "band_attention_flash_bwd", "band_attention_window",
+                "band_attention_window_bwd", "band_attention_acc_bwd", "fused_factored",
+                "fused_factored_bwd")
+_NETS: dict = {}
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel's wrapper, by the kernel's name."""
+    from gnn_pressure_estimation_tpu_torch.ops.band_attention import (
+        band_attention_acc_bwd, band_attention_bwd, band_attention_flash_bwd,
+        band_attention_flash_fwd, band_attention_fwd, band_attention_window_bwd,
+        band_attention_window_fwd,
+    )
+    from gnn_pressure_estimation_tpu_torch.ops.band_spmm import band_spmm_bwd, band_spmm_fwd
+    from gnn_pressure_estimation_tpu_torch.ops.graph_attention import (
+        fused_attention_bwd, fused_attention_fwd, fused_factored_bwd, fused_factored_fwd,
+    )
+    from gnn_pressure_estimation_tpu_torch.ops.window_gather import (
+        window_gather_bwd, window_gather_fwd,
+    )
+
+    return {"band_attention": band_attention_fwd, "band_spmm": band_spmm_fwd,
+            "band_attention_bwd": band_attention_bwd, "band_spmm_bwd": band_spmm_bwd,
+            "fused_attention": fused_attention_fwd, "fused_attention_bwd": fused_attention_bwd,
+            "fused_factored": fused_factored_fwd, "fused_factored_bwd": fused_factored_bwd,
+            "band_attention_flash": band_attention_flash_fwd,
+            "band_attention_flash_bwd": band_attention_flash_bwd,
+            "band_attention_window": band_attention_window_fwd,
+            "band_attention_window_bwd": band_attention_window_bwd,
+            "band_attention_acc_bwd": band_attention_acc_bwd,
+            "window_gather": window_gather_fwd, "window_gather_bwd": window_gather_bwd}
+
+
+def network(name: str):
+    """bigtown, synthctown (their INPs) or meganet (made from its seed), as
+    templates; cached in the process."""
+    if name not in _NETS:
+        from gnn_pressure_estimation_tpu_torch.data.dataset import build_template, get_keep_list
+        from gnn_pressure_estimation_tpu_torch.data.inp import parse_inp
+
+        if name == "meganet":
+            from gnn_pressure_estimation_tpu_torch.simgen.netgen import make_mega
+
+            wn = make_mega()
+        else:
+            wn = parse_inp(os.path.join(REPO, "inputs", f"{name}.inp"))
+        _NETS[name], _ = build_template(wn, get_keep_list(wn, "keep_junction", None, "pressure"),
+                                        None, name=name)
+    return _NETS[name]
+
+
+def _gatres(spec: dict, dev):
+    from gnn_pressure_estimation_tpu_torch.models.gatres import GATRes
+
+    m = GATRes(**spec["kwargs"]).to(dev)
+    m.load_state_dict(torch.load(spec["state"], map_location=dev, weights_only=True))
+    return m
+
+
+def _counted(counters, fn):
+    """``fn()`` with the launch counters read around it: (result, launches)."""
+    torch.cuda.synchronize()
+    for w, attr in counters.values():
+        setattr(w, attr, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: getattr(w, attr) for k, (w, attr) in counters.items() if getattr(w, attr)}
+
+
+def _host(tree):
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    return tree
+
+
+def _rank_step(job, mesh, counters):
+    """A ``MeshTrainer`` eval step, then a train step on the same batch and
+    mask; then 3 more steps timed (step ms, exchange ms, peak memory)."""
+    from gnn_pressure_estimation_tpu_torch.parallel import MeshTrainer
+    from gnn_pressure_estimation_tpu_torch.train import TrainConfig
+    from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats
+
+    tpl = network(job["net"])
+    tr = MeshTrainer(_gatres(job["model"], mesh.device), TrainConfig(**job["cfg"]),
+                     NormStats(**job["stats"]), tpl, mesh)
+    x, mask = job["x"], job["mask"]
+    (_, _, out, _), fwd = _counted(counters, lambda: tr.eval_step(tpl, x, mask=mask))
+    (loss, mets), step = _counted(counters, lambda: tr.train_step(tpl, x, mask=mask))
+    res = {"strategy": tr.strategy, "out": out, "loss": float(loss), "fwd_launches": fwd,
+           "step_launches": step, "mae": float(mets["train_mae"]),
+           "grads": {k: p.grad.detach().cpu() for k, p in tr.model.named_parameters()},
+           "params": {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}}
+    torch.cuda.reset_peak_memory_stats()
+    st = mesh.exchanges
+    st.update(calls=0, bytes=0, seconds=0.0, timing=True)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        tr.train_step(tpl, x, mask=mask)
+    torch.cuda.synchronize()
+    res["step_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    res["exchange_ms"] = st["seconds"] / 3 * 1e3
+    res["exchange_calls"] = st["calls"] // 3
+    res["exchange_bytes"] = st["bytes"] // 3
+    st["timing"] = False
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return _host(res)
+
+
+def _rank_serve(job, mesh, counters):
+    """A serving batch through ``make_mesh_forward``: the output in original
+    node order, the launches, the batch's ms."""
+    from gnn_pressure_estimation_tpu_torch.parallel.eval_forward import make_mesh_forward
+
+    tpl = network(job["net"])
+    model = _gatres(job["model"], mesh.device).eval()
+    n, B = tpl.n_node, job["x"].shape[0]
+    fwd, adapter = make_mesh_forward(model, tpl, B, mesh)
+    x = torch.as_tensor(job["x"].reshape(-1, 1), device=mesh.device)
+    m = torch.as_tensor(job["mask"], device=mesh.device)
+    x_in = adapter.pack_nodes(torch.where(m[:, None], 0.0, x), n)
+    with torch.inference_mode():
+        out, launches = _counted(counters, lambda: adapter.unpack_nodes(fwd(x_in), n))
+        ms = cuda_ms(lambda: fwd(x_in), 1, 3)
+    return _host({"out": out, "launches": launches, "ms": ms, "route": adapter.part.band_attn,
+                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+
+def _rank_dist(job, mesh, counters):
+    """``DistributedTrainer`` (the edge partition; no kernel): one step."""
+    from gnn_pressure_estimation_tpu_torch.parallel import DistributedTrainer
+    from gnn_pressure_estimation_tpu_torch.train import TrainConfig
+    from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats
+
+    tpl = network(job["net"])
+    dtr = DistributedTrainer(_gatres(job["model"], mesh.device), TrainConfig(**job["cfg"]),
+                             NormStats(**job["stats"]), tpl, mesh)
+    (loss, _), launches = _counted(counters, lambda: dtr.step(job["x"], mask=job["mask"]))
+    grads = {k: p.grad.detach().cpu() for k, p in dtr.model.named_parameters()}
+    t0 = time.perf_counter()
+    dtr.step(job["x"], mask=job["mask"])
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "launches": launches, "grads": grads,
+            "step_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def _rank_eval(job, mesh, counters):
+    """``Evaluator(mesh=...)``: clean trials on ``eval_bigtown.zip``'s test split."""
+    from gnn_pressure_estimation_tpu_torch.data.dataset import WDNDataset
+    from gnn_pressure_estimation_tpu_torch.evaluation import EvalConfig, Evaluator
+    from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats
+
+    stats = NormStats(**job["stats"])
+    test = WDNDataset([job["zip"]], [job["inp"]], from_set="test", stats=stats)
+    ev = Evaluator(_gatres(job["model"], mesh.device), EvalConfig(**job["cfg"]), stats,
+                   mesh=mesh)
+    res, launches = _counted(counters, lambda: ev.evaluate(test, log_fn=lambda *_: None))
+    return {"result": res, "launches": launches}
+
+
+MESH_JOBS = {"step": _rank_step, "serve": _rank_serve, "dist": _rank_dist, "eval": _rank_eval}
+
+
+def mesh_rank(payload: str) -> int:
+    """The entry point of the ranks of phases 44-49 (``parallel.launch``):
+    each job of the spec on its own mesh, this rank's results written to
+    ``out/rank<r>.pkl``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from gnn_pressure_estimation_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(payload, "rb") as f:
+        spec = pickle.load(f)
+    wrappers = kernel_wrappers()
+    counters = {k: (w, "launches") for k, w in wrappers.items()}
+    results = []
+    for job in spec["jobs"]:
+        mesh = make_mesh(job["dp"], job["gp"], device="cuda")
+        t0 = time.perf_counter()
+        res = MESH_JOBS[job["kind"]](job, mesh, counters)
+        res.update(name=job["name"], backend=mesh.backend, seconds=time.perf_counter() - t0,
+                   device=str(mesh.device))
+        results.append(res)
+        torch.cuda.empty_cache()
+    with open(os.path.join(spec["out"], f"rank{dist.get_rank()}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+    return 0
+
+
+def launch_mesh(n_ranks: int, jobs: list, out_dir: str, timeout_s: float = 600) -> list:
+    """``jobs`` on ``n_ranks`` ranks of this card (``parallel.launch``); every
+    rank's results, by rank. A rank that fails fails the run."""
+    import pickle
+
+    from gnn_pressure_estimation_tpu_torch.parallel.launch import spawn
+
+    os.makedirs(out_dir, exist_ok=True)
+    spec = os.path.join(out_dir, "spec.pkl")
+    with open(spec, "wb") as f:
+        pickle.dump({"jobs": jobs, "out": out_dir}, f)
+    code = spawn(n_ranks, MESH_ENTRY, spec, device="cuda", timeout_s=timeout_s)
+    if code != 0:
+        raise SystemExit(f"FAIL a rank of the {n_ranks}-rank launch exited with {code}")
+    out = []
+    for r in range(n_ranks):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def launches_as_expected(label: str, got: dict, expected: dict) -> None:
+    """A rank's launch counts of one run (the counters it read) must be these."""
+    if got != expected:
+        raise SystemExit(f"FAIL {label}: launches {got}, expected {expected}")
+
+
+def grads_gate(label: str, got: dict, ref: dict) -> float:
+    """Each gradient within 1e-3·max|g_ref| + 1e-6; the worst share of its bound."""
+    worst = 0.0
+    for k, r in ref.items():
+        g = got[k].to(r.device)
+        bound = 1e-3 * float(r.abs().max()) + 1e-6
+        err = float((g - r).abs().max())
+        if not np.isfinite(err) or err > bound:
+            raise SystemExit(f"FAIL {label}: gradient {k} off by {err:.3e} (bound {bound:.3e})")
+        worst = max(worst, err / bound)
+    return worst
+
+
+def outputs_gate(label: str, got: torch.Tensor, ref: torch.Tensor) -> tuple[float, bool]:
+    """Within 1e-5·max(1, max|ref|); returns the error and whether bit-equal."""
+    got = got.to(ref.device)
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise SystemExit(f"FAIL {label}: output {tuple(got.shape)} (expected {tuple(ref.shape)}) "
+                         "or not finite")
+    err = float((got - ref).abs().max())
+    bound = 1e-5 * max(1.0, float(ref.abs().max()))
+    if err > bound:
+        raise SystemExit(f"FAIL {label}: output off by {err:.3e} (bound {bound:.3e})")
+    return err, bool(torch.equal(got, ref))
+
+
+def mesh_kernel_phase(dev, held) -> dict:
+    """Phase 43: every band kernel on one rank's chunk of bigtown's 1×2 halo
+    layout, halo rows nonzero, against its plain version."""
+    from gnn_pressure_estimation_tpu_torch.ops import banded as bops
+    from gnn_pressure_estimation_tpu_torch.ops.band_attention import (
+        band_attention_acc_bwd, band_attention_acc_bwd_plain, band_attention_bwd,
+        band_attention_bwd_plain, band_attention_flash_bwd, band_attention_flash_bwd_plain,
+        band_attention_flash_fwd, band_attention_flash_plain, band_attention_fwd,
+        band_attention_plain, band_attention_window_bwd, band_attention_window_bwd_plain,
+        band_attention_window_fwd, band_attention_window_plain,
+    )
+    from gnn_pressure_estimation_tpu_torch.ops.band_spmm import (
+        band_spmm_bwd, band_spmm_bwd_plain, band_spmm_fwd, band_spmm_plain,
+    )
+    from gnn_pressure_estimation_tpu_torch.parallel.halo import build_halo_partition
+
+    tpl = network("bigtown")
+    part = build_halo_partition(tpl, 2)
+    print(f"[43] band kernels on a rank's chunk of bigtown's 1×2 halo layout: nbL {part.nbL}, BLK "
+          f"{part.BLK}, W {part.W}, U {part.U}, R {part.R}, chunk {part.chunk} (the last rank's "
+          f"{part.gp * part.nbL - len(tpl.band_layout().win_start)} block(s) empty); x_ext "
+          "random on every row, the halo rows included; atol and rtol 1e-4")
+    gen = torch.Generator(device=dev).manual_seed(43)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    shapes = {}
+    for g in (0, 1):
+        a = {k: v[g] for k, v in part.band_arrays.items()}
+        msk = torch.as_tensor(a["adj_mask"].view(np.int8), device=dev)
+        cnt = torch.as_tensor(a["adj_cnt"], device=dev)
+        mix = bops.build_band_index(a["adj_mask"]).to(dev)
+        cix = bops.build_band_index(a["adj_cnt"]).to(dev)
+        nB, BLK, W = msk.shape
+        n_loc, n_ext = nB * BLK, nB * BLK + W - BLK
+        shapes[g] = (nB, mix.nnz)
+        for B in (8, 32):
+            tag = f"rank {g} chunk B {B}"
+            for H in (2, 1):
+                C = 128
+                a_dst, a_src = randn(B, n_loc, H), randn(nB, B, W, H)
+                a_dst[:, ::3] = 0.0
+                x_ext, d_out = randn(B, n_ext, H, C), randn(B, n_loc, H, C)
+                args = (a_dst, a_src, x_ext, msk)
+                held("band_attention", f"v2 fwd {tag} H{H}", band_attention_fwd(*args, 0.2, mix),
+                     band_attention_plain(*args, 0.2), verbose=False)
+                for name, fn, ref in (("band_attention_bwd", band_attention_bwd,
+                                       band_attention_bwd_plain),
+                                      ("band_attention_acc_bwd", band_attention_acc_bwd,
+                                       band_attention_acc_bwd_plain)):
+                    for part_, got, r in zip(("d a_dst", "d a_src_win", "d x_ext"),
+                                             fn(*args, d_out, 0.2, mix), ref(*args, d_out, 0.2)):
+                        held(name, f"{name} {tag} H{H} {part_}", got, r, verbose=False)
+                out, m, Z = band_attention_flash_plain(*args, 0.2)
+                got = band_attention_flash_fwd(*args, 0.2, mix)
+                for part_, g_, r in zip(("out", "m", "Z"), got, (out, m, Z)):
+                    held("band_attention_flash", f"v4 fwd {tag} H{H} {part_}", g_, r, verbose=False)
+                delta = (d_out * out).sum(dim=-1)
+                for part_, g_, r in zip(
+                        ("d a_dst", "d a_src_win", "d x_ext"),
+                        band_attention_flash_bwd(*args, m, Z, delta, d_out, 0.2, mix),
+                        band_attention_flash_bwd_plain(*args, m, Z, delta, d_out, 0.2)):
+                    held("band_attention_flash_bwd", f"v4 bwd {tag} H{H} {part_}", g_, r,
+                         verbose=False)
+                x_win = bops.band_windows_ext(x_ext, nB, BLK, W)
+                wargs = (a_dst, a_src, x_win, msk)
+                held("band_attention_window", f"v1 fwd {tag} H{H}",
+                     band_attention_window_fwd(*wargs, 0.2, mix),
+                     band_attention_window_plain(*wargs, 0.2), verbose=False)
+                for part_, g_, r in zip(("d a_dst", "d a_src_win", "d x_win"),
+                                        band_attention_window_bwd(*wargs, d_out, 0.2, mix),
+                                        band_attention_window_bwd_plain(*wargs, d_out, 0.2)):
+                    held("band_attention_window_bwd", f"v1 bwd {tag} H{H} {part_}", g_, r,
+                         verbose=False)
+                del x_ext, d_out, x_win, args, wargs
+            x_s, d_s = randn(B, n_ext, 128), randn(B, n_loc, 128)
+            held("band_spmm", f"band_spmm {tag}", band_spmm_fwd(cnt, x_s, cix),
+                 band_spmm_plain(cnt, x_s), verbose=False)
+            held("band_spmm_bwd", f"band_spmm_bwd {tag}", band_spmm_bwd(cnt, d_s, cix),
+                 band_spmm_bwd_plain(cnt, d_s), verbose=False)
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"  ranks 0 and 1 (blocks {shapes[0][0]}, mask nonzeros {shapes[0][1]} / "
+          f"{shapes[1][1]}), B 8 and 32, H·C 256 and 128: v2, v4, v3 (backward), v1, SpMM, "
+          "forward and backward, all within 1e-4 of the plain versions")
+    return {"nbL": part.nbL, "U": part.U, "R": part.R, "chunk": part.chunk}
+
+
+def mesh_phases(dev, card, big) -> dict:
+    """Phases 44-50: the parallel strategies on this card: bigtown GATRes-large
+    on a 1×1 NCCL mesh and on a 1×2 halo mesh of two gloo ranks, against the
+    single-device step; the other band routes on the 1×2 mesh; meganet
+    serving on 1×2 through "flash"; synthctown's graphs strategy at 2×1 and
+    ``DistributedTrainer`` at 1×2; the mesh evaluation; the command line.
+    Returns each kernel's launches on these paths and the phases' numbers."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="mesh_")
+    try:
+        return _mesh_phases(dev, card, big, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _mesh_phases(dev, card, big, tmp) -> dict:
+    from gnn_pressure_estimation_tpu_torch.data.dataset import WDNDataset
+    from gnn_pressure_estimation_tpu_torch.parallel.mesh import choose_backend
+    from gnn_pressure_estimation_tpu_torch.evaluation import EvalConfig, Evaluator
+    from gnn_pressure_estimation_tpu_torch.models.gatres import GATRes
+    from gnn_pressure_estimation_tpu_torch.models.presets import select_model
+    from gnn_pressure_estimation_tpu_torch.train import TrainConfig, Trainer
+    from gnn_pressure_estimation_tpu_torch.utils.masking import batch_node_mask
+    from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats
+    from gnn_pressure_estimation_tpu_torch.weights import params_from_parity_npz
+
+    out, phase_s, launched = {}, {}, {}
+
+    def save_state(tag, model):
+        path = os.path.join(tmp, f"{tag}.pt")
+        torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, path)
+        return path
+
+    def add_launches(counts):
+        for k, v in counts.items():
+            launched[k] = launched.get(k, 0) + v
+
+    def mask_of(seed, B, n, rate):
+        return batch_node_mask(torch.Generator().manual_seed(seed), B, n, rate).numpy()
+
+    def reference_step(tpl, model, cfg, stats, x, mask):
+        """The single-device ``Trainer`` on a copy of ``model``: eval step
+        (output, original order) then a train step; loss, gradients,
+        parameters after."""
+        import copy
+
+        tr = Trainer(copy.deepcopy(model), TrainConfig(**cfg), stats, tpl, device=dev)
+        _, _, o, _ = tr.eval_step(tpl, x, mask=mask)
+        g = tr._batched_graph(tpl, x.shape[0])
+        o = g.unpack_nodes(o, tpl.n_node) if g.banded else o
+        loss, _ = tr.train_step(tpl, x, mask=mask)
+        torch.cuda.synchronize()
+        ref = {"out": o.detach(), "loss": float(loss),
+               "grads": {k: p.grad.detach().clone() for k, p in tr.model.named_parameters()},
+               "params": {k: v.detach().clone() for k, v in tr.model.state_dict().items()}}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tr.train_step(tpl, x, mask=mask)
+        torch.cuda.synchronize()
+        ref["step_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        ref["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        return ref
+
+    def held_step(label, ranks, ref, fwd_expect, bwd_expect):
+        """The gates of a mesh step against the single-device one."""
+        lines = []
+        for r, res in enumerate(ranks):
+            rel = abs(res["loss"] - ref["loss"]) / abs(ref["loss"])
+            if rel > 1e-5:
+                raise SystemExit(f"FAIL {label} rank {r}: loss {res['loss']!r} against "
+                                 f"{ref['loss']!r} (rtol 1e-5)")
+            worst = grads_gate(f"{label} rank {r}", res["grads"], ref["grads"])
+            err, equal = outputs_gate(f"{label} rank {r}", res["out"], ref["out"])
+            launches_as_expected(f"{label} rank {r} forward", res["fwd_launches"], fwd_expect)
+            launches_as_expected(f"{label} rank {r} step", res["step_launches"], bwd_expect)
+            lines.append(f"{label} rank {r} ({res['backend']}, {res['device']}): loss {res['loss']:.7f} "
+                         f"(single {ref['loss']:.7f}), gradients at {worst:.1%} of the gate, "
+                         f"outputs within {err:.3e}{' (bit-equal)' if equal else ''}; step "
+                         f"{res['step_ms']:.3f} ms, exchange {res['exchange_ms']:.3f} ms in "
+                         f"{res['exchange_calls']} exchanges ({res['exchange_bytes'] / 1e6:.3f} MB "
+                         f"sent), peak {res['peak_gb']:.3f} GB")
+            add_launches(res["fwd_launches"])
+            add_launches(res["step_launches"])
+        for k in ranks[0]["params"]:
+            if any(not torch.equal(res["params"][k], ranks[0]["params"][k]) for res in ranks[1:]):
+                raise SystemExit(f"FAIL {label}: the ranks' parameter {k} differ after the step")
+        lines.append(f"{label} on one device: step {ref['step_ms']:.3f} ms, peak "
+                     f"{ref['peak_gb']:.3f} GB")
+        for line in lines:
+            print(f"  {line} [{card}]")
+        return lines
+
+    # ---- references on one device, and the jobs ------------------------------------
+    tfx = big["tfx"]
+    tstats = dict(norm_type="znorm", mean=float(tfx["stats_mean"]), std=float(tfx["stats_std"]))
+    rng = np.random.default_rng(44)
+    big = dict(big, tpl=network("bigtown"))
+    n = big["tpl"].n_node
+    xb = (np.asarray(big["x"], np.float32)[:, 0][None, :]
+          + 0.1 * rng.standard_normal((8, n))).astype(np.float32)
+    mask8 = mask_of(44, 8, n, 0.95)
+    cfg = dict(batch_size=8, mask_rate=0.95, criterion="mse", model_name="gatres_large")
+    large = dict(num_blocks=25, channels=128, attn_impl="factored")
+    m_large = GATRes(**large).to(dev)
+    m_large.load_state_dict(params_from_parity_npz(big["npz"]))
+    large_spec = {"kwargs": large, "state": save_state("large", m_large)}
+    t_phase = time.perf_counter()
+    ref_big = reference_step(big["tpl"], m_large, cfg, NormStats(**tstats), xb, mask8)
+    step_job = dict(kind="step", net="bigtown", model=large_spec, cfg=cfg, stats=tstats, x=xb,
+                    mask=mask8)
+    nb = len(m_large.blocks)                        # 25: two GATConvs and a mean a block
+    expect_fwd = {"band_attention": 2 * nb, "band_spmm": nb}
+    expect_step = {**expect_fwd, "band_attention_bwd": 2 * nb, "band_spmm_bwd": nb}
+
+    # ---- 44: 1×1 under NCCL --------------------------------------------------------
+    print("[44] bigtown GATRes-large (25 blocks, nc 128) at B 8 on a 1×1 mesh (NCCL): the eval "
+          "and train step against the single-device Trainer step on this card")
+    r11 = launch_mesh(1, [dict(step_job, name="1x1", dp=1, gp=1)], os.path.join(tmp, "n1"))
+    rule = {n_: choose_backend("cuda", n_)[0] for n_ in (1, 2)}    # nccl, gloo on one card
+    if r11[0][0]["backend"] != rule[1]:
+        raise SystemExit(f"FAIL the 1×1 mesh took {r11[0][0]['backend']}, the rule gives {rule[1]}")
+    out["1x1"] = held_step("1×1 NCCL step", [r[0] for r in r11], ref_big, expect_fwd, expect_step)
+    phase_s[44] = time.perf_counter() - t_phase
+
+    # ---- 45-49: the two-rank jobs (gloo on one card), one launch --------------------
+    t_phase = time.perf_counter()
+    jobs = [dict(step_job, name="bigtown 1x2", dp=1, gp=2)]
+    routes = ("flash", "acc", "window")
+    torch.manual_seed(46)
+    m4 = GATRes(num_blocks=4, channels=128).to(dev)
+    nb4 = len(m4.blocks)
+    spec4 = {"kwargs": dict(num_blocks=4, channels=128), "state": save_state("four", m4)}
+    ref_routes = {}
+    for route in routes:
+        c = dict(cfg, band_attn=route)
+        ref_routes[route] = reference_step(big["tpl"], m4, c, NormStats(**tstats), xb, mask8)
+        jobs.append(dict(kind="step", name=f"route {route}", net="bigtown", model=spec4, cfg=c,
+                         stats=tstats, x=xb, mask=mask8, dp=1, gp=2))
+    mega = network("meganet")
+    mm_, _ = select_model("gatres_large", device=dev, seed=47)
+    mspec = {"kwargs": large, "state": save_state("mega", mm_)}
+    xm = np.random.default_rng(47).standard_normal((8, mega.n_node)).astype(np.float32)
+    maskm = mask_of(47, 8, mega.n_node, 0.95)
+    g_m = mega.batch(8, device=dev)
+    with torch.inference_mode():
+        xin = torch.where(torch.as_tensor(maskm, device=dev)[:, None], 0.0,
+                          torch.as_tensor(xm.reshape(-1, 1), device=dev))
+        xin_p = g_m.pack_nodes(xin, mega.n_node)
+        ref_mega = g_m.unpack_nodes(mm_.eval()(xin_p, g_m), mega.n_node)
+        mega_ms = cuda_ms(lambda: mm_(xin_p, g_m), 1, 3)
+    jobs.append(dict(kind="serve", name="meganet 1x2", net="meganet", model=mspec, x=xm,
+                     mask=maskm, dp=1, gp=2))
+    del mm_, g_m
+    syn = network("synthctown")
+    small = dict(num_blocks=15, channels=32, attn_impl="factored")
+    torch.manual_seed(48)
+    ms_ = GATRes(**small).to(dev)
+    nbs = len(ms_.blocks)
+    sspec = {"kwargs": small, "state": save_state("small", ms_)}
+    xs = np.random.default_rng(48).standard_normal((32, syn.n_node)).astype(np.float32)
+    masks_ = mask_of(48, 32, syn.n_node, 0.95)
+    scfg = dict(batch_size=32, mask_rate=0.95, criterion="mse")
+    ref_syn = reference_step(syn, ms_, scfg, NormStats(), xs, masks_)
+    jobs.append(dict(kind="step", name="synthctown 2x1", net="synthctown", model=sspec, cfg=scfg,
+                     stats={}, x=xs, mask=masks_, dp=2, gp=1))
+    dcfg = dict(batch_size=8, mask_rate=0.95, criterion="mse")
+    ref_dist = reference_step(syn, ms_, dcfg, NormStats(), xs[:8], masks_[:8 * syn.n_node])
+    jobs.append(dict(kind="dist", name="distributed 1x2", net="synthctown", model=sspec, cfg=dcfg,
+                     stats={}, x=xs[:8], mask=masks_[:8 * syn.n_node], dp=1, gp=2))
+    del ms_
+    zip_path = os.path.join(REPO, "artifacts", "eval_bigtown.zip")
+    inp = os.path.join(REPO, "inputs", "bigtown.inp")
+    train_ds = WDNDataset([zip_path], [inp], from_set="train")
+    st = train_ds.stats
+    estats = dict(norm_type=st.norm_type, mean=st.mean, std=st.std, min=st.min, max=st.max)
+    ecfg = dict(test_type="clean", num_test_trials=1, batch_size=8, mask_rate=0.95,
+                gpu_warmup_times=0, seed=49)
+    test_ds = WDNDataset([zip_path], [inp], from_set="test", stats=st)
+    ref_eval = Evaluator(m_large, EvalConfig(**ecfg), st, device=dev).evaluate(
+        test_ds, log_fn=lambda *_: None)
+    jobs.append(dict(kind="eval", name="evaluator 1x2", model=large_spec, cfg=ecfg, stats=estats,
+                     zip=zip_path, inp=inp, dp=1, gp=2))
+    del m_large, m4
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    two = launch_mesh(2, jobs, os.path.join(tmp, "g2"), timeout_s=900)
+    t_launch = time.perf_counter() - t0
+    by = {res["name"]: [two[r][i] for r in range(2)] for i, res in enumerate(two[0])}
+    if any(res["backend"] != rule[2] for rs in by.values() for res in rs):
+        raise SystemExit(f"FAIL two ranks on one card must take {rule[2]} by the rule")
+
+    print("[45] the same step on a 1×2 halo mesh: two gloo ranks on this card")
+    out["1x2"] = held_step("1×2 halo step", by["bigtown 1x2"], ref_big, expect_fwd, expect_step)
+    print('[46] the other routes on the 1×2 mesh: GATRes 4 blocks, nc 128, B 8')
+    for route in routes:
+        kfwd = {"flash": "band_attention_flash", "acc": "band_attention",
+                "window": "band_attention_window"}[route]
+        kbwd = {"flash": "band_attention_flash_bwd", "acc": "band_attention_acc_bwd",
+                "window": "band_attention_window_bwd"}[route]
+        out[route] = held_step(f"route {route}", by[f"route {route}"], ref_routes[route],
+                               {kfwd: 2 * nb4, "band_spmm": nb4},
+                               {kfwd: 2 * nb4, "band_spmm": nb4, kbwd: 2 * nb4,
+                                "band_spmm_bwd": nb4})
+    print("[47] meganet GATRes-large serving at B 8 on the 1×2 mesh")
+    for r, res in enumerate(by["meganet 1x2"]):
+        if res["route"] != "flash":
+            raise SystemExit(f"FAIL meganet rank {r}: route {res['route']}, the rule gives flash")
+        launches_as_expected(f"meganet rank {r}", res["launches"],
+                             {"band_attention_flash": 2 * nb, "band_spmm": nb})
+        err, equal = outputs_gate(f"meganet rank {r}", res["out"], ref_mega)
+        add_launches(res["launches"])
+        print(f"  rank {r}: route flash, launches {res['launches']}, output within {err:.3e} of "
+              f"the single-device forward{' (bit-equal)' if equal else ''}; batch "
+              f"{res['ms']:.3f} ms (one device {mega_ms:.3f}), peak {res['peak_gb']:.3f} GB "
+              f"[{card}]")
+    print("[48] synthctown GATRes-small: graphs strategy at 2×1, B 32 (fused factored kernels); "
+          "DistributedTrainer at 1×2, B 8 (the edge partition, no kernel)")
+    out["2x1"] = held_step("synthctown 2×1", by["synthctown 2x1"], ref_syn,
+                           {"fused_factored": 2 * nbs},
+                           {"fused_factored": 2 * nbs, "fused_factored_bwd": 2 * nbs})
+    for r, res in enumerate(by["distributed 1x2"]):
+        launches_as_expected(f"DistributedTrainer rank {r}", res["launches"], {})
+        rel = abs(res["loss"] - ref_dist["loss"]) / abs(ref_dist["loss"])
+        worst = grads_gate(f"DistributedTrainer rank {r}", res["grads"], ref_dist["grads"])
+        if rel > 1e-5:
+            raise SystemExit(f"FAIL DistributedTrainer rank {r}: loss off by {rel:.3e} relative")
+        print(f"  DistributedTrainer rank {r}: loss {res['loss']:.7f} (single {ref_dist['loss']:.7f}), "
+              f"gradients at {worst:.1%} of the gate, no kernel launched; step "
+              f"{res['step_ms']:.3f} ms (one device, dense kernels: {ref_dist['step_ms']:.3f}) "
+              f"[{card}]")
+    print("[49] Evaluator(mesh=) at 1×2 on eval_bigtown.zip's test split (clean, 1 trial, "
+          "B 8) against the single-device Evaluator")
+    for r, res in enumerate(by["evaluator 1x2"]):
+        worst = 0.0
+        for got, ref in zip(res["result"], ref_eval):
+            for k, v in ref.items():
+                if k.startswith(("test_time", "test_throughput")):
+                    continue
+                e = abs(got[k] - v) / max(abs(v), 1e-6)
+                if e > 1e-4:
+                    raise SystemExit(f"FAIL mesh evaluation rank {r}: {k} {got[k]!r} against {v!r}")
+                worst = max(worst, e)
+        add_launches(res["launches"])
+        print(f"  rank {r}: every loss and metric within {worst:.2e} relative of the single-device "
+              f"evaluation (test_mae {res['result'][1]['test_mae_mean']:.4f}); launches "
+              f"{res['launches']}")
+    phase_s[45] = t_launch
+    print(f"  the two-rank launch took {t_launch:.1f} s ({t_ref:.1f} s of single-device references "
+          f"before it)")
+
+    t_phase = time.perf_counter()
+    mesh_cli_phase(card, tmp)
+    phase_s[50] = time.perf_counter() - t_phase
+    out["phase_s"] = phase_s
+    out["launches"] = launched
+    return out
+
+
+def mesh_cli_phase(card, tmp, device_flags=()):
+    """Phase 50: ``cli train --mesh 1,2`` for one epoch and a resume to two,
+    ``cli eval --mesh 1,2``, and a two-process ``--distributed`` train,
+    GATRes-large on ``eval_bigtown.zip``. ``device_flags`` (``--device
+    cpu``) rehearses it without a card."""
+    from gnn_pressure_estimation_tpu_torch import cli as pcli
+    from gnn_pressure_estimation_tpu_torch.parallel.launch import free_port
+    from gnn_pressure_estimation_tpu_torch.train import load_checkpoint
+
+    zip_path = os.path.join(REPO, "artifacts", "eval_bigtown.zip")
+    inp = os.path.join(REPO, "inputs", "bigtown.inp")
+    print("[50] cli train --mesh 1,2 (one epoch, then a resume to two), eval --mesh 1,2, and a "
+          "two-process --distributed train, GATRes-large on eval_bigtown.zip")
+    ck = os.path.join(tmp, "cli")
+    train = ["train", "--model", "gatres_large", "--dataset_paths", zip_path, "--input_paths",
+             inp, "--batch_size", "8", "--num_trains", "16", "--mask_rate", "0.95",
+             "--save_path", ck, "--variant", "mesh", *device_flags]
+    t0 = time.perf_counter()
+    if pcli.main(train + ["--epochs", "1", "--mesh", "1,2"]) != 0:
+        raise SystemExit("FAIL cli train --mesh 1,2")
+    t_train = time.perf_counter() - t0
+    last = os.path.join(ck, "last_gatres_large_mesh.ckpt")
+    t0 = time.perf_counter()
+    if pcli.main(train + ["--epochs", "2", "--mesh", "1,2", "--model_path", last]) != 0:
+        raise SystemExit("FAIL cli train --mesh 1,2 --model_path")
+    t_resume = time.perf_counter() - t0
+    if load_checkpoint(last)[2]["epoch"] != 2:
+        raise SystemExit("FAIL the resumed mesh run did not write epoch 2")
+    t0 = time.perf_counter()
+    if pcli.main(["eval", "--model", "gatres_large", "--model_path", last, "--test_data_path",
+                  zip_path, "--test_input_path", inp, "--num_test_trials", "1", "--batch_size",
+                  "8", "--gpu_warmup_times", "1", "--mesh", "1,2", *device_flags]) != 0:
+        raise SystemExit("FAIL cli eval --mesh 1,2")
+    t_eval = time.perf_counter() - t0
+    port = free_port()
+    cmd = [sys.executable, "-m", "gnn_pressure_estimation_tpu_torch.cli"] + train + [
+        "--epochs", "1", "--save_path", os.path.join(tmp, "dist"), "--distributed",
+        "--coordinator", f"127.0.0.1:{port}", "--num_processes", "2", "--mesh", "1,2"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--process_id", str(i)], cwd=REPO) for i in range(2)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    t_dist = time.perf_counter() - t0
+    if codes != [0, 0] or not os.path.exists(os.path.join(tmp, "dist",
+                                                          "last_gatres_large_mesh.ckpt")):
+        raise SystemExit(f"FAIL the --distributed train: exit codes {codes}")
+    print(f"  train --mesh 1,2 {t_train:.1f} s, its resume {t_resume:.1f} s, eval --mesh 1,2 "
+          f"{t_eval:.1f} s, the --distributed pair {t_dist:.1f} s (start-up included) [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4345,19 +5031,12 @@ def main() -> int:
     from gnn_pressure_estimation_tpu_torch.ops import _build
     from gnn_pressure_estimation_tpu_torch.ops import banded as bops
     from gnn_pressure_estimation_tpu_torch.ops.band_attention import (
-        band_attention_acc_bwd, band_attention_bwd, band_attention_bwd_plain,
-        band_attention_flash_bwd, band_attention_flash_bwd_plain, band_attention_flash_fwd,
-        band_attention_flash_plain, band_attention_fwd, band_attention_plain,
-        band_attention_window_bwd, band_attention_window_fwd,
+        band_attention_bwd, band_attention_bwd_plain, band_attention_flash_bwd,
+        band_attention_flash_bwd_plain, band_attention_flash_fwd, band_attention_flash_plain,
+        band_attention_fwd, band_attention_plain,
     )
     from gnn_pressure_estimation_tpu_torch.ops.band_spmm import (
         band_spmm_bwd, band_spmm_bwd_plain, band_spmm_fwd, band_spmm_plain,
-    )
-    from gnn_pressure_estimation_tpu_torch.ops.graph_attention import (
-        fused_attention_bwd, fused_attention_fwd, fused_factored_bwd, fused_factored_fwd,
-    )
-    from gnn_pressure_estimation_tpu_torch.ops.window_gather import (
-        window_gather_bwd, window_gather_fwd,
     )
     from gnn_pressure_estimation_tpu_torch.train import TrainConfig, Trainer, load_checkpoint
     from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats, descale_with
@@ -4395,17 +5074,9 @@ def main() -> int:
     cnt = torch.as_tensor(bl.adj_cnt, device=dev)
     mask_ix = tpl.band_index("adj_mask").to(dev)      # the template's cached indices, as
     cnt_ix = tpl.band_index("adj_cnt").to(dev)        # the model's path passes them
-    band_wrappers = {"band_attention": band_attention_fwd, "band_spmm": band_spmm_fwd,
-                     "band_attention_bwd": band_attention_bwd, "band_spmm_bwd": band_spmm_bwd}
-    wrappers = {**band_wrappers,
-                "fused_attention": fused_attention_fwd, "fused_attention_bwd": fused_attention_bwd,
-                "fused_factored": fused_factored_fwd, "fused_factored_bwd": fused_factored_bwd,
-                "band_attention_flash": band_attention_flash_fwd,
-                "band_attention_flash_bwd": band_attention_flash_bwd,
-                "band_attention_window": band_attention_window_fwd,
-                "band_attention_window_bwd": band_attention_window_bwd,
-                "band_attention_acc_bwd": band_attention_acc_bwd,
-                "window_gather": window_gather_fwd, "window_gather_bwd": window_gather_bwd}
+    wrappers = kernel_wrappers()
+    band_wrappers = {k: wrappers[k] for k in ("band_attention", "band_spmm", "band_attention_bwd",
+                                              "band_spmm_bwd")}
     # every kernel instance's count: (wrapper, attribute); the bf16-operand instances
     # count in their wrapper's launches_bf16
     counters = {**{k: (w, "launches") for k, w in wrappers.items()},
@@ -4875,6 +5546,9 @@ def main() -> int:
     eval_phases(dev, card, reset_launches, read_launches, counts, npz)
     cli_phases(dev, card, reset_launches, read_launches, counts, npz)
     zoo = zoo_phases(dev, card, held, reset_launches, read_launches, counts)
+    _NETS.setdefault("bigtown", tpl)
+    mesh_kernel_phase(dev, held)
+    mesh = mesh_phases(dev, card, big)
 
     kernels = []
     for name in band_wrappers:
@@ -5073,6 +5747,13 @@ def main() -> int:
                           "plain_ms": w[f"{pre}plain_ms"], "library_ms": w[f"{pre}library_ms"],
                           "bound_ms": w[f"{pre}bound_ms"], "packed_loads": w["vector_loads"]}
                 for C, w in zoo["widths"].items()}
+    # the parallel strategies' paths (phases 44-49) launch every band kernel and the
+    # factored pair on the ranks: each rank's counts, summed
+    for k in kernels:
+        if k["name"] in MESH_KERNELS:
+            if not mesh["launches"].get(k["name"]):
+                raise SystemExit(f"FAIL {k['name']} was not launched on the mesh's path")
+            k["mesh_launches"] = mesh["launches"][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,9 +9,9 @@ kernels' plain PyTorch versions on the host.
 - ``train``    — ``Trainer.fit`` on snapshot zips; ``--model_path`` resumes
   through ``Trainer.restore``; ``--do_test`` evaluates the best checkpoint;
   ``--profile_dir`` writes a ``torch.profiler`` trace of the epochs after
-  the first
+  the first; ``--mesh DP,GP`` trains over a mesh of ranks (``MeshTrainer``)
 - ``eval``     — the multi-trial ``Evaluator`` (clean, noisy11, noisyNN) on
-  a checkpoint, under the layout it was trained with
+  a checkpoint, under the layout it was trained with; ``--mesh`` over ranks
 - ``infer``    — full fields from sparse observations, exported as npz / csv
 - ``generate`` — Monte-Carlo scenario generation (``simgen.runner``)
 - ``mkconfig`` — a generation INI from an INP's value ranges
@@ -22,9 +22,17 @@ and the baseline zoo (``gin``, ``gat``, ``gcn2``, ``chebnet``,
 ``graphconvwat``, ``mgcn``), each with its preset's criterion,
 normalisation and edge attributes unless a flag overrides them. What the
 port does not have yet exits non-zero, naming the ROADMAP Queue 1 item that
-brings it: the mesh and multi-host runs (``--mesh``, ``--distributed``, item 7), bf16
-activations and matmul precisions other than ``highest`` (item 8), several
-epochs per dispatch (item 2) and ``benchmark`` (item 1).
+brings it: bf16 activations and matmul precisions other than ``highest``
+(item 8), several epochs per dispatch (item 2) and ``benchmark`` (item 1).
+
+``--mesh DP,GP`` (``train``, ``eval``) starts ``DP·GP`` ranks on this host
+(``parallel.launch``), each of which runs the command over the mesh; the
+command exits with the first failing rank's code. ``--distributed`` joins a
+launch started outside instead (``parallel.init_distributed``: ``--coordinator
+host:port`` with ``--num_processes`` and ``--process_id``, or the
+environment's ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``), the
+mesh ``--mesh`` or every process on the data axis. Rank 0 prints, logs and
+writes the checkpoints.
 
 Run as ``python -m gnn_pressure_estimation_tpu_torch.cli <command> [flags]``
 or ``gnn-wdn-torch <command> [flags]``.
@@ -37,6 +45,7 @@ import dataclasses
 import os
 import sys
 from datetime import datetime
+from typing import Optional
 
 
 def _add_train_flags(p: argparse.ArgumentParser):
@@ -108,9 +117,14 @@ def _add_train_flags(p: argparse.ArgumentParser):
     p.add_argument("--band_block", default=None, type=int,
                    help="banded block-row size (default 256)")
     p.add_argument("--mesh", default=None, type=str, metavar="DP,GP",
-                   help="not yet ported (ROADMAP Queue 1 item 7)")
+                   help="run over a data×graph mesh of ranks, e.g. '4,2' "
+                        "(whole-graph shards for small templates, banded "
+                        "halo-exchange node shards for large ones); without "
+                        "--distributed the ranks are started on this host")
     p.add_argument("--distributed", action="store_true",
-                   help="not yet ported (ROADMAP Queue 1 item 7)")
+                   help="join a torch.distributed launch started outside "
+                        "(--coordinator, or the environment's MASTER_ADDR / "
+                        "MASTER_PORT / WORLD_SIZE / RANK)")
     p.add_argument("--coordinator", default=None, type=str,
                    help="coordinator address host:port for --distributed")
     p.add_argument("--num_processes", default=None, type=int)
@@ -129,10 +143,6 @@ def _refuse(args, *checks: str):
     """Exit non-zero, naming the ROADMAP item, where ``args`` asks for what the
     port does not have yet. ``checks`` names the flags this command acts on."""
     reasons = {
-        "mesh": (bool(args.mesh),
-                 "--mesh is not yet ported (ROADMAP Queue 1 item 7, parallel)"),
-        "distributed": (args.distributed,
-                        "--distributed is not yet ported (ROADMAP Queue 1 item 7, parallel)"),
         "activation_dtype": (args.activation_dtype == "bfloat16",
                              "--activation_dtype bfloat16 is not yet ported (ROADMAP Queue 1 "
                              "item 8, precision knobs)"),
@@ -153,6 +163,68 @@ def _device(args):
     from gnn_pressure_estimation_tpu_torch.device import resolve_device
 
     return resolve_device(args.device or "cuda")
+
+
+def _mesh_shape(args, world: int) -> tuple[int, int]:
+    if not args.mesh:
+        return world, 1
+    try:
+        dp, gp = (int(v) for v in args.mesh.split(","))
+    except ValueError:
+        sys.exit(f"--mesh takes DP,GP (two integers), not {args.mesh!r}")
+    return dp, gp
+
+
+def _spawn_mesh(args, dev) -> Optional[int]:
+    """With ``--mesh`` and no process group yet: start the mesh's ranks on
+    this host, each running this command, and return the launch's exit
+    code. With ``--distributed``: join the outside launch. Otherwise None:
+    this process goes on (a single device, or one rank of a mesh)."""
+    import torch.distributed as dist
+
+    if args.distributed and not dist.is_initialized():
+        from gnn_pressure_estimation_tpu_torch.parallel import init_distributed
+
+        init_distributed(args.coordinator, args.num_processes, args.process_id,
+                         device=dev.type)
+        return None
+    if not args.mesh or dist.is_initialized():
+        return None
+    import json
+
+    from gnn_pressure_estimation_tpu_torch.parallel.launch import spawn
+
+    dp, gp = _mesh_shape(args, 0)
+    print(f"mesh {dp}×{gp}: starting {dp * gp} rank(s) on this host", flush=True)
+    argv = list(args.argv)
+    if "--variant" not in argv:
+        argv += ["--variant", args.variant]           # one run name on every rank
+    # the CPU mesh is for checks: one thread a rank keeps the ranks from
+    # oversubscribing the host
+    return spawn(dp * gp, "gnn_pressure_estimation_tpu_torch.cli:rank_main",
+                 json.dumps(argv), device=dev.type,
+                 threads=1 if dev.type == "cpu" else None)
+
+
+def _mesh(args, dev):
+    """The run's mesh (``--mesh``, or every rank on the data axis) when this
+    process is a rank, else None."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return None
+    from gnn_pressure_estimation_tpu_torch.parallel import make_mesh
+
+    dp, gp = _mesh_shape(args, dist.get_world_size())
+    return make_mesh(dp, gp, device=dev.type)
+
+
+def rank_main(payload: str) -> int:
+    """A mesh rank's entry point (``parallel.launch``): the command line
+    ``payload`` (JSON) run in this rank."""
+    import json
+
+    return main(json.loads(payload)) or 0
 
 
 def _model(args, dev, seed: int = 0):
@@ -257,12 +329,19 @@ class _EpochProfiler:
 
 
 def cmd_train(args):
-    _refuse(args, "mesh", "distributed", "activation_dtype", "matmul_precision",
-            "epochs_per_dispatch")
+    _refuse(args, "activation_dtype", "matmul_precision", "epochs_per_dispatch")
     from gnn_pressure_estimation_tpu_torch.train import TrainConfig, Trainer
     from gnn_pressure_estimation_tpu_torch.utils.logging import make_logger
 
     dev = _device(args)
+    code = _spawn_mesh(args, dev)
+    if code is not None:
+        return code
+    mesh = _mesh(args, dev)
+    if mesh is not None:
+        dev = mesh.device
+    lead = mesh is None or mesh.rank == 0          # rank 0 prints, logs and writes
+    say = print if lead else (lambda *_a, **_k: None)
     model, preset = _model(args, dev, seed=args.seed)
     train_ds, val_ds, norm_type = _load_datasets(args, preset)
 
@@ -280,32 +359,41 @@ def cmd_train(args):
         epochs_per_dispatch=args.epochs_per_dispatch,
         agg_mode=args.agg_mode, band_block=args.band_block,
     )
-    trainer = Trainer(model, cfg, train_ds.stats, train_ds.members[0].template, device=dev)
-    print(f"Model: {args.model}; parameters: {trainer.n_params}")
+    tpl = train_ds.members[0].template
+    if mesh is not None:
+        from gnn_pressure_estimation_tpu_torch.parallel import MeshTrainer
+
+        trainer = MeshTrainer(model, cfg, train_ds.stats, tpl, mesh)
+        say(f"mesh {mesh.dp}×{mesh.gp} ({trainer.strategy} strategy, backend {mesh.backend})")
+    else:
+        trainer = Trainer(model, cfg, train_ds.stats, tpl, device=dev)
+    say(f"Model: {args.model}; parameters: {trainer.n_params}")
     if args.model_path:
         # full-state resume: parameters, optimizer, epoch, early stop, scheduler
         meta = trainer.restore(args.model_path)
-        print(f"resumed from {args.model_path} (epoch {meta['epoch']}, "
-              f"continuing at {meta['epoch'] + 1})")
+        say(f"resumed from {args.model_path} (epoch {meta['epoch']}, "
+            f"continuing at {meta['epoch'] + 1})")
 
     run_name = f"{args.model}_{args.variant}"
-    logger = make_logger(args.log_method, args.project_name, run_name, vars(args))
-    on_epoch_end = logger.log_epoch
-    prof = None
-    if args.profile_dir:
-        prof = _EpochProfiler(args.profile_dir, args.profile_epochs, run_name, dev)
+    on_epoch_end = logger = prof = None
+    if lead:
+        logger = make_logger(args.log_method, args.project_name, run_name, vars(args))
+        on_epoch_end = logger.log_epoch
+        if args.profile_dir:
+            prof = _EpochProfiler(args.profile_dir, args.profile_epochs, run_name, dev)
 
-        def on_epoch_end(epoch, mets, _log=logger.log_epoch):
-            _log(epoch, mets)
-            prof.epoch_end(epoch)
+            def on_epoch_end(epoch, mets, _log=logger.log_epoch):
+                _log(epoch, mets)
+                prof.epoch_end(epoch)
 
     best = trainer.fit(train_ds, val_ds, on_epoch_end=on_epoch_end)
     if prof is not None:
         prof.stop()
-    logger.finish()
-    print(f"best epoch {best['epoch']}: val_loss {best['loss']:.6f}")
+    if logger is not None:
+        logger.finish()
+    say(f"best epoch {best['epoch']}: val_loss {best['loss']:.6f}")
 
-    if args.do_test:
+    if args.do_test and lead:
         # clean, unshared-mask evaluation of the best checkpoint on the test
         # split (reference convert_train_2_test_arguments defaults), under
         # the layout the run trained with
@@ -333,12 +421,19 @@ def cmd_train(args):
 
 
 def cmd_eval(args):
-    _refuse(args, "mesh")
     from gnn_pressure_estimation_tpu_torch.data import WDNDataset
     from gnn_pressure_estimation_tpu_torch.evaluation import EvalConfig, Evaluator
     from gnn_pressure_estimation_tpu_torch.evaluation.harness import make_noisy_scenes
 
     dev = _device(args)
+    code = _spawn_mesh(args, dev)
+    if code is not None:
+        return code
+    mesh = _mesh(args, dev)
+    if mesh is not None:
+        dev = mesh.device
+        if mesh.rank == 0:
+            print(f"mesh eval {mesh.dp}×{mesh.gp} (backend {mesh.backend})")
     model, preset = _model(args, dev)
     norm_type = args.norm_type or preset.norm_type
     edge_attrs = _edge_attrs(args, preset)
@@ -391,7 +486,9 @@ def cmd_eval(args):
         datasets = make_noisy_scenes(
             [args.test_input_path], cfg, stats, edge_attrs, norm_type
         )
-    Evaluator(model, cfg, stats, device=dev).evaluate(datasets)
+    quiet = mesh is not None and mesh.rank != 0
+    Evaluator(model, cfg, stats, mesh=mesh, device=dev).evaluate(
+        datasets, log_fn=(lambda *_: None) if quiet else print)
     return 0
 
 
@@ -586,7 +683,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    args.argv = argv                      # what a mesh's ranks run again
     return {
         "train": cmd_train,
         "eval": cmd_eval,

@@ -12,15 +12,21 @@ and in every mode the receiver-sorted edge list with its slot tables
 (``ops.segment``) and the edge attributes, which only m_GCN reads and
 which are therefore built on first use.
 
-Three aggregation modes are ported: ``dense`` (templates of at most
-:attr:`GraphTemplate.DENSE_THRESHOLD` nodes), ``banded`` (larger ones) and
-``padded`` (degree-padded neighbour slots in original node order, chosen by
-name). The edge-list ``segment`` mode is not.
+``batch()`` builds the three modes the JAX ``batch()`` builds: ``dense``
+(templates of at most :attr:`GraphTemplate.DENSE_THRESHOLD` nodes),
+``banded`` (larger ones) and ``padded`` (degree-padded neighbour slots in
+original node order, chosen by name). The layers take the edge-list
+(segment) path, as the JAX layers do, on a graph in none of them: the edge
+partition's local graph (``parallel.edgepart``, with ``axis_name`` set and
+edge masks), or a graph whose padded tables were taken out. The halo
+strategy's local graph (``parallel.halo``) is a banded graph with
+``axis_name`` set: ``halo`` is true there and ``banded`` false, as in JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -171,24 +177,47 @@ class GraphTemplate:
         }
         return self._degree_cache
 
-    def edge_list(self, band_block: Optional[int] = None, banded: bool = False) -> dict:
+    @functools.cached_property
+    def segment_lists(self) -> dict:
+        """The edge-list path's extra lists, built on first read: the
+        self-loop-augmented list (receiver-sorted too: ``senders_sl``,
+        ``receivers_sl``) with its GCN weights 1/sqrt((d_i+1)(d_j+1))
+        (``gcn_norm``), and the Chebyshev weights -1/sqrt(d_i d_j) over the
+        plain list (``cheb_norm``, 0 where a degree is 0)."""
+        n, s, r, deg = self.n_node, self.senders, self.receivers, self.in_degree
+        loops = np.arange(n, dtype=np.int32)
+        s_sl, r_sl, _ = _sort_by_receiver(np.concatenate([s, loops]), np.concatenate([r, loops]))
+        dinv_sl = 1.0 / np.sqrt(deg + 1.0)
+        with np.errstate(divide="ignore"):
+            dq = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1.0)), 0.0)
+        return {"senders_sl": s_sl, "receivers_sl": r_sl,
+                "gcn_norm": (dinv_sl[s_sl] * dinv_sl[r_sl]).astype(np.float32),
+                "cheb_norm": (-(dq[s] * dq[r])).astype(np.float32)}
+
+    def edge_list(self, band_block: Optional[int] = None, banded: bool = False,
+                  self_loops: bool = False) -> dict:
         """The receiver-sorted edge list with its slot tables
         (``ops.segment.build_edge_slots``), host-built once and cached:
         ``senders``, ``receivers``, ``order`` (each edge's index in the
-        template's own list, which orders the edge attributes) and the
-        tables. In original node order, or with ``banded`` in the band
-        layout's perm + pad space, re-sorted by receiver as the JAX
+        template's own list, which orders the edge attributes and weights)
+        and the tables; ``self_loops`` the self-loop-augmented list of
+        :attr:`segment_lists`. In original node order, or with ``banded`` in
+        the band layout's perm + pad space, re-sorted by receiver as the JAX
         package's banded batch sorts it."""
         from gnn_pressure_estimation_tpu_torch.ops.segment import build_edge_slots
 
         bl = self.band_layout(band_block) if banded else None
-        key = (bl.BLK, bl.W) if banded else None
+        key = ((bl.BLK, bl.W) if banded else None, self_loops)
         if key not in self._edge_cache:
+            if self_loops:
+                s, r = self.segment_lists["senders_sl"], self.segment_lists["receivers_sl"]
+            else:
+                s, r = self.senders, self.receivers
             if banded:
                 inv = bl.inv_perm.astype(np.int32)
-                s, r, order = _sort_by_receiver(inv[self.senders], inv[self.receivers])
+                s, r, order = _sort_by_receiver(inv[s], inv[r])
             else:
-                s, r, order = self.senders, self.receivers, np.arange(self.n_edge)
+                order = np.arange(len(s))
             self._edge_cache[key] = {"senders": s, "receivers": r, "order": order,
                                      **build_edge_slots(s, r, bl.n_pad if banded else self.n_node)}
         return self._edge_cache[key]
@@ -268,9 +297,11 @@ class GraphTemplate:
         if mode is None:
             mode = "dense" if self.n_node <= self.DENSE_THRESHOLD else "banded"
         if mode not in ("dense", "banded", "padded"):
-            raise NotImplementedError(
-                f"aggregation mode {mode!r} is not yet ported (the segment mode: ROADMAP.md, "
-                "Queue 1, item 7)")
+            raise ValueError(
+                f"aggregation mode {mode!r} is not a batch mode (dense, banded, padded, as the "
+                "JAX batch() builds them); the layers take the edge-list path on the edge "
+                "partition's local graph (parallel.edgepart) or on a graph whose padded tables "
+                "were taken out")
         if mode == "banded":
             from gnn_pressure_estimation_tpu_torch.ops.banded import (
                 BAND_ATTN_ROUTES, band_attention_route,
@@ -295,19 +326,24 @@ class GraphTemplate:
         return g
 
     def _edges(self, B: int, band_block: Optional[int], banded: bool, dev):
-        """The builder of a batch's edge list (``BatchedGraph.edges``) and
-        edge attributes (the template's ``edge_attr``, the dataset's scaled
-        values, in the list's order, tiled over the batch), which the batch
-        calls on first use."""
-        def build() -> dict:
+        """The builder of one entry of a batch's edge tables, which the batch
+        calls on that entry's first read: the edge lists
+        (``BatchedGraph.edges`` and, self-loops added, ``edges_sl``), their
+        weights (``cheb_norm``, ``gcn_norm``) and the edge attributes (the
+        template's ``edge_attr``, the dataset's scaled values), each in its
+        list's order and tiled over the batch."""
+        def build(name: str):
             from gnn_pressure_estimation_tpu_torch.ops.segment import EdgeSlots
 
-            el = self.edge_list(band_block, banded)
-            n = self.band_layout(band_block).n_pad if banded else self.n_node
-            ea = None if self.edge_attr is None else torch.as_tensor(
-                np.tile(np.asarray(self.edge_attr, np.float32)[el["order"]], (B, 1)), device=dev)
-            return {"edges": EdgeSlots.tiled(el["senders"], el["receivers"], el, B, n, dev),
-                    "edge_attr": ea}
+            el = self.edge_list(band_block, banded, self_loops=name in ("edges_sl", "gcn_norm"))
+            if name in ("edges", "edges_sl"):
+                n = self.band_layout(band_block).n_pad if banded else self.n_node
+                return EdgeSlots.tiled(el["senders"], el["receivers"], el, B, n, dev)
+            a = self.edge_attr if name == "edge_attr" else self.segment_lists[name]
+            if a is None:
+                return None
+            return torch.as_tensor(np.tile(np.asarray(a, np.float32)[el["order"]],
+                                           (B,) + (1,) * (np.ndim(a) - 1)), device=dev)
         return build
 
     def _build_batch(self, B: int, mode: str, band_block: Optional[int], dev,
@@ -399,8 +435,18 @@ class BatchedGraph:
     node's in-edge slots ``[B·n, D]`` (and ``[B·n, D+1]`` with the self-loop
     slot) with their masks, the transpose tables of each, 1/deg and the GCN
     and Chebyshev slot weights. Every mode gives the receiver-sorted edge list of
-    the batch in its node space (``edges``) and the edge attributes in that
-    list's order (``edge_attr``, or None), both built on the first read.
+    the batch in its node space (``edges``; with self-loops ``edges_sl``),
+    the Chebyshev and GCN edge weights over them (``cheb_norm``,
+    ``gcn_norm``) and the edge attributes in the plain list's order
+    (``edge_attr``, or None), each built on its own first read.
+
+    ``axis_name`` (the ``parallel.mesh.Mesh`` of the run, which holds the
+    graph group; the JAX field names a mesh axis) marks one rank's part of a
+    distributed batch. With band tensors it is the halo strategy's chunk
+    (``halo``): windows extend with the neighbouring ranks' rows. With edges
+    only it is the edge partition's node block: receivers are local ids,
+    senders global ids into the graph group's blocks, and ``edge_mask`` /
+    ``edge_mask_sl`` flag the real (not padding) edges.
     """
 
     n_graph: int
@@ -440,8 +486,13 @@ class BatchedGraph:
     inv_degree: Optional[torch.Tensor] = None      # [B·n] f32 1/deg (0 at deg 0)
     gcn_dp_sl: Optional[torch.Tensor] = None       # [B·n, D+1] f32 GCN slot weights
     cheb_dp: Optional[torch.Tensor] = None         # [B·n, D] f32 Chebyshev slot weights
-    # builds {"edges": ops.segment.EdgeSlots, "edge_attr": [B·E, d] f32 or None}
-    edge_source: Optional[Callable[[], dict]] = dataclasses.field(
+    axis_name: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
+    edge_mask: Optional[torch.Tensor] = None       # [E] bool: real edges (edge partition)
+    edge_mask_sl: Optional[torch.Tensor] = None    # [E_sl] bool
+    # builds the entry it is named, on its first read: "edges", "edges_sl"
+    # (ops.segment.EdgeSlots), "cheb_norm", "gcn_norm" ([E] / [E_sl] f32),
+    # "edge_attr" ([B·E, d] f32 or None)
+    edge_source: Optional[Callable[[str], object]] = dataclasses.field(
         default=None, repr=False, compare=False)
     _edge_cache: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
@@ -453,26 +504,48 @@ class BatchedGraph:
     def dense(self) -> bool:
         return self.mean_mat is not None
 
-    def _edge_tables(self) -> dict:
-        if not self._edge_cache and self.edge_source is not None:
+    def _edge_table(self, name: str):
+        if name not in self._edge_cache and self.edge_source is not None:
             # cached and shared like the batch: built outside inference mode
             with torch.inference_mode(False):
-                self._edge_cache.update(self.edge_source())
-        return self._edge_cache
+                self._edge_cache[name] = self.edge_source(name)
+        return self._edge_cache.get(name)
 
     @property
     def edges(self):
         """The batch's receiver-sorted edge list (``ops.segment.EdgeSlots``)."""
-        return self._edge_tables().get("edges")
+        return self._edge_table("edges")
+
+    @property
+    def edges_sl(self):
+        """The self-loop-augmented edge list (``ops.segment.EdgeSlots``)."""
+        return self._edge_table("edges_sl")
+
+    @property
+    def cheb_norm(self) -> Optional[torch.Tensor]:
+        """Chebyshev weight −1/√(d_i d_j) of each edge of ``edges``."""
+        return self._edge_table("cheb_norm")
+
+    @property
+    def gcn_norm(self) -> Optional[torch.Tensor]:
+        """GCN weight 1/√((d_i+1)(d_j+1)) of each edge of ``edges_sl``."""
+        return self._edge_table("gcn_norm")
 
     @property
     def edge_attr(self) -> Optional[torch.Tensor]:
         """[B·E, d] f32 edge attributes in ``edges``' order, or None."""
-        return self._edge_tables().get("edge_attr")
+        return self._edge_table("edge_attr")
 
     @property
     def banded(self) -> bool:
-        return self.band_adj_mask is not None
+        return self.band_adj_mask is not None and self.axis_name is None
+
+    @property
+    def halo(self) -> bool:
+        """One rank's chunk of a band partitioned over the graph group
+        (``parallel.halo``): window rows beyond the chunk come from the
+        neighbouring ranks instead of zero padding."""
+        return self.band_adj_mask is not None and self.axis_name is not None
 
     @property
     def padded(self) -> bool:

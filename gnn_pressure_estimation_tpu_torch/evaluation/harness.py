@@ -20,6 +20,13 @@ the scene path), each from a CPU ``torch.Generator`` seeded by the same
 ``rng.integers`` draw; the JAX PRNG stream itself cannot be reproduced.
 Losses and metrics stay on the device until the end of a trial (of a scene
 block), which reads them back to the host at once.
+
+``mesh`` (a ``parallel.mesh.Mesh``) runs every forward over the ranks of the
+mesh with ``MeshTrainer``'s strategies (``parallel.eval_forward``): whole
+graphs a rank for small templates, the halo-exchanged band chunks for
+banded or large ones. Every rank runs the whole evaluation on the whole
+batch, draws the same masks and gets the whole output back, so every rank
+computes the same metrics.
 """
 
 from __future__ import annotations
@@ -79,20 +86,25 @@ class Evaluator:
     The model is moved to ``device`` and put in eval mode. One
     ``BatchedGraph`` is built per (template, batch size) and reused: noise
     scenes share their template, so N scenes build one graph and one band
-    index. ``mesh`` (the JAX package's SPMD evaluation over a device mesh)
-    is not ported yet."""
+    index. ``mesh`` (a ``parallel.mesh.Mesh``) runs each forward over its
+    ranks on the mesh's device (``device`` is then not read)."""
 
     def __init__(self, model: torch.nn.Module, cfg: EvalConfig, stats: NormStats, mesh=None,
                  device="cuda"):
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh evaluation is not yet ported (ROADMAP Queue 1 item 7, parallel)")
-        self.device = resolve_device(device)
+            from gnn_pressure_estimation_tpu_torch.parallel.mesh import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), not "
+                                f"{type(mesh).__name__}")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg
         self.stats = stats
         self.criterion = make_criterion(cfg.criterion)
         self._graphs: dict = {}
+        self._mesh_fwds: dict = {}
         self._sensor_cache: dict = {}
 
     def _sensor_idx(self, template) -> tuple:
@@ -126,6 +138,22 @@ class Evaluator:
                                                band_block=self.cfg.band_block,
                                                device=self.device)
         return self._graphs[key]
+
+    def _forward(self, template, bs: int):
+        """``(fwd, graph)``: ``fwd(x_in)`` the model's forward on ``bs``
+        graphs of ``template``, over the mesh when there is one (``graph``
+        then its adapter: ``banded``, ``pack_nodes``, ``unpack_nodes``)."""
+        if self.mesh is None:
+            graph = self._graph(template, bs)
+            return (lambda x_in: self.model(x_in, graph)), graph
+        key = (id(template), bs)
+        if key not in self._mesh_fwds:
+            from gnn_pressure_estimation_tpu_torch.parallel.eval_forward import make_mesh_forward
+
+            self._mesh_fwds[key] = make_mesh_forward(
+                self.model, template, bs, self.mesh, agg_mode=self.cfg.agg_mode,
+                band_block=self.cfg.band_block)
+        return self._mesh_fwds[key]
 
     def _draw_mask(self, rng, bs, n, required_idx):
         """One mask for ``bs`` graphs, drawn from a generator seeded by the
@@ -192,8 +220,7 @@ class Evaluator:
         N = len(datasets)
         xs = np.stack([np.asarray(ds.members[0].array[0], np.float32) for ds in datasets])
         x = torch.as_tensor(xs.reshape(-1, 1), device=self.device)  # [N*n, 1]
-        graph = self._graph(tpl, N)
-        fwd = lambda x_in: self.model(x_in, graph)  # noqa: E731
+        fwd, graph = self._forward(tpl, N)
         req = self._sensor_idx(tpl)
         rng = np.random.default_rng(cfg.seed)
         draws = []   # device values, one read-back at the end
@@ -267,13 +294,12 @@ class Evaluator:
                 mask = self._draw_mask(rng, bs, n, req)
                 shared_mask[mkey] = mask
 
-            graph = self._graph(template, bs)
+            fwd, graph = self._forward(template, bs)
             if graph.banded:
                 # banded graphs run in RCM-permuted padded node space
                 x = graph.pack_nodes(x, n)
                 mask = graph.pack_nodes(mask.to(torch.float32)[:, None], n)[:, 0] > 0.5
             x_in = torch.where(mask[:, None], 0.0, x)
-            fwd = lambda x_in_: self.model(x_in_, graph)  # noqa: E731
             if timer is not None:
                 warm = cfg.gpu_warmup_times if (trial == 0 and not timer.finished_warmup) else 0
                 out = timer.auto_measure(fwd, bs, warmup_times=warm)(x_in)

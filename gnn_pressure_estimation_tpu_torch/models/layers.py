@@ -23,6 +23,16 @@ torch, as the JAX layers do in plain XLA. GENConv gathers over the edge list
 and sums per receiver with ``ops.segment`` in every mode, as the JAX layer
 does.
 
+On a graph in none of those modes (the edge partition's local graph, or a
+graph whose padded tables were taken out) every layer takes the edge-list
+path of the JAX layers: ``ops.segment``'s ``spmm`` with the GCN or
+Chebyshev edge weights, GATConv's ``segment_softmax`` over the
+self-loop-augmented list; with ``graph.axis_name`` set the senders index
+the graph group's all-gathered node blocks and padding edges are masked.
+A halo-mode graph (``graph.halo``, the halo strategy's chunk) runs the
+banded path, its window rows beyond the chunk taken from the neighbouring
+ranks (``parallel.halo.halo_exchange``) instead of zeros.
+
 Divergence from the JAX layers: at channel widths that are not a multiple
 of 128 the JAX banded aggregations take plain XLA over the float bands
 (``band_adj``, ``band_gcn``, ``band_cheb``); here every width goes through
@@ -86,6 +96,25 @@ def torch_linear_(t: torch.Tensor, fan_in: int,
     return t.uniform_(-bound, bound, generator=generator)
 
 
+def _halo_rows(xb: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
+    """A halo chunk [B, n_pad, ...] → [B, U + n_pad + R, ...] with the
+    neighbouring ranks' rows around it (``bops.extend_rows`` puts zeros
+    there on one device)."""
+    from gnn_pressure_estimation_tpu_torch.parallel.halo import halo_exchange
+
+    return halo_exchange(xb, graph.band_U, graph.band_R, graph.axis_name)
+
+
+def _windows(xb: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
+    """[B, n_pad, ...] → [nB, B, W, ...] band windows; in halo mode the
+    window extension rows come from the neighbouring ranks."""
+    if graph.halo:
+        nB = len(graph.band_win_start)
+        return bops.band_windows_ext(_halo_rows(xb, graph), nB, graph.band_n_pad // nB,
+                                     graph.band_W)
+    return bops.band_windows(xb, graph.band_win_start, graph.band_W)
+
+
 def _band_agg(kind: str, x: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
     """A parameter-free banded aggregation through ``ops.band_spmm`` on the
     int8 count band, the factored scales applied outside (x in perm + pad
@@ -106,7 +135,9 @@ def _band_agg(kind: str, x: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
     xb = x.reshape(B, n_pad, -1)
     if cs is not None:
         xb = xb * cs[None, :, None]
-    out = band_spmm(band, bops.extend_rows(xb, graph.band_U, graph.band_R), index)
+    x_ext = (_halo_rows(xb, graph) if graph.halo
+             else bops.extend_rows(xb, graph.band_U, graph.band_R))
+    out = band_spmm(band, x_ext, index)
     if rs is not None:
         out = out * rs[None, :, None]
     return out.reshape(B * n_pad, -1)
@@ -137,7 +168,7 @@ def _aggregate(kind: str, x: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
         mat = {"adj": graph.adj_mat, "mean": graph.mean_mat, "gcn": graph.gcn_mat,
                "cheb": graph.cheb_mat}[kind]
         return _dense_agg(mat, x, graph)
-    if graph.banded:
+    if graph.banded or graph.halo:
         return _band_agg(kind, x, graph)
     if graph.padded:
         if kind == "adj":
@@ -147,7 +178,14 @@ def _aggregate(kind: str, x: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
         if kind == "gcn":
             return _padded_weighted_agg(graph.gather_dp_sl, x, graph.gcn_dp_sl)
         return _padded_weighted_agg(graph.gather_dp, x, graph.cheb_dp)
-    raise NotImplementedError("the segment aggregation mode is not yet ported")
+    # the edge-list path
+    ax = graph.axis_name
+    if kind == "gcn":
+        return segment.spmm(x, graph.edges_sl, graph.gcn_norm, ax, graph.edge_mask_sl)
+    if kind == "cheb":
+        return segment.spmm(x, graph.edges, graph.cheb_norm, ax, graph.edge_mask)
+    agg = segment.spmm(x, graph.edges, None, ax, graph.edge_mask)
+    return agg * graph.inv_degree[:, None] if kind == "mean" else agg
 
 
 class GATConv(nn.Module):
@@ -231,22 +269,23 @@ class GATConv(nn.Module):
         B = graph.n_graph
         if graph.dense:
             out = self._dense(xp.view(B, -1, H, C), a_s.view(B, -1, H), a_d.view(B, -1, H), graph)
-        elif graph.banded:
+        elif graph.banded or graph.halo:
             n_pad = graph.band_n_pad
-            a_src_win = bops.band_windows(a_s.view(B, n_pad, H),
-                                          graph.band_win_start, graph.band_W)
+            a_src_win = _windows(a_s.view(B, n_pad, H), graph)
             xp_b = xp.view(B, n_pad, H, C)
             if graph.band_attn == "window":
                 attend, kw = band_attention_window, {}
-                x_in = bops.band_windows(xp_b, graph.band_win_start, graph.band_W)
+                x_in = _windows(xp_b, graph)
             else:
                 # the Function extends the projected rows itself: in bf16 for the
                 # bf16-operand instances, which run where the JAX layer takes its
-                # v2-family kernel
-                attend, x_in = BAND_ATTEND[graph.band_attn], xp_b
-                kw = {"halo": (graph.band_U, graph.band_R), "mxu_bf16": (
-                    self.attn_dtype == torch.bfloat16 and self.negative_slope == 0.2
-                    and H * C % 128 == 0)}
+                # v2-family kernel. A halo chunk hands it the exchanged rows
+                # (halo=None): under mxu_bf16 the wrappers round f32 rows once
+                attend = BAND_ATTEND[graph.band_attn]
+                x_in = _halo_rows(xp_b, graph) if graph.halo else xp_b
+                kw = {"halo": None if graph.halo else (graph.band_U, graph.band_R),
+                      "mxu_bf16": (self.attn_dtype == torch.bfloat16
+                                   and self.negative_slope == 0.2 and H * C % 128 == 0)}
             out = attend(a_d.view(B, n_pad, H).contiguous(), a_src_win, x_in,
                          graph.band_adj_mask, self.negative_slope, graph.band_adj_index, **kw)
         elif graph.padded:
@@ -260,7 +299,12 @@ class GATConv(nn.Module):
             attn = torch.softmax(logits, dim=1)
             out = torch.einsum("ndh,ndhc->nhc", attn, graph.gather_dp_sl(xp))
         else:
-            raise NotImplementedError("the segment aggregation mode is not yet ported")
+            # the edge list with self-loops: per-receiver softmax over its edges
+            edges, emask, ax = graph.edges_sl, graph.edge_mask_sl, graph.axis_name
+            logits = segment.gather_src(a_s, edges, ax) + segment.gather(a_d, edges)
+            logits = torch.where(logits >= 0, logits, self.negative_slope * logits)
+            alpha = segment.segment_softmax(logits, edges, emask)               # [E, H]
+            out = segment.spmm(xp, edges, alpha, ax, emask)
         out = out.reshape(-1, H, C)
         out = out.reshape(-1, H * C) if self.concat else out.mean(dim=1)
         return out + self.bias
@@ -493,12 +537,15 @@ class GENConv(nn.Module):
             raise ValueError(f"GENConv built with edge_emb={self.edge_emb} got "
                              f"{'no ' if edge_emb is None else ''}edge embeddings")
         edges = graph.edges
-        x_src = segment.gather_src(x, edges)
+        x_src = segment.gather_src(x, edges, graph.axis_name)
         if edge_emb is not None:
             e = edge_emb + torch.abs(x_src - segment.gather(x, edges))
             msg = torch.cat([x_src, e], dim=-1)
         else:
             msg = x_src
-        latent = segment.segment_sum(F.selu(msg) + self.eps, edges)
+        msg = F.selu(msg) + self.eps
+        if graph.edge_mask is not None:
+            msg = torch.where(graph.edge_mask[:, None], msg, 0.0)
+        latent = segment.segment_sum(msg, edges)
         latent = (self.res(latent) if mlp else torch.tanh(self.res(latent))) + x
         return self.mlp(latent) if mlp else latent

@@ -147,8 +147,11 @@ def test_int8_count_overflow_raises():
 
 
 def test_unported_mode_raises(rng):
+    """``batch()`` builds the modes the JAX ``batch()`` builds; the edge-list
+    path is reached through the edge partition or a stripped graph, and the
+    message says so."""
     jt = random_graph(rng, n=12, extra_edges=4)
-    with pytest.raises(NotImplementedError, match="'segment' is not yet ported.*Queue 1"):
+    with pytest.raises(ValueError, match="'segment' is not a batch mode.*edge partition"):
         GraphTemplate(jt.n_node, jt.senders, jt.receivers).batch(2, mode="segment", device="cpu")
 
 

@@ -229,7 +229,10 @@ def test_drawn_masks_repeat_from_the_seed(setup):
 
 
 def test_evaluator_refuses_a_mesh(setup):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    """A mesh must be the port's ``parallel.mesh.Mesh`` (the JAX package's, or
+    anything else, is refused); ``Evaluator(mesh=...)`` itself runs in
+    ``test_torch_mesh_eval.py``."""
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         Evaluator(setup["model"], EvalConfig(), setup["stats"], mesh=object(), device="cpu")
 
 

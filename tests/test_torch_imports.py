@@ -32,9 +32,11 @@ def _imported_modules(path: Path):
 
 
 def test_port_imports_no_jax():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """The port, ``chip_smoke.py`` and the tests' rank jobs (which the
+    spawned ranks import) import no JAX."""
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests/torch_rank_jobs.py"]
     assert len(files) > 10
-    scanned = {str(f.relative_to(PORT)) for f in files[:-1]}
+    scanned = {str(f.relative_to(PORT)) for f in files[:-2]}
     assert {"train/loop.py", "train/checkpoint.py", "train/autoclip.py", "utils/masking.py",
             "utils/metrics.py", "data/dataset.py", "ops/band_spmm.py", "simgen/netgen.py",
             "simgen/__init__.py", "ops/band_attention.py", "ops/padded.py",
@@ -44,7 +46,9 @@ def test_port_imports_no_jax():
             "evaluation/harness.py", "cli.py", "utils/logging.py", "simgen/config.py",
             "simgen/tokens.py", "simgen/executor.py", "simgen/runner.py", "ops/segment.py",
             "models/zoo.py", "models/remask.py", "models/presets.py", "models/__init__.py",
-            "weights.py"} <= scanned
+            "weights.py", "parallel/__init__.py", "parallel/mesh.py", "parallel/launch.py",
+            "parallel/halo.py", "parallel/edgepart.py", "parallel/distributed.py",
+            "parallel/trainer.py", "parallel/eval_forward.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -78,7 +82,10 @@ def _top_level_modules(path: Path):
                                  "simgen/config.py", "simgen/tokens.py", "simgen/executor.py",
                                  "simgen/runner.py", "ops/segment.py", "models/zoo.py",
                                  "models/remask.py", "models/presets.py", "models/__init__.py",
-                                 "weights.py"])
+                                 "weights.py", "parallel/__init__.py", "parallel/mesh.py",
+                                 "parallel/launch.py", "parallel/halo.py", "parallel/edgepart.py",
+                                 "parallel/distributed.py", "parallel/trainer.py",
+                                 "parallel/eval_forward.py", "train/loop.py"])
 def test_module_imports_only_what_the_port_may(rel):
     """The modules this slice added or extended import torch, numpy, scipy,
     the standard library and the port itself, nothing else."""

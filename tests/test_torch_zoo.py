@@ -188,7 +188,8 @@ def test_registry_matches_jax():
 def test_edge_tables_built_on_first_use(templates, mode):
     """A batch builds its edge list and attributes when a layer first reads
     them: a GATRes forward leaves them unbuilt, an m_GCN forward builds
-    them once, in the batch's node space, the attributes in its order."""
+    them once, in the batch's node space, the attributes in its order, and
+    none of the self-loop list's tables or the edge weights it never reads."""
     from gnn_pressure_estimation_tpu_torch.models.gatres import GATRes
 
     jt, _ = templates
@@ -202,6 +203,7 @@ def test_edge_tables_built_on_first_use(templates, mode):
     zoo.MGCN(latent_dim=4, n_aggr=1)(x, g)
     edges, ea = g.edges, g.edge_attr
     assert g.edges is edges and ea.shape == (2 * pt.n_edge, 2)
+    assert set(g._edge_cache) == {"edges", "edge_attr"}
     assert bool((edges.receivers[1:] >= edges.receivers[:-1]).all())
     assert int(edges.receivers.max()) < g.n_node
     el = pt.edge_list(blk, mode == "banded")
