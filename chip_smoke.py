@@ -339,11 +339,52 @@ backend, by the rule of ``parallel.mesh.choose_backend``):
 50. ``cli train --mesh 1,2`` for one epoch and a resume to two, ``cli eval
     --mesh 1,2``, a two-process ``--distributed`` train.
 
+The last training knobs (``knob_phases``; fixtures of
+``tools/parity_precision_export.py``):
+
+51. bf16 activations (GATConv's ``dtype``, ``--activation_dtype``): the five
+    instances that round the logits as the JAX layer's bf16 ops do (v2's
+    forward and backward, the dense softmax pair, v1's forward; counted in
+    their wrappers' ``launches_logit``) against their plain versions, and
+    timed; synthctown, dense, B 1 steps of GATRes-small and GATRes-large's
+    width (factored and softmax) against
+    ``parity_train_synthctown_act_bf16.npz``: the blocks before the first
+    rounding flip within 1e-3, the loss nearer the fixture than the f32
+    step's, the gradients reported beside the f32 step's distance;
+    GATRes-small and -large at B 32, serving and a step, exact launches, ms
+    and peak memory in turns with f32; bigtown GATRes-small (its narrow
+    layers on v2 with the logits rounded) against
+    ``parity_train_bigtown_small_act_bf16.npz`` and timed at B 8;
+    GATRes-large on bigtown's dma route raises before any launch, as the JAX
+    layer does; on the window route (the JAX v1 kernel) it serves B 8 against
+    the plain versions and its backward raises.
+52. ``attn_impl="band_factored"``: bigtown GATRes-small in f32 and under
+    ``attn_dtype`` bf16 against
+    ``parity_train_bigtown_small_band_factored.npz`` (no band-attention
+    launch: plain torch, as the JAX op is plain XLA); GATRes-large keeps the
+    band kernels: its output bit-equal to the preset's, launches unchanged.
+53. ``matmul_precision``: a 512×512 GEMM under each name against its
+    TF32-operand and bf16-operand references (and what torch's "medium"
+    gives); a bigtown GATRes-large B 8 step and a synthctown GATRes-small B
+    32 step under each name: ``highest`` bit-equal to the default, the
+    others' gradients as a share of the f32 step's gate, launches unchanged,
+    the setting restored after each step.
+54. ``epochs_per_dispatch``: synthctown GATRes-small ``fit`` for 4 epochs
+    with tail batches at E 1, 2 and 4 (E 2 and E 4 bit-identical, one
+    read-back a block); E 2 against the JAX ``_fit_fast`` with its masks
+    replayed (``parity_fit_fast_synthctown.npz``); a resume across a block
+    boundary, bit-identical; bigtown GATRes-large at B 8 for 2 epochs in
+    one block with exact launches.
+55. ``cli train`` with ``--activation_dtype bfloat16 --matmul_precision
+    bfloat16 --epochs_per_dispatch 2`` on ``eval_bigtown.zip``, then a
+    resume to epoch 4.
+
 The last line is ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
-(all fifteen kernels, and the seven wrappers' bf16-operand instances as rows
-of their own; the rows the zoo launches carry ``zoo_launches``, the band SpMM
-pair its times at the zoo's widths, the rows the mesh phases launch
-``mesh_launches``, summed over their ranks) and the ``nvidia-smi`` line come
+(all fifteen kernels, and the seven wrappers' bf16-operand instances and five
+logit-rounding instances as rows of their own; the rows the zoo launches carry
+``zoo_launches``, the band SpMM pair its times at the zoo's widths, the rows
+the mesh phases launch ``mesh_launches``, summed over their ranks, the rows
+phases 51-55 launch ``knob_launches``) and the ``nvidia-smi`` line come
 before it.
 """
 
@@ -2494,27 +2535,27 @@ def dense_walk_phase(dev, card, held, reset_launches, read_launches, counts, ptx
 # (the band backward's passes on one block) are recorded as they first compiled;
 # the dense softmax forward (v2's row walk on one block) builds v2's instances.
 V2_ROWWALK_F32 = {
-    "band_rowwalk_kernel<2, false, false, false, false>": (64, 96, 108, 180),
-    "band_rowwalk_kernel<2, true, false, false, false>": (64, 80, 88, 104),
-    "band_rowwalk_kernel<1, false, false, false, false>": (64, 24, 24, 24),
-    "band_rowwalk_kernel<1, true, false, false, false>": (64, 24, 20, 20),
+    "band_rowwalk_kernel<2, false, false, false, false, false>": (64, 96, 108, 180),
+    "band_rowwalk_kernel<2, true, false, false, false, false>": (64, 80, 88, 104),
+    "band_rowwalk_kernel<1, false, false, false, false, false>": (64, 24, 24, 24),
+    "band_rowwalk_kernel<1, true, false, false, false, false>": (64, 24, 20, 20),
     "window_mean_kernel<false>": (32, 0, 0, 0),
 }
 F32_BAND_INSTANCES = {
     "band_attention": V2_ROWWALK_F32,
     "fused_attention": V2_ROWWALK_F32,
     "band_attention_flash": {
-        "band_rowwalk_kernel<2, false, true, false, false>": (64, 96, 104, 184),
-        "band_rowwalk_kernel<2, true, true, false, false>": (64, 72, 80, 104),
-        "band_rowwalk_kernel<1, false, true, false, false>": (64, 8, 4, 4),
-        "band_rowwalk_kernel<1, true, true, false, false>": (64, 8, 4, 4),
+        "band_rowwalk_kernel<2, false, true, false, false, false>": (64, 96, 104, 184),
+        "band_rowwalk_kernel<2, true, true, false, false, false>": (64, 72, 80, 104),
+        "band_rowwalk_kernel<1, false, true, false, false, false>": (64, 8, 4, 4),
+        "band_rowwalk_kernel<1, true, true, false, false, false>": (64, 8, 4, 4),
         "window_mean_kernel<false>": (32, 0, 0, 0),
     },
     "band_attention_window": {
-        "band_rowwalk_kernel<2, false, false, true, false>": (64, 96, 104, 164),
-        "band_rowwalk_kernel<2, true, false, true, false>": (64, 80, 84, 108),
-        "band_rowwalk_kernel<1, false, false, true, false>": (64, 24, 24, 24),
-        "band_rowwalk_kernel<1, true, false, true, false>": (64, 24, 24, 24),
+        "band_rowwalk_kernel<2, false, false, true, false, false>": (64, 96, 104, 164),
+        "band_rowwalk_kernel<2, true, false, true, false, false>": (64, 80, 84, 108),
+        "band_rowwalk_kernel<1, false, false, true, false, false>": (64, 24, 24, 24),
+        "band_rowwalk_kernel<1, true, false, true, false, false>": (64, 24, 24, 24),
         "window_mean_kernel<true>": (32, 0, 0, 0),
     },
     **{src: {
@@ -2527,7 +2568,7 @@ F32_BAND_INSTANCES = {
         "cells_kernel": (38, 0, 0, 0), "empties_kernel": (32, 0, 0, 0),
         **({"rows_kernel": (40, 0, 0, 0), "weights_kernel": (40, 0, 0, 0)}
            if src == "band_attention_flash_bwd" else
-           {"rows_kernel": (32, 8, 4, 4), "weights_kernel<false>": (32, 0, 0, 0)}),
+           {"rows_kernel": (32, 8, 4, 4), "weights_kernel<false, false>": (32, 0, 0, 0)}),
     } for src in ("band_attention_bwd", "band_attention_acc_bwd", "band_attention_flash_bwd",
                   "fused_attention_bwd")},
     "band_attention_window_bwd": {
@@ -2537,7 +2578,7 @@ F32_BAND_INSTANCES = {
         "columns_kernel<1, true, true, true, false>": (64, 24, 32, 32),
         "columns_kernel<1, false, false, true, false>": (64, 184, 228, 416),
         "columns_kernel<1, true, false, true, false>": (64, 64, 84, 124),
-        "rows_kernel": (32, 8, 4, 4), "weights_kernel<false>": (32, 0, 0, 0),
+        "rows_kernel": (32, 8, 4, 4), "weights_kernel<false, false>": (32, 0, 0, 0),
         "cells_kernel": (38, 0, 0, 0), "empties_kernel": (32, 0, 0, 0),
     },
 }
@@ -2551,20 +2592,20 @@ F32_BAND_INSTANCES = {
 # bf16 instances are v2's, with the rows pass that rounds dp as it first compiled,
 # at rows_kernel's numbers)
 V2_ROWWALK_BF16 = {
-    "band_rowwalk_kernel<2, false, false, false, true>": (64, 64, 72, 92),
-    "band_rowwalk_kernel<2, true, false, false, true>": (64, 24, 28, 28),
-    "band_rowwalk_kernel<1, false, false, false, true>": (48, 112, 108, 140),
-    "band_rowwalk_kernel<1, true, false, false, true>": (48, 96, 64, 60),
+    "band_rowwalk_kernel<2, false, false, false, true, false>": (64, 64, 72, 92),
+    "band_rowwalk_kernel<2, true, false, false, true, false>": (64, 24, 28, 28),
+    "band_rowwalk_kernel<1, false, false, false, true, false>": (48, 112, 108, 140),
+    "band_rowwalk_kernel<1, true, false, false, true, false>": (48, 96, 64, 60),
     "window_mean_bf16_kernel": (32, 0, 0, 0),
 }
 BF16_BAND_INSTANCES = {
     "band_attention": V2_ROWWALK_BF16,
     "fused_attention": V2_ROWWALK_BF16,
     "band_attention_flash": {
-        "band_rowwalk_kernel<2, false, true, false, true>": (64, 64, 88, 180),
-        "band_rowwalk_kernel<2, true, true, false, true>": (64, 16, 12, 12),
-        "band_rowwalk_kernel<1, false, true, false, true>": (48, 112, 96, 164),
-        "band_rowwalk_kernel<1, true, true, false, true>": (48, 96, 56, 60),
+        "band_rowwalk_kernel<2, false, true, false, true, false>": (64, 64, 88, 180),
+        "band_rowwalk_kernel<2, true, true, false, true, false>": (64, 16, 12, 12),
+        "band_rowwalk_kernel<1, false, true, false, true, false>": (48, 112, 96, 164),
+        "band_rowwalk_kernel<1, true, true, false, true, false>": (48, 96, 56, 60),
         "window_mean_bf16_kernel": (32, 0, 0, 0),
     },
     **{src: {
@@ -2574,10 +2615,26 @@ BF16_BAND_INSTANCES = {
         "columns_kernel<1, true, true, false, true>": (64, 40, 40, 60),
         "columns_kernel<1, false, false, false, true>": (64, 112, 120, 232),
         "columns_kernel<1, true, false, false, true>": (64, 40, 40, 64),
-        **({} if src == "band_attention_flash_bwd" else {"weights_kernel<true>": (40, 0, 0, 0)}),
+        **({} if src == "band_attention_flash_bwd" else {"weights_kernel<true, false>": (40, 0, 0, 0)}),
         **({"rows_round_dp_kernel": (32, 8, 4, 4)} if src == "fused_attention_bwd" else {}),
     } for src in ("band_attention_bwd", "band_attention_acc_bwd", "band_attention_flash_bwd",
                   "fused_attention_bwd")},
+}
+# the instances of a GATConv whose activations are bf16 (dtype; logit_bf16 on the
+# wrappers): the bf16 walk and the weights and rows passes with the logits and their
+# cotangents rounded (kLogit), v2's and the dense softmax's, as they first compiled
+# (read on an NVIDIA H100 80GB HBM3 at 700.00 W: no more spill than the bf16 instances)
+V2_ROWWALK_LOGIT = {
+    "band_rowwalk_kernel<2, false, false, false, true, true>": (64, 64, 72, 92),
+    "band_rowwalk_kernel<2, true, false, false, true, true>": (64, 24, 28, 28),
+    "band_rowwalk_kernel<1, false, false, false, true, true>": (48, 104, 108, 140),
+    "band_rowwalk_kernel<1, true, false, false, true, true>": (48, 88, 64, 60),
+}
+LOGIT_BAND_INSTANCES = {
+    "band_attention": V2_ROWWALK_LOGIT,
+    "fused_attention": V2_ROWWALK_LOGIT,
+    **{src: {"weights_kernel<true, true>": (40, 0, 0, 0), "rows_logit_kernel": (32, 0, 0, 0)}
+       for src in ("band_attention_bwd", "fused_attention_bwd")},
 }
 # the bf16-operand instances: counter name → (the source, and the kernel of ``main``'s
 # wrappers, that holds it; the line of the Pallas program it replaces, built with
@@ -2602,8 +2659,10 @@ DENSE_BF16_INSTANCES = {
 def check_band_instances(ptxas) -> list:
     """Phase 2: every band-attention instance, f32 and bf16, at its recorded
     registers and spills (``F32_BAND_INSTANCES``, ``BF16_BAND_INSTANCES``),
-    or the run fails. Returns the bf16 instances' rows."""
-    for src, ref in [*F32_BAND_INSTANCES.items(), *BF16_BAND_INSTANCES.items()]:
+    or the run fails; and the logit-rounding instances (``LOGIT_BAND_INSTANCES``).
+    Returns the bf16 and logit instances' rows."""
+    for src, ref in [*F32_BAND_INSTANCES.items(), *BF16_BAND_INSTANCES.items(),
+                     *LOGIT_BAND_INSTANCES.items()]:
         got = {fn: tuple(v) for fn, *v in ptxas.get(src, ())}
         if not got:
             raise SystemExit(f"FAIL {src} was not built in this run: its registers were not read")
@@ -2611,7 +2670,8 @@ def check_band_instances(ptxas) -> list:
             if got.get(fn) != want:
                 raise SystemExit(f"FAIL {src}: {fn} {got.get(fn)} (registers, stack, spill stores, "
                                  f"spill loads) against the recorded {want}")
-    return [(src, fn, *v) for src, ref in BF16_BAND_INSTANCES.items() for fn, v in ref.items()]
+    return [(src, fn, *v) for src, ref in [*BF16_BAND_INSTANCES.items(),
+                                          *LOGIT_BAND_INSTANCES.items()] for fn, v in ref.items()]
 
 
 def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, counts, big,
@@ -5016,6 +5076,720 @@ def mesh_cli_phase(card, tmp, device_flags=()):
           f"{t_eval:.1f} s, the --distributed pair {t_dist:.1f} s (start-up included) [{card}]")
 
 
+# the instances with the logits rounded (GATConv's dtype=bfloat16, logit_bf16 on the
+# wrappers, counted in launches_logit): counter name → (the kernel of ``main``'s
+# wrappers; the TPU source and line of the Pallas program of that route: the JAX
+# layer runs its XLA band ops on the narrow banded layers and its XLA branch on the
+# dense softmax, whose shapes these kernels take, and its v1 kernel on the window
+# route at H·C 128 and more)
+LOGIT_INSTANCES = {
+    "band_attention_logit": ("band_attention", TPU_SRC, 208),
+    "band_attention_bwd_logit": ("band_attention_bwd", TPU_SRC, 313),
+    "fused_attention_logit": ("fused_attention", TPU_DENSE_SRC, 70),
+    "fused_attention_bwd_logit": ("fused_attention_bwd", TPU_DENSE_SRC, 82),
+    "band_attention_window_logit": ("band_attention_window", TPU_SRC, 47),
+}
+
+
+def gap_share(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max|got − ref| in units of the fixtures' training gate, 1e-3·max|ref| + 1e-6."""
+    return float((got - ref).abs().max()) / (1e-3 * float(ref.abs().max()) + 1e-6)
+
+
+def knob_phases(dev, card, held, max_err, reset_launches, read_launches, counts, big) -> dict:
+    """Phases 51-55: the last training knobs on the card. 51 bf16 activations
+    (GATConv's ``dtype``: the instances with the logits rounded against their
+    plain versions, the synthctown and bigtown fixtures of
+    ``tools/parity_precision_export.py``, serving and steps in turns with
+    f32, the raise where the JAX package raises); 52 ``band_factored``; 53
+    ``matmul_precision``; 54 ``epochs_per_dispatch``; 55 ``cli train`` with
+    the three flags and a resume. Returns the launches and times for the
+    kernels' line."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from gnn_pressure_estimation_tpu_torch import cli
+    from gnn_pressure_estimation_tpu_torch.data.dataset import WDNDataset, _Member
+    from gnn_pressure_estimation_tpu_torch.models.gatres import GATRes
+    from gnn_pressure_estimation_tpu_torch.models.layers import bf16_scalar
+    from gnn_pressure_estimation_tpu_torch.models.presets import apply_model_knobs, select_model
+    from gnn_pressure_estimation_tpu_torch.ops import band_attention as ba
+    from gnn_pressure_estimation_tpu_torch.ops import banded as bops
+    from gnn_pressure_estimation_tpu_torch.ops import graph_attention as ga
+    from gnn_pressure_estimation_tpu_torch.train import TrainConfig, Trainer, load_checkpoint
+    from gnn_pressure_estimation_tpu_torch.train.precision import matmul_precision
+    from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats
+    from gnn_pressure_estimation_tpu_torch.weights import params_from_parity_npz
+
+    def art(name):
+        return os.path.join(REPO, "artifacts", name)
+
+    bf16 = torch.bfloat16
+    sl = bf16_scalar(0.2)
+    gen = torch.Generator(device=dev).manual_seed(51)
+    rng = np.random.default_rng(51)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def rounded(t):
+        return t.to(bf16).float()
+
+    btpl, bmask, bix, bnpz = big["tpl"], big["mask"], big["mask_ix"], big["npz"]
+    bl = btpl.band_layout()
+    nB, BLK, W = bl.adj_mask.shape
+    n_pad, n_ext, bn = bl.n_pad, bl.n_pad + W - BLK, btpl.n_node
+    stpl = network("synthctown")
+    sg = stpl.batch(1, device=dev)
+    smask, smix, sn = sg.adj_sl_mask, sg.adj_sl_index, stpl.n_node
+    fstats = NormStats(norm_type="znorm", mean=50.0, std=10.0)
+    out = {"rows": [], "launches": dict.fromkeys(LOGIT_INSTANCES, 0), "new_path": {}}
+
+    def add(launched):
+        for k, v in launched.items():
+            out["new_path"][k] = out["new_path"].get(k, 0) + v
+            if k in out["launches"]:
+                out["launches"][k] += v
+
+    def logit_grads(name, label, got, ref):
+        """d a_dst / d a_src of a logit instance: each rounds its dz to bf16, and
+        the kernel's and the plain version's f32 delta may round it a step apart:
+        every value within 2^-7·max|ref| + 1e-4 and at most 1% past 1e-4·max|ref| + 1e-4."""
+        err = (got - ref).abs()
+        top = float(ref.abs().max())
+        fine = TOL * top + TOL
+        share = float((err > fine).float().mean())
+        if not torch.isfinite(got).all() or float(err.max()) > 2.0 ** -7 * top + TOL or share > 0.01:
+            raise SystemExit(f"FAIL {label}: max abs err {float(err.max()):.3e} (max |ref| "
+                             f"{top:.3e}), {share:.2%} past {fine:.1e}")
+        max_err[name] = max(max_err[name], float(err.max()))
+        print(f"  {label}: max abs err {float(err.max()):.3e}, {share:.3%} a bf16 step apart")
+
+    def timed(name, B, hc, fn, plain, nbytes, ops):
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+        r = dict(name=name, B=B, hc=hc, ms=cuda_ms(fn, 3, 20), device_ms=device_ms(fn),
+                 plain_ms=cuda_ms(plain, 1, 2), bytes=nbytes, library_ms=None,
+                 bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+        out["rows"].append(r)
+        print(f"  {name} B {B} H·C {hc}: {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), plain "
+              f"{r['plain_ms']:.4f} ms, library none, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{nbytes / 1e6:.1f} MB; {r['bound_ms'] / r['ms']:.1%} of it reached)")
+
+    def step_of(tr, tpl, x, mask):
+        """One B-sized step's loss, gradients and launches, the block outputs
+        captured (original node order)."""
+        acts = []
+        hooks = [b.register_forward_hook(lambda m_, a_, o_: acts.append(o_.detach()))
+                 for b in tr.model.blocks]
+        graph, xs, ms, k = tr._prepare(tpl, x, mask, None, None)
+        tr.model.train()
+        reset_launches()
+        loss, _, _ = tr._masked_loss_and_metrics(graph, xs, xs, ms, k, "train")
+        names = [n_ for n_, _ in tr.model.named_parameters()]
+        grads = dict(zip(names, torch.autograd.grad(loss, list(tr.model.parameters()))))
+        torch.cuda.synchronize()
+        launched = read_launches()
+        for h in hooks:
+            h.remove()
+        if graph.banded:
+            acts = [graph.unpack_nodes(a, tpl.n_node) for a in acts]
+        return float(loss), [a.cpu() for a in acts], {k_: v.cpu() for k_, v in grads.items()}, \
+            launched
+
+    def against_fixture(label, fx, case, blocks_held, runs):
+        """The bf16 step beside the JAX bf16 fixture: the blocks before the first
+        rounding flip within 1e-3, the loss nearer the fixture than the f32
+        step's (the run fails otherwise); later blocks and the gradients
+        reported (a gradient's distance beside twice the f32 step's)."""
+        loss16, acts16, g16, _ = runs[bf16]
+        loss32, _, g32, _ = runs[None]
+        errs = []
+        for i, a in enumerate(acts16):
+            key = f"{case}act_block_{i}"
+            if key in fx.files:
+                errs.append(float((a - torch.as_tensor(fx[key])).abs().max()))
+        if any(e > 1e-3 for e in errs[:blocks_held]):
+            raise SystemExit(f"FAIL {label}: blocks before the first flip off by {errs[:blocks_held]}")
+        ref = float(fx[f"{case}loss"])
+        if abs(loss16 - ref) >= abs(loss32 - ref):
+            raise SystemExit(f"FAIL {label}: bf16 loss {loss16:.7f} no nearer the JAX bf16 fixture "
+                             f"{ref:.7f} than the f32 step's {loss32:.7f}")
+        top = max(float(np.abs(fx[f"{case}grad_{k}"]).max()) for k in g16)
+        worst = 0.0
+        for k, g in g16.items():
+            r = torch.as_tensor(fx[f"{case}grad_{k}"])
+            e16, e32 = float((g - r).abs().max()), float((g32[k] - r).abs().max())
+            worst = max(worst, e16 / (max(2 * e32, 2.0 ** -6 * float(r.abs().max())) + 1e-4 * top))
+        first = next((i for i, e in enumerate(errs) if e > 1e-3), None)
+        print(f"  {label}: loss {loss16:.7f} (JAX bf16 {ref:.7f}, f32 step {loss32:.7f}); blocks "
+              f"within {max(errs[:blocks_held]):.2e} up to block {blocks_held - 1}, the first past "
+              f"1e-3 {first} (per block {[f'{e:.1e}' for e in errs]}); gradients at {worst:.0%} of "
+              f"the model rule (twice the f32 step's distance, or 2^-6·max|g|, + 1e-4·max)")
+        return dict(loss=loss16, ref=ref, f32=loss32, blocks=errs, grad_rule=worst)
+
+    def turns(label, run_f32, run_bf16, iters=10):
+        """ms and peak memory of two runs in turns f32, bf16, bf16, f32."""
+        t, peak = {"f32": [], "bf16": []}, {"f32": [], "bf16": []}
+        for which in ("f32", "bf16", "bf16", "f32"):
+            fn = run_f32 if which == "f32" else run_bf16
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t[which].append(cuda_ms(fn, 2, iters))
+            peak[which].append(torch.cuda.max_memory_allocated() / 1e9)
+        print(f"  {label}: f32 {t['f32'][0]:.3f} / {t['f32'][1]:.3f} ms, bf16 {t['bf16'][0]:.3f} / "
+              f"{t['bf16'][1]:.3f} ms (turns f32, bf16, bf16, f32); peak memory f32 "
+              f"{max(peak['f32']):.3f} GB, bf16 {max(peak['bf16']):.3f} GB")
+        return {"ms": t, "peak_gb": {k: max(v) for k, v in peak.items()}}
+
+    res = {}
+    # ---- 51: bf16 activations ------------------------------------------------------------
+    print(f"[51] bf16 activations (GATConv dtype): the instances with the logits rounded vs their "
+          f"plain versions (forwards atol/rtol 1e-4; the backwards' d a a bf16 step of dz apart "
+          f"on at most 1%), slope {sl}")
+    for B, H, C in ((1, 2, 32), (1, 1, 32), (8, 2, 32), (32, 1, 32), (2, 40, 4)):
+        a_d, a_s = rounded(randn(B, n_pad, H)), rounded(randn(nB, B, W, H))
+        x = randn(B, n_ext, H, C).to(bf16)
+        d_o = randn(B, n_pad, H, C)
+        held("band_attention_logit", f"v2 logit fwd bigtown B {B} H {H} C {C}",
+             ba.band_attention_fwd(a_d, a_s, x, bmask, sl, bix, True, True),
+             ba.band_attention_plain(a_d, a_s, x, bmask, sl, True, True))
+        got = ba.band_attention_bwd(a_d, a_s, x, bmask, d_o, sl, bix, True, True)
+        ref = ba.band_attention_bwd_plain(a_d, a_s, x, bmask, d_o, sl, True, True)
+        held("band_attention_bwd_logit", f"v2 logit bwd d x_ext B {B} H {H} C {C}", got[2], ref[2])
+        for i, nm in ((0, "d a_dst"), (1, "d a_src_win")):
+            logit_grads("band_attention_bwd_logit", f"v2 logit bwd {nm} B {B} H {H} C {C}", got[i],
+                        ref[i])
+    for B, H, C in ((1, 2, 32), (1, 1, 32), (32, 2, 32), (32, 1, 128), (2, 2, 128)):
+        a_d, a_s = rounded(randn(B, sn, H)), rounded(randn(B, sn, H))
+        v, d_o = randn(B, sn, H, C).to(bf16), randn(B, sn, H, C)
+        held("fused_attention_logit", f"dense logit fwd synthctown B {B} H {H} C {C}",
+             ga.fused_attention_fwd(a_d, a_s, v, smask, sl, smix, True, True),
+             ga.fused_attention_plain(a_d, a_s, v, smask, sl, True, True))
+        got = ga.fused_attention_bwd(a_d, a_s, v, smask, d_o, sl, smix, True, True)
+        ref = ga.fused_attention_bwd_plain(a_d, a_s, v, smask, d_o, sl, True, True)
+        held("fused_attention_bwd_logit", f"dense logit bwd d v B {B} H {H} C {C}", got[2], ref[2])
+        for i, nm in ((0, "d a_dst"), (1, "d a_src")):
+            logit_grads("fused_attention_bwd_logit", f"dense logit bwd {nm} B {B} H {H} C {C}",
+                        got[i], ref[i])
+    for B, H, C in ((2, 2, 128), (2, 1, 128), (8, 2, 128)):
+        a_d, a_s = rounded(randn(B, n_pad, H)), rounded(randn(nB, B, W, H))
+        xw = bops.band_windows_ext(rounded(randn(B, n_ext, H, C)), nB, BLK, W).contiguous()
+        held("band_attention_window_logit", f"v1 logit fwd bigtown B {B} H {H} C {C}",
+             ba.band_attention_window_fwd(a_d, a_s, xw, bmask, sl, bix, True),
+             ba.band_attention_window_plain(a_d, a_s, xw, bmask, sl, True))
+    del a_d, a_s, x, xw, v, d_o, got, ref
+    # their times at the main path's shapes: v2 at bigtown B 32 (serving) and B 8 (the
+    # step) at GATRes-small's conv1 width, the dense pair at synthctown B 32, v1 at
+    # GATRes-large's conv1 width at B 8 (the window route's serving batch)
+    print(f"  times on {card} (CUDA events, 20 launches after 3; bounds at 2-byte x rows for v2 "
+          f"and the dense pair, f32 windows for v1)")
+    ix_bytes = 4 * (n_pad + 1 + bix.nnz)
+    for B, H, C in ((32, 2, 32), (8, 2, 32), (32, 1, 32)):
+        a_d, a_s = rounded(randn(B, n_pad, H)), rounded(randn(nB, B, W, H))
+        x = randn(B, n_ext, H, C).to(bf16)
+        d_o = randn(B, n_pad, H, C)
+        timed("band_attention_logit", B, H * C,
+              lambda: ba.band_attention_fwd(a_d, a_s, x, bmask, sl, bix, True, True),
+              lambda: ba.band_attention_plain(a_d, a_s, x, bmask, sl, True, True),
+              4 * (B * n_pad * H + nB * B * W * H + B * n_pad * H * C) + 2 * B * n_ext * H * C
+              + ix_bytes + 4 * (nB + 1), B * H * bix.nnz * (2 * C + 6))
+        timed("band_attention_bwd_logit", B, H * C,
+              lambda: ba.band_attention_bwd(a_d, a_s, x, bmask, d_o, sl, bix, True, True),
+              lambda: ba.band_attention_bwd_plain(a_d, a_s, x, bmask, d_o, sl, True, True),
+              band_bwd_bytes(B, nB, BLK, W, H, C, bix.nnz, 2), B * H * bix.nnz * (4 * C + 16))
+    for B, H, C in ((32, 2, 32), (32, 1, 32), (32, 2, 128)):
+        a_d, a_s = rounded(randn(B, sn, H)), rounded(randn(B, sn, H))
+        v, d_o = randn(B, sn, H, C).to(bf16), randn(B, sn, H, C)
+        timed("fused_attention_logit", B, H * C,
+              lambda: ga.fused_attention_fwd(a_d, a_s, v, smask, sl, smix, True, True),
+              lambda: ga.fused_attention_plain(a_d, a_s, v, smask, sl, True, True),
+              4 * (2 * B * sn * H + B * sn * H * C) + 2 * B * sn * H * C + 4 * (sn + 1 + smix.nnz),
+              B * H * smix.nnz * (2 * C + 6))
+        timed("fused_attention_bwd_logit", B, H * C,
+              lambda: ga.fused_attention_bwd(a_d, a_s, v, smask, d_o, sl, smix, True, True),
+              lambda: ga.fused_attention_bwd_plain(a_d, a_s, v, smask, d_o, sl, True, True),
+              band_bwd_bytes(B, 1, sn, sn, H, C, smix.nnz, 2), B * H * smix.nnz * (4 * C + 16))
+    for B, H, C in ((8, 2, 128), (8, 1, 128)):
+        a_d, a_s = rounded(randn(B, n_pad, H)), rounded(randn(nB, B, W, H))
+        xw = bops.band_windows_ext(rounded(randn(B, n_ext, H, C)), nB, BLK, W).contiguous()
+        timed("band_attention_window_logit", B, H * C,
+              lambda: ba.band_attention_window_fwd(a_d, a_s, xw, bmask, sl, bix, True),
+              lambda: ba.band_attention_window_plain(a_d, a_s, xw, bmask, sl, True),
+              4 * (B * n_pad * H + nB * B * W * H + nB * B * W * H * C + B * n_pad * H * C)
+              + ix_bytes + 4 * (nB + 1), B * H * bix.nnz * (2 * C + 6))
+    del a_d, a_s, x, xw, v, d_o
+    torch.cuda.empty_cache()
+
+    # (a) the synthctown fixture, dense, B 1: GATRes-small and GATRes-large's width
+    fxp = art("parity_train_synthctown_act_bf16.npz")
+    fx = np.load(fxp)
+    print(f"  synthctown fixture {os.path.relpath(fxp, REPO)} (JAX Trainer, B 1, XLA branches): the "
+          f"blocks before the first flip (0-1) held to 1e-3, the loss to be nearer than f32's")
+    res["synthctown"] = {}
+    for size, blocks, nc in (("small", 15, 32), ("large", 2, 128)):
+        for impl in ("factored", "softmax"):
+            case = f"{size}_{impl}_"
+            runs = {}
+            for dt in (bf16, None):
+                model = GATRes(blocks, nc, attn_impl=impl, dtype=dt)
+                model.load_state_dict(params_from_parity_npz(fxp, prefix=f"{size}_"))
+                tr = Trainer(model, TrainConfig(batch_size=1), fstats, stpl, device=dev)
+                runs[dt] = step_of(tr, stpl, fx["x"].reshape(1, -1), fx["mask"])
+            launched = runs[bf16][3]
+            kern = ("fused_factored", "fused_factored_bwd") if impl == "factored" else \
+                ("fused_attention_logit", "fused_attention_bwd_logit")
+            expect = counts(**{kern[0]: 2 * blocks, kern[1]: 2 * blocks})
+            if launched != expect:
+                raise SystemExit(f"FAIL {case[:-1]} step launches {launched}, expected {expect}")
+            add(launched)
+            res["synthctown"][case[:-1]] = against_fixture(
+                f"synthctown {case[:-1]} B 1 step ({2 * blocks} + {2 * blocks} launches of "
+                f"{kern[0]})", fx, case, 2, runs)
+            del runs, tr, model
+
+    # (b) serving at B 32 and a B 32 step, dense, in turns with f32
+    res["dense_turns"] = {}
+    xs = rng.standard_normal((32, sn)).astype(np.float32)
+    smsk = np.zeros((32, sn), bool)
+    for b in range(32):
+        smsk[b, rng.permutation(sn)[:int(sn * 0.95)]] = True
+    for preset, blocks in (("gatres_small", 15), ("gatres_large", 25)):
+        for impl in ("factored", "softmax"):
+            trs = {}
+            for dt in (None, bf16):
+                model, _ = select_model(preset, device=dev, seed=3, dtype=dt)
+                apply_model_knobs(model, attn_impl=impl)
+                trs[dt] = Trainer(model, TrainConfig(batch_size=32), fstats, stpl, device=dev)
+            graph, xg, _, _ = trs[bf16]._prepare(stpl, xs, smsk.reshape(-1), None, None)
+            for tr in trs.values():
+                tr.model.eval()
+            reset_launches()
+            with torch.no_grad():
+                trs[bf16].model(xg, graph)
+            torch.cuda.synchronize()
+            served = read_launches()
+            kern = "fused_factored" if impl == "factored" else "fused_attention_logit"
+            if served != counts(**{kern: 2 * blocks}):
+                raise SystemExit(f"FAIL {preset} {impl} bf16 forward launches {served}")
+            reset_launches()
+            trs[bf16].train_step(stpl, xs, smsk.reshape(-1))
+            torch.cuda.synchronize()
+            stepped = read_launches()
+            bwd = "fused_factored_bwd" if impl == "factored" else "fused_attention_bwd_logit"
+            if stepped != counts(**{kern: 2 * blocks, bwd: 2 * blocks}):
+                raise SystemExit(f"FAIL {preset} {impl} bf16 step launches {stepped}")
+            add(served)
+            add(stepped)
+
+            def serve(dt, tr_=trs):
+                with torch.no_grad():
+                    tr_[dt].model(xg, graph)
+
+            sv = turns(f"{preset} {impl} serving B 32 ({2 * blocks} launches of {kern})",
+                       lambda: serve(None), lambda: serve(bf16))
+            st = turns(f"{preset} {impl} train step B 32",
+                       lambda: trs[None].train_step(stpl, xs, smsk.reshape(-1)),
+                       lambda: trs[bf16].train_step(stpl, xs, smsk.reshape(-1)), iters=5)
+            res["dense_turns"][f"{preset}_{impl}"] = {"serve": sv, "step": st}
+            del trs
+            torch.cuda.empty_cache()
+
+    # (c) bigtown GATRes-small, banded: every GATConv narrower than the Pallas kernels
+    fxp = art("parity_train_bigtown_small_act_bf16.npz")
+    fx = np.load(fxp)
+    runs = {}
+    for dt in (bf16, None):
+        model = GATRes(15, 32, attn_impl="factored", dtype=dt)
+        model.load_state_dict(params_from_parity_npz(fxp))
+        tr = Trainer(model, TrainConfig(batch_size=1), fstats, btpl, device=dev)
+        runs[dt] = step_of(tr, btpl, fx["x"].reshape(1, -1), fx["mask"])
+    expect = counts(band_attention_logit=30, band_attention_bwd_logit=30, band_spmm=15,
+                    band_spmm_bwd=15)
+    if runs[bf16][3] != expect:
+        raise SystemExit(f"FAIL bigtown small bf16 step launches {runs[bf16][3]}, expected {expect}")
+    add(runs[bf16][3])
+    res["bigtown_small"] = against_fixture(
+        f"bigtown GATRes-small banded B 1 step ({os.path.relpath(fxp, REPO)}; 30 + 30 launches of "
+        f"v2 with the logits rounded)", fx, "", 2, runs)
+    del runs
+    xb8 = rng.standard_normal((8, bn)).astype(np.float32)
+    bm8 = np.zeros((8, bn), bool)
+    for b in range(8):
+        bm8[b, rng.permutation(bn)[:int(bn * 0.95)]] = True
+    trs = {}
+    for dt in (None, bf16):
+        model, _ = select_model("gatres_small", device=dev, seed=3, dtype=dt)
+        trs[dt] = Trainer(model, TrainConfig(batch_size=8), fstats, btpl, device=dev)
+    graph, xg, _, _ = trs[bf16]._prepare(btpl, xb8, bm8.reshape(-1), None, None)
+
+    def bserve(dt):
+        with torch.no_grad():
+            trs[dt].model(xg, graph)
+
+    res["bigtown_small_turns"] = {
+        "serve_b8": turns("bigtown GATRes-small serving B 8", lambda: bserve(None),
+                          lambda: bserve(bf16)),
+        "step_b8": turns("bigtown GATRes-small train step B 8",
+                         lambda: trs[None].train_step(btpl, xb8, bm8.reshape(-1)),
+                         lambda: trs[bf16].train_step(btpl, xb8, bm8.reshape(-1)), iters=5)}
+    del trs, graph, xg
+    torch.cuda.empty_cache()
+
+    # (d) where the JAX package raises: GATRes-large on bigtown's v2 route, before any launch;
+    # on the window route (the JAX v1 kernel) the forward runs and the backward raises
+    model, _ = select_model("gatres_large", device=dev, seed=3, dtype=bf16)
+    model.load_state_dict(params_from_parity_npz(bnpz))
+    g1 = btpl.batch(1, mode="banded", device=dev)
+    x1 = g1.pack_nodes(torch.as_tensor(big["x"], device=dev), bn)
+    reset_launches()
+    try:
+        model(x1, g1)
+        raise SystemExit("FAIL GATRes-large bf16 on bigtown's dma route did not raise")
+    except NotImplementedError as e:
+        torch.cuda.synchronize()
+        if any(read_launches().values()):
+            raise SystemExit(f"FAIL the raise came after launches: {read_launches()}")
+        print(f"  bigtown GATRes-large bf16 on the dma route raises before any launch: "
+              f"{str(e)[:110]}...")
+    gw = btpl.batch(8, mode="banded", device=dev, band_attn="window")
+    x8 = gw.pack_nodes(torch.as_tensor(np.repeat(big["x"][None, :, 0], 8, 0).reshape(-1, 1),
+                                       device=dev), bn)
+    model.eval()
+    first = []
+    hook = model.blocks[0].conv1.register_forward_hook(lambda m_, a_, o_: first.append(o_))
+    reset_launches()
+    with torch.no_grad():
+        yk = model(x8, gw)
+    torch.cuda.synchronize()
+    wl = read_launches()
+    if wl != counts(band_attention_window_logit=50, band_spmm=25):
+        raise SystemExit(f"FAIL the window route's bf16 forward launched {wl}")
+    add(wl)
+    with torch.no_grad(), bops.plain_versions():
+        yp = model(x8, gw)
+    hook.remove()
+    # the first GATConv held (its input, lin0's output, is the same on both sides);
+    # past it the two sides' f32 outputs, a last bit apart, round a bf16 step apart
+    # now and then in the next projection (rounding flips), so the output is reported
+    check_close("window route bf16 block 0 conv1 B 8 vs the plain versions", first[0], first[1],
+                TOL, TOL)
+    print(f"  window route bf16 output B 8 vs the plain versions: {float((yk - yp).abs().max()):.3e} "
+          f"(max |y| {float(yp.abs().max()):.3f}; 25 blocks of rounding flips)")
+    model.train()
+    try:
+        model(x8, gw).sum().backward()
+        raise SystemExit("FAIL the window route's bf16 backward did not raise")
+    except NotImplementedError:
+        print("  window route bf16 (the JAX v1 kernel): the forward serves B 8 with 50 launches of "
+              "v1 with the logits rounded, the backward raises as the JAX one does")
+    del model, yk, yp, x8, gw
+    torch.cuda.empty_cache()
+
+    # ---- 52: band_factored ---------------------------------------------------------------------
+    print("[52] attn_impl=band_factored on bigtown: GATRes-small (plain torch, as the JAX XLA op) "
+          "against its fixture, f32 and attn_dtype bf16; GATRes-large keeps the band kernels")
+    fxp = art("parity_train_bigtown_small_band_factored.npz")
+    fx = np.load(fxp)
+    res["band_factored"] = {}
+    f32_run = None
+    for tag, attn_dtype in (("f32", None), ("bf16", "bfloat16")):
+        model = apply_model_knobs(GATRes(15, 32, attn_impl="band_factored"), attn_dtype=attn_dtype)
+        model.load_state_dict(params_from_parity_npz(fxp))
+        tr = Trainer(model, TrainConfig(batch_size=1), fstats, btpl, device=dev)
+        loss, _, grads, launched = step_of(tr, btpl, fx["x"].reshape(1, -1), fx["mask"])
+        if launched != counts(band_spmm=15, band_spmm_bwd=15):
+            raise SystemExit(f"FAIL band_factored step launches {launched}")
+        add(launched)
+        ref = float(fx[f"{tag}_loss"])
+        graph, xs1, ms1, _ = tr._prepare(btpl, fx["x"].reshape(1, -1), fx["mask"], None, None)
+        with torch.no_grad():
+            yo = graph.unpack_nodes(tr.model(torch.where(ms1[:, None], 0.0, xs1), graph), bn)
+        ferr = float((yo.cpu() - torch.as_tensor(fx[f"{tag}_out"])).abs().max())
+        if tag == "f32":
+            # f32: the training gate and the fixtures' forward gate
+            worst = max(gap_share(g, torch.as_tensor(fx[f"f32_grad_{k}"])) for k, g in grads.items())
+            if abs(loss - ref) > 1e-4 * abs(ref) or worst > 1.0 or ferr > 1e-3:
+                raise SystemExit(f"FAIL band_factored f32: loss {loss:.7f} against {ref:.7f}, "
+                                 f"gradients at {worst:.2f}× the gate, forward {ferr:.3e}")
+            f32_run = (loss, grads)
+            rule = "the 1e-3 gate"
+        else:
+            # bf16 stores through 15 blocks: rounding flips, as for bf16 activations;
+            # the loss nearer the JAX bf16 fixture than the f32-store step's, each
+            # gradient by the model rule beside the f32-store step's distance
+            if abs(loss - ref) >= abs(f32_run[0] - ref):
+                raise SystemExit(f"FAIL band_factored bf16 loss {loss:.7f} no nearer {ref:.7f} "
+                                 f"than the f32 stores' {f32_run[0]:.7f}")
+            top = max(float(np.abs(fx[f"bf16_grad_{k}"]).max()) for k in grads)
+            worst = 0.0
+            for k, g in grads.items():
+                r = torch.as_tensor(fx[f"bf16_grad_{k}"])
+                e16, e32 = float((g - r).abs().max()), float((f32_run[1][k] - r).abs().max())
+                worst = max(worst, e16 / (max(2 * e32, 2.0 ** -6 * float(r.abs().max()))
+                                          + 1e-4 * top))
+            if worst > 1.0:
+                raise SystemExit(f"FAIL band_factored bf16 gradients at {worst:.2f}× the model rule")
+            rule = "the model rule (twice the f32 stores' distance, or 2^-6·max|g|, + 1e-4·max)"
+        res["band_factored"][tag] = dict(loss=loss, ref=ref, grad_share=worst, out_err=ferr)
+        print(f"  GATRes-small {tag}: loss {loss:.7f} (JAX {ref:.7f}), gradients at {worst:.1%} of "
+              f"{rule}, forward within {ferr:.2e}; launches: band SpMM 15 + 15, no band attention")
+        del model, tr
+    model, _ = select_model("gatres_large", device=dev, seed=3)
+    model.load_state_dict(params_from_parity_npz(bnpz))
+    model.eval()
+    g8 = btpl.batch(8, mode="banded", device=dev)
+    x8 = g8.pack_nodes(torch.as_tensor(rng.standard_normal((8 * bn, 1)).astype(np.float32),
+                                       device=dev), bn)
+    outs, lts = [], []
+    for impl in ("factored", "band_factored"):
+        apply_model_knobs(model, attn_impl=impl)
+        reset_launches()
+        with torch.no_grad():
+            outs.append(model(x8, g8))
+        torch.cuda.synchronize()
+        lts.append(read_launches())
+    check_equal("GATRes-large band_factored vs the preset, B 8", outs[1], outs[0])
+    if lts[0] != lts[1] or lts[1] != counts(band_attention=50, band_spmm=25):
+        raise SystemExit(f"FAIL GATRes-large band_factored launches {lts}")
+    add(lts[1])
+    print(f"  GATRes-large B 8: band_factored output bit-equal to the preset's, launches {lts[1]}")
+    del model, outs, x8, g8
+    torch.cuda.empty_cache()
+
+    # ---- 53: matmul precision -------------------------------------------------------------
+    print("[53] matmul_precision: a bigtown GATRes-large B 8 step and a synthctown GATRes-small "
+          "B 32 step under each name beside the default (f32) step")
+    A, Bm = randn(512, 512), randn(512, 512)
+    f64 = A.double() @ Bm.double()
+
+    def tf32(t):
+        return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    refs = {"bf16": rounded(A).double() @ rounded(Bm).double(),
+            "tf32": tf32(A).double() @ tf32(Bm).double()}
+    gemm = {}
+    for prec in ("highest", "tensorfloat32", "bfloat16"):
+        with matmul_precision(prec):
+            C_ = (A @ Bm).double()
+        gemm[prec] = {k: float((C_ - r).abs().max()) for k, r in
+                      (("f64", f64), ("bf16_operands", refs["bf16"]), ("tf32_operands", refs["tf32"]))}
+    torch.set_float32_matmul_precision("medium")
+    medium = (A @ Bm).double()
+    torch.set_float32_matmul_precision("highest")
+    gemm["torch_medium"] = {"bf16_operands": float((medium - refs["bf16"]).abs().max()),
+                            "tf32_operands": float((medium - refs["tf32"]).abs().max())}
+    top = float(f64.abs().max())
+    if not (gemm["bfloat16"]["bf16_operands"] <= 1e-5 * top
+            and gemm["tensorfloat32"]["tf32_operands"] < gemm["tensorfloat32"]["f64"]
+            and gemm["tensorfloat32"]["f64"] > 1e-5 * top and gemm["highest"]["f64"] <= 1e-5 * top):
+        raise SystemExit(f"FAIL a precision did not take effect on a 512×512 GEMM: {gemm}")
+    print(f"  512×512 GEMM: highest {gemm['highest']['f64']:.2e} from f64; tensorfloat32 "
+          f"{gemm['tensorfloat32']['tf32_operands']:.2e} from the TF32-operand product, "
+          f"{gemm['tensorfloat32']['f64']:.2e} from f64; bfloat16 "
+          f"{gemm['bfloat16']['bf16_operands']:.2e} from the bf16-operand product; torch's "
+          f"'medium' alone gives {gemm['torch_medium']['tf32_operands']:.2e} from TF32's, "
+          f"{gemm['torch_medium']['bf16_operands']:.2e} from bf16's (so the bf16 rounding is "
+          f"explicit)")
+    res["gemm"] = gemm
+    res["precision"] = {}
+    big_x = np.asarray(big["x"][:, 0], np.float32)
+    cases = (("bigtown_large_b8", btpl, "gatres_large", 8,
+              (big_x[None, :] + 0.1 * rng.standard_normal((8, bn))).astype(np.float32)),
+             ("synthctown_small_b32", stpl, "gatres_small", 32, xs))
+    for label, tpl, preset, B, xb in cases:
+        n_ = tpl.n_node
+        msk = np.zeros((B, n_), bool)
+        for b in range(B):
+            msk[b, rng.permutation(n_)[:int(n_ * 0.95)]] = True
+        per = {}
+        for prec in (None, "highest", "tensorfloat32", "bfloat16"):
+            model, _ = select_model(preset, device=dev, seed=5)
+            if preset == "gatres_large":
+                model.load_state_dict(params_from_parity_npz(bnpz))
+            tr = Trainer(model, TrainConfig(batch_size=B, matmul_precision=prec), fstats, tpl,
+                         device=dev)
+            reset_launches()
+            loss, _ = tr.train_step(tpl, xb, msk.reshape(-1))
+            torch.cuda.synchronize()
+            launched = read_launches()
+            if (torch.get_float32_matmul_precision() != "highest"
+                    or torch.backends.cuda.matmul.allow_tf32):
+                raise SystemExit(f"FAIL {label} {prec}: the setting was not restored after the step")
+            grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+            ms = cuda_ms(lambda: tr.train_step(tpl, xb, msk.reshape(-1)), 1, 3)
+            per[prec] = (float(loss), grads, launched, ms)
+            del tr, model
+        base = per[None]
+        row = {}
+        for prec, (loss, grads, launched, ms) in per.items():
+            if launched != base[2]:
+                raise SystemExit(f"FAIL {label} {prec}: launches {launched} against {base[2]}")
+            share = max(gap_share(g, base[1][k]) for k, g in grads.items())
+            if prec == "highest" and (share != 0.0 or loss != base[0]):
+                raise SystemExit(f"FAIL {label}: highest is not the default step bit for bit")
+            row[str(prec)] = dict(loss=loss, grad_share_of_gate=share, step_ms=ms)
+            print(f"  {label} {prec}: loss {loss:.7f}, gradients at {share:.2%} of the f32 step's "
+                  f"gate, step {ms:.3f} ms, launches as the default's")
+        add(base[2])
+        res["precision"][label] = row
+        torch.cuda.empty_cache()
+
+    # ---- 54: epochs_per_dispatch ------------------------------------------------------------
+    print("[54] epochs_per_dispatch: synthctown GATRes-small fit, 4 epochs, batch 4 with tails, at "
+          "E 1, 2 and 4; E 2 against the JAX _fit_fast with its masks replayed; a resume")
+    fxp = art("parity_fit_fast_synthctown.npz")
+    fx = np.load(fxp)
+
+    def mk(a, tpl=stpl):
+        return WDNDataset.from_members([_Member(tpl, a, [], None)], fstats)
+
+    def fit_run(E, epochs=4, masks=None, save=None, restore=None):
+        model = GATRes(15, 32, attn_impl="factored")
+        model.load_state_dict(params_from_parity_npz(fxp))
+        tr = Trainer(model, TrainConfig(epochs=epochs, batch_size=4, mask_rate=0.95, seed=0,
+                                        epochs_per_dispatch=E, save_path=save, model_name="m"),
+                     fstats, stpl, device=dev)
+        if restore:
+            tr.restore(restore, log_fn=lambda *_: None)
+        hist = []
+        t0 = time.perf_counter()
+        tr.fit(mk(fx["train"]), mk(fx["val"]), log_fn=lambda *_: None, masks=masks,
+               on_epoch_end=lambda ep, m: hist.append((ep, m)))
+        torch.cuda.synchronize()
+        return tr, hist, time.perf_counter() - t0
+
+    runs = {E: fit_run(E) for E in (1, 2, 4)}
+    h2, h4 = runs[2][1], runs[4][1]
+    same = h2 == h4 and all(torch.equal(a, b) for a, b in zip(runs[2][0].model.parameters(),
+                                                               runs[4][0].model.parameters()))
+    if not same:
+        raise SystemExit("FAIL the E 2 and E 4 fits differ")
+    io2, io4 = runs[2][0].fast_io, runs[4][0].fast_io
+    if io2 != {"blocks": 2, "readbacks": 2, "uploads": 10} or io4["readbacks"] != 1:
+        raise SystemExit(f"FAIL read-backs: E 2 {io2}, E 4 {io4}")
+    print(f"  E 2 and E 4 bit-identical (losses {[round(m['train_loss'], 6) for _, m in h2]}); "
+          f"host transfers E 2 {io2}, E 4 {io4}; wall E 1 {runs[1][2]:.2f} s, E 2 {runs[2][2]:.2f} "
+          f"s, E 4 {runs[4][2]:.2f} s")
+    tr_j, hj, _ = fit_run(2, masks=lambda ep: (fx["masks_train"][ep - 1], fx["masks_val"][ep - 1]))
+    # the first block's losses held to rtol 1e-4; the second block follows 6 Adam
+    # steps, whose updates move a component with a noise gradient by up to 2·lr a
+    # step whatever its size: its losses to 1e-3, the parameters to the fixtures'
+    # Adam gate for such components, 3e-3 (the CPU port reads the same: 1.65e-4,
+    # 1.18e-3)
+    tl = np.array([m["train_loss"] for _, m in hj])
+    vl = np.array([m["val_loss"] for _, m in hj])
+    rel = np.maximum(np.abs(tl / fx["train_loss"] - 1), np.abs(vl / fx["val_loss"] - 1))
+    perr = max(float((p.detach().cpu() - torch.as_tensor(fx[f"final_{k}"])).abs().max())
+               for k, p in tr_j.model.named_parameters())
+    lerr = float(rel.max())
+    if rel[:2].max() > 1e-4 or lerr > 1e-3 or perr > 3e-3:
+        raise SystemExit(f"FAIL E 2 against the JAX _fit_fast: losses rtol {rel}, parameters "
+                         f"within {perr:.2e}")
+    print(f"  E 2 with the JAX masks: per-epoch losses within rtol {[f'{r:.2e}' for r in rel]} of "
+          f"the JAX _fit_fast ({os.path.relpath(fxp, REPO)}), parameters within {perr:.2e} (gate "
+          f"3e-3)")
+    with tempfile.TemporaryDirectory() as d:
+        fit_run(2, epochs=2, save=d)
+        tr_r, hr, _ = fit_run(2, save=d, restore=os.path.join(d, "last_m.ckpt"))
+        _, _, meta = load_checkpoint(os.path.join(d, "last_m.ckpt"))
+    if hr != h2[2:] or not all(torch.equal(a, b) for a, b in zip(tr_r.model.parameters(),
+                                                               runs[2][0].model.parameters())):
+        raise SystemExit("FAIL the resume across a block boundary is not bit-identical")
+    print(f"  resume after epoch 2 (a block boundary): epochs 3-4 and the parameters bit-identical; "
+          f"the last checkpoint's params_epoch {meta['extra']['resume'].get('params_epoch')}")
+    res["fit_fast"] = dict(loss_rtol=lerr, param_err=perr, io_e2=io2, io_e4=io4,
+                           wall_s={E: r[2] for E, r in runs.items()})
+    del runs, tr_j, tr_r
+    # bigtown GATRes-large, B 8, 2 epochs at E 2: 20 train snapshots (a tail of 4), 8 val
+    arr = (big_x[None, :] + 0.1 * rng.standard_normal((28, bn))).astype(np.float32)
+    model, _ = select_model("gatres_large", device=dev, seed=3)
+    model.load_state_dict(params_from_parity_npz(bnpz))
+    tr = Trainer(model, TrainConfig(epochs=2, batch_size=8, epochs_per_dispatch=2), fstats, btpl,
+                 device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = []
+    tr.fit(mk(arr[:20], btpl), mk(arr[20:], btpl), log_fn=lambda *_: None,
+           on_epoch_end=lambda ep, m: hist.append(m))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = read_launches()
+    expect = counts(band_attention=50 * 4 * 2, band_spmm=25 * 4 * 2, band_attention_bwd=50 * 3 * 2,
+                    band_spmm_bwd=25 * 3 * 2)
+    if launched != expect or tr.fast_io["readbacks"] != 1 or not all(
+            np.isfinite([m["train_loss"], m["val_loss"]]).all() for m in hist):
+        raise SystemExit(f"FAIL bigtown E 2 fit: launches {launched} (expected {expect}), "
+                         f"{tr.fast_io}, {hist}")
+    add(launched)
+    print(f"  bigtown GATRes-large B 8, 2 epochs in one block (3 steps with a tail of 4, 1 val "
+          f"step): {wall:.2f} s, losses {[round(m['train_loss'], 5) for m in hist]}, launches "
+          f"{launched}, {tr.fast_io}")
+    res["fit_fast"]["bigtown_wall_s"] = wall
+    del tr, model
+    torch.cuda.empty_cache()
+
+    # ---- 55: cli train with the three flags, and a resume ---------------------------------------
+    print("[55] cli train --model gatres_small on artifacts/eval_bigtown.zip with --activation_dtype "
+          "bfloat16 --matmul_precision bfloat16 --epochs_per_dispatch 2, then a resume to epoch 4")
+    # the command's train and valid datasets hold two template objects in both
+    # packages, so the JAX command's fit takes the per-epoch path whatever
+    # --epochs_per_dispatch says (the block needs one template); the port's does too
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_knobs_")
+    fitted = []
+    real_fit = Trainer.fit
+
+    def seen_fit(self, *a, **kw):
+        best = real_fit(self, *a, **kw)
+        fitted.append((self.cfg, dict(self.fast_io)))
+        return best
+
+    Trainer.fit = seen_fit
+    try:
+        save = os.path.join(tmp, "run")
+        argv = ["train", "--model", "gatres_small", "--dataset_paths", art("eval_bigtown.zip"),
+                "--input_paths", os.path.join(REPO, "inputs", "bigtown.inp"), "--batch_size", "8",
+                "--mask_rate", "0.95", "--save_path", save, "--activation_dtype", "bfloat16",
+                "--matmul_precision", "bfloat16", "--epochs_per_dispatch", "2", "--variant", "knobs"]
+        last = os.path.join(save, "last_gatres_small_knobs.ckpt")
+        for label, extra, want in (("train", ["--epochs", "2"], 2),
+                                   ("resume", ["--epochs", "4", "--model_path", last], 4)):
+            buf = io.StringIO()
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for ln in buf.getvalue().strip().splitlines()[-4:]:
+                print("    " + ln.replace(tmp, "<tmp>"))
+            launched = read_launches()
+            _, _, meta = load_checkpoint(last)
+            pe = meta["extra"]["resume"].get("params_epoch")
+            cfg, fio = fitted[-1]
+            # 40 train snapshots (5 steps), 8 valid (1 step) an epoch; 2 epochs a run
+            expect = counts(band_attention_logit=30 * 12, band_attention_bwd_logit=30 * 10,
+                            band_spmm=15 * 12, band_spmm_bwd=15 * 10)
+            if (rc != 0 or meta["epoch"] != want or pe is not None or launched != expect
+                    or cfg.matmul_precision != "bfloat16" or cfg.epochs_per_dispatch != 2
+                    or fio["blocks"] != 0):
+                raise SystemExit(f"FAIL cli {label}: rc {rc}, last checkpoint epoch {meta['epoch']} "
+                                 f"(expected {want}), params_epoch {pe}, launches {launched} "
+                                 f"(expected {expect}), {cfg}, {fio}")
+            add(launched)
+            print(f"  cli {label}: exit 0 in {wall:.1f} s, last checkpoint at epoch {want}; the "
+                  f"trainer's matmul_precision {cfg.matmul_precision}, epochs_per_dispatch "
+                  f"{cfg.epochs_per_dispatch}, the per-epoch path as in the JAX command (blocks "
+                  f"{fio['blocks']}); launches {launched['band_attention_logit']} + "
+                  f"{launched['band_attention_bwd_logit']} of v2 with the logits rounded")
+    finally:
+        Trainer.fit = real_fit
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(res)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5081,7 +5855,8 @@ def main() -> int:
     # count in their wrapper's launches_bf16
     counters = {**{k: (w, "launches") for k, w in wrappers.items()},
                 **{k: (wrappers[w], "launches_bf16")
-                   for k, (w, _) in {**BF16_INSTANCES, **DENSE_BF16_INSTANCES}.items()}}
+                   for k, (w, _) in {**BF16_INSTANCES, **DENSE_BF16_INSTANCES}.items()},
+                **{k: (wrappers[w], "launches_logit") for k, (w, _, _) in LOGIT_INSTANCES.items()}}
 
     def reset_launches():
         for w, attr in counters.values():
@@ -5549,6 +6324,7 @@ def main() -> int:
     _NETS.setdefault("bigtown", tpl)
     mesh_kernel_phase(dev, held)
     mesh = mesh_phases(dev, card, big)
+    knobs = knob_phases(dev, card, held, max_err, reset_launches, read_launches, counts, big)
 
     kernels = []
     for name in band_wrappers:
@@ -5754,6 +6530,34 @@ def main() -> int:
             if not mesh["launches"].get(k["name"]):
                 raise SystemExit(f"FAIL {k['name']} was not launched on the mesh's path")
             k["mesh_launches"] = mesh["launches"][k["name"]]
+    # the logit-rounding instances: headline rows GATRes-small's conv1 width (v2 at
+    # bigtown B 32 forward, B 8 backward; the dense pair at synthctown B 32) and
+    # GATRes-large's conv1 on the window route at B 8; each counts phases 51-55
+    headline = {"band_attention_logit": (32, 64), "band_attention_bwd_logit": (8, 64),
+                "fused_attention_logit": (32, 64), "fused_attention_bwd_logit": (32, 64),
+                "band_attention_window_logit": (8, 256)}
+    for name, (src, tpu, line) in LOGIT_INSTANCES.items():
+        shaped = {(r["B"], r["hc"]): r for r in knobs["rows"] if r["name"] == name}
+        r = shaped[headline[name]]
+        if not knobs["launches"][name]:
+            raise SystemExit(f"FAIL {name} was not launched on its path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"gnn_pressure_estimation_tpu_torch/csrc/{src}.cu",
+            "replaces": f"{tpu}:{line}", "launches": knobs["launches"][name],
+            "max_abs_err": max_err[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "device_ms": r["device_ms"], "shape": f"B {r['B']}, H·C {r['hc']}",
+            "by_shape": {f"B{b} HC{hc}": {k: q[k] for k in ("ms", "device_ms", "plain_ms",
+                                                           "bound_ms", "bytes")}
+                         for (b, hc), q in shaped.items()},
+        })
+    # the knobs' paths (phases 51-55) launch the band pair, the factored pair and v2
+    for k in kernels:
+        if knobs["new_path"].get(k["name"]):
+            k["knob_launches"] = knobs["new_path"][k["name"]]
+    print("  phases 51-55: " + json.dumps({k: knobs[k] for k in (
+        "synthctown", "bigtown_small", "band_factored", "gemm", "precision", "fit_fast",
+        "dense_turns", "bigtown_small_turns")}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -20,10 +20,14 @@ kernels' plain PyTorch versions on the host.
 ``--model`` takes every name of the JAX registry: GATRes-small and -large
 and the baseline zoo (``gin``, ``gat``, ``gcn2``, ``chebnet``,
 ``graphconvwat``, ``mgcn``), each with its preset's criterion,
-normalisation and edge attributes unless a flag overrides them. What the
-port does not have yet exits non-zero, naming the ROADMAP Queue 1 item that
-brings it: bf16 activations and matmul precisions other than ``highest``
-(item 8), several epochs per dispatch (item 2) and ``benchmark`` (item 1).
+normalisation and edge attributes unless a flag overrides them.
+``train`` takes every training flag of the JAX command:
+``--activation_dtype bfloat16`` (the activation dtype of a model with the
+knob, GATRes; on another model it fails as the JAX command does),
+``--matmul_precision`` (the GEMMs of the train and eval steps) and
+``--epochs_per_dispatch`` (blocks of epochs with the snapshots on the
+device). ``benchmark``, which the port does not have yet, exits non-zero,
+naming the ROADMAP Queue 1 item that brings it (item 1).
 
 ``--mesh DP,GP`` (``train``, ``eval``) starts ``DP·GP`` ranks on this host
 (``parallel.launch``), each of which runs the command over the mesh; the
@@ -88,20 +92,23 @@ def _add_train_flags(p: argparse.ArgumentParser):
                    help="cuda (the default: raises without a card) or cpu (the "
                         "kernels' plain PyTorch versions on the host)")
     p.add_argument("--epochs_per_dispatch", default=1, type=int,
-                   help="only 1: several epochs per dispatch is not yet ported "
-                        "(ROADMAP Queue 1 item 2)")
+                   help=">1 keeps the snapshots on the device and runs that many "
+                        "epochs a block, with one read-back a block (best "
+                        "checkpoints hold block-end parameters); taken, as in the "
+                        "JAX command, only when train and valid share one template "
+                        "object, which this command's two datasets do not")
     p.add_argument("--profile_dir", default=None, type=str,
                    help="write a torch.profiler trace (Chrome trace JSON) of the "
                         "training epochs after the first into this directory")
     p.add_argument("--profile_epochs", default=2, type=int)
     p.add_argument("--activation_dtype", default=None,
                    choices=["float32", "bfloat16", None],
-                   help="float32 only: bfloat16 activations are not yet ported "
-                        "(ROADMAP Queue 1 item 8)")
+                   help="activation precision for models with a dtype knob "
+                        "(GATRes; parameters, softmax and loss stay f32)")
     p.add_argument("--matmul_precision", default=None,
                    choices=["bfloat16", "tensorfloat32", "highest", None],
-                   help="highest only: the others are not yet ported (ROADMAP "
-                        "Queue 1 item 8)")
+                   help="precision of the GEMMs inside the train and eval steps "
+                        "(the hand-written kernels compute in f32 at any setting)")
     p.add_argument("--gate_dtype", default=None,
                    choices=["float32", "bfloat16", None],
                    help="storage dtype of the factored-attention 0/1 gate "
@@ -139,24 +146,21 @@ def _add_train_flags(p: argparse.ArgumentParser):
                         "on the test split (reference train.py:524-530)")
 
 
-def _refuse(args, *checks: str):
-    """Exit non-zero, naming the ROADMAP item, where ``args`` asks for what the
-    port does not have yet. ``checks`` names the flags this command acts on."""
-    reasons = {
-        "activation_dtype": (args.activation_dtype == "bfloat16",
-                             "--activation_dtype bfloat16 is not yet ported (ROADMAP Queue 1 "
-                             "item 8, precision knobs)"),
-        "matmul_precision": (args.matmul_precision not in (None, "highest"),
-                             f"--matmul_precision {args.matmul_precision} is not yet ported "
-                             f"(ROADMAP Queue 1 item 8, precision knobs)"),
-        "epochs_per_dispatch": (args.epochs_per_dispatch > 1,
-                                "--epochs_per_dispatch above 1 is not yet ported (ROADMAP "
-                                "Queue 1 item 2, the CUDA graph of the step)"),
-    }
-    for name in checks:
-        refused, why = reasons[name]
-        if refused:
-            sys.exit(why)
+def _activation_dtype(args):
+    """The ``--activation_dtype`` as a torch dtype (None for float32 or
+    unset, as the JAX command passes it); a model without the knob fails
+    here, before the device is touched, with the JAX function's message."""
+    if args.activation_dtype != "bfloat16":
+        return None
+    import torch
+
+    from gnn_pressure_estimation_tpu_torch.models.presets import check_dtype_knob_of
+
+    try:
+        check_dtype_knob_of(args.model)
+    except ValueError as e:
+        sys.exit(str(e))
+    return torch.bfloat16
 
 
 def _device(args):
@@ -227,16 +231,18 @@ def rank_main(payload: str) -> int:
     return main(json.loads(payload)) or 0
 
 
-def _model(args, dev, seed: int = 0):
+def _model(args, dev, seed: int = 0, dtype=None):
     """The ``--model`` preset's model; m_GCN embeds as many edge attributes
-    as ``--use_data_edge_attrs`` (or the preset) names, none without them."""
+    as ``--use_data_edge_attrs`` (or the preset) names, none without them;
+    ``dtype`` the activation dtype (``train``'s ``--activation_dtype``)."""
     from gnn_pressure_estimation_tpu_torch.models.presets import (
         MODEL_REGISTRY, apply_model_knobs, select_model,
     )
 
     preset = MODEL_REGISTRY[args.model]
     edge_dim = None if preset.edge_attrs is None else len(_edge_attrs(args, preset) or ())
-    model, preset = select_model(args.model, device=dev, seed=seed, edge_dim=edge_dim)
+    model, preset = select_model(args.model, device=dev, seed=seed, edge_dim=edge_dim,
+                                 dtype=dtype)
     try:
         model = apply_model_knobs(model, attn_impl=args.attn_impl, gate_dtype=args.gate_dtype)
     except (ValueError, NotImplementedError) as e:
@@ -329,7 +335,7 @@ class _EpochProfiler:
 
 
 def cmd_train(args):
-    _refuse(args, "activation_dtype", "matmul_precision", "epochs_per_dispatch")
+    dtype = _activation_dtype(args)
     from gnn_pressure_estimation_tpu_torch.train import TrainConfig, Trainer
     from gnn_pressure_estimation_tpu_torch.utils.logging import make_logger
 
@@ -342,7 +348,7 @@ def cmd_train(args):
         dev = mesh.device
     lead = mesh is None or mesh.rank == 0          # rank 0 prints, logs and writes
     say = print if lead else (lambda *_a, **_k: None)
-    model, preset = _model(args, dev, seed=args.seed)
+    model, preset = _model(args, dev, seed=args.seed, dtype=dtype)
     train_ds, val_ds, norm_type = _load_datasets(args, preset)
 
     cfg = TrainConfig(

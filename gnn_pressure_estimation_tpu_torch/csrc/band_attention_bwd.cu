@@ -38,7 +38,9 @@
 // scratch_p, scratch_dz: [B, nnz, H] f32; scratch_s: [B, nB, H, C] f32, read
 // only when n_empty > 0. vec != 0: C % 4 == 0 and x_ext, dout 16-byte aligned
 // (the wrapper checks). All outputs are written in full. bf16 != 0: the
-// bf16-operand instance (csrc/band_bwd.cuh), x_ext in bf16; else f32.
+// bf16-operand instance (csrc/band_bwd.cuh), x_ext in bf16; else f32. bf16 & 2:
+// that instance with dp, the logits and their cotangents rounded (kRoundDp,
+// kLogit), the XLA band ops of a layer with bf16 activations.
 extern "C" int band_attention_bwd(
     const float* a_dst, const float* a_src_win, const void* x_ext,
     const float* dout, const int* row_ptr, const int* col, const int* t_ptr,
@@ -47,6 +49,11 @@ extern "C" int band_attention_bwd(
     float* scratch_s, float* d_a_dst, float* d_a_src_win, float* d_x_ext,
     int B, int nB, int BLK, int W, int H, int C, int nnz, int n_empty, int vec,
     int bf16, float slope, void* stream) {
+  if (bf16 & 2)                          // bf16 activations: the logits rounded too
+    return recompute_bwd<false, true, true, true>(
+        a_dst, a_src_win, static_cast<const __nv_bfloat16*>(x_ext), dout, row_ptr, col, t_ptr,
+        t_entry, t_row, empty_ptr, empty_row, scratch_p, scratch_dz, scratch_s, d_a_dst,
+        d_a_src_win, d_x_ext, B, nB, BLK, W, H, C, nnz, n_empty, vec, slope, (cudaStream_t)stream);
   if (bf16)
     return recompute_bwd<false, true>(
         a_dst, a_src_win, static_cast<const __nv_bfloat16*>(x_ext), dout, row_ptr, col, t_ptr,

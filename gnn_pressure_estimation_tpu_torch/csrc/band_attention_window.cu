@@ -35,12 +35,15 @@
 // vec != 0: C % 4 == 0 and x_win, out 16-byte aligned (the wrapper checks).
 // n_empty: the number of band rows with no set column (mean is then
 // [B, nB, H*C] scratch; with none the pre-pass is not launched).
+// logit != 0: the logits rounded as a layer with bf16 activations rounds them
+// (logit_of<true>), the weights and the product in f32, as the v1 kernel of
+// the JAX package computes them for that layer.
 extern "C" int band_attention_window_fwd(
     const float* a_dst, const float* a_src_win, const float* x_win,
     const int* row_ptr, const int* col, const int* empty_ptr, float* mean,
     float* out, int B, int nB, int BLK, int W, int H, int C, int n_empty,
-    int vec, float slope, void* stream) {
+    int vec, int logit, float slope, void* stream) {
   return band_rowwalk<false, true>(a_dst, a_src_win, x_win, row_ptr, col, empty_ptr, mean, out,
-                                   nullptr, nullptr, B, nB, BLK, W, H, C, n_empty, vec, 0, slope,
-                                   stream);
+                                   nullptr, nullptr, B, nB, BLK, W, H, C, n_empty, vec,
+                                   logit ? 2 : 0, slope, stream);
 }

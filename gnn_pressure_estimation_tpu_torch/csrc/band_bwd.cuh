@@ -71,7 +71,7 @@ constexpr float kRunningMaxInit = -3e38f;
 // w_blocks thread blocks; the blocks after them sum the padded rows' dO into
 // S (empties_block, one per (b, 32 channels)): the two are independent, so
 // one launch overlaps them. kBf16: m first, then Z in double (above).
-template <bool kBf16>
+template <bool kBf16, bool kLogit = false>
 __global__ void __launch_bounds__(kThreads)
 weights_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
                const float* __restrict__ a_src_win,  // [nB, B, W, H]
@@ -100,7 +100,20 @@ weights_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
   const float ad = a_dst[i];
   const float* asrc = a_src_win + (blk * B + b) * (long long)W * H + h;
   float m = kRunningMaxInit, Z = 0.f;
-  if (kBf16) {
+  if constexpr (kLogit) {                // as kBf16, the logits rounded (logit_of)
+    static_assert(kBf16, "the logit rounding has the bf16-operand instance only");
+    for (int k = k0; k < k1; ++k)
+      m = fmaxf(m, logit_of<true>(ad + __ldg(asrc + (long long)col[k] * H), slope));
+    double zs = 0.0;
+    for (int k = k0; k < k1; ++k)
+      zs += (double)expf(logit_of<true>(ad + __ldg(asrc + (long long)col[k] * H), slope) - m);
+    Z = (float)zs;
+    float* pk = p_out + b * (long long)nnz * H + h;
+    for (int k = k0; k < k1; ++k)
+      pk[(long long)k * H] =
+          expf(logit_of<true>(ad + __ldg(asrc + (long long)col[k] * H), slope) - m) / Z;
+    return;
+  } else if (kBf16) {
     for (int k = k0; k < k1; ++k) m = fmaxf(m, leaky(ad + __ldg(asrc + (long long)col[k] * H), slope));
     double zs = 0.0;
     for (int k = k0; k < k1; ++k)
@@ -124,8 +137,12 @@ weights_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
 // dz over dp and d a_dst: one thread per (b, row, head), h fastest.
 // kRoundDp: dp is rounded to bf16 as it is read, before delta and dz (the
 // dense softmax's bf16 instance: the XLA product that gives dp there has a
-// bf16 output); a kernel of its own, so rows_kernel's code stays as it was.
-template <bool kRoundDp>
+// bf16 output); a kernel of its own, so rows_kernel's code stays as it was. kLogit
+// (with kRoundDp: rows_logit_kernel): the XLA backward of a layer with bf16
+// activations rounds the logits' cotangent p (dp - delta) to bf16, then the
+// negative branch's product with the (rounded) slope, as it rounds the
+// cotangent of each bf16 op.
+template <bool kRoundDp, bool kLogit = false>
 __device__ __forceinline__ void rows_body(const float* __restrict__ a_dst,
                                           const float* __restrict__ a_src_win,
                                           const int* __restrict__ row_ptr,
@@ -154,7 +171,12 @@ __device__ __forceinline__ void rows_body(const float* __restrict__ a_dst,
 #pragma unroll 4
   for (int k = k0; k < k1; ++k) {
     float dz = pk[(long long)k * H] * (operand<kRoundDp>(dk[(long long)k * H]) - delta);
-    if (ad + __ldg(asrc + (long long)col[k] * H) < 0.f) dz *= slope;
+    if constexpr (kLogit) {
+      dz = operand<true>(dz);
+      if (ad + __ldg(asrc + (long long)col[k] * H) < 0.f) dz = operand<true>(slope * dz);
+    } else {
+      if (ad + __ldg(asrc + (long long)col[k] * H) < 0.f) dz *= slope;
+    }
     dk[(long long)k * H] = dz;
     dsum += dz;
   }
@@ -184,6 +206,15 @@ rows_round_dp_kernel(const float* __restrict__ a_dst, const float* __restrict__ 
                   slope);
 }
 
+__global__ void __launch_bounds__(kThreads)
+rows_logit_kernel(const float* __restrict__ a_dst, const float* __restrict__ a_src_win,
+                  const int* __restrict__ row_ptr, const int* __restrict__ col,
+                  const float* __restrict__ p_in, float* __restrict__ dp_dz,
+                  float* __restrict__ d_a_dst, int B, int nB, int BLK, int W, int H, int nnz,
+                  float slope) {
+  rows_body<true, true>(a_dst, a_src_win, row_ptr, col, p_in, dp_dz, d_a_dst, B, nB, BLK, W, H,
+                        nnz, slope);
+}
 
 // The five passes on the stream. scratch_p, scratch_dz: [B, nnz, H] f32;
 // scratch_s: [B, nB, H, C] f32, read only when n_empty > 0. vec != 0: C % 4
@@ -192,7 +223,10 @@ rows_round_dp_kernel(const float* __restrict__ a_dst, const float* __restrict__ 
 // [nB, B, W, H, C]. All outputs are written in full. kBf16: the
 // bf16-operand instance, x_ext in bf16. kRoundDp: the rows pass rounds dp to
 // bf16 (rows_round_dp_kernel; only the dense softmax's bf16 instance).
-template <bool kWindow = false, bool kBf16 = false, bool kRoundDp = false>
+// kLogit (with kBf16 and kRoundDp): the logits and their cotangents rounded
+// as a layer with bf16 activations rounds them (weights_kernel<true, true>,
+// rows_logit_kernel).
+template <bool kWindow = false, bool kBf16 = false, bool kRoundDp = false, bool kLogit = false>
 int recompute_bwd(const float* a_dst, const float* a_src_win, const typename XRow<kBf16>::T* x,
                   const float* dout, const int* row_ptr, const int* col, const int* t_ptr,
                   const int* t_entry, const int* t_row, const int* empty_ptr, const int* empty_row,
@@ -210,7 +244,8 @@ int recompute_bwd(const float* a_dst, const float* a_src_win, const typename XRo
   }
   const unsigned w_blocks = threads_for((long long)B * n_pad * H);
   const unsigned e_blocks = n_empty > 0 ? (unsigned)(B * ((H * C + 31) / 32)) : 0u;
-  weights_kernel<kBf16><<<w_blocks + e_blocks, kThreads, 0, st>>>(
+  static_assert(!kLogit || (kBf16 && kRoundDp), "kLogit goes with kBf16 and kRoundDp");
+  weights_kernel<kBf16, kLogit><<<w_blocks + e_blocks, kThreads, 0, st>>>(
       a_dst, a_src_win, row_ptr, col, scratch_p, dout, empty_ptr, empty_row, scratch_s, B, nB,
       BLK, W, H, C, nnz, w_blocks, slope);
   cudaError_t err = cudaGetLastError();
@@ -219,7 +254,7 @@ int recompute_bwd(const float* a_dst, const float* a_src_win, const typename XRo
                                        t_ptr, t_entry, t_row, empty_ptr, scratch_dz, d_x, B, nB,
                                        BLK, W, H, C, nnz, st);
   if (rc != 0) return rc;
-  (kRoundDp ? rows_round_dp_kernel : rows_kernel)<<<threads_for((long long)B * n_pad * H),
+  (kLogit ? rows_logit_kernel : kRoundDp ? rows_round_dp_kernel : rows_kernel)<<<threads_for((long long)B * n_pad * H),
                                                      kThreads, 0, st>>>(
       a_dst, a_src_win, row_ptr, col, scratch_p, scratch_dz, d_a_dst, B, nB, BLK, W, H, nnz,
       slope);

@@ -44,6 +44,22 @@ __device__ __forceinline__ float operand(float v) {
   return kBf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
+// The LeakyReLU logit of the pre-activation zpre = a_dst + a_src. kLogit (the
+// instances of a layer whose activations are bf16, GATConv's dtype): zpre
+// rounded to bf16, and the negative branch's product with the slope (which
+// the host rounds to bf16, the weak-typed 0.2 of the JAX layer) rounded
+// again, as the XLA band ops of that layer round each of their bf16 ops.
+// Rounding keeps the sign, so the branch is that of the unrounded zpre.
+template <bool kLogit>
+__device__ __forceinline__ float logit_of(float zpre, float slope) {
+  if constexpr (kLogit) {
+    const float z = operand<true>(zpre);
+    return z >= 0.f ? z : operand<true>(slope * z);
+  } else {
+    return zpre >= 0.f ? zpre : slope * zpre;
+  }
+}
+
 // kBf16: the first channel of the lane's quad v (kVec: 4 channels of one
 // head) or the channel of its element e (scalar) in the tile at c0: the f32
 // walks' layout (load_slot's), so bf16 rows take vector_loads' rule.

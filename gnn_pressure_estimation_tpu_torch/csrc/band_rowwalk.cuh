@@ -212,6 +212,7 @@ __device__ __forceinline__ bool begin_row(const int* __restrict__ row_ptr,
 // writes). Out of line: inlined, its registers weighed on the walk's (more
 // spills at the 64-register cap, a slower walk), though no row of bigtown or
 // meganet takes it.
+template <bool kLogit>
 __device__ __noinline__ void row_stats_sweep(const float* __restrict__ ad,
                                              const float* __restrict__ asrc,
                                              const int* __restrict__ col, int k0, int k1, int H,
@@ -219,8 +220,8 @@ __device__ __noinline__ void row_stats_sweep(const float* __restrict__ ad,
                                              float* z_sh, int lane) {
   for (int h = 0; h < hg; ++h) {
     auto logit = [&](int k) {
-      const float z = __ldg(ad + h0 + h) + __ldg(asrc + (long long)col[k] * H + h0 + h);
-      return z >= 0.f ? z : slope * z;
+      return logit_of<kLogit>(__ldg(ad + h0 + h) + __ldg(asrc + (long long)col[k] * H + h0 + h),
+                              slope);
     };
     float m = kRunningMaxInit;
     for (int k = k0 + lane; k < k1; k += 32) m = fmaxf(m, logit(k));
@@ -238,7 +239,7 @@ __device__ __noinline__ void row_stats_sweep(const float* __restrict__ ad,
 // The bf16-operand walk (kBf16; see the note at the top) of the warp's row r,
 // which has a set column: arguments as band_rowwalk_kernel's, x_ext [B,
 // n_ext, H, C] in bf16.
-template <int NV, bool kVec, bool kStats>
+template <int NV, bool kVec, bool kStats, bool kLogit>
 __device__ __forceinline__ void bf16_rowwalk(const WalkRow& r, const float* __restrict__ a_dst,
                                              const float* __restrict__ a_src_win,
                                              const __nv_bfloat16* __restrict__ x_ext,
@@ -264,7 +265,7 @@ __device__ __forceinline__ void bf16_rowwalk(const WalkRow& r, const float* __re
     const int hg = min(G, H - h0);           // heads h0 .. h0+hg-1, channels up to ce
     const int ce = (h0 + hg) * C;
     if (!one_chunk) {                        // the row's final m and Z, before any product
-      row_stats_sweep(ad, asrc, col, k0, k1, H, h0, hg, slope, m_sh, z_sh, lane);
+      row_stats_sweep<kLogit>(ad, asrc, col, k0, k1, H, h0, hg, slope, m_sh, z_sh, lane);
       __syncwarp();
     }
     for (int c0 = h0 * C; c0 < ce; c0 += kTile) {
@@ -298,8 +299,8 @@ __device__ __forceinline__ void bf16_rowwalk(const WalkRow& r, const float* __re
         for (int h = 0; h < hg; ++h) {
           float z = kRunningMaxInit;
           if (on) {
-            z = __ldg(ad + h0 + h) + __ldg(asrc + (long long)jl * H + h0 + h);
-            z = z >= 0.f ? z : slope * z;
+            z = logit_of<kLogit>(__ldg(ad + h0 + h) + __ldg(asrc + (long long)jl * H + h0 + h),
+                                 slope);
           }
           float m, Z;
           if (one_chunk) {                   // the chunk is the row: its max and sum
@@ -373,7 +374,7 @@ __device__ __forceinline__ void bf16_rowwalk(const WalkRow& r, const float* __re
 
 // The f32 walk (see the note at the top) of the warp's row r, which has a
 // set column: arguments as band_rowwalk_kernel's.
-template <int NV, bool kVec, bool kStats, bool kWindow>
+template <int NV, bool kVec, bool kStats, bool kWindow, bool kLogit>
 __device__ __forceinline__ void f32_rowwalk(const WalkRow& r, const float* __restrict__ a_dst,
                                             const float* __restrict__ a_src_win,
                                             const float* __restrict__ x_ext,
@@ -439,10 +440,9 @@ __device__ __forceinline__ void f32_rowwalk(const WalkRow& r, const float* __res
         // per head: the chunk's logits, the running max, the rescale, the weights
         for (int h = 0; h < hg; ++h) {
           float z = kRunningMaxInit;
-          if (on) {
-            z = __ldg(ad + h0 + h) + __ldg(asrc + (long long)jl * H + h0 + h);
-            z = z >= 0.f ? z : slope * z;
-          }
+          if (on)
+            z = logit_of<kLogit>(__ldg(ad + h0 + h) + __ldg(asrc + (long long)jl * H + h0 + h),
+                                 slope);
           const float m_old = m_sh[h];
           const float m_new = fmaxf(m_old, warp_max(z));
           const float p = on ? expf(z - m_new) : 0.f;
@@ -523,7 +523,7 @@ __device__ __forceinline__ void f32_rowwalk(const WalkRow& r, const float* __res
   }
 }
 
-template <int NV, bool kVec, bool kStats, bool kWindow, bool kBf16>
+template <int NV, bool kVec, bool kStats, bool kWindow, bool kBf16, bool kLogit>
 __global__ void __launch_bounds__(kWarps * 32, kBf16 ? kBf16MinBlocks[NV - 1] : kMinBlocks)
 band_rowwalk_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
                     const float* __restrict__ a_src_win,  // [nB, B, W, H]
@@ -540,22 +540,23 @@ band_rowwalk_kernel(const float* __restrict__ a_dst,      // [B, n_pad, H]
   if (!begin_row<kStats>(row_ptr, mean, out, m_out, z_out, B, nB, BLK, W, H, C, r)) return;
   if constexpr (kBf16) {
     static_assert(!kWindow, "the window layout has no bf16 instance");
-    bf16_rowwalk<NV, kVec, kStats>(r, a_dst, a_src_win, x_ext, col, m_out, z_out, B, BLK, W, H,
-                                   C, slope);
+    bf16_rowwalk<NV, kVec, kStats, kLogit>(r, a_dst, a_src_win, x_ext, col, m_out, z_out, B, BLK,
+                                           W, H, C, slope);
   } else {
-    f32_rowwalk<NV, kVec, kStats, kWindow>(r, a_dst, a_src_win, x_ext, col, m_out, z_out, B,
+    static_assert(!kLogit || kWindow, "the f32 walk rounds the logits in window layout only");
+    f32_rowwalk<NV, kVec, kStats, kWindow, kLogit>(r, a_dst, a_src_win, x_ext, col, m_out, z_out, B,
                                            BLK, W, H, C, slope);
   }
 }
 
-template <int NV, bool kVec, bool kStats, bool kWindow, bool kBf16>
+template <int NV, bool kVec, bool kStats, bool kWindow, bool kBf16, bool kLogit>
 int launch_rowwalk(const float* a_dst, const float* a_src_win, const RowT<kBf16>* x_ext,
                    const int* row_ptr, const int* col, const float* mean, float* out,
                    float* m_out, float* z_out, int B, int nB, int BLK, int W, int H, int C,
                    float slope, cudaStream_t stream) {
   const long long warps = (long long)B * nB * BLK;
   const size_t smem = (size_t)kWarps * 35 * min(H, kHeadGroup) * sizeof(float);
-  band_rowwalk_kernel<NV, kVec, kStats, kWindow, kBf16>
+  band_rowwalk_kernel<NV, kVec, kStats, kWindow, kBf16, kLogit>
       <<<blocks_for(warps), kWarps * 32, smem, stream>>>(a_dst, a_src_win, x_ext, row_ptr, col,
                                                          mean, out, m_out, z_out, B, nB, BLK, W,
                                                          H, C, slope);
@@ -564,15 +565,15 @@ int launch_rowwalk(const float* a_dst, const float* a_src_win, const RowT<kBf16>
 
 // The row walk's instance for these operands: NV by H*C, the packed (float4,
 // or bf16 quads) slots where vec.
-template <bool kStats, bool kWindow, bool kBf16>
+template <bool kStats, bool kWindow, bool kBf16, bool kLogit = false>
 int rowwalk_instance(const float* a_dst, const float* a_src_win, const RowT<kBf16>* x_ext,
                      const int* row_ptr, const int* col, const float* mean, float* out,
                      float* m_out, float* z_out, int B, int nB, int BLK, int W, int H, int C,
                      int vec, float slope, cudaStream_t s) {
-  auto walk = H * C <= 128 ? (vec ? launch_rowwalk<1, true, kStats, kWindow, kBf16>
-                                  : launch_rowwalk<1, false, kStats, kWindow, kBf16>)
-                           : (vec ? launch_rowwalk<2, true, kStats, kWindow, kBf16>
-                                  : launch_rowwalk<2, false, kStats, kWindow, kBf16>);
+  auto walk = H * C <= 128 ? (vec ? launch_rowwalk<1, true, kStats, kWindow, kBf16, kLogit>
+                                  : launch_rowwalk<1, false, kStats, kWindow, kBf16, kLogit>)
+                           : (vec ? launch_rowwalk<2, true, kStats, kWindow, kBf16, kLogit>
+                                  : launch_rowwalk<2, false, kStats, kWindow, kBf16, kLogit>);
   return walk(a_dst, a_src_win, x_ext, row_ptr, col, mean, out, m_out, z_out, B, nB, BLK, W, H,
               C, slope, s);
 }
@@ -580,7 +581,11 @@ int rowwalk_instance(const float* a_dst, const float* a_src_win, const RowT<kBf1
 // The whole forward: the window-mean pre-pass when the layout has rows with
 // no set column (n_empty > 0; mean is then [B, nB, H*C] scratch), then the
 // row walk. x_ext is f32, or bf16 when bf16 != 0 (the bf16-operand
-// instance). vec != 0: C % 4 == 0 and x_ext, out 16-byte aligned (the
+// instance); bf16 & 2 (no statistics): the bf16 walk with the logits rounded
+// as a layer with bf16 activations rounds them (logit_of<true>). kWindow: x_win
+// is f32 and bf16 & 2 only rounds the logits (the v1 kernel of the JAX
+// package, which such a layer reaches at H·C 128 and more through the
+// window route, computes its weights and product in f32). vec != 0: C % 4 == 0 and x_ext, out 16-byte aligned (the
 // wrapper checks). m_out, z_out are read only
 // when kStats. kWindow: x_ext is x_win [nB, B, W, H, C] in f32; no
 // statistics, and bf16 must be 0.
@@ -604,6 +609,12 @@ int band_rowwalk(const float* a_dst, const float* a_src_win, const void* x_ext,
         const int rc = (int)cudaGetLastError();
         if (rc != 0) return rc;
       }
+      if constexpr (!kStats) {
+        if (bf16 & 2)                        // the logits rounded too (logit_of<true>)
+          return rowwalk_instance<false, false, true, true>(a_dst, a_src_win, xb, row_ptr, col,
+                                                            mean, out, m_out, z_out, B, nB, BLK,
+                                                            W, H, C, vec, slope, s);
+      }
       return rowwalk_instance<kStats, false, true>(a_dst, a_src_win, xb, row_ptr, col, mean, out,
                                                    m_out, z_out, B, nB, BLK, W, H, C, vec, slope,
                                                    s);
@@ -615,6 +626,12 @@ int band_rowwalk(const float* a_dst, const float* a_src_win, const void* x_ext,
                                                                       BLK, W, HC);
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
+  }
+  if constexpr (kWindow) {
+    if (bf16 & 2)                          // the logits rounded (logit_of<true>), f32 weights
+      return rowwalk_instance<false, true, false, true>(a_dst, a_src_win, xf, row_ptr, col,
+                                                        mean, out, m_out, z_out, B, nB, BLK, W,
+                                                        H, C, vec, slope, s);
   }
   return rowwalk_instance<kStats, kWindow, false>(a_dst, a_src_win, xf, row_ptr, col, mean, out,
                                                   m_out, z_out, B, nB, BLK, W, H, C, vec, slope,

@@ -55,6 +55,11 @@ extern "C" int fused_attention_bwd(
     const int* t_row, const int* empty_ptr, const int* empty_row, float* scratch_p,
     float* scratch_dz, float* d_a_dst, float* d_a_src, float* d_v, int B, int n, int H,
     int C, int nnz, int vec, int bf16, float slope, void* stream) {
+  if (bf16 & 2)                          // bf16 activations: the logits rounded too
+    return recompute_bwd<false, true, true, true>(
+        a_dst, a_src, static_cast<const __nv_bfloat16*>(v), dout, row_ptr, col, t_ptr, t_entry,
+        t_row, empty_ptr, empty_row, scratch_p, scratch_dz, nullptr, d_a_dst, d_a_src, d_v, B, 1,
+        n, n, H, C, nnz, 0, vec, slope, (cudaStream_t)stream);
   if (bf16)
     return recompute_bwd<false, true, true>(
         a_dst, a_src, static_cast<const __nv_bfloat16*>(v), dout, row_ptr, col, t_ptr, t_entry,

@@ -32,9 +32,10 @@ class GATResBlock(nn.Module):
     FLAX_NAMES = {"conv1": "GATConv_0", "conv2": "GATConv_1"}
 
     def __init__(self, channels: int, attn_impl: str = "softmax", attn_dtype=None,
-                 gate_dtype=None):
+                 gate_dtype=None, dtype=None):
         super().__init__()
-        knobs = dict(attn_impl=attn_impl, attn_dtype=attn_dtype, gate_dtype=gate_dtype)
+        knobs = dict(attn_impl=attn_impl, attn_dtype=attn_dtype, gate_dtype=gate_dtype,
+                     dtype=dtype)
         self.conv1 = GATConv(channels, channels, heads=2, concat=True, **knobs)
         self.conv2 = GATConv(2 * channels, channels, heads=1, concat=False, **knobs)
         self.mean = SimpleMeanConv()
@@ -57,21 +58,26 @@ class GATRes(nn.Module):
     ``training`` is accepted as in the JAX model and changes nothing: GATRes
     has no dropout or batch statistics. ``attn_impl``, ``attn_dtype`` and
     ``gate_dtype`` go to every ``GATConv`` (``models.presets.apply_model_knobs``
-    sets them on a built model)."""
+    sets them on a built model), and so does ``dtype``, the activation dtype
+    (None = f32, or ``torch.bfloat16``; ``models.presets.select_model(...,
+    dtype=)`` sets it): as in the JAX model only the GATConvs compute in it,
+    each returning f32, and the parameters, the mean, the residual, the
+    ReLUs and the two linear layers stay f32."""
 
     FLAX_NAMES = {"blocks": "block_{}"}
 
     def __init__(self, num_blocks: int = 15, channels: int = 32,
                  out_channels: int = 1, in_channels: int = 1,
                  attn_impl: str = "softmax", remat: bool = False, attn_dtype=None,
-                 gate_dtype=None):
+                 gate_dtype=None, dtype=None):
         super().__init__()
         self.num_blocks, self.channels, self.remat = num_blocks, channels, remat
         self.attn_impl, self.attn_dtype, self.gate_dtype = attn_impl, attn_dtype, gate_dtype
+        self.dtype = dtype
         self.lin0 = nn.Linear(in_channels, channels)
         self.blocks = nn.ModuleList(
             GATResBlock(channels, attn_impl=attn_impl, attn_dtype=attn_dtype,
-                        gate_dtype=gate_dtype) for _ in range(num_blocks)
+                        gate_dtype=gate_dtype, dtype=dtype) for _ in range(num_blocks)
         )
         self.lin1 = nn.Linear(channels, out_channels)
         self.reset_parameters()

@@ -63,11 +63,24 @@ from gnn_pressure_estimation_tpu_torch.ops.band_attention import (
 from gnn_pressure_estimation_tpu_torch.ops.band_spmm import band_spmm
 from gnn_pressure_estimation_tpu_torch.ops.graph_attention import fused_attention, fused_factored
 
-ATTN_IMPLS = ("softmax", "onepass", "factored")
+ATTN_IMPLS = ("softmax", "onepass", "factored", "band_factored")
 # attn_dtype / gate_dtype values: None (f32), or a dtype the JAX layer accepts
 ATTN_DTYPES = (None, torch.float32, torch.bfloat16)
 NEG_INF = -1e9  # the masked logit of the padded path, as the JAX layer's
 BAND_ATTEND = {"dma": band_attention, "flash": band_attention_flash, "acc": band_attention_acc}
+
+
+def bf16_scalar(v: float) -> float:
+    """``v`` rounded to bfloat16: a Python float that a JAX layer with bf16
+    activations multiplies in (weak typing gives it the array's dtype)."""
+    return float(torch.tensor(v, dtype=torch.bfloat16))
+
+
+def _lrelu(z: torch.Tensor, slope: float) -> torch.Tensor:
+    """LeakyReLU in ``z``'s dtype, the slope a tensor of that dtype (in bf16:
+    the product rounded, the slope bf16's 0.2), the gradient at 0 that of
+    the positive branch, as the JAX layer's ``jnp.where`` gives it."""
+    return torch.where(z >= 0, z, torch.tensor(slope, dtype=z.dtype, device=z.device) * z)
 
 
 def check_dtype_knob(name: str, value):
@@ -210,8 +223,12 @@ class GATConv(nn.Module):
     cotangents) or ``"acc"`` (``ops.band_attention_acc``, the extended array,
     v2's forward and the owner-row backward); the three that read the
     extended array build it from the projected rows inside their autograd
-    Function, in bf16 under ``attn_dtype`` bf16. The JAX layer's
-    ``band_factored`` is not ported. The padded path gathers each node's
+    Function, in bf16 under ``attn_dtype`` bf16. ``attn_impl="band_factored"``
+    is ``factored`` on the dense path; on the banded path layers that the
+    JAX layer hands to a Pallas kernel (slope 0.2, H·C at least 128) keep
+    the graph's route, and narrower ones run
+    ``ops.banded.band_attention_factored``, plain torch, as the JAX layer
+    runs it in plain XLA. The padded path gathers each node's
     ``D + 1`` slots (in-edges and the self-loop) of α_src and of the
     projected features, masks the empty slots, and takes the softmax over
     the slots, for every ``attn_impl``, as the JAX layer does.
@@ -231,16 +248,41 @@ class GATConv(nn.Module):
     padded mode ignore it, as in the JAX layer. ``gate_dtype`` is
     accepted and changes nothing: the gate is 0/1, exact in either type, and
     the factored kernel never stores it.
+
+    ``dtype`` (None = f32, or ``torch.bfloat16``) is the JAX layer's
+    activation dtype. Under bf16 the layer rounds where the JAX layer's bf16
+    ops round in the JAX package's compiled (jit) program: ``x @ w`` on bf16
+    operands, its output and the logit halves' f32 sums rounded; then the
+    attention in bf16 tensors (each elementwise op rounded, the slope bf16's
+    0.2), its products' operands in bf16 and their sums in f32; the output
+    of each mode's product rounded; the bias added in f32 to the rounded
+    values; the output f32. The kernels keep f32 interfaces and take
+    bf16-valued operands: dense ``factored`` through ``fused_factored``
+    (the gate's sign is that of the rounded sum), dense ``softmax`` through
+    ``fused_attention``'s bf16 instance with the logits rounded
+    (``logit_bf16``), banded layers narrower than the JAX layer's Pallas
+    kernels through v2's bf16 instance with the logits rounded, on every
+    route (the JAX layer runs its XLA band ops there whatever the route),
+    or ``band_factored``. A banded layer that the JAX layer hands to a Pallas
+    kernel (slope 0.2, H·C at least 128) does what the JAX layer does: on
+    the v2 family (the "dma", "flash" and "acc" routes at H·C a multiple of
+    128) it raises before any launch (the kernels' f32 VMEM scratch refuses
+    the bf16 rows: ``lax.dynamic_update_slice`` requires one dtype); on v1
+    (the window route, or another H·C) the forward runs through the window
+    kernel with the logits rounded and the weights, the product and the
+    output in f32, and the backward raises (the JAX v1 kernel's custom VJP
+    returns f32 cotangents for bf16 operands).
     """
 
     FLAX_NAMES = {"lin.weight": "w"}   # the projection is the flax module's leaf w
 
     def __init__(self, in_channels: int, out_channels: int, heads: int = 1,
                  concat: bool = True, negative_slope: float = 0.2,
-                 attn_impl: str = "softmax", attn_dtype=None, gate_dtype=None):
+                 attn_impl: str = "softmax", attn_dtype=None, gate_dtype=None, dtype=None):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise NotImplementedError(f"attn_impl {attn_impl!r} is not yet ported")
+        self.dtype = check_dtype_knob("dtype", dtype)
         self.in_channels, self.out_channels = in_channels, out_channels
         self.heads, self.concat = heads, concat
         self.negative_slope, self.attn_impl = negative_slope, attn_impl
@@ -260,62 +302,135 @@ class GATConv(nn.Module):
         glorot_(self.att_dst, H, C, generator)
         nn.init.zeros_(self.bias)
 
+    def _kernel_width(self) -> bool:
+        """Whether the JAX layer hands this layer's banded attention to a
+        Pallas kernel (v2-family or v1): slope 0.2 and H·C at least 128."""
+        return self.negative_slope == 0.2 and self.heads * self.out_channels >= 128
+
+    def _v2_family(self, graph) -> bool:
+        """Whether that kernel is the JAX layer's v2-family one (the "dma",
+        "flash" and "acc" routes at H·C a multiple of 128), not v1."""
+        return (self._kernel_width() and graph.band_attn != "window"
+                and self.heads * self.out_channels % 128 == 0)
+
     def forward(self, x: torch.Tensor, graph: BatchedGraph) -> torch.Tensor:
         H, C = self.heads, self.out_channels
-        xp = self.lin(x).view(-1, H, C)
-        # per-node attention logit halves (a_s/a_d are rank-1 per head)
-        a_s = (xp * self.att_src).sum(-1)                      # [N, H]
-        a_d = (xp * self.att_dst).sum(-1)
+        act = self.dtype == torch.bfloat16
+        if act and (graph.banded or graph.halo) and self._v2_family(graph):
+            raise NotImplementedError(
+                f"GATConv(dtype=bfloat16) at H·C {H * C} on the banded {graph.band_attn!r} route: "
+                "the JAX layer hands this layer to its v2-family Pallas band kernel, whose f32 "
+                "VMEM scratch refuses bf16 rows (lax.dynamic_update_slice requires one dtype), "
+                "so the JAX package raises here; bf16 activations run on the dense and padded "
+                "paths and on banded layers narrower than 128 channels")
+        if act:
+            bf = torch.bfloat16
+            # x @ w on bf16 operands, summed in f32 and rounded; the halves'
+            # products in f32 from the bf16 values, their sums rounded
+            xp = F.linear(x.to(bf).float(), self.lin.weight.to(bf).float()).to(bf).view(-1, H, C)
+            a_s = (xp.float() * self.att_src.to(bf).float()).sum(-1).to(bf)
+            a_d = (xp.float() * self.att_dst.to(bf).float()).sum(-1).to(bf)
+        else:
+            xp = self.lin(x).view(-1, H, C)
+            # per-node attention logit halves (a_s/a_d are rank-1 per head)
+            a_s = (xp * self.att_src).sum(-1)                      # [N, H]
+            a_d = (xp * self.att_dst).sum(-1)
         B = graph.n_graph
         if graph.dense:
             out = self._dense(xp.view(B, -1, H, C), a_s.view(B, -1, H), a_d.view(B, -1, H), graph)
         elif graph.banded or graph.halo:
-            n_pad = graph.band_n_pad
-            a_src_win = _windows(a_s.view(B, n_pad, H), graph)
-            xp_b = xp.view(B, n_pad, H, C)
-            if graph.band_attn == "window":
-                attend, kw = band_attention_window, {}
-                x_in = _windows(xp_b, graph)
-            else:
-                # the Function extends the projected rows itself: in bf16 for the
-                # bf16-operand instances, which run where the JAX layer takes its
-                # v2-family kernel. A halo chunk hands it the exchanged rows
-                # (halo=None): under mxu_bf16 the wrappers round f32 rows once
-                attend = BAND_ATTEND[graph.band_attn]
-                x_in = _halo_rows(xp_b, graph) if graph.halo else xp_b
-                kw = {"halo": None if graph.halo else (graph.band_U, graph.band_R),
-                      "mxu_bf16": (self.attn_dtype == torch.bfloat16
-                                   and self.negative_slope == 0.2 and H * C % 128 == 0)}
-            out = attend(a_d.view(B, n_pad, H).contiguous(), a_src_win, x_in,
-                         graph.band_adj_mask, self.negative_slope, graph.band_adj_index, **kw)
+            out = self._banded(xp, a_s, a_d, graph)
         elif graph.padded:
             # per-node neighbour slots (in-edges, then the self-loop), masked
             # softmax over the slots
-            sl = self.negative_slope
-            logits = graph.gather_dp_sl(a_s) + a_d[:, None, :]                  # [N, D+1, H]
-            logits = torch.where(logits >= 0, logits, sl * logits)
+            logits = _lrelu(graph.gather_dp_sl(a_s) + a_d[:, None, :], self.negative_slope)
             logits = torch.where(graph.mask_dp_sl[..., None], logits,
                                  torch.full((), NEG_INF, dtype=logits.dtype, device=logits.device))
-            attn = torch.softmax(logits, dim=1)
-            out = torch.einsum("ndh,ndhc->nhc", attn, graph.gather_dp_sl(xp))
+            # the softmax in f32; under bf16 its weights rounded, the product
+            # summed in f32 and rounded, as the JAX layer's bf16 einsum
+            attn = torch.softmax(logits.float(), dim=1).to(xp.dtype)           # [N, D+1, H]
+            out = torch.einsum("ndh,ndhc->nhc", attn.float(),
+                               graph.gather_dp_sl(xp).float()).to(xp.dtype)
         else:
             # the edge list with self-loops: per-receiver softmax over its edges
             edges, emask, ax = graph.edges_sl, graph.edge_mask_sl, graph.axis_name
-            logits = segment.gather_src(a_s, edges, ax) + segment.gather(a_d, edges)
-            logits = torch.where(logits >= 0, logits, self.negative_slope * logits)
-            alpha = segment.segment_softmax(logits, edges, emask)               # [E, H]
-            out = segment.spmm(xp, edges, alpha, ax, emask)
+            logits = _lrelu(segment.gather_src(a_s, edges, ax) + segment.gather(a_d, edges),
+                            self.negative_slope)
+            alpha = segment.segment_softmax(logits.float(), edges, emask).to(xp.dtype)  # [E, H]
+            out = segment.spmm(xp.float(), edges, alpha.float(), ax, emask).to(xp.dtype)
         out = out.reshape(-1, H, C)
         out = out.reshape(-1, H * C) if self.concat else out.mean(dim=1)
+        if act:
+            # the JAX layer adds the bias in bf16 and returns f32: XLA adds
+            # the rounded values in f32 and keeps the sum
+            return out.float() + self.bias.to(torch.bfloat16).float()
         return out + self.bias
 
+    def _banded(self, xp, a_s, a_d, graph):
+        """Banded local attention over the graph's windows: [B, n_pad, H, C]."""
+        H, C = self.heads, self.out_channels
+        B, n_pad = graph.n_graph, graph.band_n_pad
+        if self.attn_impl == "band_factored" and not self._kernel_width():
+            xp_win = _windows(xp.view(B, n_pad, H * C), graph)
+            return bops.band_attention_factored(
+                a_d.view(B, n_pad, H), _windows(a_s.view(B, n_pad, H), graph),
+                xp_win.view(xp_win.shape[:3] + (H, C)), graph.band_adj_mask,
+                self.negative_slope, store_dtype=self.attn_dtype)
+        if self.dtype == torch.bfloat16 and self._kernel_width():
+            # the JAX layer's v1 kernel (the window route, or H·C not a multiple
+            # of 128; forward() raised on the v2 family): the logits rounded,
+            # the weights, the product and the output in f32; its backward
+            # raises, as the JAX one does
+            xp_w = _windows(xp.float().view(B, n_pad, H * C), graph)
+            return band_attention_window(
+                a_d.float().view(B, n_pad, H).contiguous(),
+                _windows(a_s.float().view(B, n_pad, H), graph),
+                xp_w.view(xp_w.shape[:3] + (H, C)), graph.band_adj_mask,
+                bf16_scalar(self.negative_slope), graph.band_adj_index, logit_bf16=True)
+        if self.dtype == torch.bfloat16:
+            # a narrow layer: the JAX layer's XLA band ops, as v2's bf16
+            # instance with the logits rounded, on every route; the output
+            # rounded, as their product's is
+            xp_b = xp.float().view(B, n_pad, H, C)
+            out = band_attention(
+                a_d.float().view(B, n_pad, H).contiguous(),
+                _windows(a_s.float().view(B, n_pad, H), graph),
+                _halo_rows(xp_b, graph) if graph.halo else xp_b, graph.band_adj_mask,
+                bf16_scalar(self.negative_slope), graph.band_adj_index, mxu_bf16=True,
+                halo=None if graph.halo else (graph.band_U, graph.band_R), logit_bf16=True)
+            return out.to(torch.bfloat16)
+        a_src_win = _windows(a_s.view(B, n_pad, H), graph)
+        xp_b = xp.view(B, n_pad, H, C)
+        if graph.band_attn == "window":
+            attend, kw = band_attention_window, {}
+            x_in = _windows(xp_b, graph)
+        else:
+            # the Function extends the projected rows itself: in bf16 for the
+            # bf16-operand instances, which run where the JAX layer takes its
+            # v2-family kernel. A halo chunk hands it the exchanged rows
+            # (halo=None): under mxu_bf16 the wrappers round f32 rows once
+            attend = BAND_ATTEND[graph.band_attn]
+            x_in = _halo_rows(xp_b, graph) if graph.halo else xp_b
+            kw = {"halo": None if graph.halo else (graph.band_U, graph.band_R),
+                  "mxu_bf16": (self.attn_dtype == torch.bfloat16
+                               and self.negative_slope == 0.2 and H * C % 128 == 0)}
+        return attend(a_d.view(B, n_pad, H).contiguous(), a_src_win, x_in,
+                      graph.band_adj_mask, self.negative_slope, graph.band_adj_index, **kw)
+
     def _dense(self, xp_b, a_s, a_d, graph):
-        """Dense masked attention over all pairs: [B, n, H, C] → [B, n, H, C]."""
+        """Dense masked attention over all pairs: [B, n, H, C] → [B, n, H, C].
+        Under bf16 activations ``xp_b``, ``a_s``, ``a_d`` are bf16 and so is
+        every op on them, as in the JAX layer; the products take their bf16
+        operands in f32 and the result is rounded to bf16."""
         sl = self.negative_slope
         mask, index = graph.adj_sl_mask, graph.adj_sl_index
-        bf16 = self.attn_dtype == torch.bfloat16
+        act = self.dtype == torch.bfloat16
+        bf16 = act or self.attn_dtype == torch.bfloat16
         store = round_bf16 if bf16 else (lambda t: t)
         if self.attn_impl == "softmax":
+            if act:
+                return fused_attention(a_d.float(), a_s.float(), xp_b.float(), mask, bf16_scalar(sl),
+                                       index, True, logit_bf16=True).to(torch.bfloat16)
             return fused_attention(a_d, a_s, xp_b, mask, sl, index, bf16)
         C = xp_b.shape[-1]
         with torch.no_grad():
@@ -325,29 +440,33 @@ class GATConv(nn.Module):
             # so it carries no gradient. Taken over each row's neighbour list
             # (padded with the row itself, which is always a neighbour).
             ms = a_s[:, index.nbr].amax(dim=2)                             # [B,i,H]
-            m = F.leaky_relu(a_d + ms, sl)
+            m = _lrelu(a_d + ms, sl)
         if self.attn_impl == "onepass":
             # the softmax numerator, materialised once; 1/Z after the product
-            z = a_d[:, :, None, :] + a_s[:, None, :, :]                    # [B,i,j,H]
-            y = torch.where(z >= 0, z, sl * z)
-            num = store(torch.where(mask[None, :, :, None], torch.exp(y - m[:, :, None, :]), 0.0))
-            out = torch.einsum("bijh,bjhc->bihc", num, store(xp_b))
-            return out / num.sum(dim=2)[..., None]
+            y = _lrelu(a_d[:, :, None, :] + a_s[:, None, :, :], sl)          # [B,i,j,H]
+            num = store(torch.where(mask[None, :, :, None], torch.exp(y - m[:, :, None, :]), 0.0)
+                        .float())
+            out = torch.einsum("bijh,bjhc->bihc", num, store(xp_b.float()))
+            out = out / num.sum(dim=2)[..., None]
+            return out.to(torch.bfloat16) if act else out
         # factored: exp(lrelu(a_d+a_s)) = [s≥0]·e^{a_d}e^{a_s} + [s<0]·e^{αa_d}e^{αa_s}.
         # Working range: the exps of the per-node halves must stay finite in
-        # f32 (|a| ≲ 80 after the shifts), as for the JAX layer.
+        # f32 (|a| ≲ 80 after the shifts), as for the JAX layer. ("band_factored"
+        # is this formulation on the dense path, as in the JAX layer.)
+        al = torch.tensor(sl, dtype=a_s.dtype, device=a_s.device)
         with torch.no_grad():
             cs = F.relu(a_s.amax(dim=1, keepdim=True))                   # [B,1,H]
-        u, p = torch.exp(a_d - m), torch.exp(sl * a_d - m)                 # [B,i,H]
-        v, q = torch.exp(a_s - cs), torch.exp(sl * a_s - cs)               # [B,j,H]
+        u, p = torch.exp(a_d - m), torch.exp(al * a_d - m)                 # [B,i,H]
+        v, q = torch.exp(a_s - cs), torch.exp(al * a_s - cs)               # [B,j,H]
         # a ones column carries the softmax denominator through the sums; bf16:
         # both operands stored in bf16, that column included, as the JAX layer
         # stores them (its products are exact in f32, only the sums' order differs)
         xa = torch.cat([xp_b, xp_b.new_ones(xp_b.shape[:-1] + (1,))], dim=-1)
-        t_pv, t_nq = fused_factored(a_d, a_s, store(v[..., None] * xa), store(q[..., None] * xa),
-                                    mask, index)
-        outz = u[..., None] * t_pv + p[..., None] * t_nq
-        return outz[..., :C] / outz[..., C:]
+        t_pv, t_nq = fused_factored(a_d.float(), a_s.float(), store((v[..., None] * xa).float()),
+                                    store((q[..., None] * xa).float()), mask, index)
+        outz = u[..., None].float() * t_pv + p[..., None].float() * t_nq
+        out = outz[..., :C] / outz[..., C:]
+        return out.to(torch.bfloat16) if act else out
 
 
 class SimpleMeanConv(nn.Module):

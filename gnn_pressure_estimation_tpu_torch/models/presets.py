@@ -6,12 +6,15 @@ zoo, each with its criterion, normalisation and edge attributes.
 ``apply_model_knobs`` sets the attention knobs (``attn_impl``,
 ``attn_dtype``, ``gate_dtype``) on a built model, as the JAX CLI does, and
 raises where the JAX function raises: on a model without the knob.
+``select_model(..., dtype=)`` sets the activation dtype of a model that has
+the knob (GATRes) and raises on the others, as the JAX function does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 from typing import Callable, Optional
 
 import torch
@@ -111,7 +114,7 @@ def apply_model_knobs(model: nn.Module, attn_impl=None, gate_dtype=None,
         if not hasattr(model, knob):
             raise ValueError(f"model {type(model).__name__} has no {knob!r} knob")
         if knob == "attn_impl" and val not in ATTN_IMPLS:
-            raise NotImplementedError(f"attn_impl {val!r} is not yet ported")
+            raise NotImplementedError(f"attn_impl {val!r} is not one of {ATTN_IMPLS}")
         overrides[knob] = val if knob == "attn_impl" else check_dtype_knob(knob, val)
     for module in model.modules():
         for knob, val in overrides.items():
@@ -120,22 +123,33 @@ def apply_model_knobs(model: nn.Module, attn_impl=None, gate_dtype=None,
     return model
 
 
+def check_dtype_knob_of(name: str) -> None:
+    """Raise the JAX function's ``ValueError`` when the preset ``name`` has no
+    activation-dtype knob (every model but GATRes)."""
+    if "dtype" not in inspect.signature(MODEL_REGISTRY[name].build).parameters:
+        raise ValueError(f"model '{name}' has no activation-dtype knob")
+
+
 def select_model(name: str, device="cuda", seed: int = 0,
-                 edge_dim: Optional[int] = None) -> tuple[nn.Module, ModelPreset]:
+                 edge_dim: Optional[int] = None, dtype=None) -> tuple[nn.Module, ModelPreset]:
     """The preset's model with its weights drawn from ``seed`` as the JAX
     layers draw them, on ``device`` (raises if that is CUDA and no card is
     present). ``edge_dim``, for a preset with edge attributes (m_GCN), is
     the number of attributes the data carries, which the JAX model reads
-    off the graph; None keeps the preset's."""
+    off the graph; None keeps the preset's. ``dtype`` (None, or a torch
+    dtype: ``torch.bfloat16``) is the activation dtype of a model that has
+    the knob (GATRes; ``ValueError`` on the others, as in the JAX
+    function); it changes no parameter."""
     dev = resolve_device(device)
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model '{name}'; available: {sorted(MODEL_REGISTRY)}")
     preset = MODEL_REGISTRY[name]
-    if edge_dim is None:
-        model = preset.make()
-    elif preset.edge_attrs is None:
+    extra = {} if edge_dim is None else {"edge_dim": edge_dim}
+    if edge_dim is not None and preset.edge_attrs is None:
         raise ValueError(f"model '{name}' reads no edge attributes; edge_dim does not apply")
-    else:
-        model = preset.build(edge_dim=edge_dim)
+    if dtype is not None:
+        check_dtype_knob_of(name)
+        extra["dtype"] = check_dtype_knob("dtype", dtype)
+    model = preset.build(**extra)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(dev), preset

@@ -66,6 +66,16 @@ launches of its f32 instance in ``launches`` and of its bf16 instance in
 ``launches_bf16``; on a CPU tensor it runs the plain version with the same
 flag.
 
+``logit_bf16=True`` (v2's forward and backward with ``mxu_bf16``: the
+narrow banded layers of a GATConv whose activations are bf16, ``dtype``)
+rounds what the XLA band ops of such a JAX layer round beyond the bf16
+operands: the pre-activation a_dst + a_src and the negative branch's
+product with the slope (which the caller rounds to bf16, the weak-typed 0.2
+of the JAX layer) in the forward and in the backward's recomputed p; dp;
+and the logits' cotangent p (dp − delta) and its product with the slope.
+The kernels take it as ``bf16 & 2`` (``kLogit``, ``csrc/band_common.cuh``
+``logit_of``); those launches are counted in ``launches_logit``.
+
 Bound on an H100 SXM at the bigtown GATRes-large shapes (B 32, n_pad 5,888,
 W 896, H·C 256): counted over the mask's nonzeros (0.51% dense) the forward
 is memory-bound — x_ext (214 MB) read once and out (193 MB) written once,
@@ -147,16 +157,19 @@ def band_attention_plain(
     adj_mask: torch.Tensor,   # [nB, BLK, W] bool or 0/1 int8
     negative_slope: float = 0.2,
     mxu_bf16: bool = False,
+    logit_bf16: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`band_attention_fwd`; ``mxu_bf16``:
     ``out = Σ bf16(p)·x`` with p the normalised weight and x the bf16 rows
-    (f32 rows rounded once), computed in f32."""
+    (f32 rows rounded once), computed in f32; ``logit_bf16``: the logits
+    rounded too (see the module's note)."""
     x_ext = _widened(_stored("band_attention_plain", x_ext, mxu_bf16))
+    _check_logit("band_attention_plain", mxu_bf16, logit_bf16)
     nB, BLK, W = adj_mask.shape
     x_win = bops.band_windows_ext(x_ext, nB, BLK, W)      # [nB, B, W, H, C]
     if not mxu_bf16:
         return bops.band_attention(a_dst, a_src_win, x_win, adj_mask, negative_slope)
-    z, _, on = _logits(a_dst, a_src_win, adj_mask, negative_slope)
+    z, _, on = _logits(a_dst, a_src_win, adj_mask, negative_slope, logit_bf16)
     e, Z, real = _bf16_weights(z, on)
     out = _bf16_product("nbiwh,nbwhc->nbihc", e / Z, x_win, real)
     return _rows_of(out, x_ext.shape[0], nB, BLK)
@@ -165,7 +178,7 @@ def band_attention_plain(
 def band_attention_bwd_plain(
     a_dst: torch.Tensor, a_src_win: torch.Tensor, x_ext: torch.Tensor,
     adj_mask: torch.Tensor, d_out: torch.Tensor, negative_slope: float = 0.2,
-    mxu_bf16: bool = False,
+    mxu_bf16: bool = False, logit_bf16: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`band_attention_bwd`: the explicit
     formulas on the dense windows, window fold included.
@@ -175,36 +188,50 @@ def band_attention_bwd_plain(
     a uniform softmax: it adds ``d_out/W`` to its W window rows of ``d x_ext``
     and nothing to the ``d a``'s (the mask zeroes the logits' gradient).
     ``mxu_bf16``: d x from bf16(p)ᵀ·bf16(dO), dp from bf16(dO)·bf16(x)ᵀ,
-    delta and dz from the f32 p; x the bf16 rows (f32 rows rounded once)."""
+    delta and dz from the f32 p; x the bf16 rows (f32 rows rounded once).
+    ``logit_bf16``: dp, the logits and their cotangents rounded too."""
     x_ext = _widened(_stored("band_attention_bwd_plain", x_ext, mxu_bf16))
+    _check_logit("band_attention_bwd_plain", mxu_bf16, logit_bf16)
     nB, BLK, W = adj_mask.shape
     x_win = bops.band_windows_ext(x_ext, nB, BLK, W)
     if mxu_bf16:
-        z, zpre, on = _logits(a_dst, a_src_win, adj_mask, negative_slope)
+        z, zpre, on = _logits(a_dst, a_src_win, adj_mask, negative_slope, logit_bf16)
         e, Z, real = _bf16_weights(z, on)
         d_a_dst, d_a_src_win, d_xw = _bf16_window_bwd(e / Z, zpre, on, real, x_win, d_out, None,
-                                                      negative_slope)
+                                                      negative_slope, logit_bf16)
     else:
         d_a_dst, d_a_src_win, d_xw = band_attention_window_bwd_plain(
             a_dst, a_src_win, x_win, adj_mask, d_out, negative_slope)
     return d_a_dst, d_a_src_win, bops.fold_windows_ext(d_xw, BLK)
 
 
-def _bf16_window_bwd(p, zpre, on, real, x_win, d_out, delta, negative_slope):
+def _bf16_window_bwd(p, zpre, on, real, x_win, d_out, delta, negative_slope, logit_bf16=False):
     """The bf16 instances' backward on the dense windows, from the f32
     weights p [nB,B,BLK,W,H]: dp = bf16(dO)·bf16(x)ᵀ, d x_win =
     bf16(p)ᵀ·bf16(dO) (f32 on rows with no set column), dz = p (dp − delta)
-    with delta = Σ p dp, or the given [B, n_pad, H] (v4). Returns ``(d a_dst,
+    with delta = Σ p dp, or the given [B, n_pad, H] (v4). ``logit_bf16``: dp,
+    dz and its product with the slope rounded to bf16. Returns ``(d a_dst,
     d a_src_win, d x_win)``, the last in window layout."""
     nB, B, BLK = p.shape[:3]
     do_b = _blocks_of(d_out, nB, BLK)                                  # [nB,B,BLK,H,C]
     dp = torch.einsum("nbihc,nbwhc->nbiwh", round_bf16(do_b), round_bf16(x_win))
+    if logit_bf16:
+        dp = round_bf16(dp)
     delta = (p * dp).sum(dim=3, keepdim=True) if delta is None \
         else _blocks_of(delta, nB, BLK)[:, :, :, None, :]
     dz = p * (dp - delta)
-    dz = torch.where(zpre >= 0, dz, negative_slope * dz) * on
+    if logit_bf16:
+        dz = round_bf16(dz)
+        dz = torch.where(zpre >= 0, dz, round_bf16(negative_slope * dz)) * on
+    else:
+        dz = torch.where(zpre >= 0, dz, negative_slope * dz) * on
     return (_rows_of(dz.sum(dim=3), B, nB, BLK), dz.sum(dim=2),
             _bf16_product("nbiwh,nbihc->nbwhc", p, do_b, real))
+
+
+def _check_logit(fn: str, mxu_bf16: bool, logit_bf16: bool) -> None:
+    if logit_bf16 and not mxu_bf16:
+        raise ValueError(f"{fn}: logit_bf16 has the bf16-operand instance only (mxu_bf16=True)")
 
 
 def _check(fn: str, a_dst, a_src_win, x, adj_mask, x_dtype=torch.float32):
@@ -244,6 +271,7 @@ def band_attention_fwd(
     negative_slope: float = 0.2,
     index: Optional[bops.BandIndex] = None,
     mxu_bf16: bool = False,
+    logit_bf16: bool = False,
 ) -> torch.Tensor:
     """a_dst [B, n_pad, H] · a_src_win [nB, B, W, H] · x_ext [B, n_ext, H, C]
     (n_ext = n_pad + W − BLK) · adj_mask [nB, BLK, W] (bool or int8)
@@ -260,11 +288,14 @@ def band_attention_fwd(
     counts kernel launches (one per call: the padded rows' window-mean
     pre-pass and the row pass are one launch of it); ``mxu_bf16`` launches
     the bf16-operand instance, which gathers bf16 rows, counted in
-    ``launches_bf16``."""
+    ``launches_bf16``; ``logit_bf16`` (see the module's note) in
+    ``launches_logit``."""
     name = "band_attention_fwd"
     x_ext = _stored(name, x_ext, mxu_bf16)
+    _check_logit(name, mxu_bf16, logit_bf16)
     if bops.use_plain(x_ext):
-        return band_attention_plain(a_dst, a_src_win, x_ext, adj_mask, negative_slope, mxu_bf16)
+        return band_attention_plain(a_dst, a_src_win, x_ext, adj_mask, negative_slope, mxu_bf16,
+                                    logit_bf16)
     adj_mask = _check(name, a_dst, a_src_win, x_ext, adj_mask,
                       torch.bfloat16 if mxu_bf16 else torch.float32)
     nB, BLK, W = adj_mask.shape
@@ -280,27 +311,32 @@ def band_attention_fwd(
     with torch.cuda.device(dev):
         rc = fn(a_dst.data_ptr(), a_src_win.data_ptr(), x_ext.data_ptr(), ix.row_ptr.data_ptr(),
                 ix.col.data_ptr(), ix.empty_ptr.data_ptr(), mean.data_ptr(), out.data_ptr(),
-                B, nB, BLK, W, H, C, n_empty, int(bops.vector_loads(x_ext, C)), int(mxu_bf16),
-                float(negative_slope), torch.cuda.current_stream().cuda_stream)
+                B, nB, BLK, W, H, C, n_empty, int(bops.vector_loads(x_ext, C)),
+                int(mxu_bf16) | 2 * int(logit_bf16), float(negative_slope),
+                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    _count(band_attention_fwd, mxu_bf16)
+    _count(band_attention_fwd, mxu_bf16, logit_bf16)
     return out
 
 
-def _count(wrapper, mxu_bf16: bool) -> None:
-    """One launch of ``wrapper``'s f32 or bf16-operand instance."""
-    if mxu_bf16:
+def _count(wrapper, mxu_bf16: bool, logit_bf16: bool = False) -> None:
+    """One launch of ``wrapper``'s f32 or bf16-operand instance, or of the
+    latter with the logits rounded."""
+    if logit_bf16:
+        wrapper.launches_logit += 1
+    elif mxu_bf16:
         wrapper.launches_bf16 += 1
     else:
         wrapper.launches += 1
 
 
 band_attention_fwd.launches = band_attention_fwd.launches_bf16 = 0
+band_attention_fwd.launches_logit = 0
 
 
 def _recompute_bwd(name, a_dst, a_src_win, x, adj_mask, d_out, negative_slope, index,
-                   mxu_bf16=None):
+                   mxu_bf16=None, logit_bf16=False):
     """Launch ``csrc/<name>.cu``, one of the three backwards that recompute
     the softmax by the passes of ``csrc/band_bwd.cuh`` (v2's; v3's, the same;
     v1's, whose columns pass reads and writes window layout). ``x`` is x_ext
@@ -323,7 +359,7 @@ def _recompute_bwd(name, a_dst, a_src_win, x, adj_mask, d_out, negative_slope, i
     sp, sdz = new(B, max(nnz, 1), H), new(B, max(nnz, 1), H)
     ss = new(B, nB, H, C) if n_empty else new(1)
     vec = bops.vector_loads(x, C) and bops.vector_loads(d_out, C)
-    flag = () if mxu_bf16 is None else (int(mxu_bf16),)
+    flag = () if mxu_bf16 is None else (int(mxu_bf16) | 2 * int(logit_bf16),)
     fn = getattr(_build.load(name), name)
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * (9 + len(flag)) \
         + [ctypes.c_float, ctypes.c_void_p]
@@ -350,6 +386,7 @@ def band_attention_bwd(
     negative_slope: float = 0.2,
     index: Optional[bops.BandIndex] = None,
     mxu_bf16: bool = False,
+    logit_bf16: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The cotangents ``(d a_dst, d a_src_win, d x_ext)`` of
     :func:`band_attention_fwd` for the output cotangent ``d_out``
@@ -366,18 +403,21 @@ def band_attention_bwd(
     ``band_attention_bwd.launches`` counts kernel launches (one per call: the
     four launches of ``csrc/band_attention_bwd.cu`` are one launch of it);
     ``mxu_bf16`` launches the bf16-operand instance, which reads x_ext in
-    bf16 (f32 rows are rounded once here), counted in ``launches_bf16``."""
+    bf16 (f32 rows are rounded once here), counted in ``launches_bf16``;
+    ``logit_bf16`` (see the module's note) in ``launches_logit``."""
     x_ext = _stored("band_attention_bwd", x_ext, mxu_bf16)
+    _check_logit("band_attention_bwd", mxu_bf16, logit_bf16)
     if bops.use_plain(x_ext):
         return band_attention_bwd_plain(a_dst, a_src_win, x_ext, adj_mask, d_out, negative_slope,
-                                        mxu_bf16)
+                                        mxu_bf16, logit_bf16)
     out = _recompute_bwd("band_attention_bwd", a_dst, a_src_win, x_ext, adj_mask, d_out,
-                         negative_slope, index, mxu_bf16)
-    _count(band_attention_bwd, mxu_bf16)
+                         negative_slope, index, mxu_bf16, logit_bf16)
+    _count(band_attention_bwd, mxu_bf16, logit_bf16)
     return out
 
 
 band_attention_bwd.launches = band_attention_bwd.launches_bf16 = 0
+band_attention_bwd.launches_logit = 0
 
 
 def _extended(x: torch.Tensor, halo, mxu_bf16: bool) -> torch.Tensor:
@@ -412,21 +452,38 @@ class BandAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a_dst, a_src_win, x, adj_mask, negative_slope, index, bwd, mxu_bf16, halo):
-        x_ext = _extended(x, halo, mxu_bf16)
-        ctx.save_for_backward(a_dst, a_src_win, x_ext, adj_mask)
-        ctx.negative_slope, ctx.index, ctx.bwd, ctx.mxu_bf16 = negative_slope, index, bwd, mxu_bf16
-        ctx.halo = halo
-        return band_attention_fwd(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index,
-                                  mxu_bf16)
+        return _band_forward(ctx, a_dst, a_src_win, x, adj_mask, negative_slope, index, bwd,
+                             mxu_bf16, halo, {})
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, d_out):
         a_dst, a_src_win, x_ext, adj_mask = ctx.saved_tensors
         d_a_dst, d_a_src_win, d_x_ext = ctx.bwd(
-            a_dst, a_src_win, x_ext, adj_mask, d_out, ctx.negative_slope, ctx.index, ctx.mxu_bf16)
+            a_dst, a_src_win, x_ext, adj_mask, d_out, ctx.negative_slope, ctx.index, ctx.mxu_bf16,
+            **ctx.logit)
         return (d_a_dst, d_a_src_win, _rows_grad(d_x_ext, ctx.halo), None, None, None, None, None,
                 None)
+
+
+class BandAttentionLogit(BandAttention):
+    """:class:`BandAttention` through the instances with the logits rounded
+    (``logit_bf16``; the bf16-operand ones, ``mxu_bf16``)."""
+
+    @staticmethod
+    def forward(ctx, a_dst, a_src_win, x, adj_mask, negative_slope, index, bwd, mxu_bf16, halo):
+        return _band_forward(ctx, a_dst, a_src_win, x, adj_mask, negative_slope, index, bwd,
+                             mxu_bf16, halo, {"logit_bf16": True})
+
+
+def _band_forward(ctx, a_dst, a_src_win, x, adj_mask, negative_slope, index, bwd, mxu_bf16, halo,
+                  logit):
+    x_ext = _extended(x, halo, mxu_bf16)
+    ctx.save_for_backward(a_dst, a_src_win, x_ext, adj_mask)
+    ctx.negative_slope, ctx.index, ctx.bwd, ctx.mxu_bf16 = negative_slope, index, bwd, mxu_bf16
+    ctx.halo, ctx.logit = halo, logit
+    return band_attention_fwd(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index, mxu_bf16,
+                              **logit)
 
 
 def band_attention(
@@ -438,6 +495,7 @@ def band_attention(
     index: Optional[bops.BandIndex] = None,
     mxu_bf16: bool = False,
     halo: Optional[tuple[int, int]] = None,
+    logit_bf16: bool = False,
 ) -> torch.Tensor:
     """Differentiable banded attention, shapes as :func:`band_attention_fwd`.
     Gradients flow to ``a_dst``, ``a_src_win`` and ``x_ext``; the mask is a
@@ -447,21 +505,28 @@ def band_attention(
     is instead the projected rows [B, n_pad, H, C], f32, whose extended
     array the Function writes itself (in bf16 under ``mxu_bf16``, so no f32
     x_ext is built); their gradient is f32. ``halo=None`` takes a ready
-    extended array, as the kernel-level checks hand it."""
-    return BandAttention.apply(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index,
-                               band_attention_bwd, mxu_bf16, halo)
+    extended array, as the kernel-level checks hand it. ``logit_bf16``: the
+    instances with the logits rounded (see the module's note)."""
+    fn = BandAttentionLogit if logit_bf16 else BandAttention
+    return fn.apply(a_dst, a_src_win, x_ext, adj_mask, negative_slope, index, band_attention_bwd,
+                    mxu_bf16, halo)
 
 
 # ---- the streaming-softmax route (v4) ---------------------------------------
 
-def _logits(a_dst, a_src_win, adj_mask, negative_slope):
+def _logits(a_dst, a_src_win, adj_mask, negative_slope, logit_bf16=False):
     """The masked LeakyReLU logits [nB,B,BLK,W,H] (−1e9 where the mask is 0),
     the pre-activation a_dst + a_src, whose sign LeakyReLU and its VJP take,
-    and the mask broadcast to them."""
+    and the mask broadcast to them. ``logit_bf16``: the pre-activation and
+    the negative branch's product rounded to bf16 (``logit_of``)."""
     nB, BLK, _ = adj_mask.shape
     on = adj_mask.bool()[:, None, :, :, None]                          # [nB,1,BLK,W,1]
     zpre = _blocks_of(a_dst, nB, BLK)[:, :, :, None, :] + a_src_win[:, :, None, :, :]
-    z = torch.where(zpre >= 0, zpre, negative_slope * zpre)
+    if logit_bf16:
+        zr = round_bf16(zpre)
+        z = torch.where(zr >= 0, zr, round_bf16(negative_slope * zr))
+    else:
+        z = torch.where(zpre >= 0, zpre, negative_slope * zpre)
     z = torch.where(on, z, torch.full((), -1e9, dtype=z.dtype, device=z.device))
     return z, zpre, on
 
@@ -713,9 +778,17 @@ def band_attention_window_plain(
     x_win: torch.Tensor,      # [nB, B, W, H, C]
     adj_mask: torch.Tensor,   # [nB, BLK, W] bool or 0/1 int8
     negative_slope: float = 0.2,
+    logit_bf16: bool = False,
 ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`band_attention_window_fwd`."""
-    return bops.band_attention(a_dst, a_src_win, x_win, adj_mask, negative_slope)
+    """Plain PyTorch version of :func:`band_attention_window_fwd`;
+    ``logit_bf16``: the logits rounded to bf16 (``_logits``), the softmax and
+    the product in f32."""
+    if not logit_bf16:
+        return bops.band_attention(a_dst, a_src_win, x_win, adj_mask, negative_slope)
+    nB, BLK, _ = adj_mask.shape
+    z, _, _ = _logits(a_dst, a_src_win, adj_mask, negative_slope, True)
+    out = torch.einsum("nbiwh,nbwhc->nbihc", torch.softmax(z, dim=3), x_win)
+    return _rows_of(out, x_win.shape[1], nB, BLK)
 
 
 def band_attention_window_bwd_plain(
@@ -741,11 +814,14 @@ def band_attention_window_bwd_plain(
 def band_attention_window_fwd(
     a_dst: torch.Tensor, a_src_win: torch.Tensor, x_win: torch.Tensor,
     adj_mask: torch.Tensor, negative_slope: float = 0.2,
-    index: Optional[bops.BandIndex] = None,
+    index: Optional[bops.BandIndex] = None, logit_bf16: bool = False,
 ) -> torch.Tensor:
     """a_dst [B, n_pad, H] · a_src_win [nB, B, W, H] · x_win [nB, B, W, H, C]
     · adj_mask [nB, BLK, W] (bool or int8) → [B, n_pad, H, C], all f32. No
-    autograd: see :func:`band_attention_window`.
+    autograd: see :func:`band_attention_window`. ``logit_bf16``: the logits
+    rounded as a layer with bf16 activations rounds them, the weights and
+    the product in f32 (the JAX v1 kernel on that layer), counted in
+    ``launches_logit``.
 
     On CUDA tensors it launches the kernel (or raises); on CPU tensors it
     runs :func:`band_attention_window_plain`. ``index`` as for
@@ -756,7 +832,8 @@ def band_attention_window_fwd(
     per call: the window-mean pre-pass and the row pass are one launch of
     it)."""
     if bops.use_plain(x_win):
-        return band_attention_window_plain(a_dst, a_src_win, x_win, adj_mask, negative_slope)
+        return band_attention_window_plain(a_dst, a_src_win, x_win, adj_mask, negative_slope,
+                                           logit_bf16)
     name = "band_attention_window_fwd"
     adj_mask = _check(name, a_dst, a_src_win, x_win, adj_mask)
     nB, BLK, W = adj_mask.shape
@@ -767,20 +844,20 @@ def band_attention_window_fwd(
     out = torch.empty((B, nB * BLK, H, C), dtype=torch.float32, device=dev)
     mean = torch.empty((B, nB, H * C) if n_empty else (1,), dtype=torch.float32, device=dev)
     fn = _build.load("band_attention_window").band_attention_window_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         rc = fn(a_dst.data_ptr(), a_src_win.data_ptr(), x_win.data_ptr(), ix.row_ptr.data_ptr(),
                 ix.col.data_ptr(), ix.empty_ptr.data_ptr(), mean.data_ptr(), out.data_ptr(),
-                B, nB, BLK, W, H, C, n_empty, int(bops.vector_loads(x_win, C)),
+                B, nB, BLK, W, H, C, n_empty, int(bops.vector_loads(x_win, C)), int(logit_bf16),
                 float(negative_slope), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    band_attention_window_fwd.launches += 1
+    _count(band_attention_window_fwd, False, logit_bf16)
     return out
 
 
-band_attention_window_fwd.launches = 0
+band_attention_window_fwd.launches = band_attention_window_fwd.launches_logit = 0
 
 
 def band_attention_window_bwd(
@@ -814,32 +891,43 @@ band_attention_window_bwd.launches = 0
 class BandAttentionWindow(torch.autograd.Function):
     """Forward and backward through the window kernels (CUDA tensors) or
     their plain versions (CPU tensors). Saves its inputs only: the backward
-    recomputes the softmax."""
+    recomputes the softmax. ``logit_bf16`` (the logits rounded, a layer
+    with bf16 activations): the forward runs, the backward raises before
+    any launch, as the JAX package's does on that layer (its v1 kernel's
+    custom VJP returns f32 cotangents for bf16 operands)."""
 
     @staticmethod
-    def forward(ctx, a_dst, a_src_win, x_win, adj_mask, negative_slope, index):
+    def forward(ctx, a_dst, a_src_win, x_win, adj_mask, negative_slope, index, logit_bf16=False):
         ctx.save_for_backward(a_dst, a_src_win, x_win, adj_mask)
-        ctx.negative_slope, ctx.index = negative_slope, index
-        return band_attention_window_fwd(a_dst, a_src_win, x_win, adj_mask, negative_slope, index)
+        ctx.negative_slope, ctx.index, ctx.logit_bf16 = negative_slope, index, logit_bf16
+        return band_attention_window_fwd(a_dst, a_src_win, x_win, adj_mask, negative_slope, index,
+                                         **({"logit_bf16": True} if logit_bf16 else {}))
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, d_out):
+        if ctx.logit_bf16:
+            raise NotImplementedError(
+                "the backward of the v1 band attention under bf16 activations: the JAX "
+                "package's v1 kernel returns f32 cotangents for its bf16 operands and its "
+                "custom VJP raises, so this layer trains in neither package")
         a_dst, a_src_win, x_win, adj_mask = ctx.saved_tensors
         d_a_dst, d_a_src_win, d_x_win = band_attention_window_bwd(
             a_dst, a_src_win, x_win, adj_mask, d_out, ctx.negative_slope, ctx.index)
-        return d_a_dst, d_a_src_win, d_x_win, None, None, None
+        return d_a_dst, d_a_src_win, d_x_win, None, None, None, None
 
 
 def band_attention_window(
     a_dst: torch.Tensor, a_src_win: torch.Tensor, x_win: torch.Tensor,
     adj_mask: torch.Tensor, negative_slope: float = 0.2,
-    index: Optional[bops.BandIndex] = None,
+    index: Optional[bops.BandIndex] = None, logit_bf16: bool = False,
 ) -> torch.Tensor:
     """Differentiable banded attention over materialised windows, shapes as
     :func:`band_attention_window_fwd`. Gradients flow to ``a_dst``,
-    ``a_src_win`` and ``x_win`` (window layout); the mask is a constant."""
-    return BandAttentionWindow.apply(a_dst, a_src_win, x_win, adj_mask, negative_slope, index)
+    ``a_src_win`` and ``x_win`` (window layout); the mask is a constant.
+    ``logit_bf16``: see :class:`BandAttentionWindow`."""
+    return BandAttentionWindow.apply(a_dst, a_src_win, x_win, adj_mask, negative_slope, index,
+                                     logit_bf16)
 
 
 # ---- the sliding-accumulator route (v3) ---------------------------------------

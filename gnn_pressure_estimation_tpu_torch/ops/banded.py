@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -403,4 +405,59 @@ def band_attention(
     attn = torch.softmax(logits, dim=3)
     out = torch.einsum("nbiwh,nbwhc->nbihc", attn, x_win)       # [nB,B,BLK,H,C]
     C = x_win.shape[-1]
+    return out.permute(1, 0, 2, 3, 4).reshape(B, nB * BLK, H, C)
+
+
+def band_attention_factored(
+    a_dst: torch.Tensor,      # [B, n_pad, H]
+    a_src_win: torch.Tensor,  # [nB, B, W, H]
+    x_win: torch.Tensor,      # [nB, B, W, H, C]
+    adj_mask: torch.Tensor,   # [nB, BLK, W] bool or 0/1 int8
+    negative_slope: float,
+    store_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Factored band attention → [B, n_pad, H, C], in ``x_win``'s dtype: the
+    exp(LeakyReLU) numerator split into two rank-1 products gated by the
+    zero-gradient sign matrix, as the dense ``factored`` path splits it. A
+    copy of the JAX package's ``ops/banded.py`` ``band_attention_factored``,
+    which is plain XLA there (no kernel); plain torch here.
+
+    Its guards: a padded band row has no set column, so its masked row
+    maximum is clamped at −60 (the exps stay finite) and its Z is taken as 1
+    (its output 0/1 = 0, which keeps it inert in later layers' windows; a
+    floor alone would give 0/0 in the division's backward). ``store_dtype``
+    (None: ``x_win``'s) is the dtype of the gate and of the two products'
+    operands, which are summed in f32. The ops run in the inputs' dtype
+    (bf16 under bf16 activations, each op rounded as the JAX layer's are),
+    with the slope in that dtype too."""
+    nB, B, W, H = a_src_win.shape
+    BLK = adj_mask.shape[1]
+    C = x_win.shape[-1]
+    dt = a_src_win.dtype
+    al = torch.tensor(negative_slope, dtype=dt, device=a_src_win.device)
+    store = store_dtype or x_win.dtype
+    a_dst_b = a_dst.reshape(B, nB, BLK, H).permute(1, 0, 2, 3)    # [nB,B,BLK,H]
+    on = adj_mask.bool()
+    mask = on[:, None, :, :]                                      # [nB,1,BLK,W]
+    with torch.no_grad():
+        ms = torch.where(mask[..., None], a_src_win[:, :, None, :, :],
+                         torch.full((), -math.inf, dtype=dt, device=a_src_win.device)).amax(dim=3)
+        ms = ms.clamp(min=-60.0)          # fully masked (padded) rows: keep the exps finite
+        zm = a_dst_b + ms
+        m = torch.where(zm >= 0, zm, al * zm)                     # [nB,B,BLK,H]
+        cs = torch.relu(a_src_win.amax(dim=2, keepdim=True))      # [nB,B,1,H]
+        s = a_dst_b[:, :, :, None, :] + a_src_win[:, :, None, :, :]
+        P = (mask[..., None] & (s >= 0)).to(store)               # [nB,B,BLK,W,H]
+    u, p = torch.exp(a_dst_b - m), torch.exp(al * a_dst_b - m)    # [nB,B,BLK,H]
+    v, q = torch.exp(a_src_win - cs), torch.exp(al * a_src_win - cs)  # [nB,B,W,H]
+    xa = torch.cat([x_win, x_win.new_ones(x_win.shape[:-1] + (1,))], dim=-1)
+    vx = (v[..., None] * xa).to(store)
+    qx = (q[..., None] * xa).to(store)
+    t_adj = torch.einsum("niw,nbwhc->nbihc", on.to(store).float(), qx.float())
+    t_p = torch.einsum("nbiwh,nbwhc->nbihc", P.float(), torch.cat([vx, qx], dim=-1).float())
+    t_pv, t_pq = t_p[..., :C + 1], t_p[..., C + 1:]
+    outz = u[..., None].float() * t_pv + p[..., None].float() * (t_adj - t_pq)
+    valid = on.any(dim=2)[:, None, :, None, None]                 # [nB,1,BLK,1,1]
+    z = torch.where(valid, outz[..., C:].clamp(min=1e-30), 1.0)
+    out = (outz[..., :C] / z).to(x_win.dtype)
     return out.permute(1, 0, 2, 3, 4).reshape(B, nB * BLK, H, C)

@@ -13,7 +13,10 @@ template's ``[n, n]`` adjacency mask (self-loops in) and
   inputs and returns ``(d a_dst, d a_src, d v)``. ``bf16`` (GATConv's
   ``attn_dtype=bfloat16``): v stored in bf16, the weights rounded to bf16
   for the product, and the output, dp and d v rounded to bf16, where the
-  JAX layer's XLA branch rounds them.
+  JAX layer's XLA branch rounds them. ``logit_bf16`` (with ``bf16``; a
+  layer whose activations are bf16, GATConv's ``dtype``): the logits and
+  their cotangents rounded as well, as ``ops.band_attention`` does on the
+  band (``bf16 & 2`` in the kernels, counted in ``launches_logit``).
 * :func:`fused_factored` (``csrc/fused_factored.cu`` and ``_bwd.cu``): the
   aggregation of the factored rewrite, ``t_pv = P @ rhs_v`` and
   ``t_nq = (M − P) @ rhs_q`` with the 0/1 gate ``P = M · [s >= 0]``. The gate
@@ -153,14 +156,20 @@ def mask_index_of(mask: torch.Tensor) -> MaskIndex:
 
 # ---- plain versions ---------------------------------------------------------
 
-def _softmax_p(a_dst, a_src, mask, negative_slope, bf16=False):
+def _softmax_p(a_dst, a_src, mask, negative_slope, bf16=False, logit_bf16=False):
     """(zpre, p): the pre-activation sums [B, i, j, H] and the masked softmax;
     ``bf16``: its sum taken in double and rounded once, as the bf16 kernels
-    take it (the weight they round then does not depend on the sum's order)."""
+    take it (the weight they round then does not depend on the sum's order);
+    ``logit_bf16``: the pre-activation and the negative branch's product
+    rounded to bf16."""
     zpre = a_dst[:, :, None, :] + a_src[:, None, :, :]
     # not F.leaky_relu: its gradient at z == 0 is the slope, the JAX package's
     # is 1, and two masked (zeroed) neighbours meet exactly there
-    z = torch.where(zpre >= 0, zpre, negative_slope * zpre)
+    if logit_bf16:
+        zr = round_bf16(zpre)
+        z = torch.where(zr >= 0, zr, round_bf16(negative_slope * zr))
+    else:
+        z = torch.where(zpre >= 0, zpre, negative_slope * zpre)
     z = torch.where(mask.bool()[None, :, :, None], z, NEG_INF)
     if not bf16:
         return zpre, torch.softmax(z, dim=2)
@@ -177,23 +186,32 @@ def _stored(fn: str, v: torch.Tensor, bf16: bool) -> torch.Tensor:
     return v.to(torch.bfloat16) if bf16 else v
 
 
+def _check_logit(fn: str, bf16: bool, logit_bf16: bool) -> None:
+    if logit_bf16 and not bf16:
+        raise ValueError(f"{fn}: logit_bf16 has the bf16 instance only (bf16=True)")
+
+
 def fused_attention_plain(a_dst, a_src, v, mask, negative_slope: float = 0.2,
-                          bf16: bool = False):
+                          bf16: bool = False, logit_bf16: bool = False):
     """Plain PyTorch version of :func:`fused_attention_fwd`; ``bf16``:
-    ``Σ bf16(p)·bf16(v)`` in f32, not rounded (the layer rounds it)."""
-    _, p = _softmax_p(a_dst, a_src, mask, negative_slope, bf16)
+    ``Σ bf16(p)·bf16(v)`` in f32, not rounded (the layer rounds it);
+    ``logit_bf16``: the logits rounded too."""
+    _check_logit("fused_attention_plain", bf16, logit_bf16)
+    _, p = _softmax_p(a_dst, a_src, mask, negative_slope, bf16, logit_bf16)
     if bf16:
         p, v = round_bf16(p), _stored("fused_attention_plain", v, True).float()
     return torch.einsum("bijh,bjhc->bihc", p, v)
 
 
 def fused_attention_bwd_plain(a_dst, a_src, v, mask, d_out, negative_slope: float = 0.2,
-                              bf16: bool = False):
+                              bf16: bool = False, logit_bf16: bool = False):
     """Plain PyTorch version of :func:`fused_attention_bwd`: the explicit
     formulas on the dense ``[B, n, n, H]`` tensors. ``bf16``: dO rounded for
     both products, dp = bf16(bf16(dO)·bf16(v)), d v = Σ bf16(p)·bf16(dO) in
-    f32, not rounded (the layer rounds it), delta and dz from the f32 p."""
-    zpre, p = _softmax_p(a_dst, a_src, mask, negative_slope, bf16)
+    f32, not rounded (the layer rounds it), delta and dz from the f32 p.
+    ``logit_bf16``: dz and its product with the slope rounded to bf16 too."""
+    _check_logit("fused_attention_bwd_plain", bf16, logit_bf16)
+    zpre, p = _softmax_p(a_dst, a_src, mask, negative_slope, bf16, logit_bf16)
     pv = p
     if bf16:
         v = _stored("fused_attention_bwd_plain", v, True).float()
@@ -203,7 +221,11 @@ def fused_attention_bwd_plain(a_dst, a_src, v, mask, d_out, negative_slope: floa
         dp = round_bf16(dp)
     dz = p * (dp - (p * dp).sum(dim=2, keepdim=True))
     # the sign of the pre-activation, not of LeakyReLU's output (masked: p = 0)
-    dz = torch.where(zpre >= 0, dz, negative_slope * dz)
+    if logit_bf16:
+        dz = round_bf16(dz)
+        dz = torch.where(zpre >= 0, dz, round_bf16(negative_slope * dz))
+    else:
+        dz = torch.where(zpre >= 0, dz, negative_slope * dz)
     return dz.sum(dim=2), dz.sum(dim=1), torch.einsum("bijh,bihc->bjhc", pv, d_out)
 
 
@@ -280,7 +302,8 @@ def _launch(fn_name: str, lib: str, ptrs, ints, floats=()):
 
 
 def fused_attention_fwd(a_dst, a_src, v, mask, negative_slope: float = 0.2,
-                        index: Optional[MaskIndex] = None, bf16: bool = False) -> torch.Tensor:
+                        index: Optional[MaskIndex] = None, bf16: bool = False,
+                        logit_bf16: bool = False) -> torch.Tensor:
     """a_dst, a_src [B, n, H] · v [B, n, H, C] · mask [n, n] → [B, n, H, C],
     all f32 (``bf16``: v bf16, or f32 rounded once here). No autograd: see
     :func:`fused_attention`.
@@ -293,26 +316,31 @@ def fused_attention_fwd(a_dst, a_src, v, mask, negative_slope: float = 0.2,
     one block (nB 1, BLK = W = n), over the index's row lists.
     ``fused_attention_fwd.launches`` counts kernel launches; ``bf16``
     launches v2's bf16-operand instance (``Σ bf16(p)·v``, output not
-    rounded), counted in ``launches_bf16``."""
+    rounded), counted in ``launches_bf16``; ``logit_bf16`` that instance
+    with the logits rounded, counted in ``launches_logit``."""
     name = "fused_attention_fwd"
     v = _stored(name, v, bf16)
+    _check_logit(name, bf16, logit_bf16)
     if use_plain(v):
-        return fused_attention_plain(a_dst, a_src, v, mask, negative_slope, bf16)
+        return fused_attention_plain(a_dst, a_src, v, mask, negative_slope, bf16, logit_bf16)
     ix = _index(mask, index)
     _check(name, a_dst, a_src, {"v": v}, ix, ("v",) if bf16 else ())
     B, n, H, C = v.shape
     out = torch.empty(v.shape, dtype=torch.float32, device=v.device)
     _launch(name, "fused_attention", (a_dst, a_src, v, ix.row_ptr, ix.col, out),
-            (B, n, H, C, int(vector_loads(v, C)), int(bf16)), (float(negative_slope),))
-    _count(fused_attention_fwd, bf16)
+            (B, n, H, C, int(vector_loads(v, C)), int(bf16) | 2 * int(logit_bf16)),
+            (float(negative_slope),))
+    _count(fused_attention_fwd, bf16, logit_bf16)
     return out
 
 
 fused_attention_fwd.launches = fused_attention_fwd.launches_bf16 = 0
+fused_attention_fwd.launches_logit = 0
 
 
 def fused_attention_bwd(a_dst, a_src, v, mask, d_out, negative_slope: float = 0.2,
-                        index: Optional[MaskIndex] = None, bf16: bool = False):
+                        index: Optional[MaskIndex] = None, bf16: bool = False,
+                        logit_bf16: bool = False):
     """The cotangents ``(d a_dst, d a_src, d v)`` of :func:`fused_attention_fwd`
     for the output cotangent ``d_out`` [B, n, H, C]; the softmax is recomputed.
     ``index``, devices: as the forward. The kernel runs the dense softmax as a
@@ -323,11 +351,14 @@ def fused_attention_bwd(a_dst, a_src, v, mask, d_out, negative_slope: float = 0.
     the four launches of the passes are one launch of it); ``bf16`` launches
     the bf16-operand instance over v in bf16 (f32 rounded once here), which
     rounds dp to bf16 before dz and returns d v unrounded, counted in
-    ``launches_bf16``."""
+    ``launches_bf16``; ``logit_bf16`` that instance with the logits and their
+    cotangents rounded, counted in ``launches_logit``."""
     name = "fused_attention_bwd"
     v = _stored(name, v, bf16)
+    _check_logit(name, bf16, logit_bf16)
     if use_plain(v):
-        return fused_attention_bwd_plain(a_dst, a_src, v, mask, d_out, negative_slope, bf16)
+        return fused_attention_bwd_plain(a_dst, a_src, v, mask, d_out, negative_slope, bf16,
+                                         logit_bf16)
     ix = _index(mask, index)
     d_out = d_out.contiguous()
     _check(name, a_dst, a_src, {"v": v, "d_out": d_out}, ix, ("v",) if bf16 else ())
@@ -341,13 +372,14 @@ def fused_attention_bwd(a_dst, a_src, v, mask, d_out, negative_slope: float = 0.
     _launch(name, "fused_attention_bwd",
             (a_dst, a_src, v, d_out, ix.row_ptr, ix.col, ix.t_ptr, ix.t_entry, ix.t_row,
              ix.empty_ptr, ix.empty_row, sp, sdz, d_a_dst, d_a_src, d_v),
-            (B, n, H, C, ix.nnz, int(vec), int(bf16)),
+            (B, n, H, C, ix.nnz, int(vec), int(bf16) | 2 * int(logit_bf16)),
             (float(negative_slope),))
-    _count(fused_attention_bwd, bf16)
+    _count(fused_attention_bwd, bf16, logit_bf16)
     return d_a_dst, d_a_src, d_v
 
 
 fused_attention_bwd.launches = fused_attention_bwd.launches_bf16 = 0
+fused_attention_bwd.launches_logit = 0
 
 
 def fused_factored_fwd(a_dst, a_src, rhs_v, rhs_q, mask,
@@ -407,12 +439,15 @@ class FusedAttention(torch.autograd.Function):
     cotangent of its bf16 operand."""
 
     @staticmethod
-    def forward(ctx, a_dst, a_src, v, mask, negative_slope, index, bf16):
+    def forward(ctx, a_dst, a_src, v, mask, negative_slope, index, bf16, logit_bf16=False):
         if bf16:
             v = v.to(torch.bfloat16)
         ctx.save_for_backward(a_dst, a_src, v, mask)
         ctx.negative_slope, ctx.index, ctx.bf16 = negative_slope, index, bf16
-        out = fused_attention_fwd(a_dst, a_src, v, mask, negative_slope, index, bf16)
+        # the flag as a keyword, and only when set: the wrappers' positional
+        # arguments stay those of the bf16 instances
+        ctx.logit = {"logit_bf16": True} if logit_bf16 else {}
+        out = fused_attention_fwd(a_dst, a_src, v, mask, negative_slope, index, bf16, **ctx.logit)
         return round_bf16(out) if bf16 else out
 
     @staticmethod
@@ -420,9 +455,10 @@ class FusedAttention(torch.autograd.Function):
     def backward(ctx, d_out):
         a_dst, a_src, v, mask = ctx.saved_tensors
         d_a_dst, d_a_src, d_v = fused_attention_bwd(a_dst, a_src, v, mask, d_out,
-                                                    ctx.negative_slope, ctx.index, ctx.bf16)
+                                                    ctx.negative_slope, ctx.index, ctx.bf16,
+                                                    **ctx.logit)
         return (d_a_dst, d_a_src, round_bf16(d_v) if ctx.bf16 else d_v,
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 class FusedFactored(torch.autograd.Function):
@@ -445,14 +481,16 @@ class FusedFactored(torch.autograd.Function):
 
 
 def fused_attention(a_dst, a_src, v, mask, negative_slope: float = 0.2,
-                    index: Optional[MaskIndex] = None, bf16: bool = False) -> torch.Tensor:
+                    index: Optional[MaskIndex] = None, bf16: bool = False,
+                    logit_bf16: bool = False) -> torch.Tensor:
     """Differentiable dense masked GAT attention, shapes as
     :func:`fused_attention_fwd`, all f32. Gradients flow to ``a_dst``,
     ``a_src`` and ``v``; the mask is a constant of the graph. ``bf16``: the
     bf16 instances, forward and backward, with the output and d v rounded
-    to bf16 (see :class:`FusedAttention`)."""
+    to bf16 (see :class:`FusedAttention`); ``logit_bf16``: the logits and
+    their cotangents rounded too."""
     return FusedAttention.apply(a_dst.contiguous(), a_src.contiguous(), v.contiguous(),
-                                mask, negative_slope, index, bf16)
+                                mask, negative_slope, index, bf16, logit_bf16)
 
 
 def fused_factored(a_dst, a_src, rhs_v, rhs_q, mask, index: Optional[MaskIndex] = None):

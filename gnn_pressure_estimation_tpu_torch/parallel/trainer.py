@@ -42,6 +42,7 @@ from gnn_pressure_estimation_tpu_torch.core.graph import GraphTemplate
 from gnn_pressure_estimation_tpu_torch.parallel.halo import build_halo_partition
 from gnn_pressure_estimation_tpu_torch.parallel.mesh import Mesh
 from gnn_pressure_estimation_tpu_torch.train.loop import Trainer, TrainConfig, _global_norm
+from gnn_pressure_estimation_tpu_torch.train.precision import matmul_precision
 from gnn_pressure_estimation_tpu_torch.utils import metrics as metrics_mod
 from gnn_pressure_estimation_tpu_torch.utils.masking import batch_node_mask
 from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats, descale_with
@@ -110,7 +111,10 @@ class MeshTrainer(Trainer):
     docstring). ``train_step`` / ``eval_step`` take the whole batch ``xb``
     [bs, n] on every rank, and the global mask (or a generator to draw it);
     ``eval_step`` returns the output gathered from every rank in original
-    node order, [bs·n, 1], and the mask."""
+    node order, [bs·n, 1], and the mask. ``epochs_per_dispatch`` above 1
+    keeps the per-epoch path, as the JAX mesh trainer does."""
+
+    supports_fast_fit = False
 
     def __init__(self, model, cfg: TrainConfig, stats: NormStats,
                  sample_template: GraphTemplate, mesh: Mesh, required_mask_idx: tuple = ()):
@@ -222,8 +226,9 @@ class MeshTrainer(Trainer):
         graph, x, mk = self._shard(template, xb, gmask)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss, mo, _ = self._local_loss(graph, x, mk, cnt, "train")
-        loss.backward()
+        with matmul_precision(self.cfg.matmul_precision):
+            loss, mo, _ = self._local_loss(graph, x, mk, cnt, "train")
+            loss.backward()
         params = [p for p in self.model.parameters() if p.grad is not None]
         loss, mo = sum_step(self.mesh, params, loss, mo)
         mets = metrics_of(mo, "train")
@@ -248,7 +253,8 @@ class MeshTrainer(Trainer):
         cnt = max(float(gmask.sum()), 1.0)
         graph, x, mk = self._shard(template, xb, gmask)
         self.model.eval()
-        loss, mo, out = self._local_loss(graph, x, mk, cnt, prefix)
+        with matmul_precision(self.cfg.matmul_precision):
+            loss, mo, out = self._local_loss(graph, x, mk, cnt, prefix)
         flat = self.mesh.all_reduce(torch.cat([loss.reshape(1), mo]))
         out = self._gather_out(template, graph, out, bs)
         return flat[0], metrics_of(flat[1:], prefix), out, gmask.to(self.device)

@@ -19,6 +19,15 @@ epoch's ``numpy`` stream (``default_rng([seed, epoch, 0|1])``), on the CPU,
 so a run on the card and a run on the CPU see the same masks and a resumed
 run replays the masks of an uninterrupted one. The JAX package's PRNG stream
 is not reproduced. Batches are taken in the loader's order.
+
+``TrainConfig.matmul_precision`` scopes the GEMMs of the train and eval
+steps (:func:`matmul_precision`), as the JAX package's ``_with_precision``
+scopes its jitted steps; the setting the process had is restored after each
+step. ``epochs_per_dispatch > 1`` takes :meth:`Trainer._fit_fast`, the JAX
+package's multi-epoch block: the snapshots stay on the device, each epoch's
+order is ``default_rng([seed, epoch]).permutation``, the tail batch is padded
+with graph 0 under a zeroed mask, the host reads the block's losses back once
+and early stop, the scheduler and the checkpoints decide per block.
 """
 
 from __future__ import annotations
@@ -39,8 +48,11 @@ from gnn_pressure_estimation_tpu_torch.device import resolve_device
 from gnn_pressure_estimation_tpu_torch.train.autoclip import AutoClip
 from gnn_pressure_estimation_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from gnn_pressure_estimation_tpu_torch.train.early_stopping import EarlyStopping
+from gnn_pressure_estimation_tpu_torch.train.precision import MATMUL_PRECISIONS, matmul_precision
 from gnn_pressure_estimation_tpu_torch.utils import metrics as metrics_mod
-from gnn_pressure_estimation_tpu_torch.utils.masking import batch_node_mask, masked_count
+from gnn_pressure_estimation_tpu_torch.utils.masking import (
+    batch_node_mask, mask_from_uniform, masked_count,
+)
 from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats, descale_with
 
 
@@ -71,13 +83,16 @@ class TrainConfig:
     # total and per-block gradient norms, and the model's drift on a fixed
     # probe batch against epoch 1
     log_gradient: bool = False
-    # kept for the JAX package's configs; "bfloat16" is not ported
-    matmul_precision: Optional[str] = None  # None | "highest"
+    # the GEMMs of the train and eval steps: None (the process's setting) |
+    # "highest" (f32) | "tensorfloat32" (TF32) | "bfloat16" (bf16-rounded
+    # operands, f32 sums); see matmul_precision()
+    matmul_precision: Optional[str] = None
     # accepted and ignored: PyTorch updates parameters and optimizer state in
     # place, there is no buffer to donate
     donate_state: bool = True
-    # >1 runs several epochs per device dispatch in the JAX package (a cure
-    # for its dispatch latency); not ported: a value above 1 raises
+    # >1: blocks of that many epochs (train + validation) with the snapshots
+    # on the device, one read-back a block; best-epoch checkpoints then hold
+    # block-end parameters (see Trainer._fit_fast)
     epochs_per_dispatch: int = 1
     # aggregation mode of the batched template: None = auto (dense up to
     # DENSE_THRESHOLD nodes, banded above) | "dense" | "banded" | "padded"
@@ -153,6 +168,10 @@ class Trainer:
     graph is built per (template, batch size) and cached for the whole run.
     """
 
+    # the multi-epoch block (epochs_per_dispatch > 1) runs single-device
+    # steps; the mesh trainer opts out, as the JAX one does
+    supports_fast_fit = True
+
     def __init__(
         self,
         model: nn.Module,
@@ -162,11 +181,12 @@ class Trainer:
         required_mask_idx: tuple = (),
         device="cuda",
     ):
-        if cfg.epochs_per_dispatch > 1:
-            raise NotImplementedError(
-                "epochs_per_dispatch > 1 (several epochs per device dispatch) is not yet ported")
-        if cfg.matmul_precision not in (None, "highest"):
-            raise NotImplementedError(f"matmul_precision {cfg.matmul_precision!r} is not yet ported")
+        if cfg.matmul_precision not in MATMUL_PRECISIONS:
+            raise ValueError(f"matmul_precision {cfg.matmul_precision!r} is not one of "
+                             f"{MATMUL_PRECISIONS}")
+        # host transfers of the multi-epoch block: blocks run, read-backs,
+        # uploads (snapshots once; orders and masks or uniforms per block)
+        self.fast_io = {"blocks": 0, "readbacks": 0, "uploads": 0}
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -259,18 +279,24 @@ class Trainer:
         the target is the unmasked field). Returns ``(loss, metrics)`` as
         device tensors."""
         graph, x, mask, n_masked = self._prepare(template, xb, mask, generator, None)
+        return self._train_on(graph, x, mask, n_masked)
+
+    def _train_on(self, graph, x, mask, n_masked):
+        """The step on device tensors in the graph's node space, at the
+        configured matmul precision; ``n_masked=None``: the mask's count."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss, mets, _ = self._masked_loss_and_metrics(graph, x, x, mask, n_masked, "train")
-        loss.backward()
-        params = [p for p in self.model.parameters() if p.grad is not None]
-        if self.cfg.log_gradient:
-            with torch.no_grad():
-                mets = {**mets, "grad_norm": _global_norm(p.grad for p in params),
-                        **self._block_grad_norms()}
-        if self.autoclip is not None:
-            self.autoclip.clip_(params)
-        self.optimizer.step()
+        with matmul_precision(self.cfg.matmul_precision):
+            loss, mets, _ = self._masked_loss_and_metrics(graph, x, x, mask, n_masked, "train")
+            loss.backward()
+            params = [p for p in self.model.parameters() if p.grad is not None]
+            if self.cfg.log_gradient:
+                with torch.no_grad():
+                    mets = {**mets, "grad_norm": _global_norm(p.grad for p in params),
+                            **self._block_grad_norms()}
+            if self.autoclip is not None:
+                self.autoclip.clip_(params)
+            self.optimizer.step()
         return loss.detach(), mets
 
     def _block_grad_norms(self) -> dict:
@@ -297,7 +323,8 @@ class Trainer:
         graph, x, mask, n_masked = self._prepare(
             template, xb, mask, generator, self.required_mask_idx)
         self.model.eval()
-        loss, mets, out = self._masked_loss_and_metrics(graph, x, x, mask, n_masked, prefix)
+        with matmul_precision(self.cfg.matmul_precision):
+            loss, mets, out = self._masked_loss_and_metrics(graph, x, x, mask, n_masked, prefix)
         return loss, mets, out, mask
 
     # ------------------------------------------------------------------
@@ -341,7 +368,14 @@ class Trainer:
         val_ds: WDNDataset,
         log_fn: Callable[[str], None] = print,
         on_epoch_end: Optional[Callable[[int, dict], None]] = None,
+        masks: Optional[Callable[[int], tuple]] = None,
     ) -> dict:
+        """Train for ``cfg.epochs`` (from the restored epoch on), validating
+        each epoch; returns the best epoch's ``{"loss", "epoch", "metrics",
+        "train_time_s"}``. ``masks``, on the multi-epoch block path only:
+        ``masks(epoch) -> (train [steps_tr, bs·n], val [steps_val, bs·n])``
+        bool arrays in place of the drawn masks (the tail's padded graphs
+        are unmasked either way), so a test can replay another stream."""
         cfg = self.cfg
         train_loader = SnapshotLoader(train_ds, cfg.batch_size, shuffle=True, seed=cfg.seed)
         val_loader = SnapshotLoader(val_ds, cfg.batch_size, shuffle=False)
@@ -374,6 +408,16 @@ class Trainer:
                 sched.load_state_dict(rs["sched"])
             if rs.get("best"):
                 best.update(rs["best"])
+
+        if (cfg.epochs_per_dispatch > 1 and self.supports_fast_fit
+                and len(train_ds.members) == 1 and len(val_ds.members) == 1
+                and train_ds.members[0].template is val_ds.members[0].template
+                and cfg.criterion in ("mse", "mae") and probe is None):
+            return self._fit_fast(train_ds, val_ds, log_fn, on_epoch_end, early, sched, best,
+                                  start_epoch, masks)
+        if masks is not None:
+            raise ValueError("masks= applies to the multi-epoch block path only "
+                             "(epochs_per_dispatch > 1)")
 
         t0 = time.time()
         for epoch in range(start_epoch, cfg.epochs + 1):
@@ -425,6 +469,152 @@ class Trainer:
         best["train_time_s"] = time.time() - t0
         return best
 
+    # -- the multi-epoch block (epochs_per_dispatch > 1) ---------------------
+    @staticmethod
+    def _block_layout(S: int, bs: int):
+        """(steps, valid [steps, bs]) for one pass over S samples with the
+        tail padded to a full batch of zero-weight graphs."""
+        steps = max(-(-S // bs), 1)
+        valid = np.ones((steps, bs), np.float32)
+        t = S - (steps - 1) * bs
+        if t < bs:
+            valid[-1, t:] = 0.0
+        return steps, valid
+
+    def _block_uniforms(self, ep: int, split: int, steps: int, bs: int, n: int) -> torch.Tensor:
+        """The mask draws of one epoch's train (split 0) or validation (1)
+        steps, [steps, bs, n] on the CPU: one generator an (epoch, split),
+        seeded from ``default_rng([seed, epoch, split])``, so a block's
+        boundaries do not change them."""
+        rng = np.random.default_rng([self.cfg.seed, ep, split])
+        return torch.rand((steps, bs, n), generator=self._batch_generator(rng))
+
+    def _fit_fast(self, train_ds, val_ds, log_fn, on_epoch_end, early, sched, best,
+                  start_epoch: int = 1, masks=None):
+        """``fit`` in blocks of ``cfg.epochs_per_dispatch`` epochs, the JAX
+        package's ``_fit_fast``. The snapshots go to the device once. A block
+        uploads its epochs' orders (``default_rng([seed, epoch]).permutation``,
+        the tail padded with graph 0) and mask draws (or ``masks``) in one
+        copy each, runs every step with no host sync (the masked count of a
+        step is its mask's, so a padded tail weighs as its true size), and
+        reads back every epoch's loss and metrics in one copy; the epoch's
+        values are means over its steps weighted by their valid graphs.
+
+        Early stop, the scheduler and the checkpoints decide per block, in
+        epoch order: a best epoch inside a block is saved with the
+        block-end parameters, its write deferred to the block's end so that
+        the stored early-stop and scheduler state match ``params_epoch``,
+        and 'last' is written once a block."""
+        cfg = self.cfg
+        m_tr, m_val = train_ds.members[0], val_ds.members[0]
+        template = m_tr.template
+        bs, n, dev = cfg.batch_size, template.n_node, self.device
+        k = masked_count(n, cfg.mask_rate)
+        graph = self._batched_graph(template, bs)
+        S_tr, S_val = len(m_tr.array), len(m_val.array)
+        steps_tr, valid_tr = self._block_layout(S_tr, bs)
+        steps_val, valid_val = self._block_layout(S_val, bs)
+        data_tr = torch.as_tensor(np.asarray(m_tr.array, np.float32), device=dev)
+        data_val = torch.as_tensor(np.asarray(m_val.array, np.float32), device=dev)
+        valid_tr, valid_val = (torch.as_tensor(v, device=dev) for v in (valid_tr, valid_val))
+        vidx = torch.arange(steps_val * bs, device=dev).reshape(steps_val, bs).clamp(max=S_val - 1)
+        self.fast_io["uploads"] += 4
+
+        def batch(data, idx, draw, valid, required):
+            x = data[idx].reshape(bs * n, 1)
+            if draw.dtype == torch.bool:
+                mask = draw
+            else:
+                mask = mask_from_uniform(draw, k, required).reshape(-1)
+            mask = mask & (valid > 0.5).repeat_interleave(n)
+            if graph.banded:
+                x = graph.pack_nodes(x, n)
+                mask = graph.pack_nodes(mask.to(torch.float32)[:, None], n)[:, 0] > 0.5
+            return x, mask
+
+        def wmean(vals, valid):
+            w = valid.sum(dim=1)
+            return (torch.stack(vals) * w).sum() / w.sum().clamp(min=1.0)
+
+        t0 = time.time()
+        epoch, stop = start_epoch, False
+        while epoch <= cfg.epochs and not stop:
+            E = min(cfg.epochs_per_dispatch, cfg.epochs - epoch + 1)
+            perms = np.zeros((E, steps_tr, bs), np.int64)
+            for e in range(E):
+                order = np.random.default_rng([cfg.seed, epoch + e]).permutation(S_tr)
+                perms[e] = np.concatenate(
+                    [order, np.zeros((-S_tr) % (steps_tr * bs), np.int64)]).reshape(steps_tr, bs)
+            if masks is None:
+                draws = [torch.stack([self._block_uniforms(epoch + e, 0, steps_tr, bs, n)
+                                      for e in range(E)]),
+                         torch.stack([self._block_uniforms(epoch + e, 1, steps_val, bs, n)
+                                      for e in range(E)])]
+            else:
+                given = [masks(epoch + e) for e in range(E)]
+                draws = [torch.as_tensor(np.stack([np.asarray(g[i], bool).reshape(-1, bs * n)
+                                                   for g in given])) for i in (0, 1)]
+            perms_d, draws_tr, draws_val = (t.to(dev) for t in (torch.as_tensor(perms), *draws))
+            self.fast_io["uploads"] += 3
+            rows = []                       # per epoch: train loss, val loss, metrics
+            for e in range(E):
+                tr = [self._train_on(graph, *batch(data_tr, perms_d[e, s], draws_tr[e, s],
+                                                   valid_tr[s], None), None)
+                      for s in range(steps_tr)]
+                with torch.no_grad():
+                    self.model.eval()
+                    va = []
+                    for s in range(steps_val):
+                        x, mask = batch(data_val, vidx[s], draws_val[e, s], valid_val[s],
+                                        self.required_mask_idx)
+                        with matmul_precision(cfg.matmul_precision):
+                            loss, mets, _ = self._masked_loss_and_metrics(graph, x, x, mask, None,
+                                                                          "val")
+                        va.append((loss, mets))
+                    tr_keys, val_keys = list(tr[0][1]), list(va[0][1])
+                    rows.append(torch.stack(
+                        [wmean([l for l, _ in tr], valid_tr), wmean([l for l, _ in va], valid_val)]
+                        + [wmean([m[key] for _, m in tr], valid_tr) for key in tr_keys]
+                        + [wmean([m[key] for _, m in va], valid_val) for key in val_keys]))
+            host = torch.stack(rows).to(torch.float64).cpu().numpy()   # the block's one read-back
+            self.fast_io["readbacks"] += 1
+            self.fast_io["blocks"] += 1
+            best_dirty = False
+            for j in range(E):
+                ep = epoch + j
+                tr_loss, val_loss = float(host[j, 0]), float(host[j, 1])
+                tm = {key: float(v) for key, v in zip(tr_keys, host[j, 2:2 + len(tr_keys)])}
+                vm = {key: float(v) for key, v in zip(val_keys, host[j, 2 + len(tr_keys):])}
+                stop = early.step(val_loss)
+                if not stop and sched is not None:
+                    new_lr = sched.step(val_loss, self.lr)
+                    if new_lr != self.lr:
+                        self.lr = new_lr
+                if val_loss < best["loss"]:
+                    best.update({"loss": val_loss, "epoch": ep, "metrics": vm})
+                    best_dirty = True
+                if ep == 1 or ep % cfg.log_every == 0:
+                    mstr = ", ".join(f"{mk}: {mv:.4f}" for mk, mv in vm.items())
+                    log_fn(f"Epoch: {ep:03d}, train loss: {tr_loss:.4f}, "
+                           f"val_loss: {val_loss:.4f}, {mstr}")
+                if cfg.save_path and not math.isnan(tr_loss) and (j == E - 1 or stop):
+                    # the block-end parameters are the only ones there are
+                    self._save("last", ep, val_loss, vm, early, sched, best,
+                               params_epoch=epoch + E - 1)
+                if on_epoch_end:
+                    on_epoch_end(ep, {"train_loss": tr_loss, "val_loss": val_loss, **tm, **vm})
+                if stop:
+                    log_fn(f"\n!! No improvement for {cfg.patience} epochs. Training stopped!")
+                    break
+            if best_dirty and cfg.save_path:
+                # at the block's end, so that the stored early-stop and
+                # scheduler state is that of params_epoch
+                self._save("best", best["epoch"], best["loss"], best["metrics"], early, sched,
+                           best, params_epoch=epoch + E - 1)
+            epoch += E
+        best["train_time_s"] = time.time() - t0
+        return best
+
     @torch.no_grad()
     def _probe_forward(self, template, xb):
         graph = self._batched_graph(template, xb.shape[0])
@@ -465,22 +655,26 @@ class Trainer:
             self.autoclip.load_state_dict(
                 {"history": state["autoclip.history"], "count": state["autoclip.count"]})
 
-    def _save(self, kind, epoch, loss, metrics, early, sched, best):
+    def _save(self, kind, epoch, loss, metrics, early, sched, best, params_epoch=None):
         save_checkpoint(
             path=self._ckpt_path(kind), params=self.model.state_dict(),
             opt_state=self.opt_state_dict(), epoch=epoch, loss=loss, metrics=metrics,
-            stats=self.stats, extra=self._resume_extra(early, sched, best))
+            stats=self.stats, extra=self._resume_extra(early, sched, best, params_epoch))
 
-    def _resume_extra(self, early, sched, best) -> dict:
+    def _resume_extra(self, early, sched, best, params_epoch=None) -> dict:
         """Serializable continuation state stored in every checkpoint, plus
         the aggregation layout the model was trained under (so evaluation can
-        default to the same layout)."""
+        default to the same layout). ``params_epoch``: the epoch the stored
+        parameters belong to where it differs from the checkpoint's
+        reporting epoch (a block's best or early-stop epoch holds the
+        block-end parameters), so a resume continues after it."""
         return {
             "resume": {
                 "early": early.state_dict(),
                 "sched": sched.state_dict() if sched is not None else None,
                 "best": {"loss": best["loss"], "epoch": best["epoch"],
                          "metrics": best.get("metrics", {})},
+                **({"params_epoch": int(params_epoch)} if params_epoch is not None else {}),
             },
             "layout": {"agg_mode": self.cfg.agg_mode, "band_block": self.cfg.band_block,
                        "band_attn": self.cfg.band_attn},
@@ -490,7 +684,10 @@ class Trainer:
         """Full-state resume from a checkpoint written by this Trainer:
         parameters, optimizer state, epoch counter, early-stop / scheduler /
         best-so-far state. A weights-only checkpoint still loads and restarts
-        the bookkeeping at epoch ``meta['epoch'] + 1``."""
+        the bookkeeping at epoch ``meta['epoch'] + 1``. A checkpoint of the
+        multi-epoch block (this trainer's or the JAX package's, converted)
+        holds the block-end parameters: the run continues after the later of
+        its epoch and its ``params_epoch``."""
         params, opt_state, meta = load_checkpoint(path, self.model.state_dict())
         self.model.load_state_dict(params)
         if opt_state is not None:
@@ -498,7 +695,8 @@ class Trainer:
         else:
             log_fn(f"WARNING: {path} has no optimizer state; Adam moments reset")
         rs = (meta.get("extra") or {}).get("resume") or {}
-        self._resume = {**rs, "epoch": int(meta.get("epoch", 0))}
+        epoch = max(int(meta.get("epoch", 0)), int(rs.get("params_epoch") or 0))
+        self._resume = {**rs, "epoch": epoch}
         return meta
 
     def _ckpt_path(self, kind: str) -> str:

@@ -98,19 +98,23 @@ def params_from_fixture(fx, model: nn.Module, prefix: str = "param") -> dict[str
     return params_from_flax(tree, model)
 
 
-def params_from_parity_npz(path) -> dict[str, torch.Tensor]:
-    with np.load(path) as d:
-        sd = {
-            "lin0.weight": _t(d["w_lin0"]), "lin0.bias": _t(d["b_lin0"]),
-            "lin1.weight": _t(d["w_lin1"]), "lin1.bias": _t(d["b_lin1"]),
-        }
-        for i in range(int(d["num_blocks"])):
-            for j in (1, 2):
-                src, pre = f"blk{i}_conv{j}", f"blocks.{i}.conv{j}"
-                sd[f"{pre}.lin.weight"] = _t(d[f"{src}_lin_w"])
-                sd[f"{pre}.att_src"] = _t(d[f"{src}_att_src"])
-                sd[f"{pre}.att_dst"] = _t(d[f"{src}_att_dst"])
-                sd[f"{pre}.bias"] = _t(d[f"{src}_bias"])
+def params_from_parity_npz(path, prefix: str = "") -> dict[str, torch.Tensor]:
+    """A GATRes ``state_dict`` from a parity fixture's weights, stored in
+    ``tools/parity_export.py``'s layout, each key after ``prefix`` (a file
+    that holds two models names them apart)."""
+    with np.load(path) as z:
+        d = {k[len(prefix):]: z[k] for k in z.files if k.startswith(prefix)}
+    sd = {
+        "lin0.weight": _t(d["w_lin0"]), "lin0.bias": _t(d["b_lin0"]),
+        "lin1.weight": _t(d["w_lin1"]), "lin1.bias": _t(d["b_lin1"]),
+    }
+    for i in range(int(d["num_blocks"])):
+        for j in (1, 2):
+            src, pre = f"blk{i}_conv{j}", f"blocks.{i}.conv{j}"
+            sd[f"{pre}.lin.weight"] = _t(d[f"{src}_lin_w"])
+            sd[f"{pre}.att_src"] = _t(d[f"{src}_att_src"])
+            sd[f"{pre}.att_dst"] = _t(d[f"{src}_att_dst"])
+            sd[f"{pre}.bias"] = _t(d[f"{src}_bias"])
     return sd
 
 

@@ -384,38 +384,51 @@ def test_infer_matches_jax_cli(jax_run, tmp_path, layout):
 
 @pytest.mark.parametrize("argv,item", [
     # the first four cases refused the model zoo (item 6) until it was ported; they
-    # keep their ids and now hold that a zoo model with a flag still refused
-    # names that flag's item (infer has no refusal left: its case runs train).
-    # The cases of --mesh and --distributed (item 7) keep their ids too since
-    # those flags run: a train case pairs its flag with a flag still refused
-    # (which is refused before any rank starts); an eval case (eval refuses
-    # nothing else) runs its flag and, with no card and no --device cpu, stops
-    # at the device check as every command does (item None)
-    pytest.param(["train", "--model", "gin", "--activation_dtype", "bfloat16"], 8,
+    # keep their ids, as do the cases of --mesh and --distributed (item 7) and of the
+    # training knobs (items 8 and 2, ported since): a case whose flags all run stops at
+    # the device check, with no card and no --device cpu, as every command does (item
+    # None); a model without the activation-dtype knob fails as the JAX command fails
+    # ("jax"); benchmark still names its item
+    pytest.param(["train", "--model", "gin", "--activation_dtype", "bfloat16"], "jax",
                  id="train---model-gin-6"),
     pytest.param(["eval", "--model", "mgcn", "--mesh", "2,1", "--model_path", "x.ckpt"], None,
                  id="eval---model-mgcn---model_path-x.ckpt-6"),
     pytest.param(["train", "--model", "gat", "--distributed", "--matmul_precision", "bfloat16"],
-                 8, id="infer---model-gat---model_path-x.ckpt-6"),
-    pytest.param(["train", "--model", "chebnet", "--epochs_per_dispatch", "2"], 2,
+                 None, id="infer---model-gat---model_path-x.ckpt-6"),
+    pytest.param(["train", "--model", "chebnet", "--epochs_per_dispatch", "2"], None,
                  id="train---model-chebnet-6"),
-    pytest.param(["train", "--mesh", "2,1", "--epochs_per_dispatch", "2"], 2,
+    pytest.param(["train", "--mesh", "2,1", "--epochs_per_dispatch", "2"], None,
                  id="train---mesh-2,1-7"),
     pytest.param(["eval", "--mesh", "4,2", "--model_path", "x.ckpt"], None,
                  id="eval---mesh-4,2---model_path-x.ckpt-7"),
-    pytest.param(["train", "--distributed", "--activation_dtype", "bfloat16"], 8,
+    pytest.param(["train", "--distributed", "--activation_dtype", "bfloat16"], None,
                  id="train---distributed-7"),
-    (["train", "--activation_dtype", "bfloat16"], 8),
-    (["train", "--matmul_precision", "bfloat16"], 8),
-    (["train", "--matmul_precision", "tensorfloat32"], 8),
-    (["train", "--epochs_per_dispatch", "4"], 2),
-    (["benchmark"], 1),
-], ids=lambda v: "-".join(v) if isinstance(v, list) else str(v))
+    pytest.param(["train", "--activation_dtype", "bfloat16"], None,
+                 id="train---activation_dtype-bfloat16-8"),
+    pytest.param(["train", "--matmul_precision", "bfloat16"], None,
+                 id="train---matmul_precision-bfloat16-8"),
+    pytest.param(["train", "--matmul_precision", "tensorfloat32"], None,
+                 id="train---matmul_precision-tensorfloat32-8"),
+    pytest.param(["train", "--epochs_per_dispatch", "4"], None,
+                 id="train---epochs_per_dispatch-4-2"),
+    pytest.param(["benchmark"], 1, id="benchmark-1"),
+])
 def test_refused_flags_name_their_item(argv, item, monkeypatch):
-    if item is None:                 # the flag runs: no refusal, the device check stops it
+    if item is None:                 # the flags run: no refusal, the device check stops it
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             pcli.main(argv)
+        return
+    if item == "jax":                # the JAX command fails on the same model: its message
+        import jax.numpy as jnp
+
+        from gnn_pressure_estimation_tpu.models.presets import select_model as jax_select
+
+        with pytest.raises(ValueError) as jax_err:
+            jax_select(argv[2], dtype=jnp.bfloat16)
+        with pytest.raises(SystemExit) as e:
+            pcli.main(argv)
+        assert e.value.code == str(jax_err.value)
         return
     with pytest.raises(SystemExit) as e:
         pcli.main(argv)

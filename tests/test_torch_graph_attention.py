@@ -310,5 +310,17 @@ def test_gatconv_dense_matches_jax_layer(rng, impl, fused, heads, concat):
 
 
 def test_unported_attn_impl_raises():
-    with pytest.raises(NotImplementedError, match="band_factored"):
-        GATConv(4, 4, attn_impl="band_factored")
+    """Every attn_impl of the JAX layer builds: ``band_factored`` is
+    ``factored`` on the dense path (the same values, bit for bit); a name the
+    port does not know raises."""
+    with pytest.raises(NotImplementedError, match="attn_impl"):
+        GATConv(4, 4, attn_impl="band_softmax")
+    jt = random_graph(np.random.default_rng(3), n=12, extra_edges=5)
+    graph = GraphTemplate(jt.n_node, jt.senders, jt.receivers).batch(2, "dense", None, "cpu")
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((24, 4)).astype(np.float32))
+    outs = []
+    for impl in ("factored", "band_factored"):
+        layer = GATConv(4, 4, heads=2, attn_impl=impl)
+        layer.reset_parameters(torch.Generator().manual_seed(5))
+        outs.append(layer(x, graph))
+    assert torch.equal(*outs)

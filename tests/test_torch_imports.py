@@ -48,7 +48,7 @@ def test_port_imports_no_jax():
             "models/zoo.py", "models/remask.py", "models/presets.py", "models/__init__.py",
             "weights.py", "parallel/__init__.py", "parallel/mesh.py", "parallel/launch.py",
             "parallel/halo.py", "parallel/edgepart.py", "parallel/distributed.py",
-            "parallel/trainer.py", "parallel/eval_forward.py"} <= scanned
+            "parallel/trainer.py", "parallel/eval_forward.py", "train/precision.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -85,7 +85,8 @@ def _top_level_modules(path: Path):
                                  "weights.py", "parallel/__init__.py", "parallel/mesh.py",
                                  "parallel/launch.py", "parallel/halo.py", "parallel/edgepart.py",
                                  "parallel/distributed.py", "parallel/trainer.py",
-                                 "parallel/eval_forward.py", "train/loop.py"])
+                                 "parallel/eval_forward.py", "train/loop.py",
+                                 "train/precision.py", "models/gatres.py", "ops/graph_attention.py"])
 def test_module_imports_only_what_the_port_may(rel):
     """The modules this slice added or extended import torch, numpy, scipy,
     the standard library and the port itself, nothing else."""
@@ -138,6 +139,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
         Trainer(GATRes(1, 4), TrainConfig(agg_mode="padded"), NormStats(), tpl)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(GATRes(1, 4), TrainConfig(band_attn="acc"), NormStats(), tpl)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(GATRes(1, 4, dtype=torch.bfloat16),
+                TrainConfig(epochs_per_dispatch=2, matmul_precision="bfloat16"), NormStats(), tpl)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        select_model("gatres_small", dtype=torch.bfloat16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         select_model("gatres_small")
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -139,8 +139,11 @@ def test_dtype_knobs_the_port_does_not_compute_raise():
     model, _ = select_model("gatres_small", device="cpu")
     with pytest.raises(NotImplementedError, match="gate_dtype"):
         apply_model_knobs(model, gate_dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="band_factored"):
-        apply_model_knobs(model, attn_impl="band_factored")
+    with pytest.raises(NotImplementedError, match="dtype"):
+        GATConv(4, 4, dtype=torch.float16)
+    # band_factored is ported: the knob reaches every GATConv
+    apply_model_knobs(model, attn_impl="band_factored")
+    assert all(c.attn_impl == "band_factored" for c in model.modules() if isinstance(c, GATConv))
 
 
 def test_params_from_flax_carries_a_bf16_model_unchanged():

@@ -258,8 +258,13 @@ def test_remat_gives_the_same_gradients(rng):
 def test_unported_options_raise(rng):
     jt = random_graph(rng, n=12, extra_edges=4)
     tpl = GraphTemplate(jt.n_node, jt.senders, jt.receivers)
-    with pytest.raises(NotImplementedError, match="epochs_per_dispatch"):
-        Trainer(GATRes(1, 4), TrainConfig(epochs_per_dispatch=2), NormStats(), tpl, device="cpu")
+    # several epochs a block and the matmul precisions are ported; a precision the
+    # JAX package does not name raises
+    Trainer(GATRes(1, 4), TrainConfig(epochs_per_dispatch=2, matmul_precision="bfloat16"),
+            NormStats(), tpl, device="cpu")
+    with pytest.raises(ValueError, match="matmul_precision"):
+        Trainer(GATRes(1, 4), TrainConfig(matmul_precision="float16"), NormStats(), tpl,
+                device="cpu")
     # the zarr-zip store is ported: a dataset of files that do not exist raises
     with pytest.raises(FileNotFoundError):
         WDNDataset(["a.zip"], ["a.inp"])
