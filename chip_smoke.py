@@ -379,19 +379,54 @@ The last training knobs (``knob_phases``; fixtures of
     bfloat16 --epochs_per_dispatch 2`` on ``eval_bigtown.zip``, then a
     resume to epoch 4.
 
+The native codecs, the solver oracles and the edge list under bf16
+(``slice21_phases``):
+
+56. ``data/native/codecs.cpp`` built into ``_build/`` and loaded (the run
+    fails unless ``codecs.backend()`` is ``"native"``); ``eval_bigtown.zip``
+    decoded by each backend in turns (python, native, native, python) and
+    read through ``WDNDataset`` by each: bit-equal arrays, the read times
+    printed; phase 33's store re-encoded Blosc-lz4 by each encoder and read
+    back by both decoders, byte for byte; one GATRes-large serving batch of
+    16 from each backend's read, bit-equal, 50 + 25 launches each.
+57. ``simgen/solver_certify.py`` on phase 33's first 8 bigtown scenes
+    (regenerated from its options; each within 1e-6 m of the store's row),
+    solved by the C++ solver at the JAX oracle test's accuracy: mass < 1e-4
+    cfs, energy < 2e-3 ft, setting < 1e-3, statuses consistent; the
+    residuals at the generator's own accuracy reported;
+    ``simgen/solver_root.py`` on minitown against the GGA solve (heads rtol
+    1e-6, flows 1e-4, atol 2e-3). Bigtown is too large for the root
+    engine's dense numerical Jacobian: its size is printed instead.
+58. ``DistributedTrainer`` under bf16 activations on a 1×2 mesh of two gloo
+    ranks (the edge partition, no kernel): bigtown GATRes-small at B 1
+    against ``parity_dist_bigtown_small_act_bf16.npz`` (the JAX
+    ``DistributedTrainer`` at dp 1 / gp 2): blocks 0-1 within 1e-3, the
+    loss nearer the fixture than the f32 step's, each gradient within the
+    model rule (twice the f32 step's distance, or 2^-6·max|g|, + 1e-4 of
+    the largest); GATRes-large's width (its first 6 trained blocks) at B 8
+    against its steps on the whole edge list on one device: loss rtol 1e-5;
+    f32 gradients within phase 48's 1e-3·max|g| + 1e-6; bf16 gradients at
+    the bf16 model rule, their share of that gate reported (each rank rounds
+    its partial bias and attention-vector gradients to bf16 before the
+    all-reduce, as the JAX ``shard_map`` step does); the ranks' gradients
+    bit-equal; step ms of f32 and bf16 in turns; ``cli train --distributed
+    --activation_dtype bfloat16`` (gatres_small, two processes, ``--mesh
+    1,2``) exits 0.
+
 The last line is ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
 (all fifteen kernels, and the seven wrappers' bf16-operand instances and five
 logit-rounding instances as rows of their own; the rows the zoo launches carry
 ``zoo_launches``, the band SpMM pair its times at the zoo's widths, the rows
 the mesh phases launch ``mesh_launches``, summed over their ranks, the rows
-phases 51-55 launch ``knob_launches``) and the ``nvidia-smi`` line come
-before it.
+phases 51-55 launch ``knob_launches``, those phase 56 launches
+``codec_launches``) and the ``nvidia-smi`` line come before it.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -3497,10 +3532,24 @@ BAND_KERNELS = ("band_rowwalk_kernel", "columns_kernel", "band_spmm_fwd_kernel",
                 "band_spmm_bwd_kernel")
 
 
-def cli_phases(dev, card, reset_launches, read_launches, counts, weights_npz, device_flags=()):
+def generate_argv(ini: str) -> list:
+    """Phase 33's ``cli generate``: the scenarios of ``ini`` with the options
+    of ``artifacts/eval_bigtown.zip`` (one executor, batches of 10, seed
+    1234, the C++ solver)."""
+    return ["generate", "--config", ini, "--gen_demand", "--gen_res_total_head",
+            "--update_totalhead_method", "add_max_elevation", "--accept_warning_code",
+            "--pressure_lowerbound", "-5", "--pressure_upperbound", "500", "--att", "pressure",
+            "--batch_size", "10", "--executors", "1", "--train_ratio", "0.5", "--valid_ratio",
+            "0.1", "--seed", "1234", "--no-save_params", "--backend", "cpp"]
+
+
+def cli_phases(dev, card, reset_launches, read_launches, counts, weights_npz, device_flags=(),
+               keep=None):
     """Phases 33-36: the port's command line through ``cli.main``, on the card
     (``device_flags`` stays empty there; a CPU rehearsal passes ``--device
-    cpu``). Returns the times."""
+    cpu``). With ``keep`` a directory, phase 33's store and INI are copied
+    there (``bigtown.zip``, ``bigtown.ini``) for phases 56-58. Returns the
+    times."""
     import configparser
     import contextlib
     import importlib.util
@@ -3603,12 +3652,7 @@ def cli_phases(dev, card, reset_launches, read_launches, counts, weights_npz, de
         ini = os.path.join(tmp, "bigtown.ini")
         with open(ini, "w") as f:
             cp.write(f)
-        text, gen_s = run("generate", [
-            "generate", "--config", ini, "--gen_demand", "--gen_res_total_head",
-            "--update_totalhead_method", "add_max_elevation", "--accept_warning_code",
-            "--pressure_lowerbound", "-5", "--pressure_upperbound", "500", "--att", "pressure",
-            "--batch_size", "10", "--executors", "1", "--train_ratio", "0.5", "--valid_ratio",
-            "0.1", "--seed", "1234", "--no-save_params", "--backend", "cpp"])
+        text, gen_s = run("generate", generate_argv(ini))
         backend = next(ln.split(":", 1)[1].strip() for ln in text.splitlines()
                        if ln.startswith("solver backend:"))
         gen_zip = os.path.join(tmp, "bigtown.zip")
@@ -3629,6 +3673,9 @@ def cli_phases(dev, card, reset_launches, read_launches, counts, weights_npz, de
               f"{', '.join(f'{s} {shapes[s]}' for s in splits)}, pressures within {gap:.3e} m of "
               f"eval_bigtown.zip (the JAX generator's)")
         out["generate"] = dict(seconds=gen_s, backend=backend, max_abs_gap_m=gap)
+        if keep is not None:
+            shutil.copy(gen_zip, os.path.join(keep, "bigtown.zip"))
+            shutil.copy(ini, os.path.join(keep, "bigtown.ini"))
 
         # ---- 34: train ---------------------------------------------------------------
         print("[34] cli train --model gatres_large on phase 33's zip: 2 epochs at batch 8, "
@@ -4586,7 +4633,48 @@ def _rank_eval(job, mesh, counters):
     return {"result": res, "launches": launches}
 
 
-MESH_JOBS = {"step": _rank_step, "serve": _rank_serve, "dist": _rank_dist, "eval": _rank_eval}
+def _rank_dist_pair(job, mesh, counters):
+    """``DistributedTrainer`` (the edge partition; no kernel) on one batch
+    with the model in f32 and under bf16 activations: each one step's loss,
+    train MAE, gradients, launches, ms and, with ``acts``, every block's
+    output on this rank's node block; with ``turns`` one more step of each,
+    so the steps' ms come in turns f32, bf16, bf16, f32."""
+    from gnn_pressure_estimation_tpu_torch.parallel import DistributedTrainer
+    from gnn_pressure_estimation_tpu_torch.train import TrainConfig
+    from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats
+
+    tpl = network(job["net"])
+    res, trainers = {}, {}
+    for tag, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        spec = dict(job["model"], kwargs=dict(job["model"]["kwargs"], dtype=dt))
+        dtr = DistributedTrainer(_gatres(spec, mesh.device), TrainConfig(**job["cfg"]),
+                                 NormStats(**job["stats"]), tpl, mesh)
+        acts = []
+        hooks = [b.register_forward_hook(lambda m_, a_, o_: acts.append(o_.detach().cpu()))
+                 for b in dtr.model.blocks] if job.get("acts") else []
+        t0 = time.perf_counter()
+        (loss, mets), launches = _counted(counters, lambda: dtr.step(job["x"], mask=job["mask"]))
+        ms = (time.perf_counter() - t0) * 1e3
+        for h in hooks:
+            h.remove()
+        res[tag] = {"loss": float(loss), "mae": float(mets["train_mae"]), "launches": launches,
+                    "acts": acts, "ms": [ms],
+                    "grads": {k: p.grad.detach().cpu() for k, p in dtr.model.named_parameters()}}
+        trainers[tag] = dtr
+    if job.get("turns"):
+        # the turns f32, bf16 (the steps above), bf16, f32
+        for tag in ("bf16", "f32"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainers[tag].step(job["x"], mask=job["mask"])
+            torch.cuda.synchronize()
+            res[tag]["ms"].append((time.perf_counter() - t0) * 1e3)
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+MESH_JOBS = {"step": _rank_step, "serve": _rank_serve, "dist": _rank_dist, "eval": _rank_eval,
+             "dist_pair": _rank_dist_pair}
 
 
 def mesh_rank(payload: str) -> int:
@@ -5790,6 +5878,450 @@ def knob_phases(dev, card, held, max_err, reset_launches, read_launches, counts,
     return out
 
 
+# ---- slice 21: the native codecs, the solver oracles, the edge list under bf16 ----------------
+
+def store_arrays(path: str) -> dict:
+    """Every array of a zarr-zip store, by its path, decoded by the codec
+    backend in force."""
+    from gnn_pressure_estimation_tpu_torch.data.zarrzip import ZarrZipReader
+
+    out = {}
+    with ZarrZipReader(path) as r:
+        def walk(node, prefix):
+            for k in node.array_keys():
+                out[prefix + k] = r.read_array(prefix + k)
+            for g in node.group_keys():
+                walk(node[g], f"{prefix}{g}/")
+        walk(r.root(), "")
+    return out
+
+
+def codec_phase(dev, card, reset_launches, read_launches, counts, weights_npz, gen_zip) -> dict:
+    """Phase 56: the native codecs (``data/native/codecs.cpp``) built and
+    loaded; ``eval_bigtown.zip`` read with each backend, bit-equal; phase
+    33's store re-encoded by each encoder and read by both decoders; one
+    GATRes-large serving batch of 16 from each backend's read, bit-equal."""
+    import tempfile
+
+    from gnn_pressure_estimation_tpu_torch.data import codecs
+    from gnn_pressure_estimation_tpu_torch.data.dataset import WDNDataset
+    from gnn_pressure_estimation_tpu_torch.data.zarrzip import ZarrZipWriter
+    from gnn_pressure_estimation_tpu_torch.models.gatres import GATRes
+    from gnn_pressure_estimation_tpu_torch.weights import params_from_parity_npz
+
+    zip_path = os.path.join(REPO, "artifacts", "eval_bigtown.zip")
+    inp = os.path.join(REPO, "inputs", "bigtown.inp")
+    print("[56] the native codecs (data/native/codecs.cpp: LZ4 blocks, byte shuffle) against the "
+          "Python codecs: eval_bigtown.zip read by both, phase 33's store re-encoded by both, "
+          "a GATRes-large batch of 16 served from each read")
+    t0 = time.perf_counter()
+    so = codecs.build()
+    codecs.set_backend("native")            # raises unless the library loads
+    if codecs.backend() != "native":
+        raise SystemExit(f"FAIL the codec backend is {codecs.backend()!r}, not 'native'")
+    print(f"  {os.path.relpath(so, REPO)} built and loaded in {time.perf_counter() - t0:.2f} s")
+    out = {"decode_s": {"python": [], "native": []}}
+    reads = {}
+    for be in ("python", "native", "native", "python"):
+        codecs.set_backend(be)
+        t0 = time.perf_counter()
+        arrays = store_arrays(zip_path)
+        out["decode_s"][be].append(time.perf_counter() - t0)
+        ref = reads.setdefault(be, arrays)
+        for k, a in arrays.items():
+            if not np.array_equal(a, ref[k]) or a.dtype != ref[k].dtype:
+                raise SystemExit(f"FAIL {be} read {k} differently on its second read")
+    for k, a in reads["python"].items():
+        b = reads["native"][k]
+        if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise SystemExit(f"FAIL eval_bigtown.zip {k}: the two backends' arrays differ")
+    raw_mb = sum(a.nbytes for a in reads["native"].values()) / 1e6
+    print(f"  eval_bigtown.zip ({os.path.getsize(zip_path) / 1e6:.2f} MB, {len(reads['native'])} "
+          f"arrays, {raw_mb:.2f} MB decoded): every array bit-equal across the backends; the "
+          f"whole store decoded in turns python, native, native, python: native "
+          f"{out['decode_s']['native'][0]:.4f} / {out['decode_s']['native'][1]:.4f} s, python "
+          f"{out['decode_s']['python'][0]:.4f} / {out['decode_s']['python'][1]:.4f} s [{card}]")
+    ds, out["dataset_s"] = {}, {}
+    for be in ("python", "native"):
+        codecs.set_backend(be)
+        t0 = time.perf_counter()
+        ds[be] = WDNDataset([zip_path], [inp], from_set="train")
+        out["dataset_s"][be] = time.perf_counter() - t0
+    a, b = ds["python"].members[0].array, ds["native"].members[0].array
+    if a.dtype != b.dtype or a.tobytes() != b.tobytes() or \
+            ds["python"].stats.to_dict() != ds["native"].stats.to_dict():
+        raise SystemExit("FAIL WDNDataset read eval_bigtown.zip differently on the two backends")
+    print(f"  WDNDataset(train) {a.shape}: bit-equal, stats equal; built in "
+          f"{out['dataset_s']['native']:.3f} s (native) / {out['dataset_s']['python']:.3f} s (python)")
+
+    # phase 33's store, re-encoded by each encoder and read back by both decoders
+    with tempfile.TemporaryDirectory() as tmp:
+        codecs.set_backend("native")
+        src = store_arrays(gen_zip)
+        out["encode_s"], sizes = {}, {}
+        for enc in ("native", "python"):
+            codecs.set_backend(enc)
+            path = os.path.join(tmp, f"{enc}.zip")
+            t0 = time.perf_counter()
+            with ZarrZipWriter(path, compressor="blosc") as w:
+                w.create_group("pressure")
+                for k, v in src.items():
+                    w.write_array(k, v)
+            out["encode_s"][enc] = time.perf_counter() - t0
+            sizes[enc] = os.path.getsize(path)
+            for dec in ("native", "python"):
+                codecs.set_backend(dec)
+                got = store_arrays(path)
+                for k, v in src.items():
+                    if got[k].tobytes() != v.tobytes() or got[k].dtype != v.dtype:
+                        raise SystemExit(f"FAIL phase 33's {k} encoded by {enc} decoded by {dec} "
+                                         "differs")
+    print(f"  phase 33's store ({', '.join(f'{k} {v.shape}' for k, v in src.items())}) re-encoded "
+          f"Blosc-lz4 + shuffle: native {sizes['native'] / 1e6:.3f} MB in "
+          f"{out['encode_s']['native']:.4f} s, python {sizes['python'] / 1e6:.3f} MB in "
+          f"{out['encode_s']['python']:.4f} s; each encoder's frames decode to the same bytes under "
+          "both decoders")
+
+    # one serving batch of 16 from each backend's read
+    codecs.set_backend("native")
+    tpl = ds["native"].members[0].template
+    n = tpl.n_node
+    model = GATRes(25, 128, attn_impl="factored").to(dev)
+    model.load_state_dict(params_from_parity_npz(weights_npz))
+    model.eval()
+    g = tpl.batch(16, device=dev)
+    m = torch.zeros(16 * n, dtype=torch.bool)
+    m[torch.randperm(16 * n, generator=torch.Generator().manual_seed(56))[:int(0.95 * 16 * n)]] = True
+    m = m.to(dev)[:, None]
+    served, out["launches"] = {}, {}
+    for be in ("python", "native"):
+        x = torch.as_tensor(ds[be].members[0].array[:16].reshape(-1, 1), device=dev)
+        reset_launches()
+        with torch.inference_mode():
+            served[be] = g.unpack_nodes(model(g.pack_nodes(torch.where(m, 0.0, x), n), g), n)
+        torch.cuda.synchronize()
+        launched = read_launches()
+        if launched != counts(band_attention=50, band_spmm=25):
+            raise SystemExit(f"FAIL the batch served from the {be} read launched {launched}")
+        out["launches"] = {k: out["launches"].get(k, 0) + v for k, v in launched.items() if v}
+    if not torch.isfinite(served["native"]).all() or not torch.equal(served["native"],
+                                                                        served["python"]):
+        raise SystemExit("FAIL the batches served from the two reads differ")
+    print(f"  GATRes-large (trained) served a batch of 16 from each read: outputs bit-equal, "
+          f"finite, shape {tuple(served['native'].shape)}; 50 + 25 launches each")
+    codecs.set_backend(None)
+    return out
+
+
+def oracle_phase(card, ini, gen_zip) -> dict:
+    """Phase 57: the solver oracles. The certificates (``solver_certify``) of
+    phase 33's first bigtown scenes, solved by the C++ GGA solver at the JAX
+    oracle test's accuracy (gated at its tolerances) and at the generator's
+    own (reported); the dense root engine (``solver_root``) on minitown
+    against the GGA solve."""
+    import dataclasses
+
+    from gnn_pressure_estimation_tpu_torch import cli
+    from gnn_pressure_estimation_tpu_torch.data.inp import parse_inp
+    from gnn_pressure_estimation_tpu_torch.simgen import runner, solver_certify, solver_cpp
+    from gnn_pressure_estimation_tpu_torch.simgen import solver_root
+    from gnn_pressure_estimation_tpu_torch.simgen.config import GenOptions
+    from gnn_pressure_estimation_tpu_torch.simgen.network_state import build_state
+
+    print("[57] the solver oracles: certificates of phase 33's bigtown scenes (mass < 1e-4 cfs, "
+          "energy < 2e-3 ft, setting < 1e-3, statuses consistent) and the dense root engine on "
+          "minitown")
+    inp = os.path.join(REPO, "inputs", "bigtown.inp")
+    args = cli.build_parser().parse_args(generate_argv(ini))
+    fields = {f.name for f in dataclasses.fields(GenOptions)}
+    opts = GenOptions(**{k: v for k, v in vars(args).items() if k in fields})
+    with open(inp) as f:
+        runner._worker_init(f.read(), ini, opts, "cpp")
+    # phase 33's first batch (one executor: its rows lead the store's train split)
+    _, _, rows = runner._worker_run((opts.seed * 1_000_003, opts.batch_size, None))
+    ex = runner._WORKER["executor"]
+    train = store_arrays(gen_zip)["pressure/train"]
+    out = {"scenes": []}
+    for i, row in enumerate(rows[:8]):
+        stored = float(np.abs(ex.simulate_one(row)[0]["pressure"][0] - train[i]).max())
+        if stored > 1e-6:
+            raise SystemExit(f"FAIL scene {i} is not the store's row {i} ({stored:.3e} m apart)")
+        own = ex.apply_tokens(row)
+        raw = solver_cpp.solve_raw(own)
+        loose = solver_certify.certify(own, raw.head, raw.flow, raw.status)
+        ns = ex.apply_tokens(row)
+        ns.accuracy, ns.trials = 1e-9, 400                  # the JAX oracle test's _tight
+        t0 = time.perf_counter()
+        raw = solver_cpp.solve_raw(ns)
+        t_solve = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cert = solver_certify.certify(ns, raw.head, raw.flow, raw.status)
+        t_cert = time.perf_counter() - t0
+        if not raw.converged or not cert.ok(1e-4, 2e-3, 1e-3):
+            raise SystemExit(f"FAIL scene {i}: certificate {cert}")
+        out["scenes"].append(dict(mass=cert.mass, energy=cert.energy, setting=cert.setting,
+                                  iterations=raw.iterations, solve_s=t_solve, certify_s=t_cert,
+                                  generator_mass=loose.mass, generator_energy=loose.energy,
+                                  generator_status_ok=loose.status_ok))
+    sc = out["scenes"]
+    print(f"  {len(sc)} scenes (the store's first rows, pressures within 1e-6 m), {ns.n_nodes} "
+          f"nodes, {len(ns.link_type)} links, solved at accuracy 1e-9: mass <= "
+          f"{max(c['mass'] for c in sc):.3e} cfs, energy <= {max(c['energy'] for c in sc):.3e} "
+          f"ft, setting <= {max(c['setting'] for c in sc):.3e}, statuses consistent; "
+          f"{min(c['iterations'] for c in sc)}-{max(c['iterations'] for c in sc)} iterations, "
+          f"solve {max(c['solve_s'] for c in sc):.3f} s, certificate "
+          f"{max(c['certify_s'] for c in sc):.3f} s at most")
+    print(f"  at the generator's accuracy ({ex.base.accuracy}): mass <= "
+          f"{max(c['generator_mass'] for c in sc):.3e} cfs, energy <= "
+          f"{max(c['generator_energy'] for c in sc):.3e} ft, statuses consistent "
+          f"{all(c['generator_status_ok'] for c in sc)} (reported)")
+    unknowns = ns.n_junctions + len(ns.link_type)
+    print(f"  the dense root engine is not run on bigtown: {unknowns} unknowns, a numerical "
+          f"Jacobian of {unknowns ** 2 * 8 / 1e9:.2f} GB and {unknowns} residual evaluations a "
+          f"Jacobian")
+    mini = build_state(parse_inp(os.path.join(REPO, "inputs", "minitown.inp")))
+    raw = solver_cpp.solve_raw(mini)
+    t0 = time.perf_counter()
+    alt = solver_root.solve(mini, raw.status)
+    t_root = time.perf_counter() - t0
+    dh = np.abs(alt.head - raw.head)
+    dq = np.abs(alt.flow - raw.flow)
+    if (dh > 1e-6 * np.abs(raw.head) + 2e-3).any() or (dq > 1e-4 * np.abs(raw.flow) + 2e-3).any():
+        raise SystemExit(f"FAIL the root engine on minitown: heads {dh.max():.3e}, flows "
+                         f"{dq.max():.3e} from the GGA solve")
+    c_root = solver_certify.certify(mini, alt.head, alt.flow, alt.status)
+    out["minitown"] = dict(head=float(dh.max()), flow=float(dq.max()), seconds=t_root,
+                           evaluations=alt.iterations, mass=c_root.mass, energy=c_root.energy)
+    print(f"  minitown ({mini.n_junctions} junctions, {len(mini.link_type)} links): the root "
+          f"engine within {dh.max():.3e} ft (heads) and {dq.max():.3e} cfs (flows) of the C++ GGA "
+          f"solve (rtol 1e-6 / 1e-4, atol 2e-3), {alt.iterations} residual evaluations, "
+          f"{t_root:.3f} s; its own certificate mass {c_root.mass:.3e}, energy "
+          f"{c_root.energy:.3e} [{card}]")
+    return out
+
+
+def edgelist_bf16_phase(dev, card, big, gen_zip, device_flags=()) -> dict:
+    """Phase 58: the edge-list path under bf16 activations. ``DistributedTrainer``
+    (the edge partition) on a 1×2 mesh of two gloo ranks sharing the card:
+    bigtown GATRes-small, B 1, against the JAX ``DistributedTrainer``'s step
+    (``parity_dist_bigtown_small_act_bf16.npz``) at the bf16 model rules;
+    GATRes-large's width (6 trained blocks) at B 8 against the same model's
+    steps on the whole edge list on one device: f32 at the mesh gates of
+    phase 48, bf16 at the loss gate and the bf16 model rule; the step ms of
+    bf16 and f32 in turns; ``cli train --distributed --activation_dtype bfloat16``
+    (``device_flags``: ``--device cpu`` rehearses it without a card)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from gnn_pressure_estimation_tpu_torch.models.gatres import GATRes
+    from gnn_pressure_estimation_tpu_torch.parallel.launch import free_port
+    from gnn_pressure_estimation_tpu_torch.utils.masking import batch_node_mask
+    from gnn_pressure_estimation_tpu_torch.weights import params_from_parity_npz
+
+    print("[58] the edge-list path under bf16 activations: DistributedTrainer on a 1×2 mesh "
+          "(two gloo ranks on this card, no kernel), bigtown GATRes-small against the JAX step, "
+          "GATRes-large at B 8 against one device; cli train --distributed --activation_dtype "
+          "bfloat16")
+    tpl = network("bigtown")
+    n = tpl.n_node
+    fxp = os.path.join(REPO, "artifacts", "parity_dist_bigtown_small_act_bf16.npz")
+    fx = np.load(fxp)
+    tmp = tempfile.mkdtemp(prefix="edgelist_bf16_")
+    out = {}
+    try:
+        def save(tag, model):
+            path = os.path.join(tmp, f"{tag}.pt")
+            torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, path)
+            return path
+
+        small = GATRes(15, 32)
+        small.load_state_dict(params_from_parity_npz(fxp))
+        # GATRes-large's width, cut to its first 6 trained blocks: a 1×2 gloo step moves
+        # whole node blocks through the host for every aggregation (~9 s at 25 blocks)
+        depth = 6
+        large = GATRes(depth, 128, attn_impl="factored")
+        large.load_state_dict({k: v for k, v in params_from_parity_npz(big["npz"]).items()
+                               if not k.startswith("blocks.") or int(k.split(".")[1]) < depth})
+        rng = np.random.default_rng(58)
+        xb = (np.asarray(big["x"], np.float32)[:, 0][None, :]
+              + 0.1 * rng.standard_normal((8, n))).astype(np.float32)
+        mask8 = batch_node_mask(torch.Generator().manual_seed(58), 8, n, 0.95).numpy()
+        tfx = big["tfx"]
+        tstats = dict(norm_type="znorm", mean=float(tfx["stats_mean"]), std=float(tfx["stats_std"]))
+        jobs = [dict(kind="dist_pair", name="small", net="bigtown", dp=1, gp=2,
+                     model={"kwargs": dict(num_blocks=15, channels=32), "state": save("s", small)},
+                     cfg=dict(batch_size=1, mask_rate=0.95, criterion="mse"),
+                     stats=dict(norm_type="znorm", mean=50.0, std=10.0),
+                     x=fx["x"], mask=fx["mask"], acts=True),
+                dict(kind="dist_pair", name="large", net="bigtown", dp=1, gp=2,
+                     model={"kwargs": dict(num_blocks=depth, channels=128, attn_impl="factored"),
+                            "state": save("l", large)},
+                     cfg=dict(batch_size=8, mask_rate=0.95, criterion="mse"), stats=tstats,
+                     x=xb, mask=mask8, turns=1)]
+        # the references: GATRes-large's f32 and bf16 steps on the whole batch's edge list on
+        # one device (a padded batch without its padded tables: every layer takes the edge list)
+        g = dataclasses.replace(tpl.batch(8, mode="padded", device=dev), senders_dp=None,
+                                mask_dp=None, senders_dp_sl=None, mask_dp_sl=None,
+                                gcn_dp_sl=None, cheb_dp=None)
+        x = torch.as_tensor(xb.reshape(-1, 1), device=dev)     # as the ranks' step takes it
+        mk = torch.as_tensor(mask8.reshape(-1, 1), device=dev)
+        mf = mk.float()
+        ref = {}
+        for tag, dt in (("f32", None), ("bf16", torch.bfloat16)):
+            ref_model = GATRes(depth, 128, attn_impl="factored", dtype=dt).to(dev)
+            ref_model.load_state_dict(large.state_dict())
+            ref_model.train()
+            t0 = time.perf_counter()
+            ref_loss = (((ref_model(torch.where(mk, 0.0, x), g) - x) * mf) ** 2).sum() / mf.sum()
+            ref_loss.backward()
+            torch.cuda.synchronize()
+            ref[tag] = {"loss": float(ref_loss.detach()), "ms": (time.perf_counter() - t0) * 1e3,
+                        "grads": {k: p.grad.detach().clone()
+                                  for k, p in ref_model.named_parameters()}}
+            del ref_model, ref_loss
+        del g
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        two = launch_mesh(2, jobs, os.path.join(tmp, "g2"), timeout_s=600)
+        t_launch = time.perf_counter() - t0
+        by = {res["name"]: [two[r][i] for r in range(2)] for i, res in enumerate(two[0])}
+        for name, ranks in by.items():
+            for tag in ("f32", "bf16"):
+                for r, res in enumerate(ranks):
+                    launches_as_expected(f"{name} {tag} rank {r}", res[tag]["launches"], {})
+                for k, v in ranks[0][tag]["grads"].items():
+                    if not torch.equal(ranks[1][tag]["grads"][k], v):
+                        raise SystemExit(f"FAIL {name} {tag}: the ranks' gradient {k} differ")
+
+        # (a) GATRes-small against the JAX DistributedTrainer's step
+        s = by["small"][0]
+        acts = [torch.cat([by["small"][r]["bf16"]["acts"][i] for r in range(2)])[:n]
+                for i in range(15)]
+        errs = [float((acts[i] - torch.as_tensor(fx[f"act_block_{i}"])).abs().max())
+                for i in range(2)]
+        stat_errs = [abs(float(a.abs().max()) - float(fx["block_absmax"][i]))
+                     for i, a in enumerate(acts)]
+        if max(errs) > 1e-3:
+            raise SystemExit(f"FAIL GATRes-small 1×2 bf16: blocks 0-1 off by {errs}")
+        ref_l, l16, l32 = float(fx["loss"]), s["bf16"]["loss"], s["f32"]["loss"]
+        if abs(l16 - ref_l) >= abs(l32 - ref_l):
+            raise SystemExit(f"FAIL GATRes-small 1×2 bf16 loss {l16:.7f} no nearer the JAX bf16 "
+                             f"step's {ref_l:.7f} than the f32 step's {l32:.7f}")
+        top = max(float(np.abs(fx[f"grad_{k}"]).max()) for k in s["bf16"]["grads"])
+        worst = 0.0
+        for k, g16 in s["bf16"]["grads"].items():
+            r_ = torch.as_tensor(fx[f"grad_{k}"])
+            e16, e32 = float((g16 - r_).abs().max()), float((s["f32"]["grads"][k] - r_).abs().max())
+            worst = max(worst, e16 / (max(2 * e32, 2.0 ** -6 * float(r_.abs().max())) + 1e-4 * top))
+        if worst > 1.0:
+            raise SystemExit(f"FAIL GATRes-small 1×2 bf16 gradients at {worst:.0%} of the model rule")
+        out["small"] = dict(loss=l16, ref=ref_l, f32=l32, blocks=errs, grad_rule=worst,
+                            absmax_gap=stat_errs)
+        print(f"  GATRes-small, bigtown B 1, 1×2 ({os.path.relpath(fxp, REPO)}): loss {l16:.7f} "
+              f"(JAX bf16 {ref_l:.7f}, f32 step {l32:.7f}, JAX f32 {float(fx['f32_loss']):.7f}); "
+              f"blocks 0-1 within {max(errs):.2e}; each block's max |act| within "
+              f"{max(stat_errs):.2e} of the JAX block's; gradients at {worst:.1%} of the model "
+              f"rule; the ranks' gradients bit-equal, no kernel launched")
+
+        # (b) GATRes-large at B 8: 1×2 against one device. f32 at the mesh gates of phase 48;
+        # bf16 at its loss gate, and its gradients at the bf16 model rule (the f32
+        # reassociation of the distributed sums flips bf16 roundings of the cotangents),
+        # their share of phase 48's gradient gate reported
+        rep = {}
+        for r, res in enumerate(by["large"]):
+            for tag in ("f32", "bf16"):
+                rel = abs(res[tag]["loss"] - ref[tag]["loss"]) / abs(ref[tag]["loss"])
+                if rel > 1e-5:
+                    raise SystemExit(f"FAIL GATRes-large 1×2 {tag} rank {r}: loss "
+                                     f"{res[tag]['loss']!r} against {ref[tag]['loss']!r} "
+                                     "(rtol 1e-5)")
+            f32_gate = grads_gate(f"GATRes-large 1×2 f32 rank {r}", res["f32"]["grads"],
+                                  ref["f32"]["grads"])
+            top = max(float(v.abs().max()) for v in ref["bf16"]["grads"].values())
+            rule = mesh_gate = 0.0
+            for k, r16 in ref["bf16"]["grads"].items():
+                e16 = float((res["bf16"]["grads"][k].to(r16.device) - r16).abs().max())
+                e32 = float((res["f32"]["grads"][k].to(r16.device) - ref["f32"]["grads"][k])
+                            .abs().max())
+                rule = max(rule, e16 / (max(2 * e32, 2.0 ** -6 * float(r16.abs().max()))
+                                        + 1e-4 * top))
+                share = e16 / (1e-3 * float(r16.abs().max()) + 1e-6)
+                if share > mesh_gate:
+                    mesh_gate, worst_k = share, k
+            if not rule <= 1.0:
+                raise SystemExit(f"FAIL GATRes-large 1×2 bf16 rank {r}: gradients at {rule:.0%} of "
+                                 "the bf16 model rule")
+            rep[r] = dict(f32_gate=f32_gate, bf16_rule=rule, bf16_mesh_gate=mesh_gate,
+                          bf16_mesh_worst=worst_k)
+        ms = {tag: by["large"][0][tag]["ms"] for tag in ("f32", "bf16")}
+        w = max(rep.values(), key=lambda v: v["bf16_rule"])
+        out["large"] = dict(loss=by["large"][0]["bf16"]["loss"], ref=ref["bf16"]["loss"],
+                            f32_loss=by["large"][0]["f32"]["loss"], ref_f32=ref["f32"]["loss"],
+                            gates=rep, ms=ms, ref_ms={k: v["ms"] for k, v in ref.items()},
+                            peak_gb=by["large"][0]["peak_gb"])
+        print(f"  GATRes-large (trained, its first {depth} blocks), bigtown B 8, 1×2 against one "
+              f"device's edge-list step: "
+              f"bf16 loss {out['large']['loss']:.7f} (one device {ref['bf16']['loss']:.7f}), f32 "
+              f"{out['large']['f32_loss']:.7f} ({ref['f32']['loss']:.7f}), rtol 1e-5; f32 "
+              f"gradients at {max(v['f32_gate'] for v in rep.values()):.1%} of the mesh gate "
+              f"(1e-3·max|g| + 1e-6); bf16 gradients at {w['bf16_rule']:.1%} of the bf16 model "
+              f"rule, {w['bf16_mesh_gate']:.1%} of the mesh gate (reported; the farthest "
+              f"{w['bf16_mesh_worst']})")
+        print(f"  step ms in turns: f32 {ms['f32'][0]:.1f} / {ms['f32'][1]:.1f}, bf16 "
+              f"{ms['bf16'][0]:.1f} / {ms['bf16'][1]:.1f} (the one-device first calls: f32 "
+              f"{ref['f32']['ms']:.1f}, bf16 {ref['bf16']['ms']:.1f}); peak "
+              f"{out['large']['peak_gb']:.3f} GB a rank; the launch {t_launch:.1f} s [{card}]")
+
+        # (c) the command line
+        cmd = [sys.executable, "-m", "gnn_pressure_estimation_tpu_torch.cli", "train", "--model",
+               "gatres_small", "--dataset_paths", gen_zip, "--input_paths",
+               os.path.join(REPO, "inputs", "bigtown.inp"), "--batch_size", "8", "--num_trains",
+               "8", "--epochs", "1", "--mask_rate", "0.95", "--activation_dtype", "bfloat16",
+               "--save_path", os.path.join(tmp, "cli"), "--variant", "bf16", "--distributed",
+               "--coordinator", f"127.0.0.1:{free_port()}", "--num_processes", "2", "--mesh",
+               "1,2", *device_flags]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd + ["--process_id", str(i)], cwd=REPO) for i in range(2)]
+        try:
+            codes = [p.wait(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        out["cli_s"] = time.perf_counter() - t0
+        if codes != [0, 0] or not os.path.exists(os.path.join(tmp, "cli",
+                                                              "last_gatres_small_bf16.ckpt")):
+            raise SystemExit(f"FAIL cli train --distributed --activation_dtype bfloat16: exit "
+                             f"codes {codes}")
+        print(f"  cli train --distributed --activation_dtype bfloat16 --mesh 1,2 (gatres_small, "
+              f"phase 33's store, one epoch of 8): both processes exit 0 in {out['cli_s']:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def slice21_phases(dev, card, reset_launches, read_launches, counts, big, kept) -> dict:
+    """Phases 56-58 (``kept``: the directory that holds phase 33's store and
+    INI). Returns each phase's numbers and seconds, and the kernels' launches
+    of phase 56's serving batches."""
+    out, phase_s = {}, {}
+    gen_zip, ini = os.path.join(kept, "bigtown.zip"), os.path.join(kept, "bigtown.ini")
+    t0 = time.perf_counter()
+    out["codecs"] = codec_phase(dev, card, reset_launches, read_launches, counts, big["npz"],
+                                gen_zip)
+    phase_s[56] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["oracles"] = oracle_phase(card, ini, gen_zip)
+    phase_s[57] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["edgelist_bf16"] = edgelist_bf16_phase(dev, card, big, gen_zip)
+    phase_s[58] = time.perf_counter() - t0
+    out["phase_s"] = phase_s
+    print(f"  phases 56-58 took {', '.join(f'{k}: {v:.1f} s' for k, v in phase_s.items())}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6319,12 +6851,17 @@ def main() -> int:
     s11 = bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, counts, big,
                       mega["tpl"])
     eval_phases(dev, card, reset_launches, read_launches, counts, npz)
-    cli_phases(dev, card, reset_launches, read_launches, counts, npz)
+    kept = tempfile.mkdtemp(prefix="chip_smoke_store_")     # phase 33's store, for 56-58
+    cli_phases(dev, card, reset_launches, read_launches, counts, npz, keep=kept)
     zoo = zoo_phases(dev, card, held, reset_launches, read_launches, counts)
     _NETS.setdefault("bigtown", tpl)
     mesh_kernel_phase(dev, held)
     mesh = mesh_phases(dev, card, big)
     knobs = knob_phases(dev, card, held, max_err, reset_launches, read_launches, counts, big)
+    try:
+        s21 = slice21_phases(dev, card, reset_launches, read_launches, counts, big, kept)
+    finally:
+        shutil.rmtree(kept, ignore_errors=True)
 
     kernels = []
     for name in band_wrappers:
@@ -6555,6 +7092,11 @@ def main() -> int:
     for k in kernels:
         if knobs["new_path"].get(k["name"]):
             k["knob_launches"] = knobs["new_path"][k["name"]]
+    # phase 56 serves two batches through the band pair (the codecs' reads)
+    for k in kernels:
+        if s21["codecs"]["launches"].get(k["name"]):
+            k["codec_launches"] = s21["codecs"]["launches"][k["name"]]
+    print("  phases 56-58: " + json.dumps(s21, default=str))
     print("  phases 51-55: " + json.dumps({k: knobs[k] for k in (
         "synthctown", "bigtown_small", "band_factored", "gemm", "precision", "fit_fast",
         "dense_turns", "bigtown_small_turns")}, default=str))

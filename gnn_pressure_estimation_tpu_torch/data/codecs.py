@@ -27,19 +27,30 @@ reference's own encoding).  The LZ4 encoder is a simple greedy hash-table
 matcher — valid, deterministic, not ratio-optimal.  Throughput is test/IO
 grade (storage is not the compute path; SURVEY §2.3).
 
-A copy of ``gnn_pressure_estimation_tpu/data/codecs.py`` without its native
-fast path (``data/native/codecs.cpp``): the Python codecs, the JAX package's
-fallback and behavioural reference, are the only ones here, so reading a
-store builds no library and the PyTorch package imports nothing of the JAX
-package.
+A copy of ``gnn_pressure_estimation_tpu/data/codecs.py`` with its native
+fast path: the LZ4 block codec and the byte shuffle of
+``data/native/codecs.cpp`` (a copy of the JAX package's source and Makefile,
+a plain C ABI through ``ctypes``), built at first use into the package's
+``_build/`` by ``native_build``, as the hydraulic solver is. The Python
+codecs stay, as the fallback and the behavioural reference. Without a
+compiler the Python path serves, after one warning that carries make's
+output; :func:`backend` says which path serves and :func:`set_backend`
+chooses one (``"native"`` raises if the library cannot be built).
 """
 
 from __future__ import annotations
 
+import ctypes as ct
 import struct
+import threading
+import warnings
 import zlib
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
+
+from gnn_pressure_estimation_tpu_torch import native_build
 
 # c-blosc1 flag bits / codec ids
 _DOSHUFFLE = 0x1
@@ -52,11 +63,102 @@ _MIN_BUFFERSIZE = 128
 
 
 # ---------------------------------------------------------------------------
+# native fast path (data/native/codecs.cpp, plain C ABI via ctypes — same
+# pattern as the hydraulic solver; Python implementations below remain the
+# always-available fallback and the behavioral reference)
+# ---------------------------------------------------------------------------
+
+SRC_DIR = Path(__file__).resolve().parent / "native"
+_FILES = ("codecs.cpp", "Makefile")
+_lock = threading.Lock()
+_NATIVE = None
+_NATIVE_TRIED = False
+_BACKEND = {"impl": None}  # None: native when it builds | "native" | "python"
+
+
+def library_path() -> Path:
+    return native_build.library_path(SRC_DIR, "libcodecs", _FILES)
+
+
+def build() -> Path:
+    """Build ``libcodecs`` for this source and host if it is not built;
+    raises ``RuntimeError`` with make's output if the build fails."""
+    return native_build.build(SRC_DIR, "libcodecs", _FILES)
+
+
+def _load(strict: bool = False):
+    """The loaded library; after a failed build None and one warning, or
+    with ``strict`` the build's ``RuntimeError``."""
+    global _NATIVE, _NATIVE_TRIED
+    with _lock:
+        if _NATIVE is not None or (_NATIVE_TRIED and not strict):
+            return _NATIVE
+        _NATIVE_TRIED = True
+        try:
+            lib = ct.CDLL(str(build()))
+        except (OSError, RuntimeError) as e:
+            if strict:
+                raise RuntimeError(f"the native codecs are unavailable: {e}") from e
+            warnings.warn(f"native codecs unavailable, the Python codecs serve: {e}",
+                          RuntimeWarning, stacklevel=3)
+            return None
+        lib.lz4_block_decompress.restype = ct.c_int
+        lib.lz4_block_decompress.argtypes = [ct.c_char_p, ct.c_int,
+                                             ct.c_void_p, ct.c_int]
+        lib.lz4_block_compress.restype = ct.c_int
+        lib.lz4_block_compress.argtypes = [ct.c_char_p, ct.c_int,
+                                           ct.c_void_p, ct.c_int]
+        for f in (lib.byte_shuffle, lib.byte_unshuffle):
+            f.restype = None
+            f.argtypes = [ct.c_char_p, ct.c_void_p, ct.c_int, ct.c_int]
+        _NATIVE = lib
+        return lib
+
+
+def _native():
+    if _BACKEND["impl"] == "python":
+        return None
+    return _load()
+
+
+def backend() -> str:
+    """``"native"`` when the C codecs serve, else ``"python"``."""
+    return "python" if _native() is None else "native"
+
+
+def set_backend(name: Optional[str]) -> None:
+    """Force ``"native"`` (raises ``RuntimeError`` if the library cannot be
+    built) or ``"python"``; None resets to the default, native when it
+    builds."""
+    if name not in (None, "native", "python"):
+        raise ValueError(f"codec backend {name!r}: None, 'native' or 'python'")
+    if name == "native":
+        _load(strict=True)
+    _BACKEND["impl"] = name
+
+
+# ---------------------------------------------------------------------------
 # LZ4 block format
 # ---------------------------------------------------------------------------
 
 def lz4_decompress(src: bytes, dest_size: int) -> bytes:
     """Decode one LZ4 *block* (not frame) into exactly ``dest_size`` bytes."""
+    lib = _native()
+    if lib is not None:
+        dst = ct.create_string_buffer(max(dest_size, 1))
+        got = lib.lz4_block_decompress(src, len(src), dst, dest_size)
+        if got != dest_size:
+            raise ValueError(
+                f"LZ4 block decoded {got} bytes, expected {dest_size}"
+            )
+        return dst.raw[:dest_size]
+    return _lz4_decompress_py(src, dest_size)
+
+
+def _lz4_decompress_py(src: bytes, dest_size: int) -> bytes:
+    # the bounds checks are the native decoder's: a truncated block or one
+    # that overruns dest_size raises, as every other corrupt block does
+    truncated = "corrupt LZ4 block: truncated or past its decoded size"
     dst = bytearray(dest_size)
     si, di, n = 0, 0, len(src)
     while si < n:
@@ -66,18 +168,24 @@ def lz4_decompress(src: bytes, dest_size: int) -> bytes:
         lit = token >> 4
         if lit == 15:
             while True:
+                if si >= n:
+                    raise ValueError(truncated)
                 b = src[si]
                 si += 1
                 lit += b
                 if b != 255:
                     break
         if lit:
+            if si + lit > n or di + lit > dest_size:
+                raise ValueError(truncated)
             dst[di : di + lit] = src[si : si + lit]
             si += lit
             di += lit
         if si >= n:
             break  # last sequence: literals only
         # match
+        if si + 2 > n:
+            raise ValueError(truncated)
         offset = src[si] | (src[si + 1] << 8)
         si += 2
         if offset == 0:
@@ -85,6 +193,8 @@ def lz4_decompress(src: bytes, dest_size: int) -> bytes:
         mlen = (token & 0xF) + 4
         if (token & 0xF) == 15:
             while True:
+                if si >= n:
+                    raise ValueError(truncated)
                 b = src[si]
                 si += 1
                 mlen += b
@@ -93,6 +203,8 @@ def lz4_decompress(src: bytes, dest_size: int) -> bytes:
         ref = di - offset
         if ref < 0:
             raise ValueError("corrupt LZ4 block: offset before start")
+        if di + mlen > dest_size:
+            raise ValueError(truncated)
         if offset >= mlen:
             dst[di : di + mlen] = dst[ref : ref + mlen]
             di += mlen
@@ -123,6 +235,18 @@ def lz4_compress(src: bytes) -> bytes:
     Honors the format's end-of-block rules: the final 5 bytes are always
     literals and no match starts within the last 12 bytes.
     """
+    lib = _native()
+    if lib is not None:
+        cap = len(src) + len(src) // 255 + 64
+        dst = ct.create_string_buffer(cap)
+        got = lib.lz4_block_compress(src, len(src), dst, cap)
+        if got > 0:
+            return dst.raw[:got]
+        # fall through on capacity failure (shouldn't happen)
+    return _lz4_compress_py(src)
+
+
+def _lz4_compress_py(src: bytes) -> bytes:
     n = len(src)
     out = bytearray()
     if n == 0:
@@ -172,10 +296,22 @@ def lz4_compress(src: bytes) -> bytes:
 # byte shuffle
 # ---------------------------------------------------------------------------
 
+def _native_shuffle(fn_name: str, data: bytes, typesize: int):
+    lib = _native()
+    if lib is None:
+        return None
+    dst = ct.create_string_buffer(max(len(data), 1))
+    getattr(lib, fn_name)(data, dst, len(data), typesize)
+    return dst.raw[: len(data)]
+
+
 def shuffle_bytes(data: bytes, typesize: int) -> bytes:
     """c-blosc byte shuffle: group byte k of every item together."""
     if typesize <= 1 or len(data) < typesize:
         return bytes(data)
+    native = _native_shuffle("byte_shuffle", data, typesize)
+    if native is not None:
+        return native
     n_items = len(data) // typesize
     body = n_items * typesize
     a = np.frombuffer(data[:body], np.uint8).reshape(n_items, typesize)
@@ -185,6 +321,9 @@ def shuffle_bytes(data: bytes, typesize: int) -> bytes:
 def unshuffle_bytes(data: bytes, typesize: int) -> bytes:
     if typesize <= 1 or len(data) < typesize:
         return bytes(data)
+    native = _native_shuffle("byte_unshuffle", data, typesize)
+    if native is not None:
+        return native
     n_items = len(data) // typesize
     body = n_items * typesize
     a = np.frombuffer(data[:body], np.uint8).reshape(typesize, n_items)

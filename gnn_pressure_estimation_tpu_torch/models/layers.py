@@ -357,7 +357,13 @@ class GATConv(nn.Module):
             logits = _lrelu(segment.gather_src(a_s, edges, ax) + segment.gather(a_d, edges),
                             self.negative_slope)
             alpha = segment.segment_softmax(logits.float(), edges, emask).to(xp.dtype)  # [E, H]
-            out = segment.spmm(xp.float(), edges, alpha.float(), ax, emask).to(xp.dtype)
+            if act:
+                # the JAX spmm in bf16: each message w·x rounded, then XLA's
+                # bf16 scatter-add, which rounds its running sum after each add
+                msgs = segment.gather_src(xp.float(), edges, ax) * alpha.float()[..., None]
+                out = segment.segment_sum_bf16(msgs.to(xp.dtype), edges, emask)
+            else:
+                out = segment.spmm(xp, edges, alpha, ax, emask)
         out = out.reshape(-1, H, C)
         out = out.reshape(-1, H * C) if self.concat else out.mean(dim=1)
         if act:

@@ -157,6 +157,29 @@ class _SegmentSum(torch.autograd.Function):
         return g[idx], None, None, None
 
 
+class _SegmentSumBf16(torch.autograd.Function):
+    """The slot sum of bf16 messages as XLA adds them in a bf16 scatter-add:
+    each node's messages in edge order, the sum rounded to bf16 after each
+    add (the first message stands as it is). Backward: the transpose of a
+    sum, the node cotangent gathered back to each edge."""
+
+    @staticmethod
+    def forward(ctx, data, idx, slots, mask):
+        ctx.save_for_backward(idx)
+        m = mask.reshape(mask.shape + (1,) * (data.dim() - 1))
+        got = torch.where(m, data[slots], 0.0).float()           # [N, D, ...], bf16 values
+        acc = got[:, 0]
+        for d in range(1, got.shape[1]):
+            acc = (acc + got[:, d]).to(torch.bfloat16).float()
+        return acc.to(torch.bfloat16)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return g[idx], None, None, None
+
+
 class _SegmentMax(torch.autograd.Function):
     """Each node's maximum over its incoming edges (a node with none gets
     −inf). Backward: the node cotangent goes to the edges that hold the
@@ -223,6 +246,16 @@ def segment_sum(data: torch.Tensor, edges: EdgeSlots) -> torch.Tensor:
     """Σ over each node's incoming edges, [E, ...] → [N, ...]; a node with
     none gets zeros."""
     return _SegmentSum.apply(data, edges.receivers, edges.in_slots, edges.in_mask)
+
+
+def segment_sum_bf16(data: torch.Tensor, edges: EdgeSlots,
+                     edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`segment_sum` of bf16 messages rounded as the JAX package's
+    bf16 ``segment_sum`` rounds under jit: a running sum in edge order,
+    rounded to bf16 after each add; [E, ...] → [N, ...] in bf16.
+    ``edge_mask`` False zeroes an edge's message."""
+    return _SegmentSumBf16.apply(_masked(data, edge_mask), edges.receivers, edges.in_slots,
+                                 edges.in_mask)
 
 
 def segment_mean(data: torch.Tensor, edges: EdgeSlots) -> torch.Tensor:

@@ -3,19 +3,14 @@
 The counterpart of ``gnn_pressure_estimation_tpu/simgen/solver_cpp.py``, over
 a copy of its source and Makefile (g++ only; no pybind11 dependency — plain C
 ABI). The library is built at first use with that Makefile into the
-package's ``_build/`` (listed in ``.gitignore``), not beside the source,
-under a name that carries the hash of the source, the Makefile and the host's
-CPU: the Makefile builds with ``-march=native``, so a build made on one host
-is never loaded on another, and an edited source is rebuilt at its next use.
+package's ``_build/`` by ``native_build``, not beside the source, under a
+name that carries the hash of the source, the Makefile and the host's CPU.
 A failed build means no cpp backend, never a stale one.
 """
 
 from __future__ import annotations
 
 import ctypes as ct
-import hashlib
-import os
-import platform
 import subprocess
 import threading
 from pathlib import Path
@@ -23,11 +18,13 @@ from typing import Optional
 
 import numpy as np
 
+from gnn_pressure_estimation_tpu_torch import native_build
 from gnn_pressure_estimation_tpu_torch.simgen import solver_py
 from gnn_pressure_estimation_tpu_torch.simgen.network_state import NetworkState
 
 SRC_DIR = Path(__file__).resolve().parent / "solver"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+BUILD_DIR = native_build.BUILD_DIR
+_FILES = ("hydraulic.cpp", "Makefile")
 
 _lock = threading.Lock()
 _LIB: Optional[ct.CDLL] = None
@@ -38,40 +35,14 @@ _ip = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _bp = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 
 
-def _host_cpu() -> bytes:
-    """The CPU model and flags the ``-march=native`` build is made for."""
-    try:
-        with open("/proc/cpuinfo", "rb") as f:
-            lines = [ln for ln in f.read().split(b"\n\n")[0].splitlines()
-                     if ln.startswith((b"model name", b"flags"))]
-        return b"\n".join(lines)
-    except OSError:
-        return platform.processor().encode()
-
-
 def library_path() -> Path:
-    src = b"".join((SRC_DIR / f).read_bytes() for f in ("hydraulic.cpp", "Makefile"))
-    digest = hashlib.sha256(src + _host_cpu()).hexdigest()[:16]
-    return BUILD_DIR / f"libhydraulic-{digest}.so"
+    return native_build.library_path(SRC_DIR, "libhydraulic", _FILES)
 
 
 def build() -> Path:
     """Build the library if this source has no build for this host yet;
     raises if ``make`` fails. Returns its path."""
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    # TARGET on the command line overrides the Makefile's own (beside the source)
-    proc = subprocess.run(["make", "-C", str(SRC_DIR), "-s", "-B", f"TARGET={tmp}"],
-                          capture_output=True, text=True, timeout=180)
-    if proc.returncode != 0 or not tmp.exists():
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"hydraulic solver build failed (make exit {proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
-    return so
+    return native_build.build(SRC_DIR, "libhydraulic", _FILES)
 
 
 def _load() -> Optional[ct.CDLL]:

@@ -2,11 +2,14 @@
 package's: a store written by either package reads the same in the other,
 and the codecs give the same bytes.
 
-The port keeps only the JAX package's Python codecs, its fallback and
-behavioural reference. The JAX package's native LZ4 encoder
-(``data/native/codecs.cpp``), when built, makes other (equally valid) matches
-on some inputs, so byte equality is held with that native path switched off
-(``python_codecs``), and the native path's frames must decode in the port."""
+Both packages encode through their native LZ4 encoder
+(``data/native/codecs.cpp``, the port's a copy of the JAX package's) when it
+is built, and through their Python codecs otherwise. The two encoders make
+other (equally valid) matches on some inputs, so byte equality is held
+path for path: with both packages on their Python codecs
+(``python_codecs``), and with both on their native ones
+(``test_native_written_entries_equal_jax``); either path's frames must
+decode in the other package."""
 
 import os
 
@@ -24,9 +27,16 @@ from gnn_pressure_estimation_tpu_torch.data.zarrzip import zip_directory_store
 PACKAGES = {"jax": (JaxWriter, JaxReader), "port": (ZarrZipWriter, ZarrZipReader)}
 
 
+def on_python_codecs(monkeypatch):
+    """Both packages on their Python codecs until the test ends."""
+    monkeypatch.setattr(jcodecs, "_native", lambda: None)
+    monkeypatch.setitem(codecs._BACKEND, "impl", None)
+    codecs.set_backend("python")
+
+
 @pytest.fixture
 def python_codecs(monkeypatch):
-    monkeypatch.setattr(jcodecs, "_native", lambda: None)
+    on_python_codecs(monkeypatch)
 
 
 def arrays(seed=0):
@@ -89,6 +99,22 @@ def test_written_entries_equal_jax(tmp_path, compressor, python_codecs):
             assert j.read(name) == p.read(name), name
 
 
+@pytest.mark.parametrize("compressor", [None, "zlib", "blosc"])
+def test_native_written_entries_equal_jax(tmp_path, compressor):
+    """The two writers on their native codecs put the same bytes under the
+    same keys."""
+    import zipfile
+
+    assert jcodecs._native() is not None and codecs.backend() == "native"
+    data = arrays(1)
+    write_store(JaxWriter, str(tmp_path / "j.zip"), compressor, data)
+    write_store(ZarrZipWriter, str(tmp_path / "p.zip"), compressor, data)
+    with zipfile.ZipFile(tmp_path / "j.zip") as j, zipfile.ZipFile(tmp_path / "p.zip") as p:
+        assert j.namelist() == p.namelist()
+        for name in j.namelist():
+            assert j.read(name) == p.read(name), name
+
+
 def test_directory_store_zipped(tmp_path):
     data = arrays(2)
     src = str(tmp_path / "dir_store")
@@ -121,7 +147,7 @@ def test_lz4_bytes_equal_jax(name, monkeypatch):
     data = payloads()[name]
     native = jcodecs.lz4_compress(data)             # the native encoder's, when built
     assert codecs.lz4_decompress(native, len(data)) == data
-    monkeypatch.setattr(jcodecs, "_native", lambda: None)
+    on_python_codecs(monkeypatch)
     comp = codecs.lz4_compress(data)
     assert comp == jcodecs.lz4_compress(data)
     assert codecs.lz4_decompress(comp, len(data)) == data
@@ -146,7 +172,7 @@ def test_blosc_frames_equal_jax(codec, typesize, shuffle, monkeypatch):
     data = data[: len(data) // typesize * typesize] + b"\x07" * typesize
     native = jcodecs.blosc_compress(data, typesize, codec=codec, do_shuffle=shuffle)
     assert codecs.blosc_decompress(native) == data
-    monkeypatch.setattr(jcodecs, "_native", lambda: None)
+    on_python_codecs(monkeypatch)
     frame = codecs.blosc_compress(data, typesize, codec=codec, do_shuffle=shuffle)
     assert frame == jcodecs.blosc_compress(data, typesize, codec=codec, do_shuffle=shuffle)
     assert codecs.blosc_decompress(frame) == data == jcodecs.blosc_decompress(frame)

@@ -3,7 +3,7 @@ and the multi-epoch block fit, from the JAX package on the CPU.
 
     python tools/parity_precision_export.py [--only NAME ...] [--seed N]
 
-Writes four files under ``artifacts/``, each beside a ``.log`` of what this
+Writes five files under ``artifacts/``, each beside a ``.log`` of what this
 script printed for it:
 
 ``parity_train_synthctown_act_bf16.npz``: synthctown (388 nodes, dense
@@ -50,6 +50,23 @@ padded graphs' rows zeroed), each epoch's train and validation loss and
 metrics (``train_loss``, ``val_loss``, ``val_metric_<name>``), the best
 epoch, and the final parameters (``final_<state_dict key>``).
 
+``parity_dist_bigtown_small_act_bf16.npz``: one step of the JAX
+``DistributedTrainer`` (the edge partition, ``parallel/distributed.py``) on
+a 1×2 mesh (dp 1, gp 2: two host devices, ``XLA_FLAGS`` gets
+``--xla_force_host_platform_device_count=2``), B 1, on bigtown with
+GATRes-small (15 blocks, nc 32) under ``dtype=bfloat16``: every GATConv
+takes the JAX layer's edge-list branch. The weights, ``x`` [1, n] and the
+mask [n] (drawn by the step's own ``batch_node_mask`` from
+``PRNGKey(seed)``, mask rate 0.95), stats znorm 50 / 10, criterion mse.
+Keys: the loss and the train metrics (``metric_<name>``), every gradient
+summed over the mesh (``grad_<state_dict key>``, handed back by
+``make_distributed_train_step`` itself through an optimizer whose state
+is the gradient it was given), the forward's output (``out``) and each
+block's output statistics over the real nodes (``block_absmax``,
+``block_mean``) and the first two blocks' outputs (``act_block_0``,
+``act_block_1``), in the template's node order; and the f32 model's
+``f32_loss``.
+
 All on the CPU with ``jax_default_matmul_precision="highest"``; the weights
 and snapshots are made from ``--seed`` (default 0).
 """
@@ -68,7 +85,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from parity_train_export import drawn_weights, flax_tree_from_npz, port_layout  # noqa: E402
 
 NAMES = ("train_synthctown_act_bf16", "train_bigtown_small_act_bf16",
-         "train_bigtown_small_band_factored", "fit_fast_synthctown")
+         "train_bigtown_small_band_factored", "fit_fast_synthctown",
+         "dist_bigtown_small_act_bf16")
 
 
 class Log:
@@ -91,6 +109,9 @@ def main() -> int:
                 "GNN_TPU_BAND_ACC", "GNN_TPU_BAND_DMA", "GNN_TPU_BAND_ATTN"):
         os.environ.pop(var, None)
 
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = flags + " --xla_force_host_platform_device_count=2"
     import jax
     import jax.numpy as jnp
 
@@ -228,6 +249,8 @@ def main() -> int:
                 log(f"  |band_factored − softmax| output, f32: "
                     f"{np.abs(payload['f32_out'] - soft['out']).max():.4g}")
             write(name, log, payload)
+        elif name == "dist_bigtown_small_act_bf16":
+            write(name, log, distributed_step(log, template("bigtown"), args.seed, stats))
         else:
             tpl = template("synthctown")
             n = tpl.n_node
@@ -287,6 +310,79 @@ def main() -> int:
                 f"{np.round(payload['val_loss'], 6)}")
             write(name, log, payload)
     return 0
+
+
+def distributed_step(log, tpl, seed: int, stats) -> dict:
+    """One B 1 step of the JAX ``DistributedTrainer`` at dp 1 / gp 2 with
+    GATRes-small under ``dtype=bfloat16`` (and the f32 model's loss): the
+    payload of ``parity_dist_bigtown_small_act_bf16.npz``."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from gnn_pressure_estimation_tpu.models.gatres import GATRes
+    from gnn_pressure_estimation_tpu.parallel import make_mesh
+    from gnn_pressure_estimation_tpu.parallel.distributed import (
+        DistributedTrainer, _dist_criterion, make_distributed_train_step,
+    )
+    from gnn_pressure_estimation_tpu.train.loop import TrainConfig
+    from gnn_pressure_estimation_tpu.utils.masking import batch_node_mask
+
+    n, nb = tpl.n_node, 15
+    rng = np.random.default_rng(seed + 1)
+    d = drawn_weights(rng, nb, 32)
+    x = rng.standard_normal((1, n)).astype(np.float32)
+    key = jax.random.PRNGKey(seed)
+    cfg = TrainConfig(batch_size=1, mask_rate=0.95, criterion="mse", seed=seed,
+                      donate_state=False)
+    mask = np.asarray(batch_node_mask(key, 1, n, cfg.mask_rate)).reshape(n)
+    mesh = make_mesh(dp=1, gp=2)
+    params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), flax_tree_from_npz(d))
+    # an optimizer whose state after a step is the gradient it was given
+    grads_tx = optax.GradientTransformation(
+        lambda p: jax.tree.map(jnp.zeros_like, p),
+        lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), g))
+    payload = {**d, "x": x, "mask": mask}
+    for tag, dt in (("", jnp.bfloat16), ("f32_", None)):
+        model = GATRes(num_blocks=nb, channels=32, dtype=dt)
+        dtr = DistributedTrainer(model, cfg, stats, tpl, mesh)
+        step, pack, part = make_distributed_train_step(
+            model, grads_tx, mesh, tpl, dtr.batch_per_shard, cfg.mask_rate, stats,
+            _dist_criterion(cfg.criterion))
+        t0 = time.time()
+        _, grads, loss, mets = step(params, grads_tx.init(params), pack(x), key)
+        log(f"  DistributedTrainer 1×2 B 1, dtype {dt}: loss {float(loss):.8g} "
+            f"({time.time() - t0:.1f} s, partition block {part.block})")
+        if tag:
+            payload[f"{tag}loss"] = np.float64(loss)
+            continue
+        payload["loss"] = np.float64(loss)
+        payload.update({f"metric_{k}": np.float64(v) for k, v in mets.items()})
+        payload.update({f"grad_{k}": v for k, v in
+                        port_layout(jax.tree.map(np.asarray, grads)).items()})
+        garr = part.device_arrays()
+        xspec = P(("data", "graph"))
+
+        def local_forward(p, xl, ml, arrs, model=model, part=part):
+            out, st = model.apply(p, jnp.where(ml[:, None], 0.0, xl), part.local_graph(arrs),
+                                  capture_intermediates=True, mutable=["intermediates"])
+            return out, [st["intermediates"][f"block_{i}"]["__call__"][0] for i in range(nb)]
+
+        fwd = jax.jit(shard_map(local_forward, mesh=mesh,
+                                in_specs=(P(), xspec, xspec, {k: P("graph") for k in garr}),
+                                out_specs=(xspec, [xspec] * nb), check_vma=False))
+        mk = np.zeros(2 * part.block, bool)
+        mk[:n] = mask
+        out, acts = fwd(params, pack(x), jnp.asarray(mk), garr)
+        acts = [np.asarray(a)[:n] for a in acts]
+        payload.update(out=np.asarray(out)[:n], act_block_0=acts[0], act_block_1=acts[1],
+                       block_absmax=np.asarray([np.abs(a).max() for a in acts], np.float32),
+                       block_mean=np.asarray([a.mean(dtype=np.float64) for a in acts],
+                                             np.float32))
+        log(f"  block |act| max {np.round(payload['block_absmax'], 4)}")
+    return payload
 
 
 if __name__ == "__main__":
