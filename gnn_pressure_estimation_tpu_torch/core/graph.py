@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from gnn_pressure_estimation_tpu_torch.device import resolve_device
+from gnn_pressure_estimation_tpu_torch.utils import tracing
 
 
 def _sort_by_receiver(senders: np.ndarray, receivers: np.ndarray):
@@ -250,7 +251,8 @@ class GraphTemplate:
         if key not in self._band_cache:
             from gnn_pressure_estimation_tpu_torch.ops.banded import build_band_layout
 
-            self._band_cache[key] = build_band_layout(self, block=block, lane=lane)
+            with tracing.setup_span("graph.band_layout", block=block, lane=lane):
+                self._band_cache[key] = build_band_layout(self, block=block, lane=lane)
         return self._band_cache[key]
 
     def band_index(self, kind: str, block: Optional[int] = None):
@@ -264,7 +266,8 @@ class GraphTemplate:
         if key not in self._band_index_cache:
             from gnn_pressure_estimation_tpu_torch.ops.banded import build_band_index
 
-            self._band_index_cache[key] = build_band_index(getattr(bl, kind))
+            with tracing.setup_span("graph.band_index", kind=kind):
+                self._band_index_cache[key] = build_band_index(getattr(bl, kind))
         return self._band_index_cache[key]
 
     def batch(
@@ -292,6 +295,12 @@ class GraphTemplate:
         beyond). The JAX package chooses with ``GNN_TPU_BAND_FLASH=1``,
         ``GNN_TPU_BAND_DMA=0`` and ``GNN_TPU_BAND_ACC=1``; here it is an
         argument.
+
+        A batch built is the span ``graph.batch`` (attributes ``B``,
+        ``mode``, ``route``); one found in the cache records nothing. A
+        banded template's first batch chooses its route from the layout, so
+        the layout's span (``graph.band_layout``) then comes before the
+        batch's, not inside it.
         """
         dev = resolve_device(device)
         if mode is None:
@@ -320,7 +329,8 @@ class GraphTemplate:
 
         # the graph is cached and shared: built outside inference mode even when
         # a serving call asks first, so a later train step can save its tensors
-        with torch.inference_mode(False):
+        with (tracing.setup_span("graph.batch", B=batch_size, mode=mode, route=band_attn),
+              torch.inference_mode(False)):
             g = self._build_batch(batch_size, mode, band_block, dev, band_attn)
         self._batch_cache[key] = g
         return g

@@ -28,6 +28,7 @@ import numpy as np
 from gnn_pressure_estimation_tpu_torch.core.graph import GraphTemplate
 from gnn_pressure_estimation_tpu_torch.data.inp import WaterNetwork, parse_inp
 from gnn_pressure_estimation_tpu_torch.data.zarrzip import ZarrZipReader
+from gnn_pressure_estimation_tpu_torch.utils import tracing
 from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats, scale_edges_with, scale_with
 
 REMOVALS = ("keep_list", "reservoir", "tank", "keep_junction", "keep_all")
@@ -67,18 +68,20 @@ def build_template(
     name: str = "wdn",
 ) -> tuple[GraphTemplate, list[str]]:
     """GraphTemplate over the kept node subset, with per-directed-edge
-    attributes gathered from link attributes (diameter/length/...)."""
-    n_kept, senders, receivers, kept_names, link_ids = wn.to_edges(keep_list)
-    edge_attr = None
-    if edge_attrs:
-        per_link = np.stack(
-            [wn.link_attribute(a) for a in edge_attrs], axis=1
-        )  # [n_links, d]
-        edge_attr = per_link[link_ids].astype(np.float32)  # [n_directed_edges, d]
-    tpl = GraphTemplate(
-        n_kept, senders, receivers, edge_attr=edge_attr,
-        node_names=kept_names, name=name,
-    )
+    attributes gathered from link attributes (diameter/length/...); the span
+    ``template.build``."""
+    with tracing.setup_span("template.build"):
+        n_kept, senders, receivers, kept_names, link_ids = wn.to_edges(keep_list)
+        edge_attr = None
+        if edge_attrs:
+            per_link = np.stack(
+                [wn.link_attribute(a) for a in edge_attrs], axis=1
+            )  # [n_links, d]
+            edge_attr = per_link[link_ids].astype(np.float32)  # [n_directed_edges, d]
+        tpl = GraphTemplate(
+            n_kept, senders, receivers, edge_attr=edge_attr,
+            node_names=kept_names, name=name,
+        )
     return tpl, kept_names
 
 

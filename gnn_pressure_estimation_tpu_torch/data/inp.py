@@ -28,6 +28,8 @@ from typing import Optional
 
 import numpy as np
 
+from gnn_pressure_estimation_tpu_torch.utils import tracing
+
 # node type codes
 JUNCTION, RESERVOIR, TANK = 0, 1, 2
 # link type codes
@@ -242,7 +244,12 @@ def _tokens(line: str) -> list[str]:
 
 
 def parse_inp(path_or_text: str) -> WaterNetwork:
-    """Parse an INP file path or raw INP text."""
+    """Parse an INP file path or raw INP text (the span ``inp.parse``)."""
+    with tracing.setup_span("inp.parse"):
+        return _parse_inp(path_or_text)
+
+
+def _parse_inp(path_or_text: str) -> WaterNetwork:
     if "\n" in path_or_text or "[" == path_or_text.lstrip()[:1]:
         text = path_or_text
     else:

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from gnn_pressure_estimation_tpu_torch.device import resolve_device
+from gnn_pressure_estimation_tpu_torch.utils import tracing
 from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats, descale_with, scale_with
 
 
@@ -156,39 +157,62 @@ class Inferencer:
         the k observed nodes only), in physical units unless ``scaled``.
         ``with_truth`` treats full-width ``values`` as ground truth for
         hidden-node error metrics.
+
+        Spans (``utils.tracing``): ``infer`` (attributes ``S``,
+        ``batch_size``, ``observed``) over ``infer.scale`` (widen, scale,
+        mask on the host); per chunk ``infer.upload`` (graph lookup, upload,
+        node packing; ``h2d_bytes``), ``infer.forward`` (model, descale,
+        unpacking, enqueued) and ``infer.readback`` (the host waits for the
+        fields; ``d2h_bytes``); and ``infer.serve`` (metrics, readings
+        served, the result).
         """
         n = template.n_node
         values = np.atleast_2d(np.asarray(values, np.float32))
         S = values.shape[0]
-        obs = np.zeros(n, bool)
-        obs[np.asarray(observed_idx, int)] = True
-        k = int(obs.sum())
+        with tracing.span("infer", S=S, batch_size=batch_size) as root:
+            with tracing.span("infer.scale"):
+                obs = np.zeros(n, bool)
+                obs[np.asarray(observed_idx, int)] = True
+                k = int(obs.sum())
+                root.set(observed=k)
 
-        if values.shape[1] == n:
-            full = values
-        elif values.shape[1] == k:
-            full = np.zeros((S, n), np.float32)
-            full[:, obs] = values
-        else:
-            raise ValueError(f"values width {values.shape[1]} is neither n={n} nor k={k}")
-        truth = full if (with_truth and values.shape[1] == n) else None
+                if values.shape[1] == n:
+                    full = values
+                elif values.shape[1] == k:
+                    full = np.zeros((S, n), np.float32)
+                    full[:, obs] = values
+                else:
+                    raise ValueError(f"values width {values.shape[1]} is neither n={n} nor k={k}")
+                truth = full if (with_truth and values.shape[1] == n) else None
 
-        scaled_full = full if scaled else np.asarray(scale_with(full, self.stats), np.float32)
-        x_obs = np.where(obs[None, :], scaled_full, 0.0).astype(np.float32)
+                scaled_full = full if scaled else np.asarray(scale_with(full, self.stats),
+                                                             np.float32)
+                x_obs = np.where(obs[None, :], scaled_full, 0.0).astype(np.float32)
 
-        preds = np.empty((S, n), np.float32)
-        for lo in range(0, S, batch_size):
-            chunk = x_obs[lo:lo + batch_size]
-            bs = chunk.shape[0]
-            graph = self._graph(template, bs)
-            x = torch.from_numpy(chunk.reshape(-1, 1)).to(self.device)
-            if graph.banded:
-                x = graph.pack_nodes(x, n)
-            out = descale_with(self.model(x, graph), self.stats)
-            if graph.banded:
-                out = graph.unpack_nodes(out, n)
-            preds[lo:lo + bs] = out.reshape(bs, -1)[:, :n].cpu().numpy()
+            preds = np.empty((S, n), np.float32)
+            for lo in range(0, S, batch_size):
+                chunk = x_obs[lo:lo + batch_size]
+                bs = chunk.shape[0]
+                with tracing.span("infer.upload", h2d_bytes=chunk.nbytes):
+                    graph = self._graph(template, bs)
+                    x = torch.from_numpy(chunk.reshape(-1, 1)).to(self.device)
+                    if graph.banded:
+                        x = graph.pack_nodes(x, n)
+                with tracing.span("infer.forward"):
+                    out = descale_with(self.model(x, graph), self.stats)
+                    if graph.banded:
+                        out = graph.unpack_nodes(out, n)
+                    out = out.reshape(bs, -1)[:, :n]
+                with tracing.span("infer.readback", d2h_bytes=out.numel() * out.element_size()):
+                    preds[lo:lo + bs] = out.cpu().numpy()
 
+            with tracing.span("infer.serve"):
+                return self._serve(template, preds, full, obs, k, truth, scaled)
+
+    def _serve(self, template, preds, full, obs, k, truth, scaled) -> InferenceResult:
+        """The result from the model's fields ``preds``: hidden-node metrics
+        where ``truth`` is given, observed nodes served at their readings."""
+        n = template.n_node
         if truth is not None and not scaled:
             true_phys = truth
         elif truth is not None:

@@ -19,6 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from gnn_pressure_estimation_tpu_torch.utils import tracing
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -82,11 +84,15 @@ def build_all(names=KERNELS) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built first if needed."""
+    """The kernel library ``name``, built first if needed. Opening a library
+    is the span ``kernels.open`` (attributes ``kernel`` and ``built``, 1
+    where ``nvcc`` ran); a library already open is returned as it is."""
     with _lock:
         if name not in _libs:
-            so = _target(name)
-            if not so.exists():
-                build_all((name,))
-            _libs[name] = ctypes.CDLL(str(so))
+            with tracing.setup_span("kernels.open", kernel=name, built=0) as sp:
+                so = _target(name)
+                if not so.exists():
+                    build_all((name,))
+                    sp.set(built=1)
+                _libs[name] = ctypes.CDLL(str(so))
         return _libs[name]

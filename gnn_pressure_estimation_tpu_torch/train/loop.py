@@ -50,6 +50,7 @@ from gnn_pressure_estimation_tpu_torch.train.checkpoint import load_checkpoint, 
 from gnn_pressure_estimation_tpu_torch.train.early_stopping import EarlyStopping
 from gnn_pressure_estimation_tpu_torch.train.precision import MATMUL_PRECISIONS, matmul_precision
 from gnn_pressure_estimation_tpu_torch.utils import metrics as metrics_mod
+from gnn_pressure_estimation_tpu_torch.utils import tracing
 from gnn_pressure_estimation_tpu_torch.utils.masking import (
     batch_node_mask, mask_from_uniform, masked_count,
 )
@@ -227,8 +228,16 @@ class Trainer:
         """``x``, ``y`` [N, 1] and ``mask`` [N] bool in the graph's node space
         → ``(loss, metrics, out)``. ``n_masked=None`` divides by the mask's own
         count (the float sum of 0/1 flags is exact)."""
+        out = self._masked_forward(graph, x, mask, prefix)
+        return (*self._loss_and_metrics(out, y, mask, n_masked, prefix), out)
+
+    def _masked_forward(self, graph, x, mask, prefix):
+        """The model on ``x`` with the masked nodes zeroed."""
         x_in = torch.where(mask[:, None], 0.0, x)
-        out = self.model(x_in, graph, training=(prefix == "train"))
+        return self.model(x_in, graph, training=(prefix == "train"))
+
+    def _loss_and_metrics(self, out, y, mask, n_masked, prefix):
+        """The masked loss of ``out`` against ``y`` and the descaled metrics."""
         st = self.stats
         if self.cfg.criterion in ("mse", "mae"):
             # mask-weighted: no gather on the hot path; metrics from masked
@@ -245,28 +254,34 @@ class Trainer:
                 mo = metrics_mod.masked_moments(
                     descale_with(out, st), descale_with(y, st), mask_f)
                 mets = metrics_mod.metrics_from_moments(mo, prefix)
-            return loss, mets, out
+            return loss, mets
         midx = torch.nonzero(mask, as_tuple=True)[0]
         yp, yt = out[midx], y[midx]
         loss = self.criterion(yp, yt)
         with torch.no_grad():
             mets = metrics_mod.compute_all(descale_with(yp, st), descale_with(yt, st), prefix)
-        return loss, mets, out
+        return loss, mets
 
     def _prepare(self, template, xb, mask, generator, required):
         """Host batch [bs, n] (+ an explicit [bs·n] mask, or a generator to
         draw one) → graph, x and mask on the device in the graph's node
-        space, and the fixed masked count."""
+        space, and the fixed masked count. The uploads are the span
+        ``train.upload`` (``h2d_bytes``: the snapshots, and the mask where it
+        is on the host): from pageable memory, so the host waits there for
+        the stream to drain."""
         xb = np.asarray(xb, np.float32)
         bs, n = xb.shape
         graph = self._batched_graph(template, bs)
         n_masked = bs * masked_count(n, self.cfg.mask_rate)
         if mask is None:
             mask = batch_node_mask(generator, bs, n, self.cfg.mask_rate,
-                                   required_idx=required, device=self.device)
+                                   required_idx=required, device=generator.device)
         else:
-            mask = torch.as_tensor(np.asarray(mask), dtype=torch.bool, device=self.device)
-        x = torch.as_tensor(xb.reshape(-1, 1), device=self.device)
+            mask = torch.as_tensor(np.asarray(mask), dtype=torch.bool)
+        mask_bytes = mask.numel() * mask.element_size() if mask.device.type == "cpu" else 0
+        with tracing.span("train.upload", h2d_bytes=xb.nbytes + mask_bytes):
+            mask = mask.to(self.device)
+            x = torch.as_tensor(xb.reshape(-1, 1), device=self.device)
         if graph.banded:
             # banded graphs run in RCM-permuted padded node space
             x = graph.pack_nodes(x, n)
@@ -277,26 +292,41 @@ class Trainer:
                    generator: Optional[torch.Generator] = None):
         """One optimizer step on the batch ``xb`` [bs, n] (scaled snapshots;
         the target is the unmasked field). Returns ``(loss, metrics)`` as
-        device tensors."""
-        graph, x, mask, n_masked = self._prepare(template, xb, mask, generator, None)
-        return self._train_on(graph, x, mask, n_masked)
+        device tensors.
+
+        Spans (``utils.tracing``): ``train_step`` over ``train.prepare``
+        (graph lookup, node packing, and the uploads of the snapshots and a
+        mask handed in as its child ``train.upload``) and :meth:`_train_on`'s."""
+        with tracing.span("train_step"):
+            with tracing.span("train.prepare"):
+                graph, x, mask, n_masked = self._prepare(template, xb, mask, generator, None)
+            return self._train_on(graph, x, mask, n_masked)
 
     def _train_on(self, graph, x, mask, n_masked):
         """The step on device tensors in the graph's node space, at the
-        configured matmul precision; ``n_masked=None``: the mask's count."""
+        configured matmul precision; ``n_masked=None``: the mask's count.
+        Spans: ``train.zero_grad``, ``train.forward`` (the model),
+        ``train.loss`` (masked loss and metrics), ``train.backward`` and
+        ``train.optimizer`` (gradient norms, clipping, the Adam step)."""
         self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
+        with tracing.span("train.zero_grad"):
+            self.optimizer.zero_grad(set_to_none=True)
         with matmul_precision(self.cfg.matmul_precision):
-            loss, mets, _ = self._masked_loss_and_metrics(graph, x, x, mask, n_masked, "train")
-            loss.backward()
-            params = [p for p in self.model.parameters() if p.grad is not None]
-            if self.cfg.log_gradient:
-                with torch.no_grad():
-                    mets = {**mets, "grad_norm": _global_norm(p.grad for p in params),
-                            **self._block_grad_norms()}
-            if self.autoclip is not None:
-                self.autoclip.clip_(params)
-            self.optimizer.step()
+            with tracing.span("train.forward"):
+                out = self._masked_forward(graph, x, mask, "train")
+            with tracing.span("train.loss"):
+                loss, mets = self._loss_and_metrics(out, x, mask, n_masked, "train")
+            with tracing.span("train.backward"):
+                loss.backward()
+            with tracing.span("train.optimizer"):
+                params = [p for p in self.model.parameters() if p.grad is not None]
+                if self.cfg.log_gradient:
+                    with torch.no_grad():
+                        mets = {**mets, "grad_norm": _global_norm(p.grad for p in params),
+                                **self._block_grad_norms()}
+                if self.autoclip is not None:
+                    self.autoclip.clip_(params)
+                self.optimizer.step()
         return loss.detach(), mets
 
     def _block_grad_norms(self) -> dict:
