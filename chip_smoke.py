@@ -3,7 +3,11 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; none is caught):
+Phases (any failure exits non-zero; none is caught). Every exact count of
+kernel launches below also counts GATConv's logit halves (``gat_logits``:
+one forward launch for each f32 GATConv on the card, one backward launch for
+each in a step's backward; none under ``plain_versions()`` or with bf16
+activations), besides the kernels it names:
 
 1. Require CUDA; print the card's name and power limit; turn TF32 off.
 2. Build the hand-written kernels (``csrc/*.cu``) for sm_90a; print each
@@ -332,7 +336,7 @@ backend, by the rule of ``parallel.mesh.choose_backend``):
     ``"flash"`` (50 + 25 launches a rank), against the single-device forward.
 48. synthctown GATRes-small, the graphs strategy at 2×1, B 32, through the
     fused factored kernels (30 + 30 launches a rank); ``DistributedTrainer``
-    at 1×2, B 8, the edge partition (no kernel).
+    at 1×2, B 8, the edge partition (no band or dense kernel).
 49. ``Evaluator(mesh=)`` at 1×2 on ``eval_bigtown.zip``'s test split, one
     clean trial, against the single-device ``Evaluator`` (same seeds, same
     masks).
@@ -398,7 +402,7 @@ The native codecs, the solver oracles and the edge list under bf16
     1e-6, flows 1e-4, atol 2e-3). Bigtown is too large for the root
     engine's dense numerical Jacobian: its size is printed instead.
 58. ``DistributedTrainer`` under bf16 activations on a 1×2 mesh of two gloo
-    ranks (the edge partition, no kernel): bigtown GATRes-small at B 1
+    ranks (the edge partition, no band or dense kernel): bigtown GATRes-small at B 1
     against ``parity_dist_bigtown_small_act_bf16.npz`` (the JAX
     ``DistributedTrainer`` at dp 1 / gp 2): blocks 0-1 within 1e-3, the
     loss nearer the fixture than the f32 step's, each gradient within the
@@ -413,13 +417,29 @@ The native codecs, the solver oracles and the edge list under bf16
     --activation_dtype bfloat16`` (gatres_small, two processes, ``--mesh
     1,2``) exits 0.
 
+GATConv's logit halves (``gat_logits_phase``; it runs alone as well, see its
+docstring):
+
+59. ``csrc/gat_logits.cu``'s registers and spills printed beside every other
+    instance's, the band-attention ones held to their recorded numbers; the
+    forward (a_s, a_d) and the backward (d xp, d att_src, d att_dst) against
+    their plain versions (atol and rtol 1e-4; d att, a sum over every row,
+    atol 1e-4 of its largest entry, its gap and the plain version's to the f64
+    sum printed) at bigtown B 32 (H·C 256 and 128), meganet B 8, the zoo's H 2
+    C 32 and H 1 C 1, H 3 C 33 and an xp off 16-byte alignment (the scalar
+    loads), each called twice with bit-equal results; times against the byte
+    bound (xp read once forward; xp and d xp_out read and d xp written once
+    backward) and the plain versions. Its launches are counted where the
+    main path runs it: 50 a forward in phases 4 and 5, 50 + 50 a step in
+    phase 7 (a) and the fit's exact counts in 7 (c), none in 7 (b).
+
 The last line is ``{"ok": true, "device": {...}}``; the ``kernels`` JSON line
-(all fifteen kernels, and the seven wrappers' bf16-operand instances and five
-logit-rounding instances as rows of their own; the rows the zoo launches carry
-``zoo_launches``, the band SpMM pair its times at the zoo's widths, the rows
-the mesh phases launch ``mesh_launches``, summed over their ranks, the rows
-phases 51-55 launch ``knob_launches``, those phase 56 launches
-``codec_launches``) and the ``nvidia-smi`` line come before it.
+(all fifteen kernels and the logit halves' pair, and the seven wrappers'
+bf16-operand instances and five logit-rounding instances as rows of their own;
+the rows the zoo launches carry ``zoo_launches``, the band SpMM pair its times
+at the zoo's widths, the rows the mesh phases launch ``mesh_launches``, summed
+over their ranks, the rows phases 51-55 launch ``knob_launches``, those phase
+56 launches ``codec_launches``) and the ``nvidia-smi`` line come before it.
 """
 
 from __future__ import annotations
@@ -852,7 +872,7 @@ def dense_phases(dev, card, rng, held, max_err, reset_launches, read_launches, c
     fwd_launches = read_launches()
     for h in hooks:
         h.remove()
-    if fwd_launches != counts(fused_factored=30):
+    if fwd_launches != counts(fused_factored=30, gat_logits=30):
         raise SystemExit(f"FAIL launches per dense forward {fwd_launches}")
     block_err = max(check_close(f"synthctown block {k}", a.cpu(),
                                 torch.as_tensor(fx[f"ours_act_block_{k}"]), 1e-3, 0.0, verbose=False)
@@ -878,7 +898,8 @@ def dense_phases(dev, card, rng, held, max_err, reset_launches, read_launches, c
     reset_launches()
     tr1, loss1, mets1, grads1 = fixture_step()
     step_launches = read_launches()
-    if step_launches != counts(fused_factored=30, fused_factored_bwd=30):
+    if step_launches != counts(fused_factored=30, fused_factored_bwd=30, gat_logits=30,
+                               gat_logits_bwd=30):
         raise SystemExit(f"FAIL launches per dense train step {step_launches}")
     if abs(loss1 - float(fx["loss"])) > 1e-4 * abs(float(fx["loss"])):
         raise SystemExit(f"FAIL train loss {loss1!r} against the fixture's {float(fx['loss'])!r}")
@@ -933,7 +954,7 @@ def dense_phases(dev, card, rng, held, max_err, reset_launches, read_launches, c
         end.record()
         end.synchronize()
         got = read_launches()
-        if got != counts(fused_factored=n_batches * per_forward):
+        if got != counts(fused_factored=n_batches * per_forward, gat_logits=n_batches * per_forward):
             raise SystemExit(f"FAIL {preset} serving launches {got}")
         if res.pred.shape != snaps.shape or not np.isfinite(res.pred).all():
             raise SystemExit(f"FAIL {preset} serving output is not a finite [S, n] field")
@@ -971,7 +992,8 @@ def dense_phases(dev, card, rng, held, max_err, reset_launches, read_launches, c
         torch.cuda.synchronize()
         fit_launches = read_launches()
         n_tr, n_ev = 2 * (n_train // tbs), 2 * (n_val // tbs)
-        if fit_launches != counts(fused_factored=30 * (n_tr + n_ev), fused_factored_bwd=30 * n_tr):
+        if fit_launches != counts(fused_factored=30 * (n_tr + n_ev), fused_factored_bwd=30 * n_tr,
+                                  gat_logits=30 * (n_tr + n_ev), gat_logits_bwd=30 * n_tr):
             raise SystemExit(f"FAIL dense fit launches {fit_launches}")
         tl = [m["train_loss"] for m in epochs_log]
         vl = [m["val_loss"] for m in epochs_log]
@@ -1011,7 +1033,8 @@ def dense_phases(dev, card, rng, held, max_err, reset_launches, read_launches, c
         tr.train_step(tpl, batch, generator=tgen)
         torch.cuda.synchronize()
         got = read_launches()
-        if got != counts(fused_factored=2 * blocks, fused_factored_bwd=2 * blocks):
+        if got != counts(fused_factored=2 * blocks, fused_factored_bwd=2 * blocks,
+                         gat_logits=2 * blocks, gat_logits_bwd=2 * blocks):
             raise SystemExit(f"FAIL {preset} launches per train step {got}")
         train_ms[preset] = cuda_ms(lambda: tr.train_step(tpl, batch, generator=tgen), 5, 30)
         train_peak[preset] = torch.cuda.max_memory_allocated() / 1e9
@@ -1054,14 +1077,15 @@ def dense_phases(dev, card, rng, held, max_err, reset_launches, read_launches, c
     # (a) the f32 fixture (the JAX layer's XLA branch): per block and the B 1 step at the gates
     snpz = os.path.join(REPO, "artifacts", "parity_train_synthctown_softmax.npz")
     sfx = np.load(snpz)
-    blocks, out_err = fixture_forward(snpz, None, counts(fused_attention=30))
+    blocks, out_err = fixture_forward(snpz, None, counts(fused_attention=30, gat_logits=30))
     if max(blocks + [out_err]) > 1e-3:
         raise SystemExit(f"FAIL softmax fixture forward: worst block {max(blocks):.3e}, output "
                          f"{out_err:.3e} (1e-3)")
     reset_launches()
     trs, loss_s1, mets_s1, grads_s1 = fixture_step("softmax", snpz)
     launched = read_launches()
-    if launched != counts(fused_attention=30, fused_attention_bwd=30):
+    if launched != counts(fused_attention=30, fused_attention_bwd=30, gat_logits=30,
+                          gat_logits_bwd=30):
         raise SystemExit(f"FAIL launches per softmax fixture step {launched}")
     if abs(loss_s1 - float(sfx["loss"])) > 1e-4 * abs(float(sfx["loss"])):
         raise SystemExit(f"FAIL softmax fixture loss {loss_s1!r} against {float(sfx['loss'])!r}")
@@ -1092,8 +1116,8 @@ def dense_phases(dev, card, rng, held, max_err, reset_launches, read_launches, c
     # and the run fails on a loss no nearer the bf16 fixture than the f32 fixture's
     bnpz = os.path.join(REPO, "artifacts", "parity_train_synthctown_softmax_bf16.npz")
     bfx = np.load(bnpz)
-    b16, out16 = fixture_forward(bnpz, torch.bfloat16, counts(fused_attention_bf16=30))
-    b32, out32 = fixture_forward(bnpz, None, counts(fused_attention=30))
+    b16, out16 = fixture_forward(bnpz, torch.bfloat16, counts(fused_attention_bf16=30, gat_logits=30))
+    b32, out32 = fixture_forward(bnpz, None, counts(fused_attention=30, gat_logits=30))
     if max(b16[:BF16_FLIP_FREE_BLOCKS]) > 1e-3:
         raise SystemExit(f"FAIL bf16 softmax fixture: blocks 0-{BF16_FLIP_FREE_BLOCKS - 1} off by "
                          f"{max(b16[:BF16_FLIP_FREE_BLOCKS]):.3e} (1e-3)")
@@ -1101,7 +1125,8 @@ def dense_phases(dev, card, rng, held, max_err, reset_launches, read_launches, c
     reset_launches()
     trb, loss_b1, _, grads_b1 = fixture_step("softmax", bnpz, torch.bfloat16)
     launched = read_launches()
-    if launched != counts(fused_attention_bf16=30, fused_attention_bwd_bf16=30):
+    if launched != counts(fused_attention_bf16=30, fused_attention_bwd_bf16=30, gat_logits=30,
+                          gat_logits_bwd=30):
         raise SystemExit(f"FAIL launches per bf16 softmax fixture step {launched}")
     if not all(torch.isfinite(g).all() for g in grads_b1):
         raise SystemExit("FAIL bf16 softmax fixture step: non-finite gradients")
@@ -1157,7 +1182,7 @@ def dense_phases(dev, card, rng, held, max_err, reset_launches, read_launches, c
             reset_launches()
             preds[d] = inf.infer(tpl, snaps[:bs], obs, scaled=True, batch_size=bs).pred
             got = read_launches()
-            if got != counts(**{fwd_of[d]: 2 * blocks}):
+            if got != counts(**{fwd_of[d]: 2 * blocks}, gat_logits=2 * blocks):
                 raise SystemExit(f"FAIL softmax {preset} {d} serving launches {got}")
             soft_serve[(preset, d)] = got[fwd_of[d]]
             if preds[d].shape != (bs, n) or not np.isfinite(preds[d]).all():
@@ -1174,7 +1199,8 @@ def dense_phases(dev, card, rng, held, max_err, reset_launches, read_launches, c
             reset_launches()
             loss_d, grads_d = soft_grads(tr)
             got = read_launches()
-            if got != counts(**{fwd_of[d]: 2 * blocks, bwd_of[d]: 2 * blocks}):
+            if got != counts(**{fwd_of[d]: 2 * blocks, bwd_of[d]: 2 * blocks},
+                             gat_logits=2 * blocks, gat_logits_bwd=2 * blocks):
                 raise SystemExit(f"FAIL softmax {preset} {d} train step launches {got}")
             if not all(torch.isfinite(g).all() for g in grads_d):
                 raise SystemExit(f"FAIL softmax {preset} {d} train step: non-finite gradients")
@@ -1445,7 +1471,7 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
     got = read_launches()
     for h in hooks:
         h.remove()
-    if got != counts(band_attention_flash=2 * depth, band_spmm=depth):
+    if got != counts(band_attention_flash=2 * depth, band_spmm=depth, gat_logits=2 * depth):
         raise SystemExit(f"FAIL launches per meganet fixture forward {got}")
     out_err = check_close("meganet fixture output", out.cpu(), torch.as_tensor(fx["ours_out"]),
                           1e-3, 0.0, verbose=False)
@@ -1474,7 +1500,8 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
     tr1, loss1, mets1, grads1 = fixture_step()
     got = read_launches()
     if got != counts(band_attention_flash=2 * depth, band_spmm=depth,
-                     band_attention_flash_bwd=2 * depth, band_spmm_bwd=depth):
+                     band_attention_flash_bwd=2 * depth, band_spmm_bwd=depth,
+                     gat_logits=2 * depth, gat_logits_bwd=2 * depth):
         raise SystemExit(f"FAIL launches per meganet fixture step {got}")
     if abs(loss1 - float(fx["loss"])) > 1e-4 * abs(float(fx["loss"])):
         raise SystemExit(f"FAIL train loss {loss1!r} against the fixture's {float(fx['loss'])!r}")
@@ -1517,7 +1544,8 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
     end.record()
     end.synchronize()
     serve_launches = read_launches()
-    if serve_launches != counts(band_attention_flash=n_batches * 50, band_spmm=n_batches * 25):
+    if serve_launches != counts(band_attention_flash=n_batches * 50, band_spmm=n_batches * 25,
+                                gat_logits=n_batches * 50):
         raise SystemExit(f"FAIL meganet serving launches {serve_launches}")
     if res.pred.shape != snaps.shape or not np.isfinite(res.pred).all():
         raise SystemExit("FAIL meganet serving output is not a finite [S, n] field")
@@ -1558,7 +1586,7 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
         return float(loss.detach()), grads, torch.cuda.max_memory_allocated() / 1e9
 
     per_step = counts(band_attention_flash=50, band_spmm=25, band_attention_flash_bwd=50,
-                      band_spmm_bwd=25)
+                      band_spmm_bwd=25, gat_logits=50, gat_logits_bwd=50)
     reset_launches()
     loss_k, grads_k, peak_k = one_step()
     step_launches = read_launches()
@@ -1571,7 +1599,8 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
     loss_r, grads_r, peak_r = one_step(remat=True)
     remat_launches = read_launches()
     if remat_launches != counts(band_attention_flash=100, band_spmm=50,
-                                band_attention_flash_bwd=50, band_spmm_bwd=25):
+                                band_attention_flash_bwd=50, band_spmm_bwd=25,
+                                gat_logits=100, gat_logits_bwd=50):
         raise SystemExit(f"FAIL launches per remat step {remat_launches}")
     if not all(torch.equal(a, b) for a, b in zip(grads_k, grads_r)):
         raise SystemExit("FAIL the remat step's gradients differ from the plain-autograd step's")
@@ -1597,7 +1626,8 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
         fit_peak = torch.cuda.max_memory_allocated() / 1e9
         n_tr, n_ev = 2 * (n_train // tbs), 2 * (n_val // tbs)
         expect = counts(band_attention_flash=50 * (n_tr + n_ev), band_spmm=25 * (n_tr + n_ev),
-                        band_attention_flash_bwd=50 * n_tr, band_spmm_bwd=25 * n_tr)
+                        band_attention_flash_bwd=50 * n_tr, band_spmm_bwd=25 * n_tr,
+                        gat_logits=50 * (n_tr + n_ev), gat_logits_bwd=50 * n_tr)
         if fit_launches != expect:
             raise SystemExit(f"FAIL meganet fit launches {fit_launches}, expected {expect}")
         tl = [m["train_loss"] for m in epochs_log]
@@ -1654,7 +1684,7 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
     end.record()
     end.synchronize()
     window_serve = read_launches()
-    if window_serve != counts(band_attention_window=50, band_spmm=25):
+    if window_serve != counts(band_attention_window=50, band_spmm=25, gat_logits=50):
         raise SystemExit(f"FAIL window serving launches {window_serve}")
     window_serve_ms = start.elapsed_time(end)
     pred_d = inf_d.infer(btpl, wsnaps, wobs, scaled=True, batch_size=wbs).pred
@@ -1710,7 +1740,7 @@ def mega_phases(dev, card, rng, held, reset_launches, read_launches, counts, big
     torch.cuda.synchronize()
     window_step = read_launches()
     if window_step != counts(band_attention_window=50, band_spmm=25, band_attention_window_bwd=50,
-                             band_spmm_bwd=25):
+                             band_spmm_bwd=25, gat_logits=50, gat_logits_bwd=50):
         raise SystemExit(f"FAIL window train step launches {window_step}")
     loss_w = float(loss_w.detach())
     if abs(loss_w - float(tfx["loss"])) > 1e-4 * abs(float(tfx["loss"])):
@@ -2058,7 +2088,8 @@ def slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, b
               f"where the first gradient is below its tolerance), step losses within {lerr:.3e}")
         return worst
 
-    per_step = counts(band_attention=50, band_spmm=25, band_attention_acc_bwd=50, band_spmm_bwd=25)
+    per_step = counts(band_attention=50, band_spmm=25, band_attention_acc_bwd=50, band_spmm_bwd=25,
+                      gat_logits=50, gat_logits_bwd=50)
     tr1 = fixture_trainer(1, band_attn="acc")
     reset_launches()
     g1, loss1, mets1, grads1 = b1_step(tr1)
@@ -2177,7 +2208,8 @@ def slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, b
     trn, acc_fit, _ = fit_and_resume("acc", lambda **kw: fixture_trainer(tbs, band_attn="acc", **kw))
     n_tr, n_ev = 2 * (n_train // tbs), 2 * (n_val // tbs)
     expect = counts(band_attention=50 * (n_tr + n_ev), band_spmm=25 * (n_tr + n_ev),
-                    band_attention_acc_bwd=50 * n_tr, band_spmm_bwd=25 * n_tr)
+                    band_attention_acc_bwd=50 * n_tr, band_spmm_bwd=25 * n_tr,
+                    gat_logits=50 * (n_tr + n_ev), gat_logits_bwd=50 * n_tr)
     if acc_fit != expect:
         raise SystemExit(f"FAIL acc fit launches {acc_fit}, expected {expect}")
     print(f"  fit launches: {acc_fit['band_attention']} band_attention + {acc_fit['band_spmm']} "
@@ -2212,15 +2244,15 @@ def slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, b
         torch.cuda.synchronize()
     for h in hooks:
         h.remove()
-    if read_launches() != counts():
+    if read_launches() != counts(gat_logits=50):
         raise SystemExit(f"FAIL the padded forward launched a band kernel: {read_launches()}")
     pblock = max(check_close(f"padded block {k}", a.cpu(), torch.as_tensor(fx[f"ours_act_block_{k}"]),
                              1e-3, 0.0, verbose=False) for k, a in sorted(acts.items()))
     pout = check_close("padded output", out.cpu(), torch.as_tensor(fx["ours_out"]), 1e-3, 0.0,
                        verbose=False)
     print(f"  max in-degree {D} ({D + 1} slots with the self-loop); trained fixture forward vs JAX: "
-          f"worst block {pblock:.3e}, output {pout:.3e}; no kernel launched (plain gathers, the "
-          f"counterpart of the reference's XLA gather)")
+          f"worst block {pblock:.3e}, output {pout:.3e}; no band kernel launched (plain gathers, "
+          f"the counterpart of the reference's XLA gather), 50 of the logit halves")
     del acts
 
     sstats = NormStats(norm_type="znorm", mean=50.0, std=10.0)
@@ -2238,7 +2270,7 @@ def slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, b
     end.synchronize()
     padded_serve_ms = start.elapsed_time(end) / 2
     padded_serve_peak = torch.cuda.max_memory_allocated() / 1e9
-    if read_launches() != counts():
+    if read_launches() != counts(gat_logits=2 * 50):
         raise SystemExit(f"FAIL padded serving launched a band kernel: {read_launches()}")
     if res.pred.shape != snaps.shape or not np.isfinite(res.pred).all():
         raise SystemExit("FAIL padded serving output is not a finite [S, n] field")
@@ -2255,14 +2287,15 @@ def slice5_phases(dev, card, rng, held, reset_launches, read_launches, counts, b
     trp = fixture_trainer(1, agg_mode="padded")
     reset_launches()
     g1, loss1, mets1, grads1 = b1_step(trp)
-    if not g1.padded or read_launches() != counts():
+    if not g1.padded or read_launches() != counts(gat_logits=50, gat_logits_bwd=50):
         raise SystemExit(f"FAIL the padded step is not on the padded path: {read_launches()}")
     padded_worst = against_fixture("padded", trp, loss1, mets1, grads1)
     del trp, grads1
     torch.cuda.empty_cache()
     trn, padded_fit, meta = fit_and_resume(
         "padded", lambda **kw: fixture_trainer(tbs, agg_mode="padded", **kw))
-    if padded_fit != counts() or meta["extra"]["layout"]["agg_mode"] != "padded":
+    if (padded_fit != counts(gat_logits=50 * (n_tr + n_ev), gat_logits_bwd=50 * n_tr)
+            or meta["extra"]["layout"]["agg_mode"] != "padded"):
         raise SystemExit(f"FAIL padded fit: launches {padded_fit}, layout {meta['extra']['layout']}")
     torch.cuda.reset_peak_memory_stats()
     trn.train_step(tpl, arr[:tbs], generator=tgen)
@@ -2536,8 +2569,9 @@ def dense_walk_phase(dev, card, held, reset_launches, read_launches, counts, ptx
         step()
         torch.cuda.synchronize()
         stp = read_launches()
-        if (fwd != counts(fused_factored=2 * blocks)
-                or stp != counts(fused_factored=2 * blocks, fused_factored_bwd=2 * blocks)):
+        if (fwd != counts(fused_factored=2 * blocks, gat_logits=2 * blocks)
+                or stp != counts(fused_factored=2 * blocks, fused_factored_bwd=2 * blocks,
+                                 gat_logits=2 * blocks, gat_logits_bwd=2 * blocks)):
             raise SystemExit(f"FAIL {preset} factored launches: a forward {fwd}, a step {stp}")
         # fused_factored and fused_factored_bwd run the same dense_walk_kernel instances: in a
         # step the profiler reads the two directions under one name
@@ -3021,7 +3055,7 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
     model, preset = bigtown_model()
     out_err, blocks, fwd_launches = fixture_forward(model.eval(), tpl.batch(1, device=dev), fxb, n,
                                                     hard=False)
-    if fwd_launches != counts(band_attention_bf16=50, band_spmm=25):
+    if fwd_launches != counts(band_attention_bf16=50, band_spmm=25, gat_logits=50):
         raise SystemExit(f"FAIL launches per bf16 forward {fwd_launches}")
     first = next((k for k, e in enumerate(blocks) if e > 1e-3), None)
     out_f32, blocks_f32, _ = fixture_forward(bigtown_model("float32")[0].eval(),
@@ -3038,7 +3072,8 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
             f'bigtown "{route}"',
             lambda: Trainer(bigtown_model()[0], preset.train_config(batch_size=1, band_attn=route),
                             tstats, tpl, device=dev), tpl, fxb, xb1, fx32=big["tfx"])
-        want = counts(band_attention_bf16=50, band_spmm=25, band_spmm_bwd=25, **{bwd: 50})
+        want = counts(band_attention_bf16=50, band_spmm=25, band_spmm_bwd=25, **{bwd: 50},
+                      gat_logits=50, gat_logits_bwd=50)
         if launched != want:
             raise SystemExit(f"FAIL launches per bf16 {route} step {launched}, expected {want}")
         per_step[route] = launched
@@ -3060,7 +3095,8 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
         serve_ms[d].append(cuda_ms(lambda: infs[d].infer(tpl, snaps, obs, scaled=True, batch_size=sbs),
                                    0, 1) / 2)
         launched = read_launches()
-        want = counts(band_spmm=50, **{"band_attention_bf16" if d == "bfloat16" else "band_attention": 100})
+        want = counts(band_spmm=50, **{"band_attention_bf16" if d == "bfloat16" else "band_attention": 100},
+                      gat_logits=100)
         if launched != want:
             raise SystemExit(f"FAIL bigtown {d} serving launches {launched}, expected {want}")
     reset_launches()
@@ -3093,7 +3129,8 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
         launched = read_launches()
         names = (("band_attention_bf16", "band_attention_bwd_bf16") if d == "bfloat16"
                  else ("band_attention", "band_attention_bwd"))
-        want = counts(band_spmm=75, band_spmm_bwd=75, **{names[0]: 150, names[1]: 150})
+        want = counts(band_spmm=75, band_spmm_bwd=75, **{names[0]: 150, names[1]: 150},
+                      gat_logits=150, gat_logits_bwd=150)
         if launched != want:
             raise SystemExit(f"FAIL bigtown {d} step launches {launched}, expected {want}")
         losses = [float(tr.train_step(tpl, batch, mask=tmask)[0])]
@@ -3129,7 +3166,7 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
     out_err, blocks, launched = fixture_forward(mega_fixture_model().eval(),
                                                 mega_tpl.batch(1, device=dev), fxm, mn)
     stat_err = max(blocks)
-    if launched != counts(band_attention_flash_bf16=2 * depth, band_spmm=depth):
+    if launched != counts(band_attention_flash_bf16=2 * depth, band_spmm=depth, gat_logits=2 * depth):
         raise SystemExit(f"FAIL launches per meganet bf16 fixture forward {launched}")
     print(f"  forward vs JAX: output within {out_err:.3e}, per-block |act| max and mean within "
           f"{stat_err:.3e}; launches {2 * depth} band_attention_flash bf16 + {depth} band_spmm")
@@ -3138,7 +3175,8 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
                                    MODEL_REGISTRY["gatres_large"].train_config(batch_size=1),
                                    mstats, mega_tpl, device=dev), mega_tpl, fxm, fxm["x"][:, 0][None, :])
     if launched != counts(band_attention_flash_bf16=2 * depth, band_spmm=depth,
-                          band_attention_flash_bwd_bf16=2 * depth, band_spmm_bwd=depth):
+                          band_attention_flash_bwd_bf16=2 * depth, band_spmm_bwd=depth,
+                          gat_logits=2 * depth, gat_logits_bwd=2 * depth):
         raise SystemExit(f"FAIL launches per meganet bf16 fixture step {launched}")
 
     msnaps = rng.standard_normal((2 * mbs, mn)).astype(np.float32)
@@ -3157,7 +3195,7 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
                                                             batch_size=mbs), 0, 1) / 2)
         launched = read_launches()
         want = counts(band_spmm=50, **{"band_attention_flash_bf16" if d == "bfloat16"
-                                       else "band_attention_flash": 100})
+                                       else "band_attention_flash": 100}, gat_logits=100)
         if launched != want:
             raise SystemExit(f"FAIL meganet {d} serving launches {launched}, expected {want}")
     reset_launches()
@@ -3189,7 +3227,8 @@ def bf16_phases(dev, card, rng, held, max_err, reset_launches, read_launches, co
         launched = read_launches()
         names = (("band_attention_flash_bf16", "band_attention_flash_bwd_bf16") if d == "bfloat16"
                  else ("band_attention_flash", "band_attention_flash_bwd"))
-        want = counts(band_spmm=75, band_spmm_bwd=75, **{names[0]: 150, names[1]: 150})
+        want = counts(band_spmm=75, band_spmm_bwd=75, **{names[0]: 150, names[1]: 150},
+                      gat_logits=150, gat_logits_bwd=150)
         if launched != want:
             raise SystemExit(f"FAIL meganet {d} step launches {launched}, expected {want}")
         if len(mstep_ms[d]) == 1:
@@ -3473,7 +3512,7 @@ def eval_phases(dev, card, reset_launches, read_launches, counts, weights_npz):
     def held(kind, res, rows, fwd, launches, wall, expect_fwd):
         if fwd != expect_fwd:
             raise SystemExit(f"FAIL {kind}: {fwd} forwards, expected {expect_fwd}")
-        expect = counts(band_attention=50 * fwd, band_spmm=25 * fwd)
+        expect = counts(band_attention=50 * fwd, band_spmm=25 * fwd, gat_logits=50 * fwd)
         if launches != expect:
             raise SystemExit(f"FAIL {kind} launches {launches}, expected {expect}")
         if kind == "clean":          # run_trial calls: all-nodes, then sensors, per trial
@@ -3621,7 +3660,8 @@ def cli_phases(dev, card, reset_launches, read_launches, counts, weights_npz, de
     def held_launches(label, n_steps=0):
         launches, fwd = read_launches(), forwards[0]
         expect = counts(band_attention=50 * fwd, band_spmm=25 * fwd,
-                        band_attention_bwd=50 * n_steps, band_spmm_bwd=25 * n_steps)
+                        band_attention_bwd=50 * n_steps, band_spmm_bwd=25 * n_steps,
+                        gat_logits=50 * fwd, gat_logits_bwd=50 * n_steps)
         if not fwd or launches != expect:
             raise SystemExit(f"FAIL {label}: {fwd} forwards, {n_steps} steps, launches {launches}, "
                              f"expected {expect}")
@@ -3692,7 +3732,8 @@ def cli_phases(dev, card, reset_launches, read_launches, counts, weights_npz, de
         text, train_s = run("train", train + [
             "--epochs", "2", "--do_test", "--log_method", "wandb", "--profile_dir", prof_dir,
             "--profile_epochs", "1"])
-        per_step = counts(band_attention=50, band_spmm=25, band_attention_bwd=50, band_spmm_bwd=25)
+        per_step = counts(band_attention=50, band_spmm=25, band_attention_bwd=50, band_spmm_bwd=25,
+                          gat_logits=50, gat_logits_bwd=50)
         if len(steps) != 10 or any(s != per_step for s in steps):
             raise SystemExit(f"FAIL train: {len(steps)} steps (expected 10), launches a step "
                              f"{[s for s in steps if s != per_step][:1]} where {per_step}")
@@ -3813,9 +3854,10 @@ def cli_phases(dev, card, reset_launches, read_launches, counts, weights_npz, de
 # terms of the input (a first ChebConv's, which no parameter enters) need none
 ZOO = ("gin", "gat", "gcn2", "chebnet", "graphconvwat", "mgcn")
 ZOO_BATCHES = (1, 8, 32)    # phase 37's batches: the fixtures', training's and serving's
-ZOO_FWD = {"gin": {"band_spmm": 15}, "gat": {"band_attention": 10}, "gcn2": {"band_spmm": 64},
+ZOO_FWD = {"gin": {"band_spmm": 15}, "gat": {"band_attention": 10, "gat_logits": 10},
+           "gcn2": {"band_spmm": 64},
            "chebnet": {"band_spmm": 43}, "graphconvwat": {"band_spmm": 377}, "mgcn": {}}
-ZOO_BWD = {"gin": {"band_spmm_bwd": 14}, "gat": {"band_attention_bwd": 10},
+ZOO_BWD = {"gin": {"band_spmm_bwd": 14}, "gat": {"band_attention_bwd": 10, "gat_logits_bwd": 10},
            "gcn2": {"band_spmm_bwd": 64}, "chebnet": {"band_spmm_bwd": 20},
            "graphconvwat": {"band_spmm_bwd": 138}, "mgcn": {}}
 
@@ -3829,7 +3871,7 @@ def zoo_launches_of(model) -> tuple[dict, dict]:
     if isinstance(model, zoo.GIN):
         return {"band_spmm": n}, {"band_spmm_bwd": n - 1}
     if isinstance(model, zoo.GAT):
-        return {"band_attention": n}, {"band_attention_bwd": n}
+        return {"band_attention": n, "gat_logits": n}, {"band_attention_bwd": n, "gat_logits_bwd": n}
     if isinstance(model, zoo.GCN2):
         return {"band_spmm": n}, {"band_spmm_bwd": n}
     if isinstance(model, (zoo.ChebNet, zoo.GraphConvWat)):
@@ -4234,7 +4276,8 @@ def zoo_phases(dev, card, held, reset_launches, read_launches, counts, device_fl
         end.record()
         end.synchronize()
         got = read_launches()
-        expect = counts(**({kernel: len(model.convs)} if kernel else {}))
+        expect = counts(**({kernel: len(model.convs), "gat_logits": len(model.convs)} if kernel
+                           else {}))
         if got != expect:
             raise SystemExit(f"FAIL synthctown {name} serving launches {got}, expected {expect}")
         tally(got)
@@ -4371,7 +4414,7 @@ def zoo_phases(dev, card, held, reset_launches, read_launches, counts, device_fl
             got = read_launches()
             with bops.plain_versions():
                 y_p = model(xp, g4, bmp)
-        if got != counts(band_attention=30, band_spmm=spmm):
+        if got != counts(band_attention=30, band_spmm=spmm, gat_logits=30):
             raise SystemExit(f"FAIL {cls.__name__} launches {got}")
         err = check_close(f"{cls.__name__} vs plain", y, y_p, TOL, TOL, verbose=False)
         ms = cuda_ms(lambda: model(xp, g4, bmp), 1, 5)
@@ -4486,6 +4529,7 @@ def kernel_wrappers() -> dict:
         band_attention_window_fwd,
     )
     from gnn_pressure_estimation_tpu_torch.ops.band_spmm import band_spmm_bwd, band_spmm_fwd
+    from gnn_pressure_estimation_tpu_torch.ops.gat_logits import gat_logits_bwd, gat_logits_fwd
     from gnn_pressure_estimation_tpu_torch.ops.graph_attention import (
         fused_attention_bwd, fused_attention_fwd, fused_factored_bwd, fused_factored_fwd,
     )
@@ -4502,7 +4546,8 @@ def kernel_wrappers() -> dict:
             "band_attention_window": band_attention_window_fwd,
             "band_attention_window_bwd": band_attention_window_bwd,
             "band_attention_acc_bwd": band_attention_acc_bwd,
-            "window_gather": window_gather_fwd, "window_gather_bwd": window_gather_bwd}
+            "window_gather": window_gather_fwd, "window_gather_bwd": window_gather_bwd,
+            "gat_logits": gat_logits_fwd, "gat_logits_bwd": gat_logits_bwd}
 
 
 def network(name: str):
@@ -4602,7 +4647,7 @@ def _rank_serve(job, mesh, counters):
 
 
 def _rank_dist(job, mesh, counters):
-    """``DistributedTrainer`` (the edge partition; no kernel): one step."""
+    """``DistributedTrainer`` (the edge partition; no band or dense kernel): one step."""
     from gnn_pressure_estimation_tpu_torch.parallel import DistributedTrainer
     from gnn_pressure_estimation_tpu_torch.train import TrainConfig
     from gnn_pressure_estimation_tpu_torch.utils.scaling import NormStats
@@ -4634,7 +4679,7 @@ def _rank_eval(job, mesh, counters):
 
 
 def _rank_dist_pair(job, mesh, counters):
-    """``DistributedTrainer`` (the edge partition; no kernel) on one batch
+    """``DistributedTrainer`` (the edge partition; no band or dense kernel) on one batch
     with the model in f32 and under bf16 activations: each one step's loss,
     train MAE, gradients, launches, ms and, with ``acts``, every block's
     output on this rank's node block; with ``turns`` one more step of each,
@@ -4962,8 +5007,9 @@ def _mesh_phases(dev, card, big, tmp) -> dict:
     step_job = dict(kind="step", net="bigtown", model=large_spec, cfg=cfg, stats=tstats, x=xb,
                     mask=mask8)
     nb = len(m_large.blocks)                        # 25: two GATConvs and a mean a block
-    expect_fwd = {"band_attention": 2 * nb, "band_spmm": nb}
-    expect_step = {**expect_fwd, "band_attention_bwd": 2 * nb, "band_spmm_bwd": nb}
+    expect_fwd = {"band_attention": 2 * nb, "band_spmm": nb, "gat_logits": 2 * nb}
+    expect_step = {**expect_fwd, "band_attention_bwd": 2 * nb, "band_spmm_bwd": nb,
+                   "gat_logits_bwd": 2 * nb}
 
     # ---- 44: 1×1 under NCCL --------------------------------------------------------
     print("[44] bigtown GATRes-large (25 blocks, nc 128) at B 8 on a 1×1 mesh (NCCL): the eval "
@@ -5052,15 +5098,16 @@ def _mesh_phases(dev, card, big, tmp) -> dict:
         kbwd = {"flash": "band_attention_flash_bwd", "acc": "band_attention_acc_bwd",
                 "window": "band_attention_window_bwd"}[route]
         out[route] = held_step(f"route {route}", by[f"route {route}"], ref_routes[route],
-                               {kfwd: 2 * nb4, "band_spmm": nb4},
+                               {kfwd: 2 * nb4, "band_spmm": nb4, "gat_logits": 2 * nb4},
                                {kfwd: 2 * nb4, "band_spmm": nb4, kbwd: 2 * nb4,
-                                "band_spmm_bwd": nb4})
+                                "band_spmm_bwd": nb4, "gat_logits": 2 * nb4,
+                                "gat_logits_bwd": 2 * nb4})
     print("[47] meganet GATRes-large serving at B 8 on the 1×2 mesh")
     for r, res in enumerate(by["meganet 1x2"]):
         if res["route"] != "flash":
             raise SystemExit(f"FAIL meganet rank {r}: route {res['route']}, the rule gives flash")
         launches_as_expected(f"meganet rank {r}", res["launches"],
-                             {"band_attention_flash": 2 * nb, "band_spmm": nb})
+                             {"band_attention_flash": 2 * nb, "band_spmm": nb, "gat_logits": 2 * nb})
         err, equal = outputs_gate(f"meganet rank {r}", res["out"], ref_mega)
         add_launches(res["launches"])
         print(f"  rank {r}: route flash, launches {res['launches']}, output within {err:.3e} of "
@@ -5068,18 +5115,20 @@ def _mesh_phases(dev, card, big, tmp) -> dict:
               f"{res['ms']:.3f} ms (one device {mega_ms:.3f}), peak {res['peak_gb']:.3f} GB "
               f"[{card}]")
     print("[48] synthctown GATRes-small: graphs strategy at 2×1, B 32 (fused factored kernels); "
-          "DistributedTrainer at 1×2, B 8 (the edge partition, no kernel)")
+          "DistributedTrainer at 1×2, B 8 (the edge partition: no band or dense kernel)")
     out["2x1"] = held_step("synthctown 2×1", by["synthctown 2x1"], ref_syn,
-                           {"fused_factored": 2 * nbs},
-                           {"fused_factored": 2 * nbs, "fused_factored_bwd": 2 * nbs})
+                           {"fused_factored": 2 * nbs, "gat_logits": 2 * nbs},
+                           {"fused_factored": 2 * nbs, "fused_factored_bwd": 2 * nbs,
+                            "gat_logits": 2 * nbs, "gat_logits_bwd": 2 * nbs})
     for r, res in enumerate(by["distributed 1x2"]):
-        launches_as_expected(f"DistributedTrainer rank {r}", res["launches"], {})
+        launches_as_expected(f"DistributedTrainer rank {r}", res["launches"],
+                             {"gat_logits": 2 * nbs, "gat_logits_bwd": 2 * nbs})
         rel = abs(res["loss"] - ref_dist["loss"]) / abs(ref_dist["loss"])
         worst = grads_gate(f"DistributedTrainer rank {r}", res["grads"], ref_dist["grads"])
         if rel > 1e-5:
             raise SystemExit(f"FAIL DistributedTrainer rank {r}: loss off by {rel:.3e} relative")
         print(f"  DistributedTrainer rank {r}: loss {res['loss']:.7f} (single {ref_dist['loss']:.7f}), "
-              f"gradients at {worst:.1%} of the gate, no kernel launched; step "
+              f"gradients at {worst:.1%} of the gate, no band or dense kernel launched; step "
               f"{res['step_ms']:.3f} ms (one device, dense kernels: {ref_dist['step_ms']:.3f}) "
               f"[{card}]")
     print("[49] Evaluator(mesh=) at 1×2 on eval_bigtown.zip's test split (clean, 1 trial, "
@@ -5587,7 +5636,7 @@ def knob_phases(dev, card, held, max_err, reset_launches, read_launches, counts,
         model.load_state_dict(params_from_parity_npz(fxp))
         tr = Trainer(model, TrainConfig(batch_size=1), fstats, btpl, device=dev)
         loss, _, grads, launched = step_of(tr, btpl, fx["x"].reshape(1, -1), fx["mask"])
-        if launched != counts(band_spmm=15, band_spmm_bwd=15):
+        if launched != counts(band_spmm=15, band_spmm_bwd=15, gat_logits=30, gat_logits_bwd=30):
             raise SystemExit(f"FAIL band_factored step launches {launched}")
         add(launched)
         ref = float(fx[f"{tag}_loss"])
@@ -5639,7 +5688,7 @@ def knob_phases(dev, card, held, max_err, reset_launches, read_launches, counts,
         torch.cuda.synchronize()
         lts.append(read_launches())
     check_equal("GATRes-large band_factored vs the preset, B 8", outs[1], outs[0])
-    if lts[0] != lts[1] or lts[1] != counts(band_attention=50, band_spmm=25):
+    if lts[0] != lts[1] or lts[1] != counts(band_attention=50, band_spmm=25, gat_logits=50):
         raise SystemExit(f"FAIL GATRes-large band_factored launches {lts}")
     add(lts[1])
     print(f"  GATRes-large B 8: band_factored output bit-equal to the preset's, launches {lts[1]}")
@@ -5805,7 +5854,7 @@ def knob_phases(dev, card, held, max_err, reset_launches, read_launches, counts,
     wall = time.perf_counter() - t0
     launched = read_launches()
     expect = counts(band_attention=50 * 4 * 2, band_spmm=25 * 4 * 2, band_attention_bwd=50 * 3 * 2,
-                    band_spmm_bwd=25 * 3 * 2)
+                    band_spmm_bwd=25 * 3 * 2, gat_logits=50 * 4 * 2, gat_logits_bwd=50 * 3 * 2)
     if launched != expect or tr.fast_io["readbacks"] != 1 or not all(
             np.isfinite([m["train_loss"], m["val_loss"]]).all() for m in hist):
         raise SystemExit(f"FAIL bigtown E 2 fit: launches {launched} (expected {expect}), "
@@ -6001,7 +6050,7 @@ def codec_phase(dev, card, reset_launches, read_launches, counts, weights_npz, g
             served[be] = g.unpack_nodes(model(g.pack_nodes(torch.where(m, 0.0, x), n), g), n)
         torch.cuda.synchronize()
         launched = read_launches()
-        if launched != counts(band_attention=50, band_spmm=25):
+        if launched != counts(band_attention=50, band_spmm=25, gat_logits=50):
             raise SystemExit(f"FAIL the batch served from the {be} read launched {launched}")
         out["launches"] = {k: out["launches"].get(k, 0) + v for k, v in launched.items() if v}
     if not torch.isfinite(served["native"]).all() or not torch.equal(served["native"],
@@ -6120,9 +6169,9 @@ def edgelist_bf16_phase(dev, card, big, gen_zip, device_flags=()) -> dict:
     from gnn_pressure_estimation_tpu_torch.weights import params_from_parity_npz
 
     print("[58] the edge-list path under bf16 activations: DistributedTrainer on a 1×2 mesh "
-          "(two gloo ranks on this card, no kernel), bigtown GATRes-small against the JAX step, "
-          "GATRes-large at B 8 against one device; cli train --distributed --activation_dtype "
-          "bfloat16")
+          "(two gloo ranks on this card, no band or dense kernel), bigtown GATRes-small against "
+          "the JAX step, GATRes-large at B 8 against one device; cli train --distributed "
+          "--activation_dtype bfloat16")
     tpl = network("bigtown")
     n = tpl.n_node
     fxp = os.path.join(REPO, "artifacts", "parity_dist_bigtown_small_act_bf16.npz")
@@ -6186,10 +6235,14 @@ def edgelist_bf16_phase(dev, card, big, gen_zip, device_flags=()) -> dict:
         two = launch_mesh(2, jobs, os.path.join(tmp, "g2"), timeout_s=600)
         t_launch = time.perf_counter() - t0
         by = {res["name"]: [two[r][i] for r in range(2)] for i, res in enumerate(two[0])}
+        blocks = {j["name"]: j["model"]["kwargs"]["num_blocks"] for j in jobs}
         for name, ranks in by.items():
+            # the edge list launches no kernel; the f32 layers run the logit halves
+            halves = {"gat_logits": 2 * blocks[name], "gat_logits_bwd": 2 * blocks[name]}
             for tag in ("f32", "bf16"):
                 for r, res in enumerate(ranks):
-                    launches_as_expected(f"{name} {tag} rank {r}", res[tag]["launches"], {})
+                    launches_as_expected(f"{name} {tag} rank {r}", res[tag]["launches"],
+                                         halves if tag == "f32" else {})
                 for k, v in ranks[0][tag]["grads"].items():
                     if not torch.equal(ranks[1][tag]["grads"][k], v):
                         raise SystemExit(f"FAIL {name} {tag}: the ranks' gradient {k} differ")
@@ -6222,7 +6275,7 @@ def edgelist_bf16_phase(dev, card, big, gen_zip, device_flags=()) -> dict:
               f"(JAX bf16 {ref_l:.7f}, f32 step {l32:.7f}, JAX f32 {float(fx['f32_loss']):.7f}); "
               f"blocks 0-1 within {max(errs):.2e}; each block's max |act| within "
               f"{max(stat_errs):.2e} of the JAX block's; gradients at {worst:.1%} of the model "
-              f"rule; the ranks' gradients bit-equal, no kernel launched")
+              f"rule; the ranks' gradients bit-equal, no band or dense kernel launched")
 
         # (b) GATRes-large at B 8: 1×2 against one device. f32 at the mesh gates of phase 48;
         # bf16 at its loss gate, and its gradients at the bf16 model rule (the f32
@@ -6320,6 +6373,108 @@ def slice21_phases(dev, card, reset_launches, read_launches, counts, big, kept) 
     out["phase_s"] = phase_s
     print(f"  phases 56-58 took {', '.join(f'{k}: {v:.1f} s' for k, v in phase_s.items())}")
     return out
+
+
+def gat_logits_phase(dev, card, ptxas, tpl) -> dict:
+    """Phase 59: GATConv's logit halves (``ops/gat_logits.py``,
+    ``csrc/gat_logits.cu``); ``tpl`` is bigtown's template. Runs alone as well:
+
+        python3 -c "import torch, chip_smoke as s; from gnn_pressure_estimation_tpu_torch.ops \\
+            import _build; s.gat_logits_phase(torch.device('cuda'), s.smi_line(), \\
+            {k: s.ptxas_table(v) for k, v in _build.build_all().items()}, s.network('bigtown'))"
+
+    Prints every kernel instance's registers and spills, the band-attention
+    ones held to their recorded numbers; holds the kernel pair against the
+    plain versions (atol and rtol 1e-4, d att's atol 1e-4 of its largest entry,
+    random cotangents) at bigtown B 32
+    (H·C 256 and 128), meganet B 8, the zoo's widths (H 2 C 32, H 1 C 1),
+    C % 4 != 0 and an xp off 16-byte alignment, each called twice with
+    bit-equal results; times each pair against its byte bound and the plain
+    versions (CUDA events, 20 launches after 3). The pair's launches on the
+    main path are counted where it runs: phases 4, 5 and 7. Returns the rows
+    for the ``kernels`` line."""
+    sys.path.insert(0, REPO)
+    from gnn_pressure_estimation_tpu_torch.ops import gat_logits as gl
+
+    print(f"[59] GATConv's logit halves ({card})")
+    if not ptxas.get("gat_logits"):
+        raise SystemExit("FAIL gat_logits was not built in this run: its registers were not read")
+    for name, table in sorted(ptxas.items(), key=lambda kv: kv[0] != "gat_logits"):
+        for fn, regs, stack, st, ld in table:
+            print(f"  {name}: {fn}: {regs} registers, {stack} bytes stack, spill {st} / {ld} bytes")
+    check_band_instances(ptxas)
+    print("  every band-attention instance at its recorded registers and spills")
+    n_big, n_mega = 32 * tpl.band_layout().n_pad, 8 * network("meganet").band_layout().n_pad
+    gen = torch.Generator(device=dev).manual_seed(59)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def operands(N, H, C, offset=False):
+        xp = randn(N, H, C)
+        if offset:                       # 4 bytes off 16-byte alignment: the scalar loads
+            xp = torch.empty(N * H * C + 1, device=dev)[1:].view(N, H, C).copy_(xp)
+        return (xp, randn(1, H, C), randn(1, H, C)), (randn(N, H, C), randn(N, H), randn(N, H))
+
+    def fwd_bytes(N, H, C):
+        return 4 * N * H * C + 8 * N * H
+
+    def bwd_bytes(N, H, C):
+        return 12 * N * H * C + 8 * N * H + 8 * H * C
+
+    cases = [("bigtown B 32 conv1", n_big, 2, 128, True), ("bigtown B 32 conv2", n_big, 1, 128, True),
+             ("meganet B 8 conv1", n_mega, 2, 128, True),
+             ("meganet B 8 conv2", n_mega, 1, 128, True),
+             ("zoo GAT B 32 H 2 C 32", n_big, 2, 32, True), ("zoo GAT B 32 H 1 C 1", n_big, 1, 1, True),
+             ("ragged H 3 C 33", 1001, 3, 33, False), ("offset xp H 2 C 32", 4099, 2, 32, False)]
+    rows, max_err = [], {"gat_logits": 0.0, "gat_logits_bwd": 0.0}
+    for label, N, H, C, timed in cases:
+        args, cot = operands(N, H, C, offset=label.startswith("offset"))
+        if label.startswith("offset") and gl._vec(C, args[0]):
+            raise SystemExit("FAIL the offset view passes as 16-byte aligned")
+        got = gl.gat_logits_fwd(*args)
+        again = gl.gat_logits_fwd(*args)
+        for part, g, g2, r in zip(("a_s", "a_d"), got, again, gl.gat_logits_plain(*args)):
+            max_err["gat_logits"] = max(max_err["gat_logits"], check_close(
+                f"gat_logits {label} {part}", g, r, TOL, TOL, verbose=False))
+            check_equal(f"gat_logits {label} {part}, a second call", g2, g)
+        got = gl.gat_logits_bwd(*args, *cot)
+        again = gl.gat_logits_bwd(*args, *cot)
+        ref = gl.gat_logits_bwd_plain(*args, *cot)
+        exact = [(w.double()[..., None] * args[0].double()).sum(0, keepdim=True) for w in cot[1:]]
+        gaps = []
+        for part, g, g2, r in zip(("d xp", "d att_src", "d att_dst"), got, again, ref):
+            # d att sums N rows: each order rounds by about 1e-7 of the rows' |terms|
+            # summed, so it is held to 1e-4 of its largest entry, and both its gap
+            # and the plain version's to the f64 sum are printed
+            atol = TOL if part == "d xp" else TOL * float(r.abs().max())
+            max_err["gat_logits_bwd"] = max(max_err["gat_logits_bwd"], check_close(
+                f"gat_logits_bwd {label} {part}", g, r, atol, TOL, verbose=False))
+            check_equal(f"gat_logits_bwd {label} {part}, a second call", g2, g)
+        for part, g, r, e in zip(("d att_src", "d att_dst"), got[1:], ref[1:], exact):
+            gaps.append(f"{part} {float((g.double() - e).abs().max()):.2e} / "
+                        f"{float((r.double() - e).abs().max()):.2e}")
+        line = (f"  {label}: N {N}, vec {gl._vec(C, args[0], args[1], args[2])}: within 1e-4 of "
+                f"plain (max abs err so far fwd {max_err['gat_logits']:.3e}, bwd "
+                f"{max_err['gat_logits_bwd']:.3e}), second calls bit-equal; to the f64 sum, kernel "
+                f"/ plain: {', '.join(gaps)}")
+        if timed:
+            r = {"case": label, "N": N, "H": H, "C": C,
+                 "ms": cuda_ms(lambda: gl.gat_logits_fwd(*args), 3, 20),
+                 "plain_ms": cuda_ms(lambda: gl.gat_logits_plain(*args), 3, 20),
+                 "bound_ms": fwd_bytes(N, H, C) / PEAK_BYTES_S * 1e3,
+                 "bwd_ms": cuda_ms(lambda: gl.gat_logits_bwd(*args, *cot), 3, 20),
+                 "bwd_plain_ms": cuda_ms(lambda: gl.gat_logits_bwd_plain(*args, *cot), 3, 20),
+                 "bwd_bound_ms": bwd_bytes(N, H, C) / PEAK_BYTES_S * 1e3}
+            rows.append(r)
+            line += (f"; fwd {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, "
+                     f"{r['bound_ms'] / r['ms']:.1%}), bwd {r['bwd_ms']:.4f} ms (plain "
+                     f"{r['bwd_plain_ms']:.4f}, bound {r['bwd_bound_ms']:.4f}, "
+                     f"{r['bwd_bound_ms'] / r['bwd_ms']:.1%})")
+        print(line)
+        del args, cot, got, again
+    torch.cuda.empty_cache()
+    return {"rows": rows, "max_err": max_err, "ptxas": ptxas.get("gat_logits", [])}
 
 
 def main() -> int:
@@ -6544,18 +6699,20 @@ def main() -> int:
     acts = {}
     hooks = [blk.register_forward_hook(lambda m, i, o, k=k: acts.__setitem__(k, o))
              for k, blk in enumerate(model.blocks)]
-    band_attention_fwd.launches = band_spmm_fwd.launches = 0
+    reset_launches()
     with torch.inference_mode():
         x = graph.pack_nodes(torch.as_tensor(fx["x"], device=dev), n)
         out = graph.unpack_nodes(model(x, graph), n)
         torch.cuda.synchronize()
-    launches = (band_attention_fwd.launches, band_spmm_fwd.launches)
-    per_forward = {"band_attention": launches[0], "band_spmm": launches[1]}
+    launches = read_launches()
+    per_forward = {k: v for k, v in launches.items() if v}
     for h in hooks:
         h.remove()
-    if launches != (2 * model.num_blocks, model.num_blocks):
-        raise SystemExit(f"FAIL launches per forward {launches}, expected (50, 25)")
-    print(f"  launches per forward: band_attention {launches[0]}, band_spmm {launches[1]}")
+    expect = counts(band_attention=2 * model.num_blocks, band_spmm=model.num_blocks,
+                    gat_logits=2 * model.num_blocks)
+    if launches != expect:
+        raise SystemExit(f"FAIL launches per forward {launches}, expected {expect}")
+    print(f"  launches per forward: {per_forward}")
     block_err = max(
         check_close(f"bigtown block {k}", graph.unpack_nodes(a, n).cpu(),
                     torch.as_tensor(fx[f"ours_act_block_{k}"]), 1e-3, 0.0, verbose=False)
@@ -6601,17 +6758,18 @@ def main() -> int:
     n_batches = -(-len(snaps) // bs)
     inf.infer(tpl, snaps, obs, scaled=True, batch_size=bs)          # warm-up
     torch.cuda.synchronize()
-    band_attention_fwd.launches = band_spmm_fwd.launches = 0
+    reset_launches()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     res = inf.infer(tpl, snaps, obs, scaled=True, batch_size=bs, with_truth=True)
     end.record()
     end.synchronize()
-    serve_launches = {"band_attention": band_attention_fwd.launches,
-                      "band_spmm": band_spmm_fwd.launches}
-    expect = {"band_attention": n_batches * 50, "band_spmm": n_batches * 25}
-    if serve_launches != expect:
-        raise SystemExit(f"FAIL serving launches {serve_launches}, expected {expect}")
+    got = read_launches()
+    expect = counts(band_attention=n_batches * 50, band_spmm=n_batches * 25,
+                    gat_logits=n_batches * 50)
+    if got != expect:
+        raise SystemExit(f"FAIL serving launches {got}, expected {expect}")
+    serve_launches = {k: v for k, v in got.items() if v}
     if res.pred.shape != snaps.shape or not np.isfinite(res.pred).all():
         raise SystemExit("FAIL serving output is not a finite [S, n] field")
     served = np.asarray(descale_with(snaps, stats), np.float32)[:, obs]
@@ -6732,7 +6890,8 @@ def main() -> int:
     tfx = np.load(os.path.join(REPO, "artifacts", "parity_train_bigtown.npz"))
     tstats = NormStats(norm_type="znorm", mean=float(tfx["stats_mean"]), std=float(tfx["stats_std"]))
     names = [k for k, _ in smodel.named_parameters()]
-    per_step = counts(band_attention=50, band_spmm=25, band_attention_bwd=50, band_spmm_bwd=25)
+    per_step = counts(band_attention=50, band_spmm=25, band_attention_bwd=50, band_spmm_bwd=25,
+                      gat_logits=50, gat_logits_bwd=50)
 
     def fixture_trainer(batch_size, **kw):
         tmodel, preset = select_model("gatres_large", device=dev)
@@ -6812,7 +6971,8 @@ def main() -> int:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         n_tr, n_ev = 2 * (n_train // tbs), 2 * (n_val // tbs)
         expect = counts(band_attention=50 * (n_tr + n_ev), band_spmm=25 * (n_tr + n_ev),
-                        band_attention_bwd=50 * n_tr, band_spmm_bwd=25 * n_tr)
+                        band_attention_bwd=50 * n_tr, band_spmm_bwd=25 * n_tr,
+                        gat_logits=50 * (n_tr + n_ev), gat_logits_bwd=50 * n_tr)
         if fit_launches != expect:
             raise SystemExit(f"FAIL fit launches {fit_launches}, expected {expect}")
         tl = [m["train_loss"] for m in epochs_log]
@@ -6862,6 +7022,9 @@ def main() -> int:
         s21 = slice21_phases(dev, card, reset_launches, read_launches, counts, big, kept)
     finally:
         shutil.rmtree(kept, ignore_errors=True)
+    t0 = time.perf_counter()
+    s26 = gat_logits_phase(dev, card, ptxas, big["tpl"])
+    print(f"  phase 59: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name in band_wrappers:
@@ -7100,6 +7263,25 @@ def main() -> int:
     print("  phases 51-55: " + json.dumps({k: knobs[k] for k in (
         "synthctown", "bigtown_small", "band_factored", "gemm", "precision", "fit_fast",
         "dense_turns", "bigtown_small_turns")}, default=str))
+    # phase 59: the logit halves (no TPU kernel: the JAX layer's elementwise f32 halves);
+    # the forward counts the serving run's launches, the backward the fit's
+    for name, pre in (("gat_logits", ""), ("gat_logits_bwd", "bwd_")):
+        r = s26["rows"][0]
+        launches = serve_launches.get(name, fit_launches[name])
+        if not launches or not fit_launches[name]:
+            raise SystemExit(f"FAIL {name} was not launched on the main path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": "gnn_pressure_estimation_tpu_torch/csrc/gat_logits.cu",
+            "replaces": "none", "launches": launches,
+            "serving_launches": serve_launches.get(name, 0), "serving_batches": n_batches,
+            "launches_per_forward": per_forward.get(name, 0),
+            "fit_launches": fit_launches[name], "launches_per_train_step": step_launches[name],
+            "max_abs_err": s26["max_err"][name], "ms": r[f"{pre}ms"], "plain_ms": r[f"{pre}plain_ms"],
+            "bound_ms": r[f"{pre}bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "shape": r["case"],
+            "by_shape": {q["case"]: {k: q[f"{pre}{k}"] for k in ("ms", "plain_ms", "bound_ms")}
+                         for q in s26["rows"]},
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

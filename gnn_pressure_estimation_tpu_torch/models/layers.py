@@ -15,8 +15,9 @@ path a GATConv goes through ``ops.graph_attention`` (``fused_factored`` or
 ``fused_attention``, by ``attn_impl``), at any width and any n: autograd
 Functions that launch the hand-written kernels, forward and backward, when
 the graph lies on a CUDA device, and run the kernels' plain versions on the
-CPU. The graph carries the compressed index of each mask or band that the
-kernels walk. The dense aggregations are one ``torch.einsum`` with the
+CPU; so do GATConv's f32 logit halves, through ``ops.gat_logits``. The
+graph carries the compressed index of each mask or band that the kernels
+walk. The dense aggregations are one ``torch.einsum`` with the
 template's ``[n, n]`` operator, as in the JAX layers. The padded path
 gathers neighbour slots with ``ops.padded`` and reduces over them in plain
 torch, as the JAX layers do in plain XLA. GENConv gathers over the edge list
@@ -61,6 +62,7 @@ from gnn_pressure_estimation_tpu_torch.ops.band_attention import (
     band_attention, band_attention_acc, band_attention_flash, band_attention_window, round_bf16,
 )
 from gnn_pressure_estimation_tpu_torch.ops.band_spmm import band_spmm
+from gnn_pressure_estimation_tpu_torch.ops.gat_logits import gat_logits
 from gnn_pressure_estimation_tpu_torch.ops.graph_attention import fused_attention, fused_factored
 
 ATTN_IMPLS = ("softmax", "onepass", "factored", "band_factored")
@@ -331,10 +333,9 @@ class GATConv(nn.Module):
             a_s = (xp.float() * self.att_src.to(bf).float()).sum(-1).to(bf)
             a_d = (xp.float() * self.att_dst.to(bf).float()).sum(-1).to(bf)
         else:
-            xp = self.lin(x).view(-1, H, C)
-            # per-node attention logit halves (a_s/a_d are rank-1 per head)
-            a_s = (xp * self.att_src).sum(-1)                      # [N, H]
-            a_d = (xp * self.att_dst).sum(-1)
+            # per-node attention logit halves (a_s/a_d are rank-1 per head),
+            # [N, H]; the attention takes the rows gat_logits hands back
+            xp, a_s, a_d = gat_logits(self.lin(x).view(-1, H, C), self.att_src, self.att_dst)
         B = graph.n_graph
         if graph.dense:
             out = self._dense(xp.view(B, -1, H, C), a_s.view(B, -1, H), a_d.view(B, -1, H), graph)

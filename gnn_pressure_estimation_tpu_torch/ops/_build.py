@@ -28,7 +28,7 @@ KERNELS = ("band_attention", "band_spmm", "band_attention_bwd", "band_spmm_bwd",
            "fused_attention", "fused_attention_bwd", "fused_factored", "fused_factored_bwd",
            "band_attention_flash", "band_attention_flash_bwd",
            "band_attention_window", "band_attention_window_bwd", "band_attention_acc_bwd",
-           "window_gather")
+           "window_gather", "gat_logits")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

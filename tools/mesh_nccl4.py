@@ -223,8 +223,8 @@ def steps(tmp: str, card: str) -> None:
     spec = {"kwargs": large, "state": save_state("large", m_large)}
     ref_big = reference(big, m_large, cfg, NormStats(**tstats), xb, mask8)
     nb = len(m_large.blocks)
-    fwd = {"band_attention": 2 * nb, "band_spmm": nb}
-    step = {**fwd, "band_attention_bwd": 2 * nb, "band_spmm_bwd": nb}
+    fwd = {"band_attention": 2 * nb, "band_spmm": nb, "gat_logits": 2 * nb}
+    step = {**fwd, "band_attention_bwd": 2 * nb, "band_spmm_bwd": nb, "gat_logits_bwd": 2 * nb}
     jobs = [dict(kind="step", name=f"bigtown {dp}x{gp}", net="bigtown", model=spec, cfg=cfg,
                  stats=tstats, x=xb, mask=mask8, dp=dp, gp=gp) for dp, gp in MESHES]
     syn = cs.network("synthctown")
@@ -271,7 +271,10 @@ def steps(tmp: str, card: str) -> None:
     print(f"  bigtown on one device: step {ref_big['step_ms']:.3f} ms, peak "
           f"{ref_big['peak_gb']:.3f} GB [{card}]")
     for r, res in enumerate(by["distributed 1x4"]):
-        cs.launches_as_expected(f"DistributedTrainer rank {r}", res["launches"], {})
+        # the edge list launches no kernel; each rank's f32 layers run the logit halves
+        halves = 2 * small["num_blocks"]
+        cs.launches_as_expected(f"DistributedTrainer rank {r}", res["launches"],
+                                {"gat_logits": halves, "gat_logits_bwd": halves})
         rel = abs(res["loss"] - ref_dist["loss"]) / abs(ref_dist["loss"])
         worst = cs.grads_gate(f"DistributedTrainer rank {r}", res["grads"], ref_dist["grads"])
         if rel > 1e-5 or res["backend"] != "nccl":
